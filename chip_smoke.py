@@ -9,22 +9,37 @@ raises, so the script exits nonzero and prints no result line):
   1. device  — the card's name and power limit (as nvidia-smi prints
                them), torch and CUDA versions; TF32 is switched off.
   2. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc.
-  3. kernels — hold each kernel against its plain PyTorch version on the
-               card: the SiN distance at the main path's tile shapes and
-               on a 1M-vector (512 MiB) paged store, exact on integer-
-               valued inputs and within RTOL_REAL on real ones; the
-               bitonic sort and merge exactly, with a payload lane, ties
-               and duplicated (dist, id, payload) entries.
-  4. int     — search_sim on an integer-valued index: cuda mode on the
+  3. kernels — hold each search kernel against its plain PyTorch version
+               on the card: the SiN distance at the main path's tile
+               shapes and on a 1M-vector (512 MiB) paged store, exact on
+               integer-valued inputs and within RTOL_REAL on real ones;
+               the bitonic sort and merge exactly, with a payload lane,
+               ties and duplicated (dist, id, payload) entries.
+  4. attn_kernels — the flash-attention kernel against its plain
+               version: gemma3-1b's geometry with its 512 window and
+               full, a gemma2-like softcap, bf16, a non-aligned S through
+               the op, and non-causal; each within its stated tolerance.
+  5. int     — search_sim on an integer-valued index: cuda mode on the
                card equals ref mode on the CPU bit for bit.
-  5. main    — the sift-1b stand-in at the CLI defaults (n=16384, d=128,
+  6. main    — the sift-1b stand-in at the CLI defaults (n=16384, d=128,
                8 shards, page 64, degree 16, L=32, W=1, k=10, 256
                queries): host build, then search_sim in auto mode (the
                kernels). Launch counts are zeroed just before and read
-               just after; every kernel must have launched, and recall@k
-               must be within 0.01 of the reference package's value.
-  6. timing  — each kernel at the main path's shapes: its time, its
-               bound, the plain version's time and one library call's.
+               just after; every search kernel must have launched, and
+               recall@k must be within 0.01 of the reference package's
+               value.
+  7. serve   — gemma3-1b at full width (26 layers, d_model 1152, vocab
+               262144; random weights from a seed) through
+               launch/serve.py's functions in auto mode: RAG retrieval
+               (a 2048-vector index, the search kernels), then batch 4 x
+               prompt 1024 greedy generation of 32 tokens. Counts are
+               zeroed before each stage and read after it: the
+               retrieval must launch the search kernels, the prefill one
+               flash kernel per layer. The same prefill with plain
+               attention on the card gives the reference logits and
+               tokens.
+  8. timing  — each kernel at its path's shapes: its time, its bound,
+               the plain version's time and one library call's.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Exits nonzero when no CUDA device is
@@ -46,9 +61,17 @@ sys.path.insert(0, str(ROOT / "src"))
 # reference package, CLI defaults: sift-1b stand-in, n=16384) on the CPU
 REFERENCE_RECALL = 0.6719
 RECALL_TOL = 0.01
+SEARCH_KERNELS = ("paged_distance", "bitonic_sort", "bitonic_merge")
 # real-valued inputs: the kernel's sequential FMA chain over d and the
 # plain version's batched product sum in different orders
 RTOL_REAL = 1e-5
+# flash attention vs its plain version: the online softmax sums in
+# another order than the one-shot softmax (f32); bf16 rounds the output
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# gemma3-1b prefill logits, kernel vs plain attention on the card: the
+# per-layer differences (~1e-7) pass through 26 layers of random weights;
+# the bound is relative to the largest |logit|
+LOGIT_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 
@@ -134,7 +157,7 @@ def main_path_tiles():
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: kernels against their plain versions
+# Phase 3: search kernels against their plain versions
 # ---------------------------------------------------------------------------
 def distance_case(T, QB, P, d, NP, dev, integer: bool, seed: int):
     import torch
@@ -222,7 +245,7 @@ def check_topk(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: the main path
+# Phases 5 and 6: the search main path
 # ---------------------------------------------------------------------------
 def integer_main_path(dev) -> None:
     import numpy as np
@@ -282,7 +305,7 @@ def real_main_path(dev):
                launches_per_round={k: v / res["rounds"]
                                    for k, v in launches.items()})
     emit({"phase": "main", **res})
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in SEARCH_KERNELS):
         raise AssertionError(f"a kernel did not launch on the main path: "
                              f"{launches}")
     if not math.isfinite(res["recall@k"]) or \
@@ -333,13 +356,257 @@ def profile_main_path(packed, queries, wall_s: float, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: timing at the main path's shapes
+# Phase 4: flash attention against its plain version
+# ---------------------------------------------------------------------------
+# gemma3-1b's prefill geometry: B 4, H 4, Hkv 1, S 1024, dh 256
+G3 = dict(B=4, H=4, Hkv=1, S=1024, dh=256)
+
+
+def qkv(B, H, Hkv, S, dh, dtype, dev, seed: int):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple((0.5 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+                 for shape in ((B, H, S, dh), (B, Hkv, S, dh),
+                               (B, Hkv, S, dh)))
+
+
+def check_attention(dev) -> float:
+    """Every case within ATTN_TOL (|err| <= tol + tol |ref|); returns the
+    worst f32 max abs error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_op,
+                                                     attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.flash_attention.kernel import KERNEL
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = (
+        ("gemma3 local, window 512", G3, f32, dict(window=512), False),
+        ("gemma3 global, full", G3, f32, dict(window=0), False),
+        ("gemma2-like softcap 50", dict(B=1, H=32, Hkv=16, S=1024, dh=128),
+         f32, dict(softcap=50.0), False),
+        ("gemma3 bf16, window 512", G3, bf16, dict(window=512), False),
+        ("gemma3 S=1000 through attention_op", dict(G3, S=1000), f32,
+         dict(window=512), True),
+        ("gemma3 non-causal", G3, f32, dict(causal=False), False),
+    )
+    worst = 0.0
+    for i, (label, shp, dtype, kw, through_op) in enumerate(cases):
+        q, k, v = qkv(**shp, dtype=dtype, dev=dev, seed=11 + i)
+        scale = shp["dh"] ** -0.5
+        before = KERNEL.launches
+        if through_op:
+            out = attention_op(q, k, v, scale=scale, mode="cuda", **kw)
+        else:
+            out = flash_attention(q, k, v, scale=scale, **kw)
+        ref = attention_ref(q, k, v, scale=scale, **kw).float()
+        torch.cuda.synchronize()
+        if KERNEL.launches != before + 1 or out.dtype != dtype:
+            raise AssertionError(f"flash_attention {label}: the kernel did "
+                                 f"not run once in {dtype}")
+        err = (out.float() - ref).abs()
+        tol = ATTN_TOL[str(dtype).split(".")[-1]]
+        max_abs = float(err.max())
+        max_rel = max_abs / float(ref.abs().max())
+        ok = bool((err <= tol + tol * ref.abs()).all()) and \
+            bool(torch.isfinite(out).all())
+        emit({"phase": "attn_kernels", "kernel": "flash_attention",
+              "case": label, **shp, "dtype": str(dtype), **kw,
+              "max_abs_err": max_abs, "max_rel_err": max_rel,
+              "tolerance": f"atol {tol} + rtol {tol}", "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention {label}: error "
+                                 f"{max_abs} beyond tolerance {tol}")
+        if dtype == f32:
+            worst = max(worst, max_abs)
+        del q, k, v, out, ref, err
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: gemma3-1b served with RAG soft prompts
+# ---------------------------------------------------------------------------
+SERVE = dict(batch=4, prompt_len=1024, gen=32, rag_dim=32)
+
+
+def serve_path(dev) -> dict:
+    """Returns the kernels' launch counts of the timed generation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import (greedy_generate, make_step_fns,
+                                          retrieval_index, serve_inputs,
+                                          soft_prompt_from_retrieval)
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("gemma3-1b")
+    if (cfg.num_layers, cfg.d_model, cfg.vocab_size) != (26, 1152, 262144):
+        raise AssertionError(f"gemma3-1b is not at full width: {cfg}")
+    B, Sp, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    t0 = time.perf_counter()
+    index = retrieval_index(SERVE["rag_dim"])
+    index_s = time.perf_counter() - t0
+
+    # retrieval stage (and the random weights): the search kernels
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, tokens, fe, rag = serve_inputs(
+        cfg, batch=B, prompt_len=Sp, rag=True, rag_dim=SERVE["rag_dim"],
+        seed=0, device=dev, index=index)
+    torch.cuda.synchronize()
+    inputs_s = time.perf_counter() - t0
+    retrieval = launch_counts()
+    if not all(retrieval[k] > 0 for k in SEARCH_KERNELS):
+        raise AssertionError(f"a search kernel did not launch in the "
+                             f"retrieval stage: {retrieval}")
+    # the same retrieval with the plain versions on the CPU
+    _, cpu_ids, cpu_dists = soft_prompt_from_retrieval(
+        cfg, rag["queries"], k=fe.shape[1], kernel_mode="ref",
+        device="cpu", index=index)
+    # ids agree except inside a real-valued near-tie of distances (the
+    # kernel and the CPU's plain version sum in different orders)
+    dist_err = abs(rag["dists"] - cpu_dists)
+    ids_differ = int((rag["ids"] != cpu_ids).sum())
+    if not (dist_err <= 1e-5 * abs(cpu_dists) + 1e-5).all():
+        raise AssertionError(f"retrieval: card and CPU disagree "
+                             f"(ids {rag['ids']} vs {cpu_ids})")
+    dist_err = float(dist_err.max())
+
+    opts = T.ModelOpts()
+    step_fns = make_step_fns(cfg, opts)
+    greedy_generate(params, cfg, tokens, gen=2, opts=opts, frontend_embeds=fe,
+                    step_fns=step_fns, cache_len=Sp + gen)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
+                          frontend_embeds=fe, step_fns=step_fns, stats=stats)
+    wall_s = time.perf_counter() - t0
+    generate = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if generate["flash_attention"] != cfg.num_layers or \
+            any(generate[k] for k in SEARCH_KERNELS):
+        raise AssertionError(f"generation launched {generate}, expected "
+                             f"{cfg.num_layers} flash_attention (one per "
+                             f"prefill layer) and nothing else")
+    if not stats["logits_finite"]:
+        raise AssertionError("non-finite logits")
+
+    # reference: the same prefill and generation with plain attention
+    ref_opts = T.ModelOpts(attn_mode="ref")
+    logits = {}
+    for mode, o in (("kernel", opts), ("plain", ref_opts)):
+        cache = T.init_cache(cfg, B, Sp, dtype=torch.float32, device=dev)
+        logits[mode], _ = T.prefill(params, cfg, tokens, cache, opts=o,
+                                    frontend_embeds=fe)
+    logit_err = float((logits["kernel"] - logits["plain"]).abs().max())
+    logit_scale = float(logits["plain"].abs().max())
+    logit_tol = LOGIT_RTOL * logit_scale
+    if not logit_err <= logit_tol:
+        raise AssertionError(f"prefill logits differ by {logit_err} > "
+                             f"{logit_tol}")
+    ref_stats = {}
+    ref_out = greedy_generate(params, cfg, tokens, gen=gen, opts=ref_opts,
+                              frontend_embeds=fe, stats=ref_stats)
+    differ = (out != ref_out).cpu().numpy()
+    divergence = None
+    if differ.any():
+        step = int(differ.any(0).argmax())
+        row = int(differ[:, step].argmax())
+        gap = min(float(stats["top2_gap"][row, step]),
+                  float(ref_stats["top2_gap"][row, step]))
+        divergence = {"row": row, "step": step, "top2_gap": gap}
+        if gap > logit_tol:       # only a near-tie may flip a greedy pick
+            raise AssertionError(f"greedy tokens diverge at {divergence}, "
+                                 f"not a near-tie (tolerance {logit_tol})")
+
+    # the card's busy time: one prefill, then one whole generation
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cache = T.init_cache(cfg, B, Sp + gen, dtype=torch.float32,
+                             device=dev)
+        _, cache = T.prefill(params, cfg, tokens, cache, opts=opts,
+                             frontend_embeds=fe)
+        torch.cuda.synchronize()
+    pre = device_kernel_us(prof)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
+                        frontend_embeds=fe, step_fns=step_fns)
+        torch.cuda.synchronize()
+    whole = device_kernel_us(prof)
+    pre_ms = sum(us for us, _ in pre.values()) / 1e3
+    whole_ms = sum(us for us, _ in whole.values()) / 1e3
+    # one decode step with host activity: what Python issues per token
+    tok = out[:, -1:]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        T.decode_step(params, cfg, cache, tok, opts=opts)
+        torch.cuda.synchronize()
+    step = prof.key_averages()
+    host_top = sorted(step, key=lambda e: -e.self_cpu_time_total)[:5]
+    prefill_ms, decode_ms = stats["prefill_s"] * 1e3, stats["decode_s"] * 1e3
+    top = sorted(pre.items(), key=lambda kv: -kv[1][0])[:6]
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": B,
+          "prompt_len": Sp, "gen": gen, "rag_k": int(fe.shape[1]),
+          "index_build_s": index_s, "inputs_s": inputs_s,
+          "retrieved_ids": rag["ids"].tolist(),
+          "retrieval_dist_err_vs_cpu": dist_err,
+          "retrieval_ids_differ_vs_cpu": ids_differ,
+          "tok_s": B * gen / wall_s, "wall_s": wall_s,
+          "prefill_ms": prefill_ms,
+          "decode_ms_per_token": decode_ms / (gen - 1),
+          "peak_mem_gib": peak_gib,
+          "launches": {"retrieval": retrieval, "generate": generate},
+          "flash_launches_per_prefill": generate["flash_attention"],
+          "prefill_logit_err": logit_err, "logit_scale": logit_scale,
+          "logit_tolerance": logit_tol,
+          "tokens_equal_plain_attention": not differ.any(),
+          "divergence": divergence,
+          "min_top2_gap": float(stats["top2_gap"].min()),
+          "prefill_device_busy_ms": pre_ms,
+          "prefill_idle_share": 1.0 - pre_ms / prefill_ms,
+          "prefill_flash_ms": sum(us for n, (us, _) in pre.items()
+                                  if "flash_attention" in n) / 1e3,
+          "generate_device_busy_ms": whole_ms,
+          "generate_idle_share": 1.0 - whole_ms / (wall_s * 1e3),
+          "decode_idle_share": 1.0 - (whole_ms - pre_ms) / decode_ms,
+          "decode_step_kernel_launches": sum(
+              e.count for e in step
+              if e.key in ("cudaLaunchKernel", "cuLaunchKernel")),
+          "decode_step_host_top": [
+              {"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+               "count": e.count} for e in host_top],
+          "prefill_top": [{"name": n[:80], "ms": us / 1e3, "count": c}
+                          for n, (us, c) in top],
+          "sample": out[0, :16].tolist()})
+    del params, logits, cache
+    torch.cuda.empty_cache()
+    return generate
+
+
+def attn_pairs(S: int, causal: bool, window: int) -> int:
+    """Unmasked (row, col) pairs of one (batch, head) at S = Skv."""
+    total = 0
+    for r in range(S):
+        hi = r if causal else S - 1
+        lo = max(0, r - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: timing at each path's shapes
 # ---------------------------------------------------------------------------
 def time_kernels(packed, launches, errs, dev) -> list:
     import torch
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
     from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
                                           bitonic_sort, bitonic_sort_ref)
 
@@ -382,6 +649,23 @@ def time_kernels(packed, launches, errs, dev) -> list:
         rows.append((name, (dd, ii, pp), kern, plain,
                      lambda dd=dd: torch.sort(dd, dim=-1, stable=True),
                      b, by, dict(B=B, M=M, payload_lanes=1)))
+    # flash attention at gemma3-1b's prefill shape (a local layer); the
+    # library call is SDPA on repeated kv with an explicit boolean mask
+    fq, fk, fv = qkv(**G3, dtype=torch.float32, dev=dev, seed=5)
+    kw = dict(scale=G3["dh"] ** -0.5, causal=True, window=512)
+    group = G3["H"] // G3["Hkv"]
+    fkr, fvr = (x.repeat_interleave(group, dim=1) for x in (fk, fv))
+    ar = torch.arange(G3["S"], device=dev)
+    mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :] < 512)
+    pairs = attn_pairs(G3["S"], True, 512) * G3["B"] * G3["H"]
+    b, by = bound_ms(4 * (2 * fq.numel() + fk.numel() + fv.numel()),
+                     4.0 * G3["dh"] * pairs)
+    rows.append(("flash_attention", (fq, fk, fv),
+                 lambda *a: flash_attention(*a, **kw),
+                 lambda *a: attention_ref(*a, **kw),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     fq, fkr, fvr, attn_mask=mask, scale=kw["scale"]),
+                 b, by, dict(G3, window=512, unmasked_pairs=pairs)))
     out = []
     by_name = {k.name: k for k in KERNELS}
     for name, args, kern, plain, lib, b, by, shape in rows:
@@ -436,9 +720,15 @@ def main() -> int:
     errs["bitonic_sort"] = errs["bitonic_merge"] = check_topk(dev)
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    errs["flash_attention"] = check_attention(dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "attn_kernels",
+          "seconds": round(time.perf_counter() - t0, 2)})
 
     integer_main_path(dev)
     _, packed, launches = real_main_path(dev)
+    launches["flash_attention"] = serve_path(dev)["flash_attention"]
     kernels = time_kernels(packed, launches, errs, dev)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

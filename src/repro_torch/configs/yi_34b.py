@@ -1,0 +1,20 @@
+"""yi-34b [dense] — llama-architecture GQA. [arXiv:2403.04652; hf]
+
+60L d_model=7168 56H (GQA kv=8) d_ff=20480 vocab=64000. Pure full
+attention: long_500k is skipped per the assignment (DESIGN.md §6).
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="yi-34b",
+    family="dense",
+    num_layers=60,
+    d_model=7168,
+    num_heads=56,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=20480,
+    vocab_size=64000,
+    rope_theta=5000000.0,
+    subquadratic=False,
+)

@@ -27,17 +27,20 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("paged_distance.cu", "bitonic.cu")
+SOURCES = ("paged_distance.cu", "bitonic.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "paged_distance_launch": (_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _P),
     "bitonic_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

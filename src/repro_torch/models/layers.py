@@ -1,0 +1,55 @@
+"""Shared layers: RMSNorm, gated MLP, embedding/head (the reference's
+``models/layers.py`` in torch; one device, so no sharding constraints)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import spec
+
+
+def rmsnorm_spec(d: int):
+    return {"scale": spec((d,), ("embed",), init="ones")}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def mlp_spec(d: int, f: int):
+    """Gated MLP (llama-style): silu(x W1) * (x W3) @ W2."""
+    return {
+        "w1": spec((d, f), ("embed", "ffn")),
+        "w3": spec((d, f), ("embed", "ffn")),
+        "w2": spec((f, d), ("ffn", "embed")),
+    }
+
+
+def mlp(p, x, act: str = "silu"):
+    h1 = x @ p["w1"]
+    h3 = x @ p["w3"]
+    # jax.nn.gelu defaults to the tanh approximation
+    a = F.silu(h1) if act == "silu" else F.gelu(h1, approximate="tanh")
+    return (a * h3) @ p["w2"]
+
+
+def embed_spec(vocab: int, d: int, tie: bool):
+    out = {"embedding": spec((vocab, d), ("vocab", "embed"), scale=1.0)}
+    if not tie:
+        out["head"] = spec((d, vocab), ("embed", "vocab"))
+    return out
+
+
+def embed(p, tokens):
+    return p["embedding"][tokens]
+
+
+def unembed(p, x, tie: bool, softcap: float = 0.0):
+    logits = x @ (p["embedding"].T if tie else p["head"])
+    logits = logits.float()
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits

@@ -16,6 +16,9 @@ from repro_torch.core.ref_search import SearchParams
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.distance import (paged_distances,
                                           paged_distances_ref)
+from repro_torch.kernels.flash_attention import (attention_op, attention_ref,
+                                                 flash_attention)
+from repro_torch.kernels.flash_attention.kernel import KERNEL as FLASH
 from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
                                       bitonic_sort, bitonic_sort_ref,
                                       merge_sorted_op, sort_op)
@@ -142,8 +145,109 @@ def test_search_sim_cuda_matches_cpu_ref(dev):
         out[mode] = (ids.cpu(), dists.cpu(),
                      {k: v.cpu() for k, v in st.items() if k != "host_syncs"})
         if mode == "cuda":
-            assert all(v > 0 for v in launch_counts().values())
+            counts = launch_counts()
+            assert all(counts[k] > 0 for k in ("paged_distance",
+                                               "bitonic_sort",
+                                               "bitonic_merge"))
     for a, b in zip(out["cuda"][:2], out["ref"][:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     for k, v in out["ref"][2].items():
         torch.testing.assert_close(out["cuda"][2][k], v, rtol=0, atol=0)
+
+
+def _qkv(B, H, Hkv, S, dh, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple((0.5 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+                 for shape in ((B, H, S, dh), (B, Hkv, S, dh),
+                               (B, Hkv, S, dh)))
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,dh,dtype,kw", [
+    (4, 4, 1, 1024, 256, torch.float32, dict(window=512)),   # gemma3 local
+    (4, 4, 1, 1024, 256, torch.float32, dict(window=0)),     # gemma3 global
+    (1, 32, 16, 256, 128, torch.float32, dict(softcap=50.0)),
+    (2, 4, 1, 512, 256, torch.bfloat16, dict(window=128)),
+    (1, 2, 2, 256, 64, torch.float32, dict(causal=False)),
+    (2, 4, 2, 96, 16, torch.float32, dict(window=16)),
+    (2, 8, 2, 64, 32, torch.bfloat16, dict(softcap=30.0, causal=False)),
+])
+def test_flash_attention_matches_plain(dev, B, H, Hkv, S, dh, dtype, kw):
+    """f32: 2e-5 (online vs one-shot softmax, sums in another order);
+    bf16: 3e-2 (the output is rounded to bf16)."""
+    q, k, v = _qkv(B, H, Hkv, S, dh, dtype, dev)
+    before = FLASH.launches
+    out = flash_attention(q, k, v, scale=dh ** -0.5, **kw)
+    ref = attention_ref(q, k, v, scale=dh ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1 and out.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def test_attention_op_pads_nonaligned_on_card(dev):
+    q, k, v = _qkv(1, 4, 1, 1000, 256, torch.float32, dev, seed=1)
+    out = attention_op(q, k, v, scale=1 / 16, causal=True, window=512)
+    ref = attention_ref(q, k, v, scale=1 / 16, causal=True, window=512)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_refused_launch_raises(dev):
+    q, k, v = _qkv(1, 2, 2, 64, 64, torch.float32, dev)
+    out = torch.empty_like(q)
+    before = FLASH.launches
+    for dh, S in ((48, 64), (64, 0)):     # no such head dim; an empty grid
+        with pytest.raises(RuntimeError, match="cudaError"):
+            FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), 1, 2, 2, S, 64, dh, 64, 0.125, 1,
+                         0, 0.0, 0)
+    assert FLASH.launches == before
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous(), scale=0.125)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), scale=0.125)
+
+
+def test_flash_cuda_mode_on_cpu_tensors_raises(dev):
+    q, k, v = (x.cpu() for x in _qkv(1, 2, 2, 64, 64, torch.float32, dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_op(q, k, v, scale=0.125, mode="cuda")
+
+
+def test_prefill_through_the_kernel_matches_ref_mode(dev):
+    """Reduced gemma3-1b (6 layers, window 16) on the card: one flash
+    launch per layer, logits within 1e-4 of the plain attention's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import ModelOpts, init_cache, init_params, prefill
+    cfg = dataclasses.replace(reduced(get_config("gemma3-1b")), num_layers=6)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=dev)
+    out = {}
+    for mode in ("auto", "ref"):
+        reset_launch_counts()
+        cache = init_cache(cfg, 2, 40, dtype=torch.float32, device=dev)
+        out[mode], _ = prefill(params, cfg, toks, cache,
+                               opts=ModelOpts(attn_mode=mode))
+        assert launch_counts()["flash_attention"] == \
+            (cfg.num_layers if mode == "auto" else 0)
+    torch.testing.assert_close(out["auto"], out["ref"], rtol=1e-4, atol=1e-4)
+
+
+def test_serve_cli_on_card(dev, capsys):
+    """The serve CLI end to end on the card (reduced gemma3-1b, RAG):
+    the retrieval stage launches the search kernels, the prefill one
+    flash kernel per layer."""
+    import json
+
+    from repro_torch.launch.serve import main
+    assert main(["--arch", "gemma3-1b", "--reduced", "--rag", "--batch",
+                 "2", "--prompt-len", "40", "--gen", "4"]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["device"] == torch.cuda.get_device_name(dev)
+    assert all(res["launches"]["retrieval"][k] > 0 for k in (
+        "paged_distance", "bitonic_sort", "bitonic_merge"))
+    assert res["launches"]["generate"]["flash_attention"] == 4

@@ -74,11 +74,23 @@ def test_shape_math_matches_reference():
 
 
 def test_cuda_device_without_a_card_raises():
+    """The device rule at every entry point: 'cuda' (the default) raises
+    without a card, before any work is done."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: 'cuda' resolves")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tu.resolve_device("cuda")
     assert tu.resolve_device("cpu") == torch.device("cpu")
+    cfg = reduced(get_config("gemma3-1b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "gemma3-1b", "--reduced"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve_inputs(cfg, batch=1, prompt_len=8, rag=True, rag_dim=8,
+                           seed=0, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.soft_prompt_from_retrieval(cfg, np.zeros((1, 8), np.float32))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -92,13 +104,17 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
         "('jax.', 'jaxlib', 'repro.')) or n == 'repro')\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "for m in ('repro_torch.configs.registry', 'repro_torch.models."
+        "transformer', 'repro_torch.models.convert', 'repro_torch.kernels."
+        "flash_attention.kernel', 'repro_torch.launch.serve'):\n"
+        "    assert m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env={"PYTHONPATH": str(REPO / "src"),
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20          # every module was imported
+    assert int(out.stdout.strip()) >= 40          # every module was imported
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
