@@ -8,17 +8,21 @@ raises, so the script exits nonzero and prints no result line):
 
   1. device  — the card's name and power limit (as nvidia-smi prints
                them), torch and CUDA versions; TF32 is switched off.
-  2. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc.
+  2. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc;
+               each kernel's registers and spills as ptxas reports them.
   3. kernels — hold each search kernel against its plain PyTorch version
                on the card: the SiN distance at the main path's tile
-               shapes and on a 1M-vector (512 MiB) paged store, exact on
-               integer-valued inputs and within RTOL_REAL on real ones;
+               shapes (page-sorted, as dispatched, and unsorted) and on a
+               1M-vector (512 MiB) paged store, exact on integer-valued
+               inputs and within RTOL_REAL on real ones;
                the bitonic sort and merge exactly, with a payload lane,
                ties and duplicated (dist, id, payload) entries.
   4. attn_kernels — the flash-attention kernel against its plain
                version: gemma3-1b's geometry with its 512 window and
                full, a gemma2-like softcap, bf16, a non-aligned S through
-               the op, and non-causal; each within its stated tolerance.
+               the op, S not a multiple of the 64-row q block with a
+               window below it, and non-causal; each within its stated
+               tolerance.
   5. int     — search_sim on an integer-valued index: cuda mode on the
                card equals ref mode on the CPU bit for bit.
   6. main    — the sift-1b stand-in at the CLI defaults (n=16384, d=128,
@@ -39,7 +43,9 @@ raises, so the script exits nonzero and prints no result line):
                attention on the card gives the reference logits and
                tokens.
   8. timing  — each kernel at its path's shapes: its time, its bound,
-               the plain version's time and one library call's.
+               the plain version's time and one library call's; flash
+               attention also at gemma3-1b's global layer (window 0) on a
+               line of its own.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Exits nonzero when no CUDA device is
@@ -49,6 +55,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -136,6 +143,33 @@ def bound_ms(nbytes: float, ops: float):
                                        else "operations")
 
 
+def ptxas_report() -> list:
+    """Registers and spill bytes of every kernel entry that this process
+    compiled, from nvcc's -Xptxas -v output."""
+    from repro_torch.kernels.build import BUILD_LOGS
+    out = []
+    for src, log in BUILD_LOGS.items():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                out.append({"source": src, "entry": m.group(1)})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and out:
+                out[-1].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and out:
+                out[-1]["registers"] = int(m.group(1))
+    names = subprocess.run(["c++filt"], input="\n".join(
+        e["entry"] for e in out), capture_output=True, text=True)
+    if names.returncode == 0:
+        for e, name in zip(out, names.stdout.splitlines()):
+            m = re.search(r"\w+_kernel(<[^()]*>)?", name)
+            e["entry"] = m.group(0) if m else name
+    return out
+
+
 # the CLI defaults: the shape of the main path
 SHARDS, N, DIM, PAGE, DEGREE, L, W, K, NQ, QB = (8, 16384, 128, 64, 16, 32,
                                                  1, 10, 256, 8)
@@ -159,7 +193,8 @@ def main_path_tiles():
 # ---------------------------------------------------------------------------
 # Phase 3: search kernels against their plain versions
 # ---------------------------------------------------------------------------
-def distance_case(T, QB, P, d, NP, dev, integer: bool, seed: int):
+def distance_case(T, QB, P, d, NP, dev, integer: bool, seed: int,
+                  sort: bool = True):
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
     if integer:
@@ -168,8 +203,10 @@ def distance_case(T, QB, P, d, NP, dev, integer: bool, seed: int):
     else:
         q = torch.randn((T, QB, d), generator=g, device=dev)
         db = torch.randn((NP, P, d), generator=g, device=dev)
-    pid = torch.sort(torch.randint(0, NP, (T,), generator=g, device=dev,
-                                   dtype=torch.int32)).values
+    pid = torch.randint(0, NP, (T,), generator=g, device=dev,
+                        dtype=torch.int32)
+    if sort:      # the dispatcher's order: runs of tiles share a page
+        pid = torch.sort(pid).values
     return pid, q, (q * q).sum(-1), db, (db * db).sum(-1)
 
 
@@ -177,9 +214,10 @@ def check_distance(shapes: dict, dev) -> float:
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
     worst = 0.0
-    for label, (T, QB, P, d, NP) in shapes.items():
+    for label, (T, QB, P, d, NP, sort) in shapes.items():
         for integer in (True, False):
-            args = distance_case(T, QB, P, d, NP, dev, integer, seed=T + NP)
+            args = distance_case(T, QB, P, d, NP, dev, integer, seed=T + NP,
+                                 sort=sort)
             out = paged_distances(*args)
             ref = paged_distances_ref(*args)
             err = (out - ref).abs()
@@ -194,7 +232,7 @@ def check_distance(shapes: dict, dev) -> float:
             worst = max(worst, max_abs)
             emit({"phase": "kernels", "kernel": "paged_distance",
                   "case": label, "T": T, "QB": QB, "P": P, "d": d, "NP": NP,
-                  "store_mib": NP * P * d * 4 / 2**20,
+                  "store_mib": NP * P * d * 4 / 2**20, "page_sorted": sort,
                   "inputs": "integer" if integer else "real",
                   "max_abs_err": max_abs, "max_rel_err": max_rel,
                   "tolerance": "exact" if integer else f"rtol {RTOL_REAL}"})
@@ -358,8 +396,10 @@ def profile_main_path(packed, queries, wall_s: float, dev) -> None:
 # ---------------------------------------------------------------------------
 # Phase 4: flash attention against its plain version
 # ---------------------------------------------------------------------------
-# gemma3-1b's prefill geometry: B 4, H 4, Hkv 1, S 1024, dh 256
+# gemma3-1b's prefill geometry: B 4, H 4, Hkv 1, S 1024, dh 256; layers
+# 5, 11, 17 and 23 of its 26 are global (window 0), the rest local (512)
 G3 = dict(B=4, H=4, Hkv=1, S=1024, dh=256)
+GLOBAL_LAYERS = 4
 
 
 def qkv(B, H, Hkv, S, dh, dtype, dev, seed: int):
@@ -387,6 +427,8 @@ def check_attention(dev) -> float:
         ("gemma3 bf16, window 512", G3, bf16, dict(window=512), False),
         ("gemma3 S=1000 through attention_op", dict(G3, S=1000), f32,
          dict(window=512), True),
+        ("gemma3 S=992 (a half q block), window 40", dict(G3, S=992), f32,
+         dict(window=40), False),
         ("gemma3 non-causal", G3, f32, dict(causal=False), False),
     )
     worst = 0.0
@@ -649,26 +691,35 @@ def time_kernels(packed, launches, errs, dev) -> list:
         rows.append((name, (dd, ii, pp), kern, plain,
                      lambda dd=dd: torch.sort(dd, dim=-1, stable=True),
                      b, by, dict(B=B, M=M, payload_lanes=1)))
-    # flash attention at gemma3-1b's prefill shape (a local layer); the
-    # library call is SDPA on repeated kv with an explicit boolean mask
+    # flash attention at gemma3-1b's prefill shape (a local layer, and on a
+    # line of its own a global one); the library call is SDPA on repeated
+    # kv with an explicit boolean mask
     fq, fk, fv = qkv(**G3, dtype=torch.float32, dev=dev, seed=5)
-    kw = dict(scale=G3["dh"] ** -0.5, causal=True, window=512)
     group = G3["H"] // G3["Hkv"]
     fkr, fvr = (x.repeat_interleave(group, dim=1) for x in (fk, fv))
     ar = torch.arange(G3["S"], device=dev)
-    mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :] < 512)
-    pairs = attn_pairs(G3["S"], True, 512) * G3["B"] * G3["H"]
-    b, by = bound_ms(4 * (2 * fq.numel() + fk.numel() + fv.numel()),
-                     4.0 * G3["dh"] * pairs)
-    rows.append(("flash_attention", (fq, fk, fv),
-                 lambda *a: flash_attention(*a, **kw),
-                 lambda *a: attention_ref(*a, **kw),
-                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                     fq, fkr, fvr, attn_mask=mask, scale=kw["scale"]),
-                 b, by, dict(G3, window=512, unmasked_pairs=pairs)))
+    flash_rows = []
+    for window in (512, 0):
+        kw = dict(scale=G3["dh"] ** -0.5, causal=True, window=window)
+        mask = ar[None, :] <= ar[:, None]
+        if window:
+            mask = mask & (ar[:, None] - ar[None, :] < window)
+        pairs = attn_pairs(G3["S"], True, window) * G3["B"] * G3["H"]
+        b, by = bound_ms(4 * (2 * fq.numel() + fk.numel() + fv.numel()),
+                         4.0 * G3["dh"] * pairs)
+        flash_rows.append((
+            "flash_attention", (fq, fk, fv),
+            lambda *a, kw=kw: flash_attention(*a, **kw),
+            lambda *a, kw=kw: attention_ref(*a, **kw),
+            lambda mask=mask, kw=kw:
+                torch.nn.functional.scaled_dot_product_attention(
+                    fq, fkr, fvr, attn_mask=mask, scale=kw["scale"]),
+            b, by, dict(G3, window=window, unmasked_pairs=pairs)))
+    rows.append(flash_rows[0])
     out = []
     by_name = {k.name: k for k in KERNELS}
-    for name, args, kern, plain, lib, b, by, shape in rows:
+    for i, (name, args, kern, plain, lib, b, by, shape) in \
+            enumerate(rows + flash_rows[1:]):
         ms, method = device_ms(lambda: kern(*args))
         plain_ms, _ = device_ms(lambda: plain(*args))
         library_ms, _ = device_ms(lib)
@@ -679,9 +730,14 @@ def time_kernels(packed, launches, errs, dev) -> list:
                  "replaces": k.replaces, "launches": launches[name],
                  "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": b, "bound_by": by, "library_ms": library_ms}
+        if i < len(rows):
+            out.append(entry)
+        else:      # the global layer: 4 of gemma3-1b's 26 layers
+            del entry["launches"]
+            entry.update(case="global layer (window 0)",
+                         layers_per_prefill=GLOBAL_LAYERS)
         emit({"phase": "timing", **entry, "shape": shape,
               "timed_by": method, "event_ms_per_call": host_ms})
-        out.append(entry)
     return out
 
 
@@ -710,13 +766,15 @@ def main() -> int:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 
-    emit({"phase": "build", "seconds": round(build_all(), 2)})
+    emit({"phase": "build", "seconds": round(build_all(), 2),
+          "ptxas": ptxas_report()})
 
     t0 = time.perf_counter()
     T, qb, P, d, pages = main_path_tiles()
     errs = {"paged_distance": check_distance({
-        "main path tiles": (T, qb, P, d, pages),
-        "1M-vector store": (T, qb, P, d, 2**20 // P)}, dev)}
+        "main path tiles": (T, qb, P, d, pages, True),
+        "main path tiles, pages unsorted": (T, qb, P, d, pages, False),
+        "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev)}
     errs["bitonic_sort"] = errs["bitonic_merge"] = check_topk(dev)
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 2)})

@@ -29,7 +29,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("paged_distance.cu", "bitonic.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     "paged_distance_launch": (_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _P),
+                              _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "bitonic_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _I, _I, _F, _I, _P),
@@ -45,6 +45,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas: registers, spills, shared memory per kernel) of
+# each source this process compiled
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -84,6 +87,7 @@ def build_all() -> float:
             if proc.returncode != 0:
                 errors.append(f"nvcc {name} failed ({proc.returncode}):\n{log}")
             else:
+                BUILD_LOGS[name] = log
                 os.replace(tmp, lib)
         if errors:
             raise RuntimeError("\n".join(errors))

@@ -15,25 +15,51 @@
 //
 // What bounds it on this card: f32 operations. At gemma3-1b's prefill
 // shape (B 4, H 4, Hkv 1, S 1024, dh 256, window 512) a layer does about
-// 6.4 GFLOP (4 * dh per unmasked (row, col) pair) on 40 MB of q, k, v
-// and output: about 160 flops per byte, far above the ~20 where the
+// 6.4 GFLOP (4 * dh per unmasked (row, col) pair) on 42 MB of q, k, v
+// and output: about 150 flops per byte, far above the ~20 where the
 // H100's f32 FMA rate (67 TFLOP/s, no tensor cores) takes over from HBM
-// (3.35 TB/s). So the design keeps the f32 FMA pipes fed from shared
-// memory and spends no HBM traffic twice.
+// (3.35 TB/s). An SM issues 4 warp-FMAs per clock, but its shared memory
+// serves one 128-byte wavefront per clock, and a warp's 16-byte load
+// takes four (one per quarter-warp). So the FMA pipes stay fed only if a
+// thread does at least 4 FMAs per 4-byte word it loads from shared
+// memory: an 8 x 8 register tile per thread in both products.
 //
-// Design: one thread block per (q block of 32 rows, head, batch); the
-// TPU's sequential kv grid axis is a loop inside the block. The block
-// stages its q tile once and each 32-row k and v tile in shared memory
-// as f32 (rows padded by four words so that 16-byte reads of
-// neighbouring rows fall in distinct banks). 8 warps each own 4 query
-// rows: lane c computes the 4 scores of kv column c (float4 reads of q
-// broadcast to the warp, one float4 read of k per lane), the row max
-// and sum are warp shuffles, p goes through a per-warp shared row, and
-// lane c accumulates output columns c, c + 32, ... of its warp's 4 rows
-// in registers. Shared memory: 32 x (dh + 4) floats each for q, k and
-// v, plus 32 x 32 for p — 104 KB at dh 256, above the 48 KB static
-// limit, so the launch sets the dynamic-shared-memory attribute; two
-// blocks fit one SM. Plain f32 FMA: no TF32, no tensor cores.
+// Design: one block of 8 warps per (q block of 64 rows, head, batch),
+// heaviest q blocks first across all heads and batches; the TPU's
+// sequential kv grid axis is a loop inside the block over kv blocks of
+// 64 rows. Warp w owns query rows 8w .. 8w + 7 in both products, so the
+// scores, the softmax and p stay inside the warp.
+// - Scores, split over d: lane (ds, cg) = (lane / 8, lane % 8) sums the
+//   warp's 8 rows x kv columns cg + 8 j (j < 8) over the d columns
+//   4 (ds + 4 t) .. + 3: per 4 columns of d, 8 float4 of q (one address
+//   per quarter-warp) and 8 of k (8 consecutive rows per quarter-warp: no
+//   bank conflict) for 256 FMAs. An xor-shuffle reduce-scatter over the
+//   4 ds lanes (32 + 16 shuffles) leaves lane (ds, cg) with rows 2 ds,
+//   2 ds + 1 x its 8 columns.
+// - Softmax: the row max and sum are 3 xor shuffles across the 8 cg
+//   lanes of a row; p goes to the warp's rows of shared memory, and
+//   alpha and the final l reach the P.V lanes by shuffle.
+// - P.V: lane c accumulates the warp's 8 rows x 8 output columns (4 c ..
+//   4 c + 3 and 128 + 4 c .. at dh 256; dh / 32 at smaller dh) in
+//   registers: per kv row, 8 p (float4 broadcasts over 4 rows) and 2
+//   float4 of v (contiguous across the warp) for 64 FMAs.
+// - Staging, one buffer each for k and v, with cp.async (16 bytes per
+//   copy) as FlashAttention-2 orders it: v of a block is issued after the
+//   barrier that opens the block and lands while its scores are
+//   computed; k of the next block is issued after the barrier that
+//   closes the scores and lands during P.V. Two __syncthreads per kv
+//   block. bf16 inputs are converted while staging, in registers
+//   (synchronously). Rows of a last block beyond S or Skv are zeroed.
+// - Shared memory, rows padded by 4 words (pitch / 4 odd: 16-byte reads
+//   of 8 neighbouring rows fall in distinct banks): q, k and v 64 x (dh +
+//   4) each, p 64 x 68. At dh 256: 3 x 65 + 17 = 212 KiB of the 227 KiB
+//   a block may have, so one block (8 warps) per SM. The launch sets the
+//   dynamic-shared-memory attribute and returns its error.
+// - Registers and spills (nvcc -Xptxas -v, sm_90a, in chip_smoke.py's
+//   build phase): PERF.md. At dh 256 the 64 score and 64 output
+//   accumulators take the thread to 254 registers, which is what holds
+//   the block to 8 warps per SM and the kernel below its bound.
+// Plain f32 FMA: no TF32, no tensor cores.
 //
 // Skipped blocks: the Pallas kernel iterates every kv block; this one
 // loops only over the blocks that hold at least one unmasked (row, col)
@@ -41,36 +67,65 @@
 // range). That changes no real row: every row has a valid column in the
 // blocks kept, a fully masked block before it is wiped by the first
 // real block's alpha = exp(NEG_INF - m) = 0, and one after it adds
-// exp(NEG_INF - m) = 0. Padded rows beyond the caller's S are sliced off.
-// The q blocks run heaviest first (reverse order), so the long causal
-// rows do not trail the launch.
+// exp(NEG_INF - m) = 0. S and Skv are multiples of 32; the rows of the
+// last q block beyond S are zero and never written, and the kv rows of
+// the last block beyond Skv are zero and masked (col >= s_orig). The q blocks run
+// heaviest first across all heads and batches, so the long causal rows
+// do not trail the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBQ = 32;             // query rows per block
-constexpr int kBK = 32;             // kv rows per inner step (one per lane)
+constexpr int kBQ = 64;             // query rows per block
+constexpr int kBK = 64;             // kv rows per inner step
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
+constexpr int kRowsW = kBQ / kWarps;  // query rows per warp
+constexpr int kPPitch = kBK + 4;      // row pitch of p
 constexpr float kNegInf = -1.0e30f;
 
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(x.x, x.y);
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
 // Copy `rows` x DH elements (row-major, contiguous) into shared memory
-// as f32 with row pitch `pitch`, 16 bytes of input per load.
+// as f32 with row pitch `pitch`: f32 by cp.async, 16 bytes per copy (the
+// caller commits and waits); bf16 by 16-byte loads converted in
+// registers.
 template <int DH>
 __device__ __forceinline__ void stage(float* dst, const float* src, int rows,
                                       int pitch) {
   constexpr int kVec = DH / 4;
   for (int e = threadIdx.x; e < rows * kVec; e += kThreads) {
     const int r = e / kVec, c = (e - r * kVec) * 4;
-    const float4 x = reinterpret_cast<const float4*>(src)[e];
-    *reinterpret_cast<float4*>(dst + r * pitch + c) = x;
+    cp_async16(dst + r * pitch + c, src + 4 * e);
   }
 }
 
@@ -92,133 +147,226 @@ __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// Stage `valid` rows of src (row-major, DH wide) into dst and zero the
+// rest of its `rows` rows (a block's rows beyond S or Skv).
+template <int DH, typename T>
+__device__ __forceinline__ void stage_block(float* dst, const T* src,
+                                            int valid, int rows) {
+  stage<DH>(dst, src, valid, DH + 4);
+  for (int e = threadIdx.x; e < (rows - valid) * DH; e += kThreads)
+    dst[(valid + e / DH) * (DH + 4) + e % DH] = 0.0f;
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int Hkv, int S, int Skv, int s_orig, float scale,
-                       int causal, int window, float softcap) {
+                       const T* __restrict__ v, T* __restrict__ out, int B,
+                       int H, int Hkv, int S, int Skv, int s_orig,
+                       float scale, int causal, int window, float softcap) {
   constexpr int kPitch = DH + 4;
-  constexpr int kCol = (DH + 31) / 32;  // output columns per lane
+  constexpr bool kVecV = DH >= 128;     // P.V columns as float4
+  constexpr int kNC = DH >= 32 ? DH / 32 : 1;  // P.V columns per lane
+  constexpr int kAcc = kVecV ? 4 * (DH / 128) : kNC;
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                  // kBQ x kPitch
-  float* k_s = q_s + kBQ * kPitch;    // kBK x kPitch
-  float* v_s = k_s + kBK * kPitch;    // kBK x kPitch
-  float* p_s = v_s + kBK * kPitch;    // kBQ x kBK
+  float* q_s = smem;                    // kBQ x kPitch
+  float* k_s = q_s + kBQ * kPitch;      // kBK x kPitch
+  float* v_s = k_s + kBK * kPitch;      // kBK x kPitch
+  float* p_s = v_s + kBK * kPitch;      // kBQ x kPPitch
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // heaviest q blocks first across all heads and batches
+  const int nqb = (S + kBQ - 1) / kBQ, bh = blockIdx.x % (H * B);
+  const int q0 = (nqb - 1 - static_cast<int>(blockIdx.x) / (H * B)) * kBQ;
+  const int h = bh % H, b = bh / H;
   const int hk = h / (H / Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * kRows;        // this warp's first row in the block
+  const int w0 = warp * kRowsW;         // this warp's first row
+  const int ds = lane / 8, cg = lane % 8;  // score layout
 
   const T* kb = k + (static_cast<long>(b) * Hkv + hk) * Skv * DH;
   const T* vb = v + (static_cast<long>(b) * Hkv + hk) * Skv * DH;
-  stage<DH>(q_s, q + ((static_cast<long>(b) * H + h) * S + q0) * DH, kBQ,
-            kPitch);
+  stage_block<DH>(q_s, q + ((static_cast<long>(b) * H + h) * S + q0) * DH,
+                  min(kBQ, S - q0), kBQ);
 
   // the kv blocks that hold an unmasked (row, col) pair of this q block
   int kv_hi = (min(s_orig, Skv) + kBK - 1) / kBK;
   if (causal) kv_hi = min(kv_hi, (q0 + kBQ - 1) / kBK + 1);
   const int kv_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  if (kv_lo < kv_hi)
+    stage_block<DH>(k_s, kb + static_cast<long>(kv_lo) * kBK * DH,
+                    min(kBK, Skv - kv_lo * kBK), kBK);
+  cp_async_commit();
 
-  float m[kRows], l[kRows], acc[kRows][kCol];
+  // softmax state of rows w0 + 2 ds + a (the 8 cg lanes hold copies)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float acc[kRowsW][kAcc];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
+  for (int i = 0; i < kRowsW; ++i)
 #pragma unroll
-    for (int j = 0; j < kCol; ++j) acc[r][j] = 0.0f;
-  }
+    for (int j = 0; j < kAcc; ++j) acc[i][j] = 0.0f;
 
   for (int blk = kv_lo; blk < kv_hi; ++blk) {
-    const int k0 = blk * kBK;
-    __syncthreads();  // the previous step's k and v tiles are consumed
-    stage<DH>(k_s, kb + static_cast<long>(k0) * DH, kBK, kPitch);
-    stage<DH>(v_s, vb + static_cast<long>(k0) * DH, kBK, kPitch);
-    __syncthreads();
+    const int k0 = blk * kBK, nk = min(kBK, Skv - k0);
+    cp_async_wait_all();  // this thread's copies of k (and q) landed
+    __syncthreads();      // everyone's; and v of the last block is consumed
+    stage_block<DH>(v_s, vb + static_cast<long>(k0) * DH, nk, kBK);
+    cp_async_commit();    // v lands while the scores are computed
 
-    // scores of this warp's rows against kv column k0 + lane
-    float s[kRows];
+    // partial scores of rows w0 + i, columns cg + 8 j over the d columns
+    // 4 (ds + 4 t) .. + 3
+    float s[8][8];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
-    const float* kr = k_s + lane * kPitch;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      const float4 kv4 = *reinterpret_cast<const float4*>(kr + d);
+    for (int c = 4 * ds; c < DH; c += 16) {
+      float4 x[8];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv4 =
-            *reinterpret_cast<const float4*>(q_s + (r0 + r) * kPitch + d);
-        s[r] = __fmaf_rn(qv4.x, kv4.x, s[r]);
-        s[r] = __fmaf_rn(qv4.y, kv4.y, s[r]);
-        s[r] = __fmaf_rn(qv4.z, kv4.z, s[r]);
-        s[r] = __fmaf_rn(qv4.w, kv4.w, s[r]);
-      }
-    }
-
-    const int col = k0 + lane;
+      for (int i = 0; i < 8; ++i) x[i] = ld4(q_s + (w0 + i) * kPitch + c);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = q0 + r0 + r;
-      float x = s[r] * scale;
-      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
-      bool ok = col < s_orig;
-      if (causal) ok = ok && col <= row;
-      if (window > 0) ok = ok && (row - col) < window;
-      x = ok ? x : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float p = expf(x - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + warp_sum(p);
-      m[r] = m_new;
-      p_s[(r0 + r) * kBK + lane] = p;
+      for (int j = 0; j < 8; ++j) {
+        const float4 y = ld4(k_s + (cg + 8 * j) * kPitch + c);
 #pragma unroll
-      for (int j = 0; j < kCol; ++j) acc[r][j] *= alpha;
-    }
-    __syncwarp();  // p_s rows are written and read by this warp only
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) pc[r] = p_s[(r0 + r) * kBK + c];
-      const float* vr = v_s + c * kPitch + lane;
-#pragma unroll
-      for (int j = 0; j < kCol; ++j) {
-        if (DH % 32 == 0 || lane + 32 * j < DH) {
-          const float vv = vr[32 * j];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            acc[r][j] = __fmaf_rn(pc[r], vv, acc[r][j]);
+        for (int i = 0; i < 8; ++i) {
+          s[i][j] = __fmaf_rn(x[i].x, y.x, s[i][j]);
+          s[i][j] = __fmaf_rn(x[i].y, y.y, s[i][j]);
+          s[i][j] = __fmaf_rn(x[i].z, y.z, s[i][j]);
+          s[i][j] = __fmaf_rn(x[i].w, y.w, s[i][j]);
         }
       }
     }
-    __syncwarp();  // p_s is read before the next step overwrites it
+    // reduce-scatter over the 4 ds lanes: lane ds ends with rows 2 ds,
+    // 2 ds + 1
+    float t[4][8], u[2][8];
+    {
+      const bool up = ds & 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float send = up ? s[i][j] : s[i + 4][j];
+          t[i][j] = (up ? s[i + 4][j] : s[i][j]) +
+                    __shfl_xor_sync(0xffffffffu, send, 16);
+        }
+    }
+    {
+      const bool up = ds & 1;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float send = up ? t[i][j] : t[i + 2][j];
+          u[i][j] = (up ? t[i + 2][j] : t[i][j]) +
+                    __shfl_xor_sync(0xffffffffu, send, 8);
+        }
+    }
+
+    // online softmax of rows w0 + 2 ds + a over columns k0 + cg + 8 j
+    float alpha[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int rb = w0 + 2 * ds + a, row = q0 + rb;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = k0 + cg + 8 * j;
+        float y = u[a][j] * scale;
+        if (softcap > 0.0f) y = softcap * tanhf(y / softcap);
+        bool ok = col < s_orig;
+        if (causal) ok = ok && col <= row;
+        if (window > 0) ok = ok && (row - col) < window;
+        u[a][j] = ok ? y : kNegInf;
+        mx = fmaxf(mx, u[a][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[a], mx);
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(u[a][j] - m_new);
+        p_s[rb * kPPitch + cg + 8 * j] = p;
+        psum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off *= 2)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      alpha[a] = expf(m[a] - m_new);
+      l[a] = alpha[a] * l[a] + psum;
+      m[a] = m_new;
+    }
+
+    cp_async_wait_all();  // this thread's copies of v landed
+    __syncthreads();      // everyone's; and every warp is done with k
+    if (blk + 1 < kv_hi)  // the next k lands while p . v is computed
+      stage_block<DH>(k_s, kb + static_cast<long>(k0 + kBK) * DH,
+                      min(kBK, Skv - k0 - kBK), kBK);
+    cp_async_commit();
+
+    // acc = alpha * acc + p . v for the warp's 8 rows
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float al = __shfl_sync(0xffffffffu, alpha[i & 1], (i / 2) * 8);
+#pragma unroll
+      for (int j = 0; j < kAcc; ++j) acc[i][j] *= al;
+    }
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float4 pv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pv[i] = ld4(p_s + (w0 + i) * kPPitch + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = v_s + (c + e) * kPitch;
+        float pe[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          pe[i] = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z
+                                                             : pv[i].w;
+        if constexpr (kVecV) {
+#pragma unroll
+          for (int hh = 0; hh < DH / 128; ++hh) {
+            const float4 y = ld4(vr + 4 * lane + 128 * hh);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc[i][4 * hh] = __fmaf_rn(pe[i], y.x, acc[i][4 * hh]);
+              acc[i][4 * hh + 1] = __fmaf_rn(pe[i], y.y, acc[i][4 * hh + 1]);
+              acc[i][4 * hh + 2] = __fmaf_rn(pe[i], y.z, acc[i][4 * hh + 2]);
+              acc[i][4 * hh + 3] = __fmaf_rn(pe[i], y.w, acc[i][4 * hh + 3]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int hh = 0; hh < kNC; ++hh) {
+            const float y = lane + 32 * hh < DH ? vr[lane + 32 * hh] : 0.0f;
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              acc[i][hh] = __fmaf_rn(pe[i], y, acc[i][hh]);
+          }
+        }
+      }
+    }
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float lr = fmaxf(l[r], 1e-30f);
-    T* o = out + ((static_cast<long>(b) * H + h) * S + q0 + r0 + r) * DH;
+  for (int i = 0; i < 8; ++i) {
+    const float lr =
+        fmaxf(__shfl_sync(0xffffffffu, l[i & 1], (i / 2) * 8), 1e-30f);
+    if (q0 + w0 + i >= S) continue;
+    T* o = out + ((static_cast<long>(b) * H + h) * S + q0 + w0 + i) * DH;
+    if constexpr (kVecV) {
 #pragma unroll
-    for (int j = 0; j < kCol; ++j)
-      if (DH % 32 == 0 || lane + 32 * j < DH)
-        store_out(o + lane + 32 * j, acc[r][j] / lr);
+      for (int hh = 0; hh < DH / 128; ++hh)
+        store4(o + 4 * lane + 128 * hh,
+               make_float4(acc[i][4 * hh] / lr, acc[i][4 * hh + 1] / lr,
+                           acc[i][4 * hh + 2] / lr, acc[i][4 * hh + 3] / lr));
+    } else {
+#pragma unroll
+      for (int hh = 0; hh < kNC; ++hh)
+        if (lane + 32 * hh < DH) store1(o + lane + 32 * hh, acc[i][hh] / lr);
+    }
   }
 }
 
@@ -227,17 +375,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
            int H, int Hkv, int S, int Skv, int s_orig, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem =
-      (static_cast<size_t>(kBQ + 2 * kBK) * (DH + 4) + kBQ * kBK) *
+      (static_cast<size_t>(kBQ + 2 * kBK) * (DH + 4) + kBQ * kPPitch) *
       sizeof(float);
   auto* kern = flash_attention_kernel<T, DH>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(S / kBQ, H, B);
+  // one block per (q block, head, batch), heaviest q blocks first
+  const int grid = ((S + kBQ - 1) / kBQ) * H * B;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, S, Skv,
+      static_cast<const T*>(v), static_cast<T*>(out), B, H, Hkv, S, Skv,
       s_orig, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,17 @@
 """Paged SiN distance (§IV-C4) — the hand-written CUDA kernel's wrapper.
 
 The paper's LUN-level accelerator reads one NAND page into the page
-buffer and MACs a batch of queries against every vector in it. Here one
-thread block is one page read: it serves a (QB, d) query tile against
+buffer and MACs a batch of queries against every vector in it. Here a
+thread block walks a group of consecutive tiles and reads a page once
+per run of tiles that share it, serving each (QB, d) query tile against
 the (P, d) page ``page_ids[t]`` of the paged store (``csrc/
 paged_distance.cu`` has the design and what bounds it).
 
 Distances use  q.q - 2 q.v + v.v ; qq and vnorm are precomputed.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -19,21 +22,37 @@ KERNEL = Kernel(name="paged_distance", source="paged_distance.cu",
                 entry="paged_distance_launch",
                 replaces="src/repro/kernels/distance/kernel.py:40")
 
-THREADS = 256
-SMEM_LIMIT = 48 * 1024        # static-launch shared memory per block
-MAX_DCHUNK = 32
+SMEM_MAX = 227 * 1024        # dynamic shared memory one block may ask for
+SMEM_SM = 228 * 1024         # shared memory of one SM
+MAX_BLOCKS_PER_SM = 3        # the kernel's __launch_bounds__
+MQ = 64                      # the kernel's query rows per compute chunk
 
 
-def _dchunk(qb: int, p: int) -> int:
-    """Widest d-chunk (<= 32) whose query + page staging fits the block's
-    shared memory (rows padded by one word)."""
-    dc = MAX_DCHUNK
-    while dc >= 1 and (qb + p) * (dc + 1) * 4 > SMEM_LIMIT:
-        dc //= 2
-    if dc < 1:
-        raise ValueError(f"paged_distance: a page of {p} rows plus a "
-                         f"{qb}-row query tile does not fit shared memory")
+def _smem(p: int, dc: int) -> int:
+    """Shared memory of one block: the page (rows padded to an even
+    count) and MQ query rows, at the kernel's row pitch for d-chunk dc."""
+    return (2 * ((p + 1) // 2) + MQ) * 4 * ((dc // 4) | 1) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _dchunk(p: int, d: int) -> int:
+    """The whole d (rounded up to 4) when page and queries fit shared
+    memory, else the widest multiple of 4 that fits."""
+    dc = max(4, -(-d // 4) * 4)
+    while dc >= 4 and _smem(p, dc) > SMEM_MAX:
+        dc -= 4
+    if dc < 4:
+        raise ValueError(f"paged_distance: a page of {p} rows plus {MQ} "
+                         f"query rows does not fit shared memory")
     return dc
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device: int, p: int, dc: int) -> int:
+    """Blocks of the kernel that one wave of the card holds at once."""
+    per_sm = min(MAX_BLOCKS_PER_SM, SMEM_SM // (_smem(p, dc) + 1024))
+    return per_sm * torch.cuda.get_device_properties(device) \
+        .multi_processor_count
 
 
 def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
@@ -68,8 +87,15 @@ def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
         return out
     if NP == 0:
         raise ValueError("paged_distance: empty page store")
-    threads = min(THREADS, max(32, -(-(QB * P) // 32) * 32))
+    # a block walks a group of consecutive tiles (at least MQ query rows,
+    # and few enough blocks that one wave of the card holds them all),
+    # staging a page once per run of tiles that share it
+    dc = _dchunk(P, d)
+    group = max(MQ // QB, 1, -(-T // _resident_blocks(
+        queries.device.index, P, dc)))
+    vec = d % 4 == 0 and queries.data_ptr() % 16 == 0 and \
+        db.data_ptr() % 16 == 0
     KERNEL.launch(page_ids.data_ptr(), queries.data_ptr(), qq.data_ptr(),
                   db.data_ptr(), vnorm.data_ptr(), out.data_ptr(),
-                  T, QB, P, d, NP, _dchunk(QB, P), threads)
+                  T, QB, P, d, NP, dc, group, int(vec))
     return out

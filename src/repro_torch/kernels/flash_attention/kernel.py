@@ -19,7 +19,10 @@ KERNEL = Kernel(name="flash_attention", source="flash_attention.cu",
                 entry="flash_attention_launch",
                 replaces="src/repro/kernels/flash_attention/kernel.py:83")
 
-BLOCK_Q = 32          # the kernel's q-block and kv-block rows
+# S and Skv must be multiples of these (the op pads). The kernel's q
+# blocks are 64 rows, the rows of the last one beyond S masked; its kv
+# blocks are 32 rows.
+BLOCK_Q = 32
 BLOCK_K = 32
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)

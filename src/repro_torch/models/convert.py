@@ -15,11 +15,14 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import module_tree
 from repro_torch.models.transformer import model_spec
+from repro_torch.utils import resolve_device
 
 
-def params_from_jax(cfg: ArchConfig, tree, device="cpu") -> nn.Module:
+def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> nn.Module:
     """Reference parameter tree (numpy arrays, stacked "blocks") -> the
     port's module tree on ``device``, each array's dtype kept."""
+    device = resolve_device(device)
+
     def to_tensor(path, s):
         sub, keys = tree, path
         if path[0] == "blocks":      # ("blocks", layer, ...): stacked leaf

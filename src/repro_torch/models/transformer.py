@@ -30,6 +30,7 @@ from repro_torch.models import attention as A
 from repro_torch.models.layers import (embed, embed_spec, mlp, mlp_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
 from repro_torch.models.params import materialize
+from repro_torch.utils import resolve_device
 
 FAMILIES = ("dense", "vlm")
 _NOT_PORTED = {
@@ -151,11 +152,12 @@ def cache_spec(cfg: ArchConfig, batch: int, cache_len: int):
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
-               dtype=torch.bfloat16, device="cpu"):
-    """Zeroed cache. The k/v caches are LISTS of per-layer tensors that
-    prefill and decode_step update in place (the reference keeps a list
-    of per-layer leaves for the same reason: one buffer per layer is
-    written where it lies, never copied)."""
+               dtype=torch.bfloat16, device="cuda"):
+    """Zeroed cache on ``device``. The k/v caches are LISTS of per-layer
+    tensors that prefill and decode_step update in place (the reference
+    keeps a list of per-layer leaves for the same reason: one buffer per
+    layer is written where it lies, never copied)."""
+    device = resolve_device(device)
     cs = cache_spec(cfg, batch, cache_len)
     return {"pos": 0,
             "k": [torch.zeros(s, dtype=dtype, device=device)

@@ -16,6 +16,7 @@ from repro_torch.core.ref_search import SearchParams
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.distance import (paged_distances,
                                           paged_distances_ref)
+from repro_torch.kernels.distance.kernel import KERNEL as DIST
 from repro_torch.kernels.flash_attention import (attention_op, attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import KERNEL as FLASH
@@ -35,7 +36,21 @@ def dev():
     return torch.device("cuda")
 
 
-def _dist_case(T, QB, P, d, NP, dev, integer, seed=0):
+def _page_ids(T, NP, order, g, dev):
+    """Page ids in the dispatcher's order ("sorted"), in none ("random"),
+    or in runs of 1 to 33 tiles that cross the kernel's tile groups
+    ("runs")."""
+    if order == "runs":
+        lens = torch.tensor([1, 5, 9, 17, 3, 33, 2, 8, 16, 7], device=dev)
+        ids = torch.repeat_interleave(torch.arange(lens.numel(), device=dev)
+                                      % NP, lens)
+        return ids.repeat(-(-T // ids.numel()))[:T].int()
+    pid = torch.randint(0, NP, (T,), generator=g, device=dev,
+                        dtype=torch.int32)
+    return torch.sort(pid).values if order == "sorted" else pid
+
+
+def _dist_case(T, QB, P, d, NP, dev, integer, seed=0, order="random"):
     g = torch.Generator(device=dev).manual_seed(seed)
     if integer:
         q = torch.randint(-8, 9, (T, QB, d), generator=g, device=dev).float()
@@ -43,17 +58,26 @@ def _dist_case(T, QB, P, d, NP, dev, integer, seed=0):
     else:
         q = torch.randn((T, QB, d), generator=g, device=dev)
         db = torch.randn((NP, P, d), generator=g, device=dev)
-    pid = torch.randint(0, NP, (T,), generator=g, device=dev,
-                        dtype=torch.int32)
+    pid = _page_ids(T, NP, order, g, dev)
     return pid, q, (q * q).sum(-1), db, (db * db).sum(-1)
 
 
-@pytest.mark.parametrize("T,QB,P,d,NP", [
-    (1, 8, 128, 128, 2), (4, 16, 256, 128, 8), (7, 8, 128, 64, 3),
-    (16, 32, 128, 256, 4), (540, 8, 64, 128, 32), (9, 1, 64, 784, 5)])
+@pytest.mark.parametrize("T,QB,P,d,NP,order", [
+    (1, 8, 128, 128, 2, "random"), (4, 16, 256, 128, 8, "random"),
+    (7, 8, 128, 64, 3, "random"), (16, 32, 128, 256, 4, "random"),
+    (540, 8, 64, 128, 32, "random"), (9, 1, 64, 784, 5, "random"),
+    (1, 1, 64, 64, 1, "random"),            # a single tile
+    (540, 8, 64, 128, 32, "sorted"),        # long runs, as dispatched
+    (200, 8, 64, 128, 4, "runs"),           # runs across tile groups
+    (70, 1, 64, 128, 6, "runs"), (33, 16, 128, 64, 5, "runs"),
+    (19, 32, 256, 128, 3, "sorted"),
+    (12, 8, 256, 784, 3, "runs"),           # d in chunks, 4 task passes
+    (40, 8, 64, 784, 3, "sorted"),
+    (10, 3, 17, 30, 4, "runs"),             # odd P, d % 4 != 0
+])
 @pytest.mark.parametrize("integer", [True, False])
-def test_paged_distance_matches_plain(dev, T, QB, P, d, NP, integer):
-    args = _dist_case(T, QB, P, d, NP, dev, integer)
+def test_paged_distance_matches_plain(dev, T, QB, P, d, NP, order, integer):
+    args = _dist_case(T, QB, P, d, NP, dev, integer, order=order)
     out = paged_distances(*args)
     ref = paged_distances_ref(*args)
     torch.cuda.synchronize()
@@ -69,6 +93,18 @@ def test_paged_distance_rejects_bf16_and_cpu_mix(dev):
         paged_distances(pid, q, qq, db.bfloat16(), vn)
     with pytest.raises(ValueError):
         paged_distances(pid.cpu(), q, qq, db, vn)
+
+
+def test_paged_distance_refused_launch_raises(dev):
+    pid, q, qq, db, vn = _dist_case(2, 8, 64, 32, 2, dev, True)
+    out = torch.empty((2, 8, 64), device=dev)
+    before = DIST.launches
+    for T, dc in ((0, 32), (2, 4096)):  # an empty grid; shared memory > max
+        with pytest.raises(RuntimeError, match="cudaError"):
+            DIST.launch(pid.data_ptr(), q.data_ptr(), qq.data_ptr(),
+                        db.data_ptr(), vn.data_ptr(), out.data_ptr(), T, 8,
+                        64, 32, 2, dc, 8, 1)
+    assert DIST.launches == before
 
 
 def _rows(B, M, dev, seed):
@@ -170,6 +206,11 @@ def _qkv(B, H, Hkv, S, dh, dtype, dev, seed=0):
     (1, 2, 2, 256, 64, torch.float32, dict(causal=False)),
     (2, 4, 2, 96, 16, torch.float32, dict(window=16)),
     (2, 8, 2, 64, 32, torch.bfloat16, dict(softcap=30.0, causal=False)),
+    # S not a multiple of the 64-row q block, windows below the block
+    (1, 4, 2, 160, 128, torch.float32, dict(window=8)),
+    (2, 2, 1, 96, 256, torch.bfloat16, dict(window=40)),
+    (1, 4, 4, 224, 64, torch.float32, dict(softcap=20.0, window=48)),
+    (1, 2, 1, 32, 32, torch.float32, dict(causal=False)),
 ])
 def test_flash_attention_matches_plain(dev, B, H, Hkv, S, dh, dtype, kw):
     """f32: 2e-5 (online vs one-shot softmax, sums in another order);

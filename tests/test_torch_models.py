@@ -56,7 +56,8 @@ def carried(request):
         fe = (0.1 * rng.standard_normal((B, cfg.frontend_tokens,
                                          cfg.d_model))).astype(np.float32)
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, tree=tree,
-                params=params_from_jax(cfg, tree), toks=toks, fe=fe)
+                params=params_from_jax(cfg, tree, device="cpu"), toks=toks,
+                fe=fe)
 
 
 def _fe(c, torch_side):
@@ -115,7 +116,7 @@ def test_prefill_cache_and_decode_match_reference(carried):
     jcache = j_init_cache(jcfg, B, SP + T, dtype=jnp.float32)
     jl, jcache = j_prefill(c["jparams"], jcfg, jnp.asarray(c["toks"][:, :SP]),
                            jcache, opts=jopts, frontend_embeds=_fe(c, False))
-    cache = init_cache(cfg, B, SP + T, dtype=torch.float32)
+    cache = init_cache(cfg, B, SP + T, dtype=torch.float32, device="cpu")
     toks = torch.from_numpy(c["toks"]).long()
     lg, cache = prefill(c["params"], cfg, toks[:, :SP], cache,
                         frontend_embeds=_fe(c, True))
@@ -149,7 +150,7 @@ def test_prefill_decode_matches_forward(arch):
         fe = 0.1 * torch.randn((B, cfg.frontend_tokens, cfg.d_model),
                                generator=gen)
     full, _ = logits_fn(params, cfg, toks, frontend_embeds=fe)
-    cache = init_cache(cfg, B, SP + T, dtype=torch.float32)
+    cache = init_cache(cfg, B, SP + T, dtype=torch.float32, device="cpu")
     lg, cache = prefill(params, cfg, toks[:, :SP], cache, frontend_embeds=fe)
     torch.testing.assert_close(lg, full[:, SP - 1], rtol=5e-3, atol=5e-3)
     for t in range(T - 1):
@@ -193,10 +194,10 @@ def test_attention_modes_agree_on_cpu():
                          generator=torch.Generator().manual_seed(1))
     out = {}
     for mode in ("auto", "ref"):
-        cache = init_cache(cfg, 1, 24, dtype=torch.float32)
+        cache = init_cache(cfg, 1, 24, dtype=torch.float32, device="cpu")
         out[mode], _ = prefill(params, cfg, toks, cache,
                                opts=ModelOpts(attn_mode=mode))
     torch.testing.assert_close(out["auto"], out["ref"], rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
-        prefill(params, cfg, toks, init_cache(cfg, 1, 24),
+        prefill(params, cfg, toks, init_cache(cfg, 1, 24, device="cpu"),
                 opts=ModelOpts(attn_mode="cuda"))

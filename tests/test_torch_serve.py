@@ -118,7 +118,8 @@ def test_greedy_generate_matches_reference(index):
     jcfg = dataclasses.replace(j_reduced(j_get_config(arch)), num_layers=6)
     cfg = dataclasses.replace(reduced(get_config(arch)), num_layers=6)
     jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
-    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams))
+    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
     rng = np.random.default_rng(4)
     toks = rng.integers(0, cfg.vocab_size, (B, sp)).astype(np.int32)
     queries = rng.standard_normal((B, D)).astype(np.float32)
