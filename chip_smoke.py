@@ -16,7 +16,14 @@ raises, so the script exits nonzero and prints no result line):
                1M-vector (512 MiB) paged store, exact on integer-valued
                inputs and within RTOL_REAL on real ones;
                the bitonic sort and merge exactly, with a payload lane,
-               ties and duplicated (dist, id, payload) entries.
+               ties and duplicated (dist, id, payload) entries, in both
+               bodies (registers up to M 128, shared memory up to 2048);
+               the fused Gather merge (merge_unsorted) bit for bit
+               against its plain version, the two-launch composition
+               (sort, then merge) and its other body: ties across the
+               two sides, duplicates, invalid and all-invalid rows,
+               out_w below the width, ragged row counts, -0.0 / NaN /
+               inf, and widths up to 2048.
   4. attn_kernels — the flash-attention kernel against its plain
                version: gemma3-1b's geometry with its 512 window and
                full, a gemma2-like softcap, bf16, a non-aligned S through
@@ -29,9 +36,10 @@ raises, so the script exits nonzero and prints no result line):
                8 shards, page 64, degree 16, L=32, W=1, k=10, 256
                queries): host build, then search_sim in auto mode (the
                kernels). Launch counts are zeroed just before and read
-               just after; every search kernel must have launched, and
-               recall@k must be within 0.01 of the reference package's
-               value.
+               just after; every search kernel must have launched (the
+               fused Gather merge once per round, the standalone sort and
+               merge not at all), and recall@k must be within 0.01 of
+               the reference package's value.
   7. serve   — gemma3-1b at full width (26 layers, d_model 1152, vocab
                262144; random weights from a seed) through
                launch/serve.py's functions in auto mode: RAG retrieval
@@ -45,7 +53,10 @@ raises, so the script exits nonzero and prints no result line):
   8. timing  — each kernel at its path's shapes: its time, its bound,
                the plain version's time and one library call's; flash
                attention also at gemma3-1b's global layer (window 0) on a
-               line of its own.
+               line of its own; each bitonic kernel also at one row of
+               two entries (the card's one-launch floor). Measured in a
+               fresh process (chip_smoke.py --timing) and printed with
+               each kernel's launches on its path.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Exits nonzero when no CUDA device is
@@ -68,7 +79,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # reference package, CLI defaults: sift-1b stand-in, n=16384) on the CPU
 REFERENCE_RECALL = 0.6719
 RECALL_TOL = 0.01
-SEARCH_KERNELS = ("paged_distance", "bitonic_sort", "bitonic_merge")
+SEARCH_KERNELS = ("paged_distance", "bitonic_merge_unsorted")
+# the search path's Gather merge: candidate list L, proposals W * degree
+GATHER = dict(R=256, LA=32, LB=16)
 # real-valued inputs: the kernel's sequential FMA chain over d and the
 # plain version's batched product sum in different orders
 RTOL_REAL = 1e-5
@@ -116,22 +129,25 @@ def device_kernel_us(prof) -> dict:
     return out
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5):
+def device_ms(fn, iters: int = 50, warmup: int = 5, tries: int = 3):
     """(mean device-kernel ms per call of ``fn()``, method): the sum of
-    the card's kernel times per call, from torch.profiler; CUDA events
-    when the profiler sees no device time."""
+    the card's kernel times per call, from torch.profiler. Every call
+    launches at least one kernel, so a trace with fewer than ``iters``
+    kernels lost records and is taken again; CUDA events when no trace
+    is whole."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for us, _ in device_kernel_us(prof).values())
-    if total_us > 0:
-        return total_us / 1e3 / iters, "profiler"
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kern = device_kernel_us(prof).values()
+        if sum(c for _, c in kern) >= iters:
+            return sum(us for us, _ in kern) / 1e3 / iters, "profiler"
     return event_ms(fn, iters, warmup), "events"
 
 
@@ -254,15 +270,65 @@ def sort_rows(B, M, dev, seed: int):
     return d, i, p
 
 
+def bits_equal(got, want) -> bool:
+    """Every tensor equal bit for bit (floats by their bits: -0.0, NaN)."""
+    import torch
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               if g.dtype == torch.float32 else torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def gather_case(R, la, lb, dev, seed: int, special: bool = False):
+    """The Gather merge's operands: sorted candidates with expanded flags
+    and a sentinel tail; unsorted proposals with (dist, id) ties against
+    the candidates (other payload), a duplicated proposal and invalid
+    entries; row 0 all invalid, row 1 all valid; with ``special``, -0.0
+    beside 0.0 on one id, NaN and inf."""
+    import torch
+    from repro_torch.kernels.topk import bitonic_sort_ref
+    from repro_torch.utils import BIG_DIST, ID_SENTINEL
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cd, ci, ce = bitonic_sort_ref(*sort_rows(R, la, dev, seed))
+    ce = ce.bool()
+    tail = la - la // 4
+    cd[:, tail:], ci[:, tail:], ce[:, tail:] = BIG_DIST, ID_SENTINEL, False
+    nd = torch.randint(0, 8, (R, lb), generator=g, device=dev).float()
+    ni = torch.randint(0, la + lb, (R, lb), generator=g, device=dev).int()
+    k = min(tail, lb)
+    nd[:, :k:3], ni[:, :k:3] = cd[:, :k:3], ci[:, :k:3]
+    if lb >= 3:
+        nd[:, -1], ni[:, -1] = nd[:, 1], ni[:, 1]
+    nv = torch.rand((R, lb), generator=g, device=dev) < 0.7
+    nv[0], nv[1] = False, True
+    if special and lb >= 4:
+        nd[:, 0], nd[:, 1], ni[:, 1] = -0.0, 0.0, ni[:, 0]
+        nd[:, 2], nd[:, 3] = float("nan"), float("inf")
+    return cd, ci.contiguous(), ce, nd, ni, nv
+
+
+def two_launch_merge(cd, ci, ce, nd, ni, nv, out_w):
+    """The Gather merge as two cuda launches: bitonic_sort of the masked
+    proposals, then bitonic_merge of A ++ filler ++ reversed(B)."""
+    import torch
+    from repro_torch.kernels.topk import merge_sorted_op, sort_op
+    from repro_torch.utils import BIG_DIST, ID_SENTINEL
+    sd, si = sort_op(torch.where(nv, nd, BIG_DIST),
+                     torch.where(nv, ni, ID_SENTINEL), mode="cuda")
+    d, i, e = merge_sorted_op(cd, ci, sd, si, (ce.int(),),
+                              (torch.zeros_like(si),), mode="cuda")
+    return d[:, :out_w], i[:, :out_w], e[:, :out_w] != 0
+
+
 def check_topk(dev) -> float:
     import torch
     from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
-                                          bitonic_sort, bitonic_sort_ref)
+                                          bitonic_sort, bitonic_sort_ref,
+                                          merge_unsorted, merge_unsorted_ref)
     for kernel, plain, label in ((bitonic_sort, bitonic_sort_ref,
                                   "bitonic_sort"),
                                  (bitonic_merge, bitonic_merge_ref,
                                   "bitonic_merge")):
-        for B, M in ((256, 16), (256, 64), (7, 2048), (5, 1)):
+        for B, M in ((256, 16), (256, 64), (7, 128), (7, 2048), (5, 1)):
             d, i, p = sort_rows(B, M, dev, seed=M)
             if kernel is bitonic_merge:     # make each row bitonic
                 d, i, p = bitonic_sort_ref(d, i, p)
@@ -271,14 +337,39 @@ def check_topk(dev) -> float:
                            for x in (d, i, p))
             for lanes in ((p,), ()):
                 got = kernel(d, i, *lanes)
-                want = plain(d, i, *lanes)
-                for g, w in zip(got, want):
-                    if not torch.equal(g, w):
-                        raise AssertionError(f"{label} B={B} M={M}: kernel "
-                                             f"differs from plain version")
+                if not bits_equal(got, plain(d, i, *lanes)) or \
+                        not bits_equal(got, kernel(d, i, *lanes, shared=True)):
+                    raise AssertionError(f"{label} B={B} M={M}: kernel "
+                                         f"differs from plain version or "
+                                         f"from its shared-memory body")
             emit({"phase": "kernels", "kernel": label, "B": B, "M": M,
-                  "payload_lanes": [1, 0], "max_abs_err": 0.0,
-                  "tolerance": "exact"})
+                  "payload_lanes": [1, 0], "bodies": ["auto", "shared"],
+                  "max_abs_err": 0.0, "tolerance": "exact"})
+    # the Gather merge: path shape, ragged row counts, non-power-of-two
+    # widths, the register body's widest rows and the shared body's
+    for R, la, lb in ((GATHER["R"], GATHER["LA"], GATHER["LB"]),
+                      (255, 10, 6), (129, 13, 10), (64, 100, 28),
+                      (33, 3, 29), (9, 1500, 548), (4, 1024, 1024)):
+        for special in (False, True):
+            case = gather_case(R, la, lb, dev, seed=la + lb, special=special)
+            for out_w in sorted({la, la + lb, max(1, la // 2)}):
+                got = merge_unsorted(*case, out_w)
+                checks = {"two_launch": two_launch_merge(*case, out_w),
+                          "shared_body": merge_unsorted(*case, out_w,
+                                                        shared=True)}
+                # a stable sort need not match the network on -0.0 / NaN
+                if not special:
+                    checks["plain"] = merge_unsorted_ref(*case, out_w)
+                for what, want in checks.items():
+                    if not bits_equal(got, want):
+                        raise AssertionError(
+                            f"merge_unsorted R={R} LA={la} LB={lb} "
+                            f"out_w={out_w} special={special}: differs "
+                            f"from {what}")
+            emit({"phase": "kernels", "kernel": "bitonic_merge_unsorted",
+                  "R": R, "LA": la, "LB": lb, "special_values": special,
+                  "held_against": sorted(checks), "max_abs_err": 0.0,
+                  "tolerance": "exact (bits)"})
     return 0.0
 
 
@@ -346,6 +437,11 @@ def real_main_path(dev):
     if not all(launches[k] > 0 for k in SEARCH_KERNELS):
         raise AssertionError(f"a kernel did not launch on the main path: "
                              f"{launches}")
+    if launches["bitonic_merge_unsorted"] != res["rounds"] or \
+            launches["bitonic_sort"] or launches["bitonic_merge"]:
+        raise AssertionError(f"the Gather merge must be one fused launch "
+                             f"per round ({res['rounds']} rounds): "
+                             f"{launches}")
     if not math.isfinite(res["recall@k"]) or \
             abs(res["recall@k"] - REFERENCE_RECALL) > RECALL_TOL:
         raise AssertionError(f"recall@k {res['recall@k']} not within "
@@ -353,7 +449,7 @@ def real_main_path(dev):
     if not math.isfinite(res["mean_dists_per_query"]):
         raise AssertionError("non-finite distance count")
     profile_main_path(packed, queries, res["search_s"], dev)
-    return db, packed, launches
+    return launches
 
 
 def profile_main_path(packed, queries, wall_s: float, dev) -> None:
@@ -378,7 +474,8 @@ def profile_main_path(packed, queries, wall_s: float, dev) -> None:
     kern = device_kernel_us(prof)
     busy_ms = sum(us for us, _ in kern.values()) / 1e3
     ours = {"paged_distance": "paged_distance_kernel",
-            "bitonic_sort|merge": "bitonic_kernel"}
+            "bitonic_merge_unsorted": "merge_unsorted_",
+            "bitonic_sort|merge": "bitonic_"}
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
     emit({"phase": "profile", "wall_ms_unprofiled": wall_s * 1e3,
           "device_busy_ms": busy_ms,
@@ -642,24 +739,76 @@ def attn_pairs(S: int, causal: bool, window: int) -> int:
 # ---------------------------------------------------------------------------
 # Phase 8: timing at each path's shapes
 # ---------------------------------------------------------------------------
-def time_kernels(packed, launches, errs, dev) -> list:
+def bitonic_rows(dev) -> list:
+    """Timing rows of the three bitonic kernels at the search path's
+    shapes: the proposals' sort (B 256, M 16), the merge row A(32) ++
+    filler(16) ++ reversed(B(16)) (M 64), and the fused Gather merge
+    (R 256, LA 32, LB 16, out_w 32). Each also carries its operands at
+    one row of two entries (the one-launch floor)."""
+    import torch
+    from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
+                                          bitonic_sort, bitonic_sort_ref,
+                                          merge_unsorted, merge_unsorted_ref)
+    from repro_torch.utils import BIG_DIST, ID_SENTINEL
+    R, la, lb = GATHER["R"], GATHER["LA"], GATHER["LB"]
+    M = 64
+    rows = []
+    dd, ii, pp = sort_rows(R, lb, dev, seed=lb)
+    tiny = sort_rows(1, 2, dev, seed=2)
+    s = int(math.log2(lb))
+    b, by = bound_ms(2 * R * lb * 12, R * (lb // 2) * s * (s + 1) // 2)
+    rows.append(("bitonic_sort", (dd, ii, pp), bitonic_sort, bitonic_sort_ref,
+                 lambda dd=dd: torch.sort(dd, dim=-1, stable=True), b, by,
+                 dict(B=R, M=lb, payload_lanes=1, floor_args=tiny)))
+    ad, ai, ap = bitonic_sort_ref(*sort_rows(R, la, dev, seed=la))
+    bd, bi, _ = bitonic_sort_ref(*sort_rows(R, lb, dev, seed=lb + 1))
+    fill = M - la - lb
+    md = torch.cat([ad, ad.new_full((R, fill), BIG_DIST), bd.flip(1)], 1)
+    mi = torch.cat([ai, ai.new_full((R, fill), ID_SENTINEL), bi.flip(1)], 1)
+    mp = torch.cat([ap, ap.new_zeros((R, fill + lb))], 1)
+    b, by = bound_ms(2 * R * M * 12, R * (M // 2) * int(math.log2(M)))
+    rows.append(("bitonic_merge", (md, mi, mp), bitonic_merge,
+                 bitonic_merge_ref,
+                 lambda md=md: torch.sort(md, dim=-1, stable=True), b, by,
+                 dict(B=R, M=M, payload_lanes=1,
+                      row="A(32) ++ filler(16) ++ reversed(B(16))",
+                      floor_args=tiny)))
+    case = gather_case(R, la, lb, dev, seed=5)
+    cat_d = torch.cat([case[0], case[3]], 1)
+    out_w = la
+    nbytes = R * (la * 9 + lb * 9 + out_w * 9)
+    cmps = R * ((lb // 2) * s * (s + 1) // 2 + (M // 2) * int(math.log2(M)))
+    b, by = bound_ms(nbytes, cmps)
+    floor = tuple(x[:1] for x in gather_case(2, 1, 1, dev, seed=1)) + (2,)
+    rows.append(("bitonic_merge_unsorted", case + (out_w,), merge_unsorted,
+                 merge_unsorted_ref,
+                 lambda: torch.sort(cat_d, dim=-1, stable=True), b, by,
+                 dict(R=R, LA=la, LB=lb, out_w=out_w, floor_args=floor)))
+    return rows
+
+
+def time_kernels(dev) -> list:
+    """Time every kernel row; returns [(kernel entry without its launch
+    count and error, the timing line's other fields)]."""
     import torch
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
-                                          bitonic_sort, bitonic_sort_ref)
+    from repro_torch.launch.search import dataset
 
-    S, nps, P, d = packed.db.shape
-    T, qb, _, _, _ = main_path_tiles()
+    T, qb, P, d, npages = main_path_tiles()
     g = torch.Generator(device=dev).manual_seed(7)
-    store = torch.as_tensor(packed.db, device=dev).reshape(S * nps, P, d)
-    vnorm = torch.as_tensor(packed.vnorm, device=dev).reshape(S * nps, P)
-    pid = torch.sort(torch.randint(0, S * nps, (T,), generator=g,
+    # the sift-1b stand-in's vectors, paged in id order (zero-padded)
+    db0 = torch.as_tensor(dataset("sift-1b").materialize(), device=dev)
+    store = db0.new_zeros((npages * P, d))
+    store[:min(len(db0), npages * P)] = db0[:npages * P]
+    store = store.reshape(npages, P, d)
+    vnorm = (store * store).sum(-1)
+    pid = torch.sort(torch.randint(0, npages, (T,), generator=g,
                                    device=dev, dtype=torch.int32)).values
-    q = store[torch.randint(0, S * nps, (T,), generator=g, device=dev),
+    q = store[torch.randint(0, npages, (T,), generator=g, device=dev),
               :qb].contiguous()                       # real vectors as queries
     qq = (q * q).sum(-1)
     dargs = (pid, q, qq, store, vnorm)
@@ -674,23 +823,8 @@ def time_kernels(packed, launches, errs, dev) -> list:
                  paged_distances_ref,
                  lambda: torch.baddbmm(base, q, pages.transpose(1, 2),
                                        alpha=-2.0),
-                 b, by, dict(T=T, QB=qb, P=P, d=d, NP=S * nps)))
-    B = NQ
-    for name, M, kern, plain in (
-            ("bitonic_sort", 16, bitonic_sort, bitonic_sort_ref),
-            ("bitonic_merge", 64, bitonic_merge, bitonic_merge_ref)):
-        dd, ii, pp = sort_rows(B, M, dev, seed=M)
-        if name == "bitonic_merge":
-            dd, ii, pp = bitonic_sort_ref(dd, ii, pp)
-            dd, ii, pp = (torch.cat([x[:, :32], x[:, 32:].flip(1)], 1)
-                          for x in (dd, ii, pp))
-        stages = int(math.log2(M))
-        cmps = B * (M // 2) * (stages if name == "bitonic_merge"
-                               else stages * (stages + 1) // 2)
-        b, by = bound_ms(2 * B * M * 12, cmps)
-        rows.append((name, (dd, ii, pp), kern, plain,
-                     lambda dd=dd: torch.sort(dd, dim=-1, stable=True),
-                     b, by, dict(B=B, M=M, payload_lanes=1)))
+                 b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages)))
+    rows += bitonic_rows(dev)
     # flash attention at gemma3-1b's prefill shape (a local layer, and on a
     # line of its own a global one); the library call is SDPA on repeated
     # kv with an explicit boolean mask
@@ -727,18 +861,52 @@ def time_kernels(packed, launches, errs, dev) -> list:
         k = by_name[name]
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/kernels/csrc/{k.source}",
-                 "replaces": k.replaces, "launches": launches[name],
-                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                 "replaces": k.replaces, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": b, "bound_by": by, "library_ms": library_ms}
-        if i < len(rows):
-            out.append(entry)
-        else:      # the global layer: 4 of gemma3-1b's 26 layers
-            del entry["launches"]
-            entry.update(case="global layer (window 0)",
-                         layers_per_prefill=GLOBAL_LAYERS)
-        emit({"phase": "timing", **entry, "shape": shape,
-              "timed_by": method, "event_ms_per_call": host_ms})
+        if "floor_args" in shape:     # the same kernel on one 2-entry row
+            floor_args = shape.pop("floor_args")
+            entry["floor_ms"], shape["floor_timed_by"] = device_ms(
+                lambda: kern(*floor_args))
+        line = {"shape": shape, "timed_by": method,
+                "event_ms_per_call": host_ms}
+        if name.startswith("bitonic"):   # the shared-memory body, same rows
+            line["shared_body_ms"], _ = device_ms(
+                lambda: kern(*args, shared=True))
+        if i >= len(rows):     # the global layer: 4 of gemma3-1b's 26
+            line.update(case="global layer (window 0)",
+                        layers_per_prefill=GLOBAL_LAYERS)
+        out.append((entry, line))
     return out
+
+
+def timing_in_child() -> list:
+    """Phase 8 in a fresh process (``chip_smoke.py --timing``, on the
+    kernels this process built). Late in a long process torch.profiler
+    lost the kernel records of short traces (the bitonic rows fell back
+    to CUDA events, i.e. the host's launch rate); a fresh process keeps
+    them whole."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--timing"], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"timing phase failed ({out.returncode}):\n"
+                           f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])["timed"]
+
+
+def report_timing(timed, launches, errs) -> list:
+    """Print the timing lines with each kernel's launches on its path and
+    its largest error against its plain version; returns the kernels'
+    summary entries (the global-layer flash row only has a line of its
+    own)."""
+    kernels = []
+    for entry, line in timed:
+        entry = {**entry, "max_abs_err": errs[entry["name"]]}
+        if "case" not in line:
+            entry["launches"] = launches[entry["name"]]
+            kernels.append(entry)
+        emit({"phase": "timing", **entry, **line})
+    return kernels
 
 
 def main() -> int:
@@ -754,6 +922,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--timing"]:     # phase 8, from timing_in_child
+        build_all()
+        print(json.dumps({"timed": time_kernels(dev)}), flush=True)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -775,7 +947,8 @@ def main() -> int:
         "main path tiles": (T, qb, P, d, pages, True),
         "main path tiles, pages unsorted": (T, qb, P, d, pages, False),
         "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev)}
-    errs["bitonic_sort"] = errs["bitonic_merge"] = check_topk(dev)
+    errs["bitonic_sort"] = errs["bitonic_merge"] = \
+        errs["bitonic_merge_unsorted"] = check_topk(dev)
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
@@ -785,9 +958,9 @@ def main() -> int:
           "seconds": round(time.perf_counter() - t0, 2)})
 
     integer_main_path(dev)
-    _, packed, launches = real_main_path(dev)
+    launches = real_main_path(dev)
     launches["flash_attention"] = serve_path(dev)["flash_attention"]
-    kernels = time_kernels(packed, launches, errs, dev)
+    kernels = report_timing(timing_in_child(), launches, errs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -30,8 +30,10 @@ through a :class:`KernelBackend`, which owns
         serves up to that many same-page assignments (the Allocator's
         two-level scheduling).
       - lexicographic bitonic sort + merge (kernels/topk) — (dist, id)
-        networks with a payload lane, used for the candidate-list merge.
-        Bool payloads (the ``expanded`` flags) are packed to i32.
+        networks with a payload lane. The candidate-list merge is one
+        fused op (``merge_unsorted``) that carries the ``expanded`` flags
+        as bytes; the general ``sort_pairs``/``merge_pairs`` pack bool
+        payloads to i32.
 """
 from __future__ import annotations
 
@@ -42,9 +44,10 @@ import torch
 from repro_torch.kernels.distance.ops import (coalesce_num_tiles,
                                               coalesced_distance_op,
                                               paged_distance_op)
-from repro_torch.kernels.topk.ops import merge_sorted_op, sort_op
+from repro_torch.kernels.topk.ops import (merge_sorted_op, merge_unsorted_op,
+                                          sort_op)
 from repro_torch.kernels.topk.ref import lexsort_pairs
-from repro_torch.utils import BIG_DIST, cdiv
+from repro_torch.utils import BIG_DIST, ID_SENTINEL, cdiv
 
 MODES = ("auto", "cuda", "ref", "torch")
 # minimum static page-reuse estimate (items / store pages) at which the
@@ -122,16 +125,28 @@ class KernelBackend:
         return (out[0], out[1]) + tuple(
             o.to(p.dtype) for o, p in zip(out[2:], pay_a))
 
-    def merge_unsorted(self, d_a, i_a, d_b, i_b, pay_a: tuple = (),
-                       pay_b: tuple = ()):
+    def merge_unsorted(self, d_a, i_a, e_a, d_b, i_b, valid_b, out_w: int):
         """Merge sorted rows A with **unsorted** rows B into sorted rows —
-        the candidate-list update's real shape. Kernel modes sort B with
-        the bitonic network, then run one ``merge_pairs`` pass; inline
-        mode sorts the concatenation once."""
+        the candidate-list update's real shape — and keep the first
+        ``out_w`` of each.
+
+        d_a/i_a/e_a : (R, LA) sorted candidates and their expanded flags
+        d_b/i_b     : (R, LB) unsorted proposals; where ``valid_b`` is
+                      False they become (BIG_DIST, ID_SENTINEL). All
+                      carry expanded = False.
+        Kernel modes run the fused merge (mask, sort B with the bitonic
+        network, one merge pass: one launch in cuda mode); inline mode
+        sorts the concatenation once.
+        """
         if not self.inline:
-            d_b, i_b, *pay_b = self.sort_pairs(d_b, i_b, *pay_b)
-        return self.merge_pairs(d_a, i_a, d_b, i_b, pay_a=pay_a,
-                                pay_b=tuple(pay_b))
+            return merge_unsorted_op(d_a, i_a, e_a, d_b, i_b, valid_b, out_w,
+                                     mode=self.kernel_mode())
+        d_b = torch.where(valid_b, d_b, BIG_DIST)
+        i_b = torch.where(valid_b, i_b, ID_SENTINEL)
+        out = lexsort_pairs(*_concat_rows((d_a, i_a, e_a),
+                                          (d_b, i_b,
+                                           torch.zeros_like(valid_b))))
+        return tuple(x[:, :out_w] for x in out)
 
     # -- distance -----------------------------------------------------------
     def coalesce_active(self, items: int, npages: int) -> bool:

@@ -91,19 +91,17 @@ def merge_candidates(cand_d, cand_i, cand_e, new_d, new_i, new_valid, L: int,
 
     The candidate list is always sorted, so kernel modes sort only the M
     fresh proposals and run a single bitonic *merge* pass against the
-    sorted list. The ``expanded`` flags travel through as a payload lane
-    (zeros on the proposal side)."""
+    sorted list, masking and cutting to L in the same op (one launch in
+    cuda mode). The ``expanded`` flags travel through as a payload lane
+    (False on the proposal side)."""
     backend = backend or _TORCH
-    new_d = torch.where(new_valid, new_d, BIG_DIST)
-    new_i = torch.where(new_valid, new_i, ID_SENTINEL)
-    new_e = torch.zeros_like(new_valid)
     lead = cand_d.shape[:-1]
     lc, m = cand_d.shape[-1], new_d.shape[-1]
     d, i, e = backend.merge_unsorted(
         cand_d.reshape(-1, lc), cand_i.reshape(-1, lc),
-        new_d.reshape(-1, m), new_i.reshape(-1, m),
-        pay_a=(cand_e.reshape(-1, lc),), pay_b=(new_e.reshape(-1, m),))
-    return tuple(x.reshape(lead + (lc + m,))[..., :L] for x in (d, i, e))
+        cand_e.reshape(-1, lc), new_d.reshape(-1, m), new_i.reshape(-1, m),
+        new_valid.reshape(-1, m), L)
+    return tuple(x.reshape(lead + (L,)) for x in (d, i, e))
 
 
 def count_unique_pages(ids, valid, page_size: int):

@@ -5,9 +5,12 @@ plain integer count of its launches.
 """
 from repro_torch.kernels.distance.kernel import KERNEL as _DISTANCE
 from repro_torch.kernels.flash_attention.kernel import KERNEL as _FLASH
-from repro_torch.kernels.topk.kernel import MERGE_KERNEL, SORT_KERNEL
+from repro_torch.kernels.topk.kernel import (MERGE_KERNEL,
+                                             MERGE_UNSORTED_KERNEL,
+                                             SORT_KERNEL)
 
-KERNELS = (_DISTANCE, SORT_KERNEL, MERGE_KERNEL, _FLASH)
+KERNELS = (_DISTANCE, SORT_KERNEL, MERGE_KERNEL, MERGE_UNSORTED_KERNEL,
+           _FLASH)
 
 
 def launch_counts() -> dict[str, int]:

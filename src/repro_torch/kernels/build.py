@@ -39,6 +39,8 @@ SIGNATURES = {
     "paged_distance_launch": (_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "bitonic_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "merge_unsorted_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _I, _I, _F, _I, _P),
 }

@@ -1,49 +1,309 @@
-// Bitonic (dist, id) sort and merge kernel for Hopper (sm_90a).
+// Bitonic (dist, id) sort and merge kernels for Hopper (sm_90a).
 //
-// Replaces the two users of the Pallas launcher
+// Replace the two users of the Pallas launcher
 // src/repro/kernels/topk/kernel.py `_launch_rows`:
-//   * `bitonic_sort`  (body `_bitonic_body`): the full network,
+//   * `bitonic_sort`  (:118, body `_bitonic_body`): the full network,
 //     k = 1..log2 M, j = k-1..0;
-//   * `bitonic_merge` (body `_merge_body` -> `merge_network`): only the
-//     last log2 M stages, k = log2 M, which sort a row that is already
-//     bitonic (the caller builds it as A ++ filler ++ reversed(B)).
-// One kernel serves both, selected by `merge_only`. Each row of (B, M)
-// sorts ascending by (dist, id) lexicographically; an optional i32
-// payload lane is permuted alongside (the engine's `expanded` flags).
+//   * `bitonic_merge` (:130, body `_merge_body` -> `merge_network`): only
+//     the last log2 M stages, k = log2 M, which sort a row that is
+//     already bitonic (the caller builds it as A ++ filler ++ reversed(B)).
+// Each row of (B, M) sorts ascending by (dist, id) lexicographically; an
+// optional i32 payload lane is permuted alongside. A third entry,
+// `merge_unsorted_launch`, is the engine's Gather merge in one launch:
+// mask the unsorted proposals, sort them, build the bitonic row with the
+// sorted candidate list and merge it (see merge_unsorted_reg_kernel).
 //
-// What bounds it on this card: neither bytes nor operations, but
-// latency. A row is tiny (M = 16 for the proposals, 64 for the merge on
-// the engine's main path), so the whole launch moves a few hundred KiB
-// and does a few hundred thousand compares; what costs is the chain of
-// log2 M * (log2 M + 1) / 2 dependent stages, each ended by a block
-// barrier.
+// What bounds them on this card: neither bytes nor operations, but
+// latency. A row is tiny (16 proposals and a 64-wide merge row on the
+// engine's main path), so a launch moves a few hundred KiB and does a
+// few hundred thousand compares; what costs is the chain of dependent
+// stages, log2 M * (log2 M + 1) / 2 for a sort.
 //
-// Design: M/2 threads per row, one compare-exchange pair per thread per
-// stage, keys and payload in shared memory. Rows are small, so a block
-// packs several rows (up to 256 threads) to keep warps full; all rows
-// of a block step through the same stage schedule between barriers.
-// The comparison is `_cmp_exchange`'s rule applied per element exactly
-// as the reference writes it — partner_less = dp < d || (dp == d &&
-// ip < i); an element takes its partner's entry iff (ascending ==
-// is_lower) ? partner_less : !partner_less — so the kernel reproduces
-// the reference network bit for bit, including on exact (dist, id)
-// ties. There is no arithmetic to round.
+// Design: two bodies that run the same network.
+// - Register body, rows of M <= 128 (kRegMaxLog2). A row lives in the
+//   registers of one warp: position p at lane p % 32, slot p / 32 (E =
+//   M / 32 slots a lane); rows narrower than a warp take G = M lanes, and
+//   32 / G rows share a warp. A stage of stride < G exchanges by
+//   __shfl_xor_sync within the row's lane group, a stage of stride >= G
+//   between a lane's own slots. No shared memory, no barrier: a stage
+//   costs a shuffle's latency, not a block barrier. The network is
+//   unrolled at compile time (one instance per log2 M), so every stride
+//   and slot index is a constant. Rows past B are masked at load and
+//   store only: every lane reaches every shuffle with the full mask.
+// - Shared-memory body, wider rows up to the wrapper's MAX_M (2048):
+//   M / 2 threads per row, one compare-exchange pair per thread per
+//   stage, keys and payload in shared memory, a block barrier after
+//   every stage; small rows pack several to a block of up to 256 threads.
+// Both apply `_cmp_exchange`'s rule per element exactly as the reference
+// writes it: partner = idx ^ (1 << j), ascending iff bit k of idx is
+// unset, partner_less = dp < d || (dp == d && ip < i), and an element
+// takes its partner's entry iff (ascending == is_lower) ? partner_less
+// : !partner_less. So both reproduce the reference network bit for bit,
+// exact (dist, id) ties, -0.0 / 0.0 and NaN included. There is no
+// arithmetic to round.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
-__device__ __forceinline__ bool lex_less(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia < ib);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kBigDist = 3.0e38f;        // repro_torch.utils.BIG_DIST
+constexpr int kIdSentinel = 0x7fffffff;    // repro_torch.utils.ID_SENTINEL
+constexpr int kRegMaxLog2 = 7;             // register body up to M = 128
+constexpr int kRegWarps = 2;               // warps per register-body block
+constexpr int kSmemThreads = 256;          // threads per shared-body block
+
+__device__ __forceinline__ bool partner_less(float dp, int ip, float d,
+                                             int i) {
+  return dp < d || (dp == d && ip < i);
 }
 
-__global__ void bitonic_kernel(const float* __restrict__ din,
-                               const int* __restrict__ iin,
-                               const int* __restrict__ pin,
-                               float* __restrict__ dout,
-                               int* __restrict__ iout,
-                               int* __restrict__ pout,
-                               int B, int M, int log2m, int rows_per_block,
-                               int merge_only) {
+// A row of M = 2^LOG2M entries in registers: G lanes, E slots per lane,
+// RPW rows per warp.
+template <int LOG2M>
+struct RegRow {
+  static constexpr int M = 1 << LOG2M;
+  static constexpr int G = M < 32 ? M : 32;
+  static constexpr int E = M / G;
+  static constexpr int RPW = 32 / G;
+};
+
+// Stage (K, J) over the slots below `width` (warp-uniform; the slots
+// above it hold filler that no later step reads).
+template <int G, int E, int K, int J, bool PAY>
+__device__ __forceinline__ void reg_stage(float (&d)[E], int (&id)[E],
+                                          int (&p)[E], int g, int width) {
+  constexpr int kStride = 1 << J;
+  if constexpr (kStride < G) {
+#pragma unroll
+    for (int s = 0; s < E; ++s) {
+      if (s * G < width) {
+        const float dp = __shfl_xor_sync(kFull, d[s], kStride, G);
+        const int ip = __shfl_xor_sync(kFull, id[s], kStride, G);
+        int pp = 0;
+        if constexpr (PAY) pp = __shfl_xor_sync(kFull, p[s], kStride, G);
+        const int pos = s * G + g;
+        const bool asc = (pos & (1 << K)) == 0;
+        const bool lower = (pos & kStride) == 0;
+        const bool pl = partner_less(dp, ip, d[s], id[s]);
+        if (asc == lower ? pl : !pl) {
+          d[s] = dp;
+          id[s] = ip;
+          if constexpr (PAY) p[s] = pp;
+        }
+      }
+    }
+  } else {
+    constexpr int kSx = kStride / G;   // partner slot = slot ^ kSx
+#pragma unroll
+    for (int a = 0; a < E; ++a) {
+      if ((a & kSx) == 0 && a * G < width) {
+        const int b = a | kSx;
+        const bool asc = ((a * G + g) & (1 << K)) == 0;  // bit K shared
+        const bool less_lo = partner_less(d[b], id[b], d[a], id[a]);
+        const bool less_hi = partner_less(d[a], id[a], d[b], id[b]);
+        const bool take_lo = asc ? less_lo : !less_lo;   // a: is_lower
+        const bool take_hi = asc ? !less_hi : less_hi;   // b: !is_lower
+        const float da = d[a], db = d[b];
+        const int ia = id[a], ib = id[b];
+        d[a] = take_lo ? db : da;
+        id[a] = take_lo ? ib : ia;
+        d[b] = take_hi ? da : db;
+        id[b] = take_hi ? ia : ib;
+        if constexpr (PAY) {
+          const int pa = p[a], pb = p[b];
+          p[a] = take_lo ? pb : pa;
+          p[b] = take_hi ? pa : pb;
+        }
+      }
+    }
+  }
+}
+
+// Stages (K, J), (K, J-1), ..., (K, 0), (K+1, K), ... while k <= klast.
+template <int G, int E, int LOG2M, int K, int J, bool PAY>
+__device__ __forceinline__ void reg_stages(float (&d)[E], int (&id)[E],
+                                           int (&p)[E], int g, int width,
+                                           int klast) {
+  if constexpr (K <= LOG2M) {
+    if (K <= klast) {
+      reg_stage<G, E, K, J, PAY>(d, id, p, g, width);
+      if constexpr (J > 0)
+        reg_stages<G, E, LOG2M, K, J - 1, PAY>(d, id, p, g, width, klast);
+      else
+        reg_stages<G, E, LOG2M, K + 1, K, PAY>(d, id, p, g, width, klast);
+    }
+  }
+}
+
+// The full network over positions below `width` = 2^klast.
+template <int LOG2M, bool PAY, int E = RegRow<LOG2M>::E>
+__device__ __forceinline__ void reg_sort(float (&d)[E], int (&id)[E],
+                                         int (&p)[E], int g, int klast) {
+  reg_stages<RegRow<LOG2M>::G, E, LOG2M, 1, 0, PAY>(d, id, p, g, 1 << klast,
+                                                    klast);
+}
+
+// The last log2 M stages alone (k = log2 M: every stage ascending).
+template <int LOG2M, bool PAY, int E = RegRow<LOG2M>::E>
+__device__ __forceinline__ void reg_merge(float (&d)[E], int (&id)[E],
+                                          int (&p)[E], int g) {
+  if constexpr (LOG2M > 0)
+    reg_stages<RegRow<LOG2M>::G, E, LOG2M, LOG2M, LOG2M - 1, PAY>(
+        d, id, p, g, 1 << LOG2M, LOG2M);
+}
+
+template <int LOG2M>
+__global__ void __launch_bounds__(kRegWarps * 32)
+    bitonic_reg_kernel(const float* __restrict__ din,
+                       const int* __restrict__ iin,
+                       const int* __restrict__ pin, float* __restrict__ dout,
+                       int* __restrict__ iout, int* __restrict__ pout, int B,
+                       int merge_only) {
+  using R = RegRow<LOG2M>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (R::G - 1);
+  const long row =
+      (static_cast<long>(blockIdx.x) * kRegWarps + (threadIdx.x >> 5)) *
+          R::RPW + lane / R::G;
+  const bool active = row < B;
+  const bool has_pay = pin != nullptr;
+  float d[R::E];
+  int id[R::E], p[R::E];
+#pragma unroll
+  for (int s = 0; s < R::E; ++s) {
+    const long e = row * R::M + s * R::G + g;
+    d[s] = active ? din[e] : 0.f;
+    id[s] = active ? iin[e] : 0;
+    p[s] = active && has_pay ? pin[e] : 0;
+  }
+  if (merge_only)
+    reg_merge<LOG2M, true>(d, id, p, g);
+  else
+    reg_sort<LOG2M, true>(d, id, p, g, LOG2M);
+  if (active) {
+#pragma unroll
+    for (int s = 0; s < R::E; ++s) {
+      const long e = row * R::M + s * R::G + g;
+      dout[e] = d[s];
+      iout[e] = id[s];
+      if (has_pay) pout[e] = p[s];
+    }
+  }
+}
+
+// The engine's Gather merge of one row in registers. Candidates A
+// (sorted, LA wide, an expanded byte each) and proposals B (unsorted, LB
+// wide, a valid byte each) give the first out_w entries of
+//   merge(A ++ filler ++ reversed(sort(B masked, padded to MB)[:LB]))
+// with M = next_pow2(LA + LB), MB = next_pow2(LB) = 2^log2mb: the bits of
+// sort_op(B) then merge_sorted_op(A, B). Invalid proposals become
+// (BIG_DIST, ID_SENTINEL); proposals carry payload 0. B is sorted in its
+// own registers (positions below MB); reversing it onto the top of the
+// merge row is one shuffle a slot: row position q >= M - LB takes B's
+// position M - 1 - q, at lane G - 1 - g, slot E - 1 - s.
+template <int LOG2M>
+__global__ void __launch_bounds__(kRegWarps * 32) merge_unsorted_reg_kernel(
+    const float* __restrict__ cand_d, const int* __restrict__ cand_i,
+    const unsigned char* __restrict__ cand_e,
+    const float* __restrict__ new_d, const int* __restrict__ new_i,
+    const unsigned char* __restrict__ new_valid, float* __restrict__ out_d,
+    int* __restrict__ out_i, unsigned char* __restrict__ out_e, int R,
+    int LA, int LB, int log2mb, int out_w) {
+  using W = RegRow<LOG2M>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (W::G - 1);
+  const long row =
+      (static_cast<long>(blockIdx.x) * kRegWarps + (threadIdx.x >> 5)) *
+          W::RPW + lane / W::G;
+  const bool active = row < R;
+  float md[W::E], bd[W::E];
+  int mi[W::E], mp[W::E], bi[W::E], bp[W::E];
+#pragma unroll
+  for (int s = 0; s < W::E; ++s) {
+    const int q = s * W::G + g;
+    md[s] = kBigDist;
+    mi[s] = kIdSentinel;
+    mp[s] = 0;
+    if (active && q < LA) {
+      md[s] = cand_d[row * LA + q];
+      mi[s] = cand_i[row * LA + q];
+      mp[s] = cand_e[row * LA + q];
+    }
+    bd[s] = kBigDist;
+    bi[s] = kIdSentinel;
+    if (active && q < LB && new_valid[row * LB + q]) {
+      bd[s] = new_d[row * LB + q];
+      bi[s] = new_i[row * LB + q];
+    }
+  }
+  reg_sort<LOG2M, false>(bd, bi, bp, g, log2mb);
+#pragma unroll
+  for (int s = 0; s < W::E; ++s) {
+    const float vd = __shfl_sync(kFull, bd[W::E - 1 - s], W::G - 1 - g, W::G);
+    const int vi = __shfl_sync(kFull, bi[W::E - 1 - s], W::G - 1 - g, W::G);
+    if (s * W::G + g >= W::M - LB) {
+      md[s] = vd;
+      mi[s] = vi;
+      mp[s] = 0;
+    }
+  }
+  reg_merge<LOG2M, true>(md, mi, mp, g);
+  if (active) {
+#pragma unroll
+    for (int s = 0; s < W::E; ++s) {
+      const int q = s * W::G + g;
+      if (q < out_w) {
+        out_d[row * out_w + q] = md[s];
+        out_i[row * out_w + q] = mi[s];
+        out_e[row * out_w + q] = mp[s] != 0;
+      }
+    }
+  }
+}
+
+// Stages k = kfirst..klast of the network over a row in shared memory:
+// `pairs` threads of the row each own one compare-exchange pair, and
+// every thread of the block reaches each barrier. `sp` may be null.
+__device__ void smem_stages(float* sd, int* si, int* sp, int lane, int pairs,
+                            int kfirst, int klast, bool active) {
+  for (int k = kfirst; k <= klast; ++k) {
+    for (int j = k - 1; j >= 0; --j) {
+      const int stride = 1 << j;
+      const int lo = ((lane >> j) << (j + 1)) | (lane & (stride - 1));
+      const int hi = lo | stride;
+      if (active && lane < pairs) {
+        const float d_lo = sd[lo], d_hi = sd[hi];
+        const int i_lo = si[lo], i_hi = si[hi];
+        const bool asc = (lo & (1 << k)) == 0;  // bit k is shared by lo, hi
+        const bool less_lo = partner_less(d_hi, i_hi, d_lo, i_lo);
+        const bool less_hi = partner_less(d_lo, i_lo, d_hi, i_hi);
+        const bool take_lo = asc ? less_lo : !less_lo;   // lo: is_lower
+        const bool take_hi = asc ? !less_hi : less_hi;   // hi: !is_lower
+        sd[lo] = take_lo ? d_hi : d_lo;
+        si[lo] = take_lo ? i_hi : i_lo;
+        sd[hi] = take_hi ? d_lo : d_hi;
+        si[hi] = take_hi ? i_lo : i_hi;
+        if (sp != nullptr) {
+          const int p_lo = sp[lo], p_hi = sp[hi];
+          sp[lo] = take_lo ? p_hi : p_lo;
+          sp[hi] = take_hi ? p_lo : p_hi;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__global__ void bitonic_smem_kernel(const float* __restrict__ din,
+                                    const int* __restrict__ iin,
+                                    const int* __restrict__ pin,
+                                    float* __restrict__ dout,
+                                    int* __restrict__ iout,
+                                    int* __restrict__ pout, int B, int M,
+                                    int log2m, int rows_per_block,
+                                    int merge_only) {
   extern __shared__ float smem[];
   const int half = M > 1 ? M / 2 : 1;
   const int local_row = threadIdx.x / half;
@@ -64,34 +324,8 @@ __global__ void bitonic_kernel(const float* __restrict__ din,
     }
   }
   __syncthreads();
-
-  for (int k = merge_only ? log2m : 1; k <= log2m; ++k) {
-    for (int j = k - 1; j >= 0; --j) {
-      const int stride = 1 << j;
-      const int lo = ((lane >> j) << (j + 1)) | (lane & (stride - 1));
-      const int hi = lo | stride;
-      if (active) {
-        const float d_lo = sd[lo], d_hi = sd[hi];
-        const int i_lo = si[lo], i_hi = si[hi];
-        const bool asc = (lo & (1 << k)) == 0;  // bit k is shared by lo, hi
-        const bool less_lo = lex_less(d_hi, i_hi, d_lo, i_lo);  // lo's partner_less
-        const bool less_hi = lex_less(d_lo, i_lo, d_hi, i_hi);  // hi's partner_less
-        const bool take_lo = asc ? less_lo : !less_lo;          // lo: is_lower
-        const bool take_hi = asc ? !less_hi : less_hi;          // hi: !is_lower
-        sd[lo] = take_lo ? d_hi : d_lo;
-        si[lo] = take_lo ? i_hi : i_lo;
-        sd[hi] = take_hi ? d_lo : d_hi;
-        si[hi] = take_hi ? i_lo : i_hi;
-        if (has_pay) {
-          const int p_lo = sp[lo], p_hi = sp[hi];
-          sp[lo] = take_lo ? p_hi : p_lo;
-          sp[hi] = take_hi ? p_lo : p_hi;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
+  smem_stages(sd, si, has_pay ? sp : nullptr, lane, M / 2,
+              merge_only ? log2m : 1, log2m, active);
   if (active) {
     for (int e = lane; e < M; e += half) {
       dout[row * M + e] = sd[e];
@@ -101,20 +335,153 @@ __global__ void bitonic_kernel(const float* __restrict__ din,
   }
 }
 
+// The Gather merge of merge_unsorted_reg_kernel for rows wider than the
+// register body: B sorts in its own MB-wide shared row, then lands
+// reversed on the top of the merge row.
+__global__ void merge_unsorted_smem_kernel(
+    const float* __restrict__ cand_d, const int* __restrict__ cand_i,
+    const unsigned char* __restrict__ cand_e,
+    const float* __restrict__ new_d, const int* __restrict__ new_i,
+    const unsigned char* __restrict__ new_valid, float* __restrict__ out_d,
+    int* __restrict__ out_i, unsigned char* __restrict__ out_e, int R,
+    int LA, int LB, int M, int log2m, int log2mb, int out_w,
+    int rows_per_block) {
+  extern __shared__ float smem[];
+  const int half = M / 2;
+  const int mb = 1 << log2mb;
+  const int local_row = threadIdx.x / half;
+  const int lane = threadIdx.x - local_row * half;
+  const long row = static_cast<long>(blockIdx.x) * rows_per_block + local_row;
+  const bool active = row < R;
+
+  const int rm = rows_per_block * M;
+  float* sd = smem + local_row * M;
+  int* si = reinterpret_cast<int*>(smem + rm) + local_row * M;
+  int* sp = reinterpret_cast<int*>(smem + 2 * rm) + local_row * M;
+  float* bd = smem + 3 * rm + local_row * mb;
+  int* bi = reinterpret_cast<int*>(smem + 3 * rm + rows_per_block * mb) +
+            local_row * mb;
+
+  if (active) {
+    for (int q = lane; q < M; q += half) {
+      const bool a = q < LA;
+      sd[q] = a ? cand_d[row * LA + q] : kBigDist;
+      si[q] = a ? cand_i[row * LA + q] : kIdSentinel;
+      sp[q] = a ? cand_e[row * LA + q] : 0;
+    }
+    for (int r = lane; r < mb; r += half) {
+      const bool v = r < LB && new_valid[row * LB + r];
+      bd[r] = v ? new_d[row * LB + r] : kBigDist;
+      bi[r] = v ? new_i[row * LB + r] : kIdSentinel;
+    }
+  }
+  __syncthreads();
+  smem_stages(bd, bi, nullptr, lane, mb / 2, 1, log2mb, active);
+  if (active) {
+    for (int r = lane; r < LB; r += half) {
+      sd[M - 1 - r] = bd[r];
+      si[M - 1 - r] = bi[r];
+      sp[M - 1 - r] = 0;
+    }
+  }
+  __syncthreads();
+  smem_stages(sd, si, sp, lane, half, log2m, log2m, active);
+  if (active) {
+    for (int q = lane; q < out_w; q += half) {
+      out_d[row * out_w + q] = sd[q];
+      out_i[row * out_w + q] = si[q];
+      out_e[row * out_w + q] = sp[q] != 0;
+    }
+  }
+}
+
+// Calls f(std::integral_constant<int, log2m>) for log2m in
+// [0, kRegMaxLog2].
+template <typename F>
+int with_log2m(int log2m, F&& f) {
+  switch (log2m) {
+    case 0: return f(std::integral_constant<int, 0>{});
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int log2_ceil(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
 }  // namespace
 
-// Plain C entry point for ctypes. `pin`/`pout` are null without a
-// payload lane. Launches on `stream`, allocates nothing, and returns
-// cudaGetLastError() right after the launch.
+// Plain C entry points for ctypes. Each launches on `stream`, allocates
+// nothing, and returns cudaGetLastError() right after the launch.
+// `shared` != 0 runs the shared-memory body at any width (to hold the two
+// bodies against each other); otherwise rows of M <= 128 take the
+// register body.
+
+// Sort (merge_only = 0) or merge pass (merge_only = 1) over the rows of
+// (B, M), M = 2^log2m; `pin`/`pout` are null without a payload lane.
 extern "C" int bitonic_launch(const float* din, const int* iin, const int* pin,
                               float* dout, int* iout, int* pout, int B, int M,
-                              int log2m, int rows_per_block, int merge_only,
+                              int log2m, int merge_only, int shared,
                               void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shared && log2m <= kRegMaxLog2) {
+    return with_log2m(log2m, [&](auto l) {
+      constexpr int kLog2 = decltype(l)::value;
+      constexpr int rows = kRegWarps * RegRow<kLog2>::RPW;
+      bitonic_reg_kernel<kLog2><<<(B + rows - 1) / rows, kRegWarps * 32, 0,
+                                  st>>>(din, iin, pin, dout, iout, pout, B,
+                                        merge_only);
+      return static_cast<int>(cudaGetLastError());
+    });
+  }
   const int half = M > 1 ? M / 2 : 1;
-  const int blocks = (B + rows_per_block - 1) / rows_per_block;
-  const size_t smem = static_cast<size_t>(3) * rows_per_block * M * sizeof(float);
-  bitonic_kernel<<<blocks, rows_per_block * half, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      din, iin, pin, dout, iout, pout, B, M, log2m, rows_per_block, merge_only);
+  const int per_block = kSmemThreads / half > 0 ? kSmemThreads / half : 1;
+  const int rows = B < per_block ? B : per_block;
+  const size_t smem = static_cast<size_t>(3) * rows * M * sizeof(float);
+  bitonic_smem_kernel<<<(B + rows - 1) / rows, rows * half, smem, st>>>(
+      din, iin, pin, dout, iout, pout, B, M, log2m, rows, merge_only);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The Gather merge: cand_* (R, LA) sorted, new_* (R, LB) unsorted with a
+// valid byte each -> out_* (R, out_w), out_w <= LA + LB; bool operands
+// are bytes (read as 0/nonzero, written as 0/1).
+extern "C" int merge_unsorted_launch(
+    const float* cand_d, const int* cand_i, const unsigned char* cand_e,
+    const float* new_d, const int* new_i, const unsigned char* new_valid,
+    float* out_d, int* out_i, unsigned char* out_e, int R, int LA, int LB,
+    int out_w, int shared, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int log2m = log2_ceil(LA + LB);
+  const int log2mb = log2_ceil(LB);
+  if (!shared && log2m <= kRegMaxLog2) {
+    return with_log2m(log2m, [&](auto l) {
+      constexpr int kLog2 = decltype(l)::value;
+      constexpr int rows = kRegWarps * RegRow<kLog2>::RPW;
+      merge_unsorted_reg_kernel<kLog2>
+          <<<(R + rows - 1) / rows, kRegWarps * 32, 0, st>>>(
+              cand_d, cand_i, cand_e, new_d, new_i, new_valid, out_d, out_i,
+              out_e, R, LA, LB, log2mb, out_w);
+      return static_cast<int>(cudaGetLastError());
+    });
+  }
+  const int M = 1 << log2m;
+  const int half = M / 2;
+  const int per_block = kSmemThreads / half > 0 ? kSmemThreads / half : 1;
+  const int rows = R < per_block ? R : per_block;
+  const size_t smem =
+      static_cast<size_t>(3 * M + 2 * (1 << log2mb)) * rows * sizeof(float);
+  merge_unsorted_smem_kernel<<<(R + rows - 1) / rows, rows * half, smem, st>>>(
+      cand_d, cand_i, cand_e, new_d, new_i, new_valid, out_d, out_i, out_e, R,
+      LA, LB, M, log2m, log2mb, out_w, rows);
   return static_cast<int>(cudaGetLastError());
 }

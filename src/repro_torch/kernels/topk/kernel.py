@@ -1,13 +1,15 @@
 """Bitonic sort / merge (§IV-A "bitonic sorting" on the FPGA) — the
-hand-written CUDA kernel's wrappers.
+hand-written CUDA kernels' wrappers.
 
 The paper offloads top-k selection to a bitonic sorting network on the
-SmartSSD FPGA. Here one CUDA kernel (``csrc/bitonic.cu``) runs the
-network over each row of (B, M) in shared memory: the full network for
-:func:`bitonic_sort`, only the final merge pass for
-:func:`bitonic_merge`. Rows sort ascending by (dist, id)
-lexicographically; at most one i32 payload lane rides along (the engine
-packs its ``expanded`` flags into it).
+SmartSSD FPGA. Here ``csrc/bitonic.cu`` runs the network over each row
+of (B, M), in one warp's registers up to M = 128 and in shared memory
+beyond: the full network for :func:`bitonic_sort`, only the final merge
+pass for :func:`bitonic_merge`. Rows sort ascending by (dist, id)
+lexicographically; at most one i32 payload lane rides along.
+:func:`merge_unsorted` is the engine's Gather merge in one launch: it
+masks and sorts the proposals and merges them into the sorted candidate
+list, its ``expanded`` flags riding along as bytes.
 """
 from __future__ import annotations
 
@@ -16,7 +18,9 @@ import math
 import torch
 
 from repro_torch.kernels.build import Kernel, check_cuda_operands
-from repro_torch.kernels.topk.ref import bitonic_merge_ref, bitonic_sort_ref
+from repro_torch.kernels.topk.ref import (bitonic_merge_ref, bitonic_sort_ref,
+                                          merge_unsorted_ref)
+from repro_torch.utils import next_pow2
 
 SORT_KERNEL = Kernel(name="bitonic_sort", source="bitonic.cu",
                      entry="bitonic_launch",
@@ -24,12 +28,16 @@ SORT_KERNEL = Kernel(name="bitonic_sort", source="bitonic.cu",
 MERGE_KERNEL = Kernel(name="bitonic_merge", source="bitonic.cu",
                       entry="bitonic_launch",
                       replaces="src/repro/kernels/topk/kernel.py:130")
+MERGE_UNSORTED_KERNEL = Kernel(
+    name="bitonic_merge_unsorted", source="bitonic.cu",
+    entry="merge_unsorted_launch",
+    replaces="src/repro/kernels/topk/kernel.py:118,130")
 
 MAX_M = 2048
-ROW_THREADS = 256      # threads per block when several rows share one
 
 
-def _launch_rows(kernel: Kernel, dists, ids, payload, merge_only: bool):
+def _launch_rows(kernel: Kernel, dists, ids, payload, merge_only: bool,
+                 shared: bool):
     B, M = dists.shape
     if M < 1 or M > MAX_M or M & (M - 1):
         raise ValueError(f"{kernel.name}: row width M={M} must be a power "
@@ -45,31 +53,32 @@ def _launch_rows(kernel: Kernel, dists, ids, payload, merge_only: bool):
     outs = [torch.empty_like(x) for x in (dists, ids) + payload]
     if B == 0:
         return tuple(outs)
-    half = max(1, M // 2)
-    rows = max(1, min(B, ROW_THREADS // half))
     pin, pout = ((payload[0].data_ptr(), outs[2].data_ptr()) if payload
                  else (None, None))
     kernel.launch(dists.data_ptr(), ids.data_ptr(), pin, outs[0].data_ptr(),
-                  outs[1].data_ptr(), pout, B, M, int(math.log2(M)), rows,
-                  int(merge_only))
+                  outs[1].data_ptr(), pout, B, M, int(math.log2(M)),
+                  int(merge_only), int(shared))
     return tuple(outs)
 
 
 def bitonic_sort(dists: torch.Tensor, ids: torch.Tensor,
-                 *payload: torch.Tensor):
+                 *payload: torch.Tensor, shared: bool = False):
     """Ascending lexicographic (dist, id) sort of each row.
 
     dists (B, M) f32, ids (B, M) i32, M a power of two <= 2048, at most
     one (B, M) i32 payload lane permuted alongside the keys. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise.
+    ``shared`` runs the shared-memory body at any width (the register
+    body takes M <= 128 otherwise), to hold the two against each other.
     """
     if not dists.is_cuda:
         return bitonic_sort_ref(dists, ids, *payload)
-    return _launch_rows(SORT_KERNEL, dists, ids, payload, merge_only=False)
+    return _launch_rows(SORT_KERNEL, dists, ids, payload, merge_only=False,
+                        shared=shared)
 
 
 def bitonic_merge(dists: torch.Tensor, ids: torch.Tensor,
-                  *payload: torch.Tensor):
+                  *payload: torch.Tensor, shared: bool = False):
     """Single merge pass over rows that are already *bitonic* in
     lexicographic (dist, id) order (ascending run, then descending run).
 
@@ -79,4 +88,50 @@ def bitonic_merge(dists: torch.Tensor, ids: torch.Tensor,
     """
     if not dists.is_cuda:
         return bitonic_merge_ref(dists, ids, *payload)
-    return _launch_rows(MERGE_KERNEL, dists, ids, payload, merge_only=True)
+    return _launch_rows(MERGE_KERNEL, dists, ids, payload, merge_only=True,
+                        shared=shared)
+
+
+def merge_unsorted(cand_d: torch.Tensor, cand_i: torch.Tensor,
+                   cand_e: torch.Tensor, new_d: torch.Tensor,
+                   new_i: torch.Tensor, new_valid: torch.Tensor, out_w: int,
+                   *, shared: bool = False):
+    """The Gather merge in one launch: sorted candidate rows and unsorted
+    proposals in, the first ``out_w`` merged (d, i, expanded) out.
+
+    cand_d (R, LA) f32 sorted by (dist, id), cand_i (R, LA) i32, cand_e
+    (R, LA) bool; new_d (R, LB) f32 and new_i (R, LB) i32 unsorted,
+    new_valid (R, LB) bool (invalid proposals become (BIG_DIST,
+    ID_SENTINEL)); proposals carry expanded = False. 1 <= out_w <= LA +
+    LB, LA + LB <= 2048. Bit for bit ``sort_op`` of the masked proposals
+    then ``merge_sorted_op``, cut to ``out_w``. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise (every operand
+    contiguous, of its dtype, on the current device: nothing is copied).
+    """
+    R, la = cand_d.shape
+    lb = new_d.shape[-1]
+    name = MERGE_UNSORTED_KERNEL.name
+    if la < 1 or lb < 1 or next_pow2(la + lb) > MAX_M:
+        raise ValueError(f"{name}: widths LA={la}, LB={lb} must be >= 1 "
+                         f"with next_pow2(LA + LB) <= {MAX_M}")
+    if not 1 <= out_w <= la + lb:
+        raise ValueError(f"{name}: out_w={out_w} not in [1, {la + lb}]")
+    if not cand_d.is_cuda:
+        return merge_unsorted_ref(cand_d, cand_i, cand_e, new_d, new_i,
+                                  new_valid, out_w)
+    check_cuda_operands(name, {
+        "cand_d": (cand_d, torch.float32, (R, la)),
+        "cand_i": (cand_i, torch.int32, (R, la)),
+        "cand_e": (cand_e, torch.bool, (R, la)),
+        "new_d": (new_d, torch.float32, (R, lb)),
+        "new_i": (new_i, torch.int32, (R, lb)),
+        "new_valid": (new_valid, torch.bool, (R, lb))})
+    out_d = cand_d.new_empty((R, out_w))
+    out_i = cand_i.new_empty((R, out_w))
+    out_e = cand_e.new_empty((R, out_w))
+    if R:
+        MERGE_UNSORTED_KERNEL.launch(
+            *(x.data_ptr() for x in (cand_d, cand_i, cand_e, new_d, new_i,
+                                     new_valid, out_d, out_i, out_e)),
+            R, la, lb, out_w, int(shared))
+    return out_d, out_i, out_e

@@ -5,6 +5,13 @@ import math
 
 import torch
 
+from repro_torch.utils import BIG_DIST, ID_SENTINEL, next_pow2
+
+
+def filler(like: torch.Tensor, width: int, value) -> torch.Tensor:
+    """(rows of ``like``, width) of ``value``, in ``like``'s dtype."""
+    return like.new_full((like.shape[0], width), value)
+
 
 def lexsort_pairs(dists: torch.Tensor, ids: torch.Tensor,
                   *payload: torch.Tensor):
@@ -77,3 +84,27 @@ def bitonic_merge_ref(dists: torch.Tensor, ids: torch.Tensor,
     same result but re-sort sorted data)."""
     d, i, pay = merge_network(dists, ids, payload)
     return (d, i) + tuple(pay)
+
+
+def merge_unsorted_ref(cand_d, cand_i, cand_e, new_d, new_i, new_valid,
+                       out_w: int):
+    """Plain version of the fused Gather merge: invalid proposals become
+    (BIG_DIST, ID_SENTINEL) with payload 0; the proposals, padded to a
+    power of two, are sorted and cut back to their width; then the row
+    A ++ filler ++ reversed(B) runs the merge network, and the first
+    ``out_w`` entries of (d, i, expanded) come back. The same bits as
+    ``sort_op`` then ``merge_sorted_op`` on the masked proposals."""
+    la, lb = cand_d.shape[1], new_d.shape[1]
+    nd = torch.where(new_valid, new_d, BIG_DIST)
+    ni = torch.where(new_valid, new_i, ID_SENTINEL)
+    padb = next_pow2(lb) - lb
+    nd, ni = lexsort_pairs(torch.cat([nd, filler(nd, padb, BIG_DIST)], 1),
+                           torch.cat([ni, filler(ni, padb, ID_SENTINEL)], 1))
+    nd, ni = nd[:, :lb], ni[:, :lb]
+    padw = next_pow2(la + lb) - la - lb
+    pay = cand_e.to(torch.int32)
+    d, i, (p,) = merge_network(
+        torch.cat([cand_d, filler(cand_d, padw, BIG_DIST), nd.flip(1)], 1),
+        torch.cat([cand_i, filler(cand_i, padw, ID_SENTINEL), ni.flip(1)], 1),
+        (torch.cat([pay, filler(pay, padw + lb, 0)], 1),))
+    return d[:, :out_w], i[:, :out_w], p[:, :out_w] != 0

@@ -142,24 +142,31 @@ def test_merge_pairs_matches_jnp(mode, la, lb):
 @pytest.mark.parametrize("lb", [16, 20])
 def test_merge_unsorted_matches_jnp(mode, lb):
     """The Gather stage's real shape: sorted candidate list (with
-    sentinel padding) + unsorted proposals (with masked entries)."""
+    sentinel padding) + unsorted proposals (with masked entries), cut to
+    the candidate width and to the full merged width. The port masks the
+    invalid proposals itself; the reference gets them pre-masked with an
+    all-False payload lane, as its engine hands them over."""
     B, la = 6, 32
     da, ia = _sorted_rows(B, la, 3)
     da[:, 20:], ia[:, 20:] = np.float32(BIG_DIST), ID_SENTINEL
     rng = np.random.default_rng(lb)
     db = rng.integers(0, 6, (B, lb)).astype(np.float32)
     ib = (B * la + rng.permutation(B * lb).reshape(B, lb)).astype(np.int32)
-    db[:, ::5], ib[:, ::5] = np.float32(BIG_DIST), ID_SENTINEL
+    vb = np.ones((B, lb), bool)
+    vb[:, ::5] = False
     ea = rng.integers(0, 2, (B, la)).astype(bool)
     ea[:, 20:] = False
     eb = np.zeros((B, lb), bool)
-    want = JNP.merge_unsorted(*(jnp.asarray(x) for x in (da, ia, db, ib)),
+    db_m = np.where(vb, db, np.float32(BIG_DIST))
+    ib_m = np.where(vb, ib, ID_SENTINEL).astype(np.int32)
+    want = JNP.merge_unsorted(*(jnp.asarray(x) for x in (da, ia, db_m, ib_m)),
                               pay_a=(jnp.asarray(ea),),
                               pay_b=(jnp.asarray(eb),))
-    ta, tia, tb, tib, tea, teb = _t(da, ia, db, ib, ea, eb)
-    got = KernelBackend(mode=mode).merge_unsorted(ta, tia, tb, tib,
-                                                  pay_a=(tea,), pay_b=(teb,))
-    _eq(got, want)
+    for out_w in (la, la + lb):
+        got = KernelBackend(mode=mode).merge_unsorted(
+            *_t(da, ia, ea, db, ib, vb), out_w)
+        assert got[2].dtype == torch.bool
+        _eq(got, tuple(w[:, :out_w] for w in want))
 
 
 def test_paged_view_matches_reference():

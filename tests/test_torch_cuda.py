@@ -22,7 +22,11 @@ from repro_torch.kernels.flash_attention import (attention_op, attention_ref,
 from repro_torch.kernels.flash_attention.kernel import KERNEL as FLASH
 from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
                                       bitonic_sort, bitonic_sort_ref,
-                                      merge_sorted_op, sort_op)
+                                      merge_sorted_op, merge_unsorted,
+                                      merge_unsorted_op, merge_unsorted_ref,
+                                      sort_op)
+from repro_torch.kernels.topk.kernel import MERGE_UNSORTED_KERNEL as FUSED
+from repro_torch.utils import BIG_DIST, ID_SENTINEL
 
 pytestmark = pytest.mark.cuda
 
@@ -115,14 +119,39 @@ def _rows(B, M, dev, seed):
     return d, i.int(), p.int()
 
 
+def _bits_equal(got, want):
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32:     # -0.0 and NaN compare by bits
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("B,M", [(256, 16), (256, 64), (3, 1), (5, 2),
-                                 (2, 2048), (300, 32)])
+                                 (2, 2048), (300, 32), (7, 128), (9, 256)])
 def test_bitonic_sort_matches_plain(dev, B, M):
+    """Both bodies (registers up to M 128, shared memory beyond, or at
+    any width when asked) against the plain version and each other."""
     d, i, p = _rows(B, M, dev, seed=M)
     for got, want in ((bitonic_sort(d, i, p), bitonic_sort_ref(d, i, p)),
-                      (bitonic_sort(d, i), bitonic_sort_ref(d, i))):
+                      (bitonic_sort(d, i), bitonic_sort_ref(d, i)),
+                      (bitonic_sort(d, i, p, shared=True),
+                       bitonic_sort_ref(d, i, p))):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,M", [(256, 16), (256, 64), (33, 128), (5, 2048)])
+def test_bitonic_bodies_agree_on_ties_and_special_values(dev, B, M):
+    """Exact (dist, id) ties with differing payloads, -0.0 / 0.0 and NaN:
+    the register body gives the shared-memory body's bits (the network's
+    own answer, which a stable sort need not give)."""
+    d, i, p = _rows(B, M, dev, seed=M + 1)
+    i = i % max(1, M // 4)
+    d[:, 0], d[:, 1], i[:, 1] = -0.0, 0.0, i[:, 0]
+    d[:, 2], d[:, 3] = float("nan"), float("inf")
+    for fn in (bitonic_sort, bitonic_merge):
+        _bits_equal(fn(d, i, p), fn(d, i, p, shared=True))
+    _bits_equal(bitonic_merge(d, i, p), bitonic_merge_ref(d, i, p))
 
 
 @pytest.mark.parametrize("la,lb", [(32, 16), (13, 10), (3, 29), (1000, 1000)])
@@ -147,6 +176,78 @@ def test_bitonic_merge_wrapper_on_bitonic_rows(dev):
     d, i, p = (torch.cat([x[:, :32], x[:, 32:].flip(1)], 1) for x in (d, i, p))
     for g, w in zip(bitonic_merge(d, i, p), bitonic_merge_ref(d, i, p)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _gather_case(R, la, lb, dev, seed, special=False):
+    """Sorted candidates with expanded flags (sentinel tail), unsorted
+    proposals with ties against the candidates, duplicates and invalid
+    entries; row 0 all invalid, row 1 all valid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cd, ci, ce = bitonic_sort_ref(*_rows(R, la, dev, seed))
+    ce = ce.bool()
+    tail = la - la // 4
+    cd[:, tail:], ci[:, tail:], ce[:, tail:] = BIG_DIST, ID_SENTINEL, False
+    nd = torch.randint(0, 6, (R, lb), generator=g, device=dev).float()
+    ni = torch.randint(0, la + lb, (R, lb), generator=g, device=dev).int()
+    nv = torch.rand((R, lb), generator=g, device=dev) < 0.7
+    nv[0], nv[min(1, R - 1)] = False, True
+    if special and lb >= 4:
+        nd[:, 0], nd[:, 1], ni[:, 1] = -0.0, 0.0, ni[:, 0]
+        nd[:, 2], nd[:, 3] = float("nan"), float("inf")
+    return cd, ci.contiguous(), ce, nd, ni, nv
+
+
+def _two_launch(cd, ci, ce, nd, ni, nv, out_w):
+    """The two-launch composition on the card: bitonic_sort of the masked
+    proposals, then bitonic_merge of A ++ filler ++ reversed(B)."""
+    sd, si = sort_op(torch.where(nv, nd, BIG_DIST),
+                     torch.where(nv, ni, ID_SENTINEL), mode="cuda")
+    d, i, e = merge_sorted_op(cd, ci, sd, si, (ce.int(),),
+                              (torch.zeros_like(si),), mode="cuda")
+    return d[:, :out_w], i[:, :out_w], e[:, :out_w] != 0
+
+
+@pytest.mark.parametrize("R,la,lb", [(256, 32, 16), (255, 32, 16),
+                                     (64, 13, 10), (8, 3, 29), (50, 1, 1),
+                                     (40, 100, 28), (6, 1500, 548),
+                                     (4, 1024, 1024)])
+def test_merge_unsorted_matches_plain_and_two_launches(dev, R, la, lb):
+    """The fused Gather merge, register body (LA + LB <= 128) and
+    shared-memory body, against its plain version, the two-launch cuda
+    composition and the other body, at out_w = LA and LA + LB."""
+    case = _gather_case(R, la, lb, dev, seed=la + lb)
+    for out_w in (la, la + lb):
+        before = FUSED.launches
+        got = merge_unsorted(*case, out_w)
+        assert FUSED.launches == before + 1
+        _bits_equal(got, merge_unsorted_ref(*case, out_w))
+        _bits_equal(got, _two_launch(*case, out_w))
+        _bits_equal(got, merge_unsorted(*case, out_w, shared=True))
+        _bits_equal(got, merge_unsorted_op(*case, out_w, mode="cuda"))
+
+
+@pytest.mark.parametrize("R,la,lb", [(256, 32, 16), (9, 1000, 40)])
+def test_merge_unsorted_special_values_match_two_launches(dev, R, la, lb):
+    case = _gather_case(R, la, lb, dev, seed=3, special=True)
+    got = merge_unsorted(*case, la)
+    _bits_equal(got, _two_launch(*case, la))
+    _bits_equal(got, merge_unsorted(*case, la, shared=True))
+
+
+def test_merge_unsorted_rejects_bad_operands(dev):
+    cd, ci, ce, nd, ni, nv = _gather_case(8, 32, 16, dev, seed=0)
+    before = FUSED.launches
+    with pytest.raises(TypeError):
+        merge_unsorted(cd, ci.long(), ce, nd, ni, nv, 32)
+    with pytest.raises(TypeError):
+        merge_unsorted(cd, ci, ce.int(), nd, ni, nv, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge_unsorted(cd, ci, ce, nd.t().contiguous().t(), ni, nv, 32)
+    with pytest.raises(ValueError):
+        merge_unsorted(cd, ci, ce, nd, ni, nv.cpu(), 32)
+    with pytest.raises(ValueError, match="out_w"):
+        merge_unsorted(cd, ci, ce, nd, ni, nv, 49)
+    assert FUSED.launches == before
 
 
 def test_sort_rejects_bad_widths(dev):
@@ -180,11 +281,12 @@ def test_search_sim_cuda_matches_cpu_ref(dev):
                                     device=where)
         out[mode] = (ids.cpu(), dists.cpu(),
                      {k: v.cpu() for k, v in st.items() if k != "host_syncs"})
-        if mode == "cuda":
+        if mode == "cuda":     # one fused Gather merge per round
             counts = launch_counts()
-            assert all(counts[k] > 0 for k in ("paged_distance",
-                                               "bitonic_sort",
-                                               "bitonic_merge"))
+            assert counts["paged_distance"] > 0
+            assert counts["bitonic_merge_unsorted"] == \
+                int(st["total_rounds"].max())
+            assert counts["bitonic_sort"] == counts["bitonic_merge"] == 0
     for a, b in zip(out["cuda"][:2], out["ref"][:2]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     for k, v in out["ref"][2].items():
@@ -290,5 +392,5 @@ def test_serve_cli_on_card(dev, capsys):
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["device"] == torch.cuda.get_device_name(dev)
     assert all(res["launches"]["retrieval"][k] > 0 for k in (
-        "paged_distance", "bitonic_sort", "bitonic_merge"))
+        "paged_distance", "bitonic_merge_unsorted"))
     assert res["launches"]["generate"]["flash_attention"] == 4

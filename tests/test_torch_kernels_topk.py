@@ -1,6 +1,7 @@
-"""Bitonic sort / top-k / merge: the port's ops and plain versions vs the
-reference's Pallas networks (interpret mode), exactly — ties,
-non-power-of-two widths and one payload lane included."""
+"""Bitonic sort / top-k / merge and the fused Gather merge: the port's
+ops and plain versions vs the reference's Pallas networks (interpret
+mode), exactly — ties, non-power-of-two widths and one payload lane
+included."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +12,9 @@ from repro.kernels.topk import bitonic_merge as j_merge
 from repro.kernels.topk import bitonic_sort as j_sort
 from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
                                       bitonic_sort, bitonic_sort_ref,
-                                      merge_sorted_op, sort_op, topk_op)
+                                      merge_sorted_op, merge_unsorted,
+                                      merge_unsorted_op, sort_op, topk_op)
+from repro_torch.utils import BIG_DIST, ID_SENTINEL
 
 
 def _eq(got, want):
@@ -139,3 +142,66 @@ def test_cuda_mode_on_cpu_tensors_raises():
         merge_sorted_op(d, i, d, i, mode="cuda")
     with pytest.raises(ValueError):
         merge_sorted_op(d, i, d, i, pay_a=(i,), mode="ref")
+
+
+def _gather_rows(B, la, lb, invalid, seed):
+    """Sorted candidates (expanded flags, dist ties) and unsorted
+    proposals: some share a candidate's (dist, id) with another payload,
+    one duplicates another proposal; ``invalid`` in some/none/all."""
+    rng = np.random.default_rng(seed)
+    da = rng.integers(0, 4, (B, la)).astype(np.float32)
+    ia = rng.permutation(B * la).reshape(B, la).astype(np.int32)
+    ea = rng.integers(0, 2, (B, la)).astype(np.int32)
+    da, ia, ea = (np.asarray(x) for x in jax.lax.sort(
+        (jnp.asarray(da), jnp.asarray(ia), jnp.asarray(ea)), num_keys=2))
+    db = rng.integers(0, 4, (B, lb)).astype(np.float32)
+    ib = (B * la + rng.permutation(B * lb).reshape(B, lb)).astype(np.int32)
+    k = min(la, lb)
+    db[:, :k:2], ib[:, :k:2] = da[:, :k:2], ia[:, :k:2]   # ties across A, B
+    if lb >= 3:
+        db[:, -1], ib[:, -1] = db[:, 1], ib[:, 1]          # a duplicate
+    valid = {"some": rng.random((B, lb)) < 0.6,
+             "none": np.zeros((B, lb), bool),
+             "all": np.ones((B, lb), bool)}[invalid]
+    return da, ia, ea.astype(bool), db, ib, valid
+
+
+@pytest.mark.parametrize("invalid", ["some", "none", "all"])
+@pytest.mark.parametrize("la,lb", [(32, 16), (13, 10), (3, 29), (7, 1),
+                                   (1, 5)])
+def test_merge_unsorted_op_matches_pallas_sort_then_merge(la, lb, invalid):
+    """The fused op's plain version vs the reference's sort_op of the
+    masked proposals then merge_sorted_op (interpret mode), cut to
+    out_w: exact."""
+    from repro.kernels.topk import merge_sorted_op as j_merge_op
+    from repro.kernels.topk import sort_op as j_sort_op
+    B = 5
+    da, ia, ea, db, ib, valid = _gather_rows(B, la, lb, invalid,
+                                             seed=la * 31 + lb)
+    sd, si, sp = j_sort_op(np.where(valid, db, np.float32(BIG_DIST)),
+                           np.where(valid, ib, ID_SENTINEL).astype(np.int32),
+                           np.zeros((B, lb), np.int32), mode="interpret")
+    want = j_merge_op(da, ia, sd, si, pay_a=(ea.astype(np.int32),),
+                      pay_b=(sp,), mode="interpret")
+    for out_w in (la, la + lb):
+        w = (want[0][:, :out_w], want[1][:, :out_w],
+             np.asarray(want[2][:, :out_w]) != 0)
+        got = merge_unsorted_op(*_t(da, ia, ea, db, ib, valid), out_w,
+                                mode="ref")
+        assert got[2].dtype == torch.bool
+        _eq(got, w)
+        _eq(merge_unsorted(*_t(da, ia, ea, db, ib, valid), out_w), w)
+
+
+def test_merge_unsorted_rejects_bad_widths_and_cuda_on_cpu():
+    da, ia, ea, db, ib, valid = _t(*_gather_rows(2, 8, 4, "some", seed=0))
+    for out_w in (0, 13):
+        with pytest.raises(ValueError, match="out_w"):
+            merge_unsorted(da, ia, ea, db, ib, valid, out_w)
+    with pytest.raises(ValueError, match="widths"):
+        merge_unsorted(da[:, :0], ia[:, :0], ea[:, :0], db, ib, valid, 1)
+    big = torch.zeros((2, 2045))
+    with pytest.raises(ValueError, match="widths"):
+        merge_unsorted(big, big.int(), big.bool(), db, ib, valid, 8)
+    with pytest.raises(ValueError, match="cuda"):
+        merge_unsorted_op(da, ia, ea, db, ib, valid, 8, mode="cuda")

@@ -152,7 +152,8 @@ def test_cli_runs_on_cpu(capsys):
         assert np.isfinite(res[key]) and res[key] > 0
     # on the CPU every wrapper takes its plain version: nothing launches
     assert set(res["launches"]["generate"]) == {
-        "paged_distance", "bitonic_sort", "bitonic_merge", "flash_attention"}
+        "paged_distance", "bitonic_sort", "bitonic_merge",
+        "bitonic_merge_unsorted", "flash_attention"}
     assert not any(res["launches"]["retrieval"].values())
 
 
