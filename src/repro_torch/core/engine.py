@@ -20,19 +20,26 @@ The shard axis leads every array; the exchange between shards is a swap
 of the (source, destination) bucket axes. Every stage works on all
 shards at once — the reference's ``vmap`` over shards is written out as
 that leading axis — so phase B is one distance launch per round over all
-shards, and the merge one sort and one merge launch.
+shards, and the Gather merge one fused ``merge_unsorted`` launch.
 
 Hot paths dispatch through ``EngineParams.kernel_mode`` (a
 :class:`repro_torch.core.backend.KernelBackend`): phase-B distances
 become paged SiN kernel reads grouped by physical page, and the merge
 runs the bitonic network — or inline torch ops in ``torch`` mode. All
 modes are bit-identical on integer-valued vectors.
+
+Two drivers step the same ``_sim_round``: the one-shot ``search_sim``
+and the round-stepper API of the streaming scheduler
+(``engine_init / engine_round / engine_admit / engine_retire /
+engine_run_chunk / engine_run_chunk_admit``, bundled by
+``make_stepper``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.backend import KernelBackend
@@ -45,6 +52,10 @@ from repro_torch.core.traversal import (dedup_in_round, merge_candidates,
                                         select_expand)
 from repro_torch.utils import (BIG_DIST, ID_SENTINEL, INVALID, bloom_insert,
                                bloom_query, resolve_device)
+
+# the deadline of a row with no deadline: an age no row reaches (the
+# reference keeps it in ft/inject.py)
+NEVER = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +119,10 @@ class EngineParams:
     coalesce_qb: int = 8            # per-page query-tile width in kernel
                                     # modes: one page read serves up to
                                     # this many assignments (0 = per-item)
+    deadline_rounds: int = 0        # force-retire a row once it has aged
+                                    # this many serving-clock rounds since
+                                    # admission (best-so-far top-k, the
+                                    # `truncated` flag set); 0 = NEVER
 
     @property
     def backend(self) -> KernelBackend:
@@ -136,6 +151,9 @@ class EngineState(NamedTuple):
     done: torch.Tensor       # (S, Qs)
     rounds: torch.Tensor     # (S, Qs) rounds the row actually worked
     n_dist: torch.Tensor     # (S, Qs)
+    age: torch.Tensor        # (S, Qs) serving-clock rounds since admission
+    deadline: torch.Tensor   # (S, Qs) age at which the row is force-retired
+    truncated: torch.Tensor  # (S, Qs) bool: retired by its deadline
     items_recv: torch.Tensor     # (S,) items received by this shard's SiN
     pages_unique: torch.Tensor   # (S,) unique page reads (dynamic allocating)
     drops_b: torch.Tensor        # (S,) phase-B overflow drops at this source
@@ -168,8 +186,10 @@ def _init_state(queries, qq, entry_vec, entry_norm, entry_id: int,
     bloom = bloom_insert(bloom, cand_i[..., :1], ~cand_e[..., :1])
     z = torch.zeros((S, Qs), dtype=torch.int32, device=dev)
     zs = torch.zeros((S,), dtype=torch.int32, device=dev)
-    return EngineState(cand_d, cand_i, cand_e, bloom, z.bool(), z, z,
-                       zs, zs, zs, zs)
+    dl = params.deadline_rounds if params.deadline_rounds > 0 else NEVER
+    return EngineState(cand_d, cand_i, cand_e, bloom, z.bool(), z, z, z,
+                       torch.full((S, Qs), dl, dtype=torch.int32,
+                                  device=dev), z.bool(), zs, zs, zs, zs)
 
 
 def _fa_select(state: EngineState, params: EngineParams, geom: EngineGeom):
@@ -313,6 +333,7 @@ def _fe_merge(state: EngineState, keep_a, keep_c, recv_d, items, uniq,
     done = state.done | ~((~cand_e) & (cand_i != ID_SENTINEL)).any(-1)
     return EngineState(
         cand_d, cand_i, cand_e, bloom, done, rounds, n_dist,
+        state.age, state.deadline, state.truncated,
         state.items_recv + items, state.pages_unique + uniq,
         state.drops_b + keep_c["drops"],
         state.props_sent + accepted.sum((1, 2)).int())
@@ -325,6 +346,7 @@ def _finalize(state: EngineState, k: int):
         "rounds": state.rounds, "n_dist": state.n_dist,
         "items_recv": state.items_recv, "pages_unique": state.pages_unique,
         "drops_b": state.drops_b, "props_sent": state.props_sent,
+        "truncated": state.truncated,
     }
     return out_i, state.cand_d[..., :k], stats
 
@@ -396,3 +418,412 @@ def search_sim(consts, queries, entry_vec, entry_norm, entry_id: int,
                                        dtype=torch.int32)
     stats["host_syncs"] = syncs
     return out_i, out_d, stats
+
+
+# ---------------------------------------------------------------------------
+# Dynamic speculation — the pure per-round width rule.
+# ---------------------------------------------------------------------------
+def spec_update(spec_w, hit, peak, accepted, worked, cfg,
+                pages_delta=None, phit=None, ppeak=None):
+    """One controller step of the paper's dynamic speculative search
+    (§V-B), in tensor ops so it runs both on the host mirror
+    (``SpecController.update``) and in :func:`engine_run_chunk`'s round
+    loop.
+
+    ``spec_w`` must be the widths *used* in the round that produced
+    ``accepted``: the per-query acceptance rate
+
+        hit_q = accepted_q / (W * (max_degree + spec_w_used_q))
+
+    is smoothed (EMA) and compared with its own running peak; the width
+    follows the normalized rate linearly between ``floor`` and ``ceil``.
+    ``pages_delta`` ((S,) unique page reads of the round, per shard)
+    feeds a second rate, accepted / pages, tracked the same way and
+    blended in with weight ``page_w``; ``page_w = 0`` multiplies by
+    exactly 1.0. ``cfg`` is ``(spec_max, W, max_degree, floor, ceil,
+    ema[, page_w])``. Returns ``(spec_w, hit, peak, phit, ppeak)``.
+
+    Every op is the reference's f32 op in the reference's order: the
+    widths are ``round`` (half to even) of an f32 fraction, so one bit
+    flips a width at a .5 boundary. Scalar-only arithmetic runs in
+    numpy f32, and a division by a scalar divides by a filled tensor
+    (CUDA turns ``tensor / scalar`` into a multiply by the reciprocal).
+    """
+    spec_max, w_sel, max_degree, floor, ceil, ema = cfg[:6]
+    page_w = np.float32(cfg[6]) if len(cfg) > 6 else np.float32(0.0)
+    floor, ceil, ema = np.float32(floor), np.float32(ceil), np.float32(ema)
+    one_m_ema = np.float32(1.0) - ema
+    span = float(np.maximum(ceil - floor, np.float32(1e-9)))
+    served = int(w_sel) * (int(max_degree) + spec_w)
+    h = accepted.float() / served.clamp_min(1).float()
+    first = worked & (hit < 0)
+    upd = worked & ~first
+    hit = torch.where(first, h, torch.where(
+        upd, float(ema) * h + float(one_m_ema) * hit, hit))
+    peak = torch.maximum(peak, hit)
+    ratio = hit / peak.clamp_min(1e-9)
+    frac = ((ratio - float(floor)) / torch.full_like(ratio, span)
+            ).clamp(0.0, 1.0)
+    if phit is None:
+        phit = torch.full_like(hit, -1.0)
+        ppeak = torch.zeros_like(peak)
+    if pages_delta is not None:
+        pd = pages_delta.reshape(pages_delta.shape + (1,) * (
+            hit.dim() - pages_delta.dim())).expand(hit.shape)
+        p = accepted.float() / pd.clamp_min(1).float()
+        first_p = worked & (phit < 0)
+        upd_p = worked & ~first_p
+        phit = torch.where(first_p, p, torch.where(
+            upd_p, float(ema) * p + float(one_m_ema) * phit, phit))
+        ppeak = torch.maximum(ppeak, phit)
+        ratio_p = phit / ppeak.clamp_min(1e-9)
+        frac_p = ((ratio_p - float(floor)) / torch.full_like(ratio_p, span)
+                  ).clamp(0.0, 1.0)
+        frac = frac * (float(np.float32(1.0) - page_w)
+                       + float(page_w) * frac_p)
+    width = torch.round(float(spec_max) * frac).to(torch.int32)
+    return torch.where(worked, width, spec_w), hit, peak, phit, ppeak
+
+
+# ---------------------------------------------------------------------------
+# Round-stepper API — the streaming scheduler's engine surface.
+#
+# ``engine_init`` / ``engine_round`` / ``engine_admit`` / ``engine_retire``
+# work on an EngineState whose shard axis leads every tensor, so the state
+# persists across calls: the host loop (core/scheduler.py) owns the round
+# counter, retires finished slot rows and refills them with fresh queries.
+# ``engine_run_chunk`` runs up to K rounds per call (speculation widths
+# stepping per round); ``engine_run_chunk_admit`` also seats arrived
+# queries from a device-side pending queue at every round boundary. The
+# reference runs a chunk as one device ``lax.while_loop``; here the loop
+# runs on the host and reads its condition once per round (one small
+# device-to-host read, as ``search_sim`` does), so a chunk costs one
+# host sync per round plus the one that ends it.
+# ---------------------------------------------------------------------------
+class EngineStepper(NamedTuple):
+    """(init, round, admit, retire, run_chunk, run_chunk_admit) bound to
+    static params/geom; ``round_chunk`` is the K the chunk stages clamp
+    their budgets to."""
+
+    init: callable       # (consts, queries, evec, enorm, eid) -> EngineState
+    round: callable      # (consts, state, queries, spec_w) -> EngineState
+    admit: callable      # (state, queries, admit_mask, new_q, evec, enorm,
+                         #  eid) -> (EngineState, queries')
+    retire: callable     # (state) -> (ids, dists, per-slot stats)
+    run_chunk: callable  # see engine_run_chunk
+    round_chunk: int = 1
+    run_chunk_admit: callable = None   # see engine_run_chunk_admit
+
+
+def _qq(queries):
+    return (queries * queries).sum(-1)
+
+
+def _widths(spec_w, shape, device):
+    """A scalar width or (S, Qs) widths -> (S, Qs) int32."""
+    if isinstance(spec_w, torch.Tensor):
+        return spec_w.to(torch.int32).expand(shape)
+    return torch.full(shape, int(spec_w), dtype=torch.int32, device=device)
+
+
+def _check_entry(entry_vec) -> None:
+    if entry_vec.dim() != 1:
+        raise NotImplementedError(
+            "per-shard entry vertices belong to routed serving "
+            "(ROADMAP.md queue A item 10), not ported yet")
+
+
+def engine_init(consts, queries, entry_vec, entry_norm, entry_id: int,
+                params: EngineParams, geom: EngineGeom) -> EngineState:
+    """Fresh state for an (S, Qs, d) slot pool: every row starts at the
+    global entry vertex ((d,) ``entry_vec``), as one-shot init does."""
+    del consts, geom
+    _check_entry(entry_vec)
+    return _init_state(queries, _qq(queries), entry_vec, entry_norm,
+                       entry_id, params)
+
+
+def engine_round(consts, state: EngineState, queries, spec_w,
+                 params: EngineParams, geom: EngineGeom) -> EngineState:
+    """One Allocating -> Searching -> Gathering round. ``spec_w`` is the
+    per-query speculation width: a scalar or (S, Qs) int32 in
+    [0, params.spec_width]."""
+    return _sim_round(state, consts, queries, _qq(queries),
+                      _widths(spec_w, queries.shape[:2], queries.device),
+                      params, geom)
+
+
+def _admit_rows(state: EngineState, queries, admit_mask, new_q,
+                entry_vec, entry_norm, entry_id: int,
+                params: EngineParams):
+    """The slot-refill math, shared by the host-side :func:`engine_admit`
+    and the admission stage of :func:`engine_run_chunk_admit`: rows where
+    ``admit_mask`` restart from the entry vertex with the vectors in
+    ``new_q``, every per-query field rebuilt by the same ``_init_state``
+    math as the one-shot driver; the shard counters pass through."""
+    q = torch.where(admit_mask[..., None], new_q, queries)
+    fresh = _init_state(q, _qq(q), entry_vec, entry_norm, entry_id, params)
+
+    def rows(cur, new):
+        m = admit_mask.reshape(admit_mask.shape
+                               + (1,) * (cur.dim() - admit_mask.dim()))
+        return torch.where(m, new, cur)
+
+    per_query = EngineState._fields.index("items_recv")
+    return EngineState(*(rows(cur, new) for cur, new in
+                         zip(state[:per_query], fresh[:per_query])),
+                       *state[per_query:]), q
+
+
+def engine_admit(state: EngineState, queries, admit_mask, new_q,
+                 entry_vec, entry_norm, entry_id: int,
+                 params: EngineParams, geom: EngineGeom):
+    """Refill freed slots (slot compaction by replacement): a reused slot
+    is bit-identical to a fresh one; the shard-cumulative counters
+    (items_recv, pages_unique, drops_b, props_sent) are kept. Returns the
+    new state and the updated (S, Qs, d) query buffer."""
+    del geom
+    _check_entry(entry_vec)
+    return _admit_rows(state, queries, admit_mask, new_q, entry_vec,
+                       entry_norm, entry_id, params)
+
+
+def engine_retire(state: EngineState, k: int):
+    """Per-slot results + stats; the host slices the retiring rows."""
+    return _finalize(state, k)
+
+
+def _chunk_round(carry, round_fn, rounds_cap: int, dynamic: bool,
+                 spec_cfg):
+    """One in-chunk round, shared by both chunk drivers: record the
+    per-round traces at index j, step the round, park rows reaching the
+    per-query round cap at the boundary the per-round scheduler would
+    retire them, age every row live at entry and force-retire those at
+    their deadline (truncated; a row that converged this very round is
+    not), and — in dynamic mode — step the widths with the widths used
+    and the round's unique-page delta (:func:`spec_update`)."""
+    st, sw, hi, pk, phi, ppk, prev_nd, prev_pg, j, lc, ws = carry
+    worked = ~st.done
+    lc[j] = worked.sum()
+    ws[j] = torch.where(worked, sw, 0).sum()
+    st = round_fn(st, sw)
+    st = st._replace(done=st.done | (st.rounds >= rounds_cap))
+    age = st.age + worked.int()
+    hit = ~st.done & (age >= st.deadline)
+    st = st._replace(age=age, done=st.done | hit,
+                     truncated=st.truncated | hit)
+    if dynamic:
+        sw, hi, pk, phi, ppk = spec_update(
+            sw, hi, pk, st.n_dist - prev_nd, worked, spec_cfg,
+            st.pages_unique - prev_pg, phi, ppk)
+    return (st, sw, hi, pk, phi, ppk, st.n_dist, st.pages_unique, j + 1,
+            lc, ws)
+
+
+def engine_run_chunk(consts, state: EngineState, queries, spec_state,
+                     spec_cfg, budget: int, stop_on_finish: bool,
+                     params: EngineParams, geom: EngineGeom, K: int,
+                     dynamic: bool = False):
+    """Run up to ``K`` engine rounds in one call, with the per-round
+    semantics of K :func:`engine_round` calls and the host controller in
+    between: rows reaching ``rounds_cap`` park at the exact boundary the
+    per-round scheduler would retire them; with ``dynamic`` the widths
+    step through :func:`spec_update` after every round (``spec_state``
+    is the controller's ``(spec_w, hit, peak, page_hit, page_peak)``,
+    ``spec_cfg`` its parameters).
+
+    The chunk ends early after ``budget`` (<= K) rounds, when every live
+    row has finished, or — with ``stop_on_finish`` — as soon as any row
+    live at entry finishes (the host sets it while unadmitted queries
+    wait, so a freed slot is refilled on exactly the round the per-round
+    scheduler would refill it). This is the host-paced-admission chunk:
+    the frozen-mode path and the ``injit_admit=False`` baseline.
+
+    Returns ``(state, spec_state', steps, live_cnt (K,), width_sum (K,),
+    syncs)``: ``steps`` rounds ran; the traces hold the live rows and the
+    summed widths over live rows per round; ``syncs`` counts the loop
+    condition's device-to-host reads.
+    """
+    spec_w, hit, peak, phit, ppeak = spec_state
+    qq = _qq(queries)
+    live0 = ~state.done
+    budget = min(int(budget), K)
+    zeros_k = torch.zeros((K,), dtype=torch.int32, device=queries.device)
+    carry = (state, _widths(spec_w, queries.shape[:2], queries.device), hit,
+             peak, phit, ppeak, state.n_dist, state.pages_unique, 0,
+             zeros_k, zeros_k.clone())
+
+    def round_fn(st, sw):
+        return _sim_round(st, consts, queries, qq, sw, params, geom)
+
+    syncs = 0
+    while carry[8] < budget:
+        st = carry[0]
+        go = (~st.done).any()
+        if stop_on_finish:
+            go = go & ~(st.done & live0).any()
+        syncs += 1
+        if not bool(go):
+            break
+        carry = _chunk_round(carry, round_fn, params.search.rounds_cap,
+                             dynamic, spec_cfg)
+    state, spec_w, hit, peak, phit, ppeak, _, _, steps, lc, ws = carry
+    return state, (spec_w, hit, peak, phit, ppeak), steps, lc, ws, syncs
+
+
+def _seat_pending(free, cursor, avail, pend_q, queries_rows):
+    """Seat arrived pending queries into the free rows of the flattened
+    pool, in the host staging order (rows in order, pending entries in
+    arrival order): the free row of exclusive free-rank r < ``avail``
+    takes pending entry ``cursor + r``. Returns (seat mask, seated
+    pending indices with -1 elsewhere, updated query rows)."""
+    rank = torch.cumsum(free.int(), 0) - 1
+    seat = free & (rank < avail)
+    pidx = torch.where(seat, cursor + rank, -1)
+    safe = pidx.clamp(0, pend_q.shape[0] - 1)
+    new_q = torch.where(seat[:, None], pend_q[safe], queries_rows)
+    return seat, pidx.int(), new_q
+
+
+def _pending_avail(pend_arr, cursor, tnow: int):
+    """Pending entries whose arrival round has passed and that the
+    cursor has not consumed (``pend_arr`` is sorted by arrival, so the
+    arrived count is a binary search)."""
+    arrived = torch.searchsorted(pend_arr, tnow, right=True)
+    return (arrived - cursor).clamp_min(0)
+
+
+def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
+                           spec_cfg, budget: int, pend_q, pend_arr, cursor,
+                           t0: int, entry_vec, entry_norm, entry_id: int,
+                           params: EngineParams, geom: EngineGeom, K: int,
+                           dynamic: bool = False):
+    """:func:`engine_run_chunk` with an admission stage: the pending
+    queue lives on the device (``pend_q`` (N, d) vectors and ``pend_arr``
+    (N,) int32 arrival rounds, sorted by arrival; ``cursor`` the first
+    unadmitted entry, ``t0`` the global round at chunk entry), and every
+    round boundary seats arrived entries into free (``done``) rows
+    before stepping, so the chunk runs straight through finishes and
+    arrivals.
+
+    Per boundary, exactly the per-round host scheduler's semantics: the
+    seating order is the host staging order (:func:`_seat_pending`); a
+    seated row is reset by :func:`_admit_rows`, the math
+    :func:`engine_admit` runs, and (``dynamic``) its controller row
+    restarts at full width. A seated row evicts a finished one, so each
+    boundary j records admit traces — the pending index seated per slot
+    (``admit_qidx[j]``, -1 elsewhere) and every row's pre-admission
+    finalize, rounds, n_dist, age and truncated flag (``ret_*[j]``) —
+    from which the host replays the accounting bit-exactly.
+
+    The chunk ends early only when no row is live and no pending entry
+    has arrived. Returns ``(state, queries', spec_state', steps,
+    live_cnt, width_sum, admit_qidx, ret_i, ret_d, ret_rounds,
+    ret_ndist, ret_age, ret_trunc, cursor', syncs)``; the traces lead
+    with K, ``cursor'`` is a device scalar and ``syncs`` counts the loop
+    condition's reads.
+    """
+    if pend_arr.dim() != 1:
+        raise NotImplementedError(
+            "per-shard pending queues belong to routed serving "
+            "(ROADMAP.md queue A item 10), not ported yet")
+    _check_entry(entry_vec)
+    k = params.search.k
+    S, Qs = state.done.shape
+    dev = queries.device
+    spec_w, hit, peak, phit, ppeak = spec_state
+    spec_w = _widths(spec_w, (S, Qs), dev)
+    spec_max = int(spec_cfg[0])
+    budget = min(int(budget), K)
+    cur = (cursor.long() if isinstance(cursor, torch.Tensor) else
+           torch.full((), int(cursor), dtype=torch.int64, device=dev))
+    zeros_k = torch.zeros((K,), dtype=torch.int32, device=dev)
+    lc, ws = zeros_k, zeros_k.clone()
+    aq = torch.full((K, S, Qs), -1, dtype=torch.int32, device=dev)
+    ri = torch.full((K, S, Qs, k), INVALID, dtype=torch.int32, device=dev)
+    rd = torch.zeros((K, S, Qs, k), dtype=torch.float32, device=dev)
+    rr, rn, ra = (torch.zeros((K, S, Qs), dtype=torch.int32, device=dev)
+                  for _ in range(3))
+    rt = torch.zeros((K, S, Qs), dtype=torch.bool, device=dev)
+    st, q = state, queries
+    j = syncs = 0
+    while j < budget:
+        avail = _pending_avail(pend_arr, cur, t0 + j)
+        syncs += 1
+        if not bool((~st.done).any() | (avail > 0)):
+            break
+        # boundary j (global round t0 + j): record the would-be-evicted
+        # rows' results, then seat arrived pending queries
+        fin_i, fin_d, _ = _finalize(st, k)
+        ri[j], rd[j] = fin_i, fin_d
+        rr[j], rn[j], ra[j], rt[j] = st.rounds, st.n_dist, st.age, \
+            st.truncated
+        seat, pidx, new_q = _seat_pending(st.done.reshape(-1), cur, avail,
+                                          pend_q, q.reshape(S * Qs, -1))
+        mask = seat.reshape(S, Qs)
+        st, q = _admit_rows(st, q, mask, new_q.reshape(S, Qs, -1),
+                            entry_vec, entry_norm, entry_id, params)
+        cur = cur + seat.sum()
+        aq[j] = pidx.reshape(S, Qs)
+        if dynamic:   # fresh rows restart the controller at full width
+            spec_w = torch.where(mask, spec_max, spec_w)
+            hit = torch.where(mask, -1.0, hit)
+            peak = torch.where(mask, 0.0, peak)
+            phit = torch.where(mask, -1.0, phit)
+            ppeak = torch.where(mask, 0.0, ppeak)
+        # the round itself; prev_nd is the post-admission n_dist, so a
+        # seated row's first accepted-count delta starts from 0 exactly
+        # like a host-admitted fresh row's
+        qq = _qq(q)
+        st, spec_w, hit, peak, phit, ppeak, _, _, j, lc, ws = _chunk_round(
+            (st, spec_w, hit, peak, phit, ppeak, st.n_dist,
+             st.pages_unique, j, lc, ws),
+            lambda s, w: _sim_round(s, consts, q, qq, w, params, geom),
+            params.search.rounds_cap, dynamic, spec_cfg)
+    return (st, q, (spec_w, hit, peak, phit, ppeak), j, lc, ws, aq, ri, rd,
+            rr, rn, ra, rt, cur, syncs)
+
+
+def make_stepper(params: EngineParams, geom: EngineGeom, mesh=None,
+                 round_chunk: int = 1,
+                 routed: bool = False) -> EngineStepper:
+    """Bundle the stepper stages for the single-device sim driver.
+    ``round_chunk`` is the K of the chunk stages: the most rounds one
+    ``run_chunk`` call runs before the host is consulted."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the multi-device stepper is ROADMAP.md queue A item 13, "
+            "not ported yet")
+    if routed:
+        raise NotImplementedError(
+            "the routed stepper is ROADMAP.md queue A item 10, not "
+            "ported yet")
+    K = max(1, int(round_chunk))
+
+    def init(consts, queries, evec, enorm, eid):
+        return engine_init(consts, queries, evec, enorm, eid, params, geom)
+
+    def rnd(consts, state, queries, spec_w):
+        return engine_round(consts, state, queries, spec_w, params, geom)
+
+    def admit(state, queries, admit_mask, new_q, evec, enorm, eid):
+        return engine_admit(state, queries, admit_mask, new_q, evec, enorm,
+                            eid, params, geom)
+
+    def retire(state):
+        return engine_retire(state, params.search.k)
+
+    def run_chunk(consts, state, queries, spec_state, spec_cfg, budget,
+                  stop_on_finish, dynamic=False):
+        return engine_run_chunk(consts, state, queries, spec_state,
+                                spec_cfg, budget, stop_on_finish, params,
+                                geom, K, dynamic)
+
+    def run_chunk_admit(consts, state, queries, spec_state, spec_cfg,
+                        budget, pend, cursor, t0, entry, dynamic=False):
+        return engine_run_chunk_admit(
+            consts, state, queries, spec_state, spec_cfg, budget, *pend,
+            cursor, t0, *entry, params, geom, K, dynamic)
+
+    return EngineStepper(init, rnd, admit, retire, run_chunk, K,
+                         run_chunk_admit)

@@ -7,9 +7,11 @@ near-optimal average vertex bandwidth
     beta(G, f) = (1/n) * sum_v  max_{(i,j) in E(v)} |f(i) - f(j)|
 
 The result is a permutation `order` with new_id = rank[old_id], applied
-by `apply_reordering`.
+by `apply_reordering`; `bandwidth_beta` scores an ordering.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -86,3 +88,21 @@ def apply_reordering(vectors: np.ndarray, adjacency: np.ndarray,
                         rank[np.clip(adjacency, 0, n - 1)], INVALID)
     new_adjacency = remapped[order].astype(np.int32)
     return new_vectors, new_adjacency, int(rank[entry])
+
+
+def bandwidth_beta(adjacency: np.ndarray,
+                   order: Optional[np.ndarray] = None) -> float:
+    """Average vertex bandwidth beta(G, f) under the given ordering (Eq. 1)."""
+    n, _ = adjacency.shape
+    rank = np.empty(n, dtype=np.int64)
+    if order is None:
+        rank = np.arange(n, dtype=np.int64)
+    else:
+        rank[order] = np.arange(n, dtype=np.int64)
+    valid = adjacency != INVALID
+    nbr_rank = np.where(valid, rank[np.clip(adjacency, 0, n - 1)], 0)
+    span = np.abs(nbr_rank - rank[:, None])
+    span = np.where(valid, span, 0)
+    has = valid.any(axis=1)
+    per_vertex = span.max(axis=1)
+    return float(per_vertex[has].mean()) if has.any() else 0.0

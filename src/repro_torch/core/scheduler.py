@@ -1,0 +1,636 @@
+"""Streaming query scheduler on top of the engine's round-stepper API.
+
+NDSEARCH keeps the SEARSSD pipeline saturated by scheduling at the
+*query* level, not the batch level (§V): finished queries leave the
+pipeline immediately and fresh ones take their place, and the
+speculative-search width adapts to the observed hit rate instead of
+being fixed up front. The frozen-batch driver (``search_sim``) does
+neither — finished queries occupy rows in every remaining round, and
+``spec_width`` is a static knob.
+
+This module closes the gap with three pieces over the stepper
+(``engine_init / engine_run_chunk[_admit] / engine_admit /
+engine_retire``):
+
+  * **slot pool + continuous admission** — a fixed (S, Qs) pool of query
+    slots. Rows whose query finished are *retired* (results emitted with
+    per-query latency) and refilled from a pending queue (slot
+    compaction by replacement): while the queue is non-empty every row
+    of every round is a live query, never padding.
+  * **dynamic speculation** — a :class:`SpecController` watches the
+    per-round deltas of each row's ``n_dist`` counter and moves its
+    speculation width between 0 and ``params.spec_width``: wide while
+    the frontier is fresh, narrow as acceptance collapses near
+    convergence. The rule (:func:`repro_torch.core.engine.spec_update`)
+    keeps stepping per round inside a chunk.
+  * **open-loop arrivals** — queries carry arrival *rounds* (the
+    serving clock is engine rounds); a query is admitted once its
+    arrival round has passed and a slot is free, and its wait + service
+    latency is recorded.
+
+**Host-sync model.** One dispatch of ``engine_run_chunk_admit`` runs up
+to ``round_chunk`` rounds; the pending queue is staged on the device
+(vectors and arrival rounds sorted by arrival, a device cursor) and
+every round boundary seats arrived queries into freed slots with the
+same math and staging order the host would use. The reference runs a
+chunk as one device loop and syncs once per chunk; this port's chunk
+loop runs on the host and reads its condition from the device once per
+round, so the host blocks once per round plus once per chunk boundary,
+where everything the accounting needs (per-round traces, admit/evict
+traces, the pool's counters and results, the controller state) moves
+to the host in one transfer. ``StreamStats.host_syncs`` counts both.
+
+The schedule is *exactly* the per-round schedule: a seated row evicts a
+finished one whose results were captured in per-boundary admit traces,
+and the host replays them at the chunk boundary to reconstruct
+``owner``/``admit_t``/``retire_round``; per-round live-count/width
+traces reconstruct the occupancy and speculation traces.
+
+What stays on the host: **result emission** at chunk boundaries, the
+**frozen-mode all-free gate** (``refill=False`` admits only into an
+all-free pool), **idle-clock jumps** (an empty pool with no arrived
+query skips to the next arrival without a dispatch; the skipped rounds
+count as ``idle_rounds``) and **wall stamps** (a query admitted
+mid-chunk is stamped with the chunk's launch time: wall latency is
+chunk-granular).
+
+``injit_admit=False`` uses host-paced admission: the chunk budget is
+capped at the next arrival and ``stop_on_finish`` ends a chunk on the
+first freed slot while queries wait. Per-query results are
+**bit-identical** to the one-shot driver under lossless capacities:
+each row's math depends only on its own state, so neither its pool
+neighbours nor its admission round change its trajectory.
+
+Not ported here (each raises ``NotImplementedError`` naming its
+ROADMAP.md queue A item): routed admission and the admission ring with
+overload policies (item 10), the tiered page store (11), the live
+index (12) and the multi-device stepper (13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import (EngineGeom, EngineParams, _finalize,
+                                     make_stepper, spec_update)
+from repro_torch.core.metrics import slot_occupancy
+from repro_torch.utils import INVALID, resolve_device
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is ROADMAP.md queue A item {item}, not ported yet")
+
+
+def _to_host(*tensors) -> list:
+    """Tensors -> numpy arrays with one wait for the device: the copies
+    are queued without blocking and the host synchronises once."""
+    if tensors[0].is_cuda:
+        out = [t.to("cpu", non_blocking=True) for t in tensors]
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+    else:
+        out = tensors
+    return [t.numpy() for t in out]
+
+
+@dataclasses.dataclass
+class SpecController:
+    """Per-query hit-rate-driven speculation widths (the paper's dynamic
+    speculative search, §V-B).
+
+    Each slot row keeps its own width. Per round the rule sees each
+    query's accepted-proposal count (the delta of the engine's per-query
+    ``n_dist``) and derives its acceptance rate
+
+        hit_q = accepted_q / (W * (max_degree + spec_w_used_q))
+
+    — the fraction of the adjacency (+ speculation) entries served that
+    survived dedup and the bloom filter. **Ordering contract:** the rule
+    must see the widths *used* in that round: ``update`` reads
+    ``self.spec_w`` before overwriting it, and the in-chunk path passes
+    the used widths explicitly. Each query's smoothed hit is compared
+    with its own running peak, and the width follows the normalized
+    rate linearly between ``floor`` (width 0) and ``ceil`` (full
+    ``spec_max``).
+
+    The math lives in :func:`repro_torch.core.engine.spec_update`; this
+    class is the host-side mirror that carries ``(spec_w, hit, peak,
+    page_hit, page_peak)`` across chunk boundaries and resets rows at
+    admission, so the per-round and in-chunk controllers are
+    bit-identical.
+    """
+
+    spec_max: int
+    W: int
+    max_degree: int
+    floor: float = 0.2      # normalized hit at/below which spec_w -> 0
+    ceil: float = 0.6       # normalized hit at/above which spec_w -> max
+    ema: float = 0.5        # smoothing of the per-round hit estimate
+    page_w: float = 0.0     # weight of the page-efficiency signal
+                            # (accepted / fresh unique pages, normalized
+                            # against its own peak like the hit rate);
+                            # 0 keeps the pure hit-rate rule
+    spec_w: np.ndarray = dataclasses.field(default=None, repr=False)
+    _hit: np.ndarray = dataclasses.field(default=None, repr=False)
+    _peak: np.ndarray = dataclasses.field(default=None, repr=False)
+    _phit: np.ndarray = dataclasses.field(default=None, repr=False)
+    _ppeak: np.ndarray = dataclasses.field(default=None, repr=False)
+
+    @property
+    def cfg(self):
+        """The static rule parameters, as f32/i32 scalars."""
+        return (np.int32(self.spec_max), np.int32(self.W),
+                np.int32(self.max_degree), np.float32(self.floor),
+                np.float32(self.ceil), np.float32(self.ema),
+                np.float32(self.page_w))
+
+    def _ensure(self, shape):
+        if self.spec_w is None or self.spec_w.shape != shape:
+            self.spec_w = np.full(shape, self.spec_max, np.int32)
+            self._hit = np.full(shape, -1.0, np.float32)
+            self._peak = np.zeros(shape, np.float32)
+            self._phit = np.full(shape, -1.0, np.float32)
+            self._ppeak = np.zeros(shape, np.float32)
+
+    def reset_rows(self, mask: np.ndarray):
+        """Fresh queries restart at full width (called at admission)."""
+        self._ensure(mask.shape)
+        self.spec_w[mask] = self.spec_max
+        self._hit[mask] = -1.0
+        self._peak[mask] = 0.0
+        self._phit[mask] = -1.0
+        self._ppeak[mask] = 0.0
+
+    def state(self, device="cpu"):
+        """The controller state as tensors on ``device``."""
+        return tuple(torch.as_tensor(x, device=device) for x in (
+            self.spec_w, self._hit, self._peak, self._phit, self._ppeak))
+
+    def store(self, spec_state):
+        """Adopt the post-chunk controller state (tensors or arrays)."""
+        if isinstance(spec_state[0], torch.Tensor):
+            spec_state = _to_host(*spec_state)
+        sw, hi, pk, phi, ppk = spec_state
+        # private mutable copies: reset_rows writes them in place
+        self.spec_w = np.array(sw, np.int32)
+        self._hit = np.array(hi, np.float32)
+        self._peak = np.array(pk, np.float32)
+        self._phit = np.array(phi, np.float32)
+        self._ppeak = np.array(ppk, np.float32)
+
+    def update(self, accepted: np.ndarray, worked: np.ndarray,
+               pages_delta=None) -> np.ndarray:
+        """accepted: (S, Qs) this-round accepted proposals per slot;
+        worked: (S, Qs) rows that were live this round; pages_delta:
+        this round's fresh unique-page count per shard ((S,), ignored
+        at page_w=0). ``self.spec_w`` must still hold the widths used
+        in that round (see the class doc)."""
+        self._ensure(np.shape(accepted))
+        sw, hi, pk, phi, ppk = self.state()
+        self.store(spec_update(
+            sw, hi, pk, torch.as_tensor(np.asarray(accepted, np.int32)),
+            torch.as_tensor(np.asarray(worked, bool)), self.cfg,
+            None if pages_delta is None
+            else torch.as_tensor(np.asarray(pages_delta, np.int32)),
+            phi, ppk))
+        return self.spec_w
+
+
+# cfg placeholder handed to the chunk when no controller is attached
+# (dynamic=False never reads it)
+_NULL_CFG = (np.int32(0), np.int32(1), np.int32(1),
+             np.float32(0.0), np.float32(1.0), np.float32(0.5),
+             np.float32(0.0))
+
+
+@dataclasses.dataclass
+class QueryResult:
+    """Per-query record emitted at retirement."""
+
+    qid: int
+    ids: np.ndarray           # (k,) i32
+    dists: np.ndarray         # (k,) f32
+    arrival_round: int
+    admit_round: int
+    retire_round: int
+    service_rounds: int       # rounds the query actually worked
+    n_dist: int
+    wall_latency_s: float     # admit -> retire wall clock
+    truncated: bool = False   # retired by its deadline with its
+                              # best-so-far ids, not converged
+    legs_fused: int = 0       # routed serving (not ported): 0 on the
+                              # flat path
+    coverage: float = 1.0     # routed serving (not ported)
+    stall_rounds: int = 0     # serving-clock rounds aged without working
+                              # (0 on the ported paths: no stalls)
+
+    @property
+    def wait_rounds(self) -> int:
+        return self.admit_round - self.arrival_round
+
+    @property
+    def latency_rounds(self) -> int:
+        return self.retire_round - self.arrival_round
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """Aggregate scheduler run statistics. The fields of the parts not
+    ported (routing, the ring, faults, the tiered store, the live index)
+    keep the reference's at-rest values."""
+
+    results: list             # [QueryResult] in retirement order
+    total_rounds: int         # engine rounds stepped (busy rounds)
+    occupancy: float          # mean live-slots / total-slots over the
+                              # full serving clock (busy + idle rounds)
+    occupancy_trace: list     # per-busy-round live-slot counts
+    pages_unique: int         # cumulative unique page reads
+    items_recv: int
+    props_sent: int
+    drops_b: int
+    spec_trace: list          # mean spec_w over live rows, each round
+    wall_s: float             # steady-state wall clock (excl. warmup)
+    host_dispatches: int = 0  # chunk launches
+    host_syncs: int = 0       # device-to-host reads the host blocked on:
+                              # one per in-chunk round-loop condition,
+                              # one per chunk-boundary transfer
+    compile_s: float = 0.0    # one-time warmup seconds (kernel builds)
+    warmup_rounds: int = 0    # engine rounds the warmup chunk ran on a
+                              # throwaway pool, off the serving clock
+    idle_rounds: int = 0      # serving-clock rounds the pool sat empty
+                              # waiting for an arrival (no engine work)
+    injit_admit: bool = False  # admission path the run actually used
+    legs: int = 0             # routed serving (not ported)
+    items_by_shard: list = dataclasses.field(default_factory=list)
+                              # per-shard items_recv
+    shed: int = 0             # admission ring (not ported)
+    truncated: int = 0        # queries retired by their deadline
+    quarantined: int = 0      # NaN guard (not ported)
+    legs_fused_hist: list = dataclasses.field(default_factory=list)
+                              # routed serving (not ported)
+    stalls: int = 0           # sum of QueryResult.stall_rounds
+    prefetch_hits: int = 0    # tiered page store (not ported)
+    prefetch_issued: int = 0  # tiered page store (not ported)
+    resident_fraction: float = 1.0
+                              # tiered page store (not ported)
+    delta_hits: int = 0       # live index (not ported)
+    tombstoned: int = 0       # live index (not ported)
+    epoch_swaps: int = 0      # live index (not ported)
+    swap_stall_rounds: int = 0
+                              # live index (not ported)
+
+    def by_qid(self):
+        return {r.qid: r for r in self.results}
+
+
+class StreamScheduler:
+    """Continuous-batching scheduler over a fixed (S, Qs) slot pool on
+    ``device`` (where ``consts`` must live; ``pack_for_engine``).
+
+    ``round_chunk`` sets how many engine rounds one dispatch may run
+    before the host replays the accounting; any value produces the
+    exact per-round schedule. ``injit_admit`` selects the device-side
+    pending queue (None = on whenever ``refill`` is; frozen mode keeps
+    the host-side all-free gate).
+    """
+
+    def __init__(self, consts, geom: EngineGeom, params: EngineParams,
+                 entry, num_slots: int, mesh=None,
+                 controller: Optional[SpecController] = None,
+                 refill: bool = True, round_chunk: int = 1,
+                 injit_admit: Optional[bool] = None,
+                 routed: bool = False, ring_capacity: int = 0,
+                 overload: str = "block", pagestore=None, live=None,
+                 device="cuda"):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if round_chunk < 1:
+            raise ValueError(
+                f"round_chunk must be >= 1, got {round_chunk}")
+        if overload not in ("shed", "block"):
+            raise ValueError(
+                f"overload must be 'shed' or 'block', got {overload!r}")
+        if ring_capacity < 0:
+            raise ValueError(
+                f"ring_capacity must be >= 0, got {ring_capacity}")
+        for what, on, item in (
+                ("routed serving", routed, 10),
+                ("the bounded admission ring", ring_capacity > 0, 10),
+                ("the shed overload policy", overload == "shed", 10),
+                ("the tiered page store", pagestore is not None, 11),
+                ("the live index", live is not None, 12),
+                ("multi-device serving", mesh is not None, 13)):
+            if on:
+                raise _not_ported(what, item)
+        self.device = resolve_device(device)
+        if consts["db"].device.type != self.device.type:
+            raise ValueError(
+                f"consts live on {consts['db'].device}, the scheduler "
+                f"runs on {self.device}: pack_for_engine(packed, device)")
+        self.consts = consts
+        self.geom = geom
+        self.params = params
+        self.entry = entry                       # (evec, enorm, eid)
+        self.num_slots = num_slots               # per shard
+        self.controller = controller
+        self.refill = refill
+        self.round_chunk = round_chunk
+        self.stepper = make_stepper(params, geom, round_chunk=round_chunk)
+        self.injit_admit = refill if injit_admit is None \
+            else bool(injit_admit) and refill
+        self.S = geom.num_shards
+        self._static_spec = None
+
+    # -- host-side pool bookkeeping -----------------------------------------
+    def _fresh_pool(self, queries_pool):
+        """A pool over the (S, Qs, d) ``queries_pool`` with every row
+        parked (``done``): parked rows do no phase work."""
+        state = self.stepper.init(self.consts, queries_pool, *self.entry)
+        return state._replace(done=torch.ones_like(state.done))
+
+    def _spec_inputs(self, shape):
+        """(spec_state, cfg, dynamic) for a chunk: the controller's
+        mirrors, or a constant-width 5-tuple when there is none."""
+        if self.controller is not None:
+            self.controller._ensure(shape)
+            return (self.controller.state(self.device), self.controller.cfg,
+                    True)
+        if self._static_spec is None:
+            w = torch.full(shape, self.params.spec_width, dtype=torch.int32,
+                           device=self.device)
+            z = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            self._static_spec = (w, z, z, z, z)
+        return self._static_spec, _NULL_CFG, False
+
+    def _warmup(self, queries: np.ndarray, pend) -> tuple[float, int]:
+        """Run one chunk of the dispatch path :meth:`run` uses on a
+        throwaway pool whose rows are all live (the first queries,
+        repeated), so the kernels are built and warm before the serving
+        clock starts. With ``pend`` the staged queue rides along with an
+        exhausted cursor: the admission stage runs and seats nothing.
+        Returns (seconds, rounds run)."""
+        S, Qs = self.S, self.num_slots
+        t0 = time.perf_counter()
+        fill = np.resize(queries, (S * Qs, queries.shape[1]))
+        qw = torch.as_tensor(fill.reshape(S, Qs, -1), device=self.device)
+        state = self.stepper.init(self.consts, qw, *self.entry)
+        spec_state, cfg, dyn = self._spec_inputs((S, Qs))
+        if pend is not None:
+            out = self.stepper.run_chunk_admit(
+                self.consts, state, qw, spec_state, cfg, self.round_chunk,
+                pend, pend[1].shape[0], 0, self.entry, dynamic=dyn)
+            steps = out[3]
+        else:
+            out = self.stepper.run_chunk(self.consts, state, qw, spec_state,
+                                         cfg, self.round_chunk, False,
+                                         dynamic=dyn)
+            steps = out[2]
+        ids, dists, _ = self.stepper.retire(out[0])
+        _to_host(ids, dists)
+        return time.perf_counter() - t0, steps
+
+    def run(self, queries: np.ndarray,
+            arrivals: Optional[np.ndarray] = None,
+            target_shards: Optional[np.ndarray] = None) -> StreamStats:
+        """Serve ``queries`` (N, d); ``arrivals`` are arrival rounds
+        (default: all at round 0). Returns per-query results + metrics."""
+        if target_shards is not None:
+            raise _not_ported("routed admission (target_shards)", 10)
+        queries = np.asarray(queries, np.float32)
+        N, d = queries.shape
+        arrivals = (np.zeros(N, np.int64) if arrivals is None
+                    else np.asarray(arrivals, np.int64))
+        order = np.argsort(arrivals, kind="stable")
+        S, Qs, K = self.S, self.num_slots, self.round_chunk
+        k = self.params.search.k
+        dev = self.device
+        stepped = idle = dispatches = syncs = 0
+        injit = self.injit_admit and N > 0
+        pend = None
+        if injit:
+            # device-side pending queue, staged once in admission order
+            pend = (torch.as_tensor(queries[order], device=dev),
+                    torch.as_tensor(arrivals[order].astype(np.int32),
+                                    device=dev))
+        compile_s, warm_rounds = (self._warmup(queries, pend) if N
+                                  else (0.0, 0))
+        qbuf = torch.zeros((S, Qs, d), dtype=torch.float32, device=dev)
+        state = self._fresh_pool(qbuf)
+        owner = np.full((S, Qs), INVALID, np.int64)   # slot -> qid
+        admit_t = np.zeros((S, Qs), np.int64)
+        admit_wall = np.zeros((S, Qs), np.float64)
+        next_q = 0                                    # cursor into order
+        retired = 0
+        t = 0
+        results: list[QueryResult] = []
+        occ_trace: list[int] = []
+        spec_trace: list[float] = []
+        t0 = time.perf_counter()
+
+        def emit(s, r, ids, dists, rounds, n_dist, age, trunc, now_wall):
+            qid = int(owner[s, r])
+            results.append(QueryResult(
+                qid=qid, ids=ids.copy(), dists=dists.copy(),
+                arrival_round=int(arrivals[qid]),
+                admit_round=int(admit_t[s, r]),
+                retire_round=int(admit_t[s, r] + age),
+                service_rounds=int(rounds), n_dist=int(n_dist),
+                wall_latency_s=now_wall - admit_wall[s, r],
+                truncated=bool(trunc), stall_rounds=int(age - rounds)))
+
+        while retired < N:
+            if not injit:
+                # -- host-paced admission: fill free slots from the
+                # arrived pending queue
+                free = np.argwhere(owner == INVALID)
+                can_admit = self.refill or len(free) == S * Qs
+                staged = []
+                while (can_admit and len(staged) < len(free) and next_q < N
+                       and arrivals[order[next_q]] <= t):
+                    staged.append(order[next_q])
+                    next_q += 1
+                if staged:
+                    mask = np.zeros((S, Qs), bool)
+                    new_q = np.zeros((S, Qs, d), np.float32)
+                    now_wall = time.perf_counter()
+                    for (s, r), qid in zip(free[:len(staged)], staged):
+                        mask[s, r] = True
+                        new_q[s, r] = queries[qid]
+                        owner[s, r] = qid
+                        admit_t[s, r] = t
+                        admit_wall[s, r] = now_wall
+                    state, qbuf = self.stepper.admit(
+                        state, qbuf, torch.as_tensor(mask, device=dev),
+                        torch.as_tensor(new_q, device=dev), *self.entry)
+                    if self.controller is not None:
+                        self.controller.reset_rows(mask)
+
+            live = int((owner != INVALID).sum())
+            na = int(arrivals[order[next_q]]) if next_q < N else None
+            if live == 0 and not (injit and na is not None and na <= t):
+                # pool idle until the next arrival: jump the serving
+                # clock without a dispatch. The skipped rounds are real
+                # serving time, so occupancy/throughput count them
+                nt = max(t + 1, na) if na is not None else t + 1
+                idle += nt - t
+                t = nt
+                continue
+
+            spec_state, cfg, dyn = self._spec_inputs((S, Qs))
+            if injit:
+                # -- chunk with in-device admission: full budget; freed
+                # slots are reseated at the exact boundary and the
+                # admit/evict traces replay the accounting below
+                launch_wall = time.perf_counter()
+                (state, qbuf, spec_state, steps, live_cnt, width_sum,
+                 admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age,
+                 ret_trunc, cur, nsync) = self.stepper.run_chunk_admit(
+                    self.consts, state, qbuf, spec_state, cfg, K, pend,
+                    next_q, t, self.entry, dynamic=dyn)
+                extra = (admit_qidx[:steps], ret_i[:steps], ret_d[:steps],
+                         ret_rounds[:steps], ret_ndist[:steps],
+                         ret_age[:steps], ret_trunc[:steps], cur)
+            else:
+                # -- host-paced admission wakes the chunk exactly when
+                # admission could matter. Free slots: nothing can be
+                # admitted before the next arrival, so cap the chunk
+                # there. Full pool: a finish may seat a waiting or
+                # imminent arrival, so stop on the first finish. Both
+                # keep the schedule identical to round_chunk=1
+                budget, stop_on_finish = K, False
+                if self.refill and na is not None:
+                    if live < S * Qs:
+                        budget = max(1, min(K, na - t))
+                    else:
+                        stop_on_finish = na <= t + K
+                (state, spec_state, steps, live_cnt, width_sum,
+                 nsync) = self.stepper.run_chunk(
+                    self.consts, state, qbuf, spec_state, cfg, budget,
+                    stop_on_finish, dynamic=dyn)
+                extra = ()
+            dispatches += 1
+            # the chunk boundary's one transfer: traces, the pool's
+            # counters and results, the controller, the admit traces
+            fin_i, fin_d, _ = _finalize(state, k)
+            ctrl = spec_state if self.controller is not None else ()
+            host = _to_host(live_cnt[:steps], width_sum[:steps], state.done,
+                            state.rounds, state.n_dist, state.age,
+                            state.truncated, fin_i, fin_d, *ctrl, *extra)
+            syncs += nsync + 1
+            now_wall = time.perf_counter()
+            (live_cnt, width_sum, done, rounds, n_dist, age, trunc, out_i,
+             out_d) = host[:9]
+            if self.controller is not None:
+                self.controller.store(host[9:14])
+            if injit:
+                (admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age,
+                 ret_trunc, cur) = host[-8:]
+                for j in range(steps):
+                    for s, r in np.argwhere(admit_qidx[j] >= 0):
+                        if owner[s, r] != INVALID:
+                            # the seated query evicted a finished row:
+                            # emit it from the boundary-j capture
+                            emit(s, r, ret_i[j, s, r], ret_d[j, s, r],
+                                 ret_rounds[j, s, r], ret_ndist[j, s, r],
+                                 ret_age[j, s, r], ret_trunc[j, s, r],
+                                 now_wall)
+                            retired += 1
+                        owner[s, r] = int(order[admit_qidx[j, s, r]])
+                        admit_t[s, r] = t + j
+                        admit_wall[s, r] = launch_wall
+                next_q = int(cur)
+            t += steps
+            stepped += steps
+            occ_trace.extend(int(c) for c in live_cnt)
+            spec_trace.extend(ws / c for ws, c in
+                              zip(width_sum, np.maximum(live_cnt, 1)))
+
+            # -- retire finished rows (the chunk already parked rows at
+            # the per-query round cap and their deadline, at the exact
+            # round boundary the per-round scheduler would have)
+            fin = (owner != INVALID) & done
+            for s, r in np.argwhere(fin):
+                emit(s, r, out_i[s, r], out_d[s, r], rounds[s, r],
+                     n_dist[s, r], age[s, r], trunc[s, r], now_wall)
+                owner[s, r] = INVALID
+            retired += int(fin.sum())
+
+        # end-of-session counters: one transfer for the whole summary
+        pages_unique, items_recv, props_sent, drops_b = _to_host(
+            state.pages_unique, state.items_recv, state.props_sent,
+            state.drops_b)
+        return StreamStats(
+            results=results, total_rounds=stepped,
+            occupancy=slot_occupancy(occ_trace, S * Qs, stepped + idle),
+            occupancy_trace=occ_trace,
+            pages_unique=int(pages_unique.sum()),
+            items_recv=int(items_recv.sum()),
+            props_sent=int(props_sent.sum()),
+            drops_b=int(drops_b.sum()),
+            spec_trace=spec_trace, wall_s=time.perf_counter() - t0,
+            host_dispatches=dispatches, host_syncs=syncs,
+            compile_s=compile_s, warmup_rounds=warm_rounds,
+            idle_rounds=idle, injit_admit=self.injit_admit,
+            items_by_shard=[int(x) for x in items_recv],
+            truncated=sum(1 for r in results if r.truncated),
+            stalls=sum(r.stall_rounds for r in results))
+
+
+def poisson_arrivals(rate: float, n: int, seed: int = 0) -> np.ndarray:
+    """Open-loop arrival rounds: ``rate`` mean arrivals per engine
+    round (exponential inter-arrival gaps). rate <= 0 -> all at 0.
+
+    Cumulative gaps are rounded half-up to the integer round clock —
+    truncation would floor every arrival ~0.5 rounds early, biasing the
+    realized arrival rate above the requested one."""
+    if rate <= 0:
+        return np.zeros(n, np.int64)
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate, n)
+    return np.floor(np.cumsum(gaps) + 0.5).astype(np.int64)
+
+
+def _make_controller(params, geom, dynamic_spec, spec_page_w=0.0):
+    if not dynamic_spec:
+        return None
+    if params.spec_width <= 0:
+        raise ValueError(
+            "dynamic_spec needs a speculation budget to adapt: set "
+            "spec_width > 0 (it is the controller's maximum width)")
+    return SpecController(spec_max=params.spec_width,
+                          W=params.search.W,
+                          max_degree=geom.max_degree,
+                          page_w=float(spec_page_w))
+
+
+def stream_search(consts, geom, params, entry, queries,
+                  num_slots: int, arrivals=None, mesh=None,
+                  dynamic_spec: bool = False, refill: bool = True,
+                  round_chunk: int = 1, injit_admit=None,
+                  spec_page_w: float = 0.0, ring_capacity: int = 0,
+                  overload: str = "block", pagestore=None, live=None,
+                  device="cuda"):
+    """Run the streaming scheduler on ``device`` and return (ids (N, k),
+    dists (N, k), StreamStats) in query order."""
+    ctrl = _make_controller(params, geom, dynamic_spec, spec_page_w)
+    sched = StreamScheduler(consts, geom, params, entry,
+                            num_slots=num_slots, mesh=mesh,
+                            controller=ctrl, refill=refill,
+                            round_chunk=round_chunk,
+                            injit_admit=injit_admit,
+                            ring_capacity=ring_capacity,
+                            overload=overload, pagestore=pagestore,
+                            live=live, device=device)
+    stats = sched.run(queries, arrivals)
+    k = params.search.k
+    n = np.asarray(queries).shape[0]
+    ids = np.full((n, k), INVALID, np.int32)
+    dists = np.zeros((n, k), np.float32)
+    for r in stats.results:
+        ids[r.qid] = r.ids
+        dists[r.qid] = r.dists
+    return ids, dists, stats

@@ -7,6 +7,8 @@ embeddings), on the port.
       --batch 4 --prompt-len 1024 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --reduced --rag --device cpu --batch 2 --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
+      --reduced --rag --stream-retrieval --batch 2 --prompt-len 16 --gen 4
 
 Weights, prompts and the soft-prompt projection are random, drawn from
 ``--seed`` with a ``torch.Generator`` on the target device. Prefill
@@ -31,11 +33,11 @@ from repro_torch.core.luncsr import LUNCSR, Geometry, pack_index
 from repro_torch.core.ref_search import SearchParams
 from repro_torch.data.vectors import VectorDataset
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.launch.serve_stream import StreamingRetriever
 from repro_torch.models import transformer as T
 from repro_torch.utils import resolve_device
 
 RAG_N = 2048                  # vectors in the retrieval stage's index
-STREAMING_ITEM = "ROADMAP.md queue A item 14e"
 
 
 def make_step_fns(cfg, opts):
@@ -122,15 +124,20 @@ def soft_prompt_from_retrieval(cfg, queries: np.ndarray, k: int = 4,
     caller projects the vectors into the model's embedding space.
     ``kernel_mode`` selects the retrieval hot-path backend
     (core/backend.py), ``coalesce_qb`` the kernel modes' per-page
-    query-tile width. ``streaming`` needs the streaming scheduler, which
-    the port does not have yet: it raises."""
-    if streaming:
-        raise NotImplementedError(
-            f"streaming retrieval runs through the streaming scheduler, "
-            f"not ported yet ({STREAMING_ITEM})")
+    query-tile width. With ``streaming`` the batch goes through the
+    streaming scheduler's slot pool (retrieval as a continuous-batching
+    client, bit-identical results) instead of one frozen ``search_sim``
+    batch."""
     dev = resolve_device(device)
     B, d = queries.shape
     db, packed = index if index is not None else retrieval_index(d, seed)
+    if streaming:
+        retriever = StreamingRetriever(
+            db, packed, L=16, W=1, k=k, num_slots=max(1, B // 2),
+            kernel_mode=kernel_mode, coalesce_qb=coalesce_qb, device=dev)
+        vecs, ids, dists, _ = retriever.retrieve(
+            np.asarray(queries, np.float32))
+        return vecs, ids, dists
     consts, egeom, entry = pack_for_engine(packed, device=dev)
     params = EngineParams.lossless(SearchParams(L=16, W=1, k=k), B, 16,
                                    kernel_mode=kernel_mode,
@@ -144,10 +151,11 @@ def soft_prompt_from_retrieval(cfg, queries: np.ndarray, k: int = 4,
 
 def serve_inputs(cfg, *, batch: int, prompt_len: int, rag: bool,
                  rag_dim: int, seed: int, device, kernel_mode: str = "auto",
-                 coalesce_qb: int = 8, index=None):
+                 coalesce_qb: int = 8, index=None, streaming: bool = False):
     """Random weights and prompts from ``seed`` on ``device``, plus the
     frontend embeddings: the vision stub's, or (``rag``) the projected
-    retrieved neighbours over the first k prompt positions. Returns
+    retrieved neighbours over the first k prompt positions (retrieved
+    through the streaming scheduler with ``streaming``). Returns
     (params, tokens, frontend_embeds or None, retrieval or None), the
     retrieval a dict of the numpy ``queries``, ``ids`` and ``dists``."""
     T.check_family(cfg)
@@ -166,7 +174,8 @@ def serve_inputs(cfg, *, batch: int, prompt_len: int, rag: bool,
         # the soft prompt can't be wider than the prompt it overwrites
         vecs, ids, dists = soft_prompt_from_retrieval(
             cfg, q, k=max(1, min(4, prompt_len)), kernel_mode=kernel_mode,
-            coalesce_qb=coalesce_qb, device=dev, index=index)
+            coalesce_qb=coalesce_qb, streaming=streaming, device=dev,
+            index=index)
         proj = torch.randn((vecs.shape[-1], cfg.d_model), generator=gen,
                            device=dev) * 0.02
         fe = torch.as_tensor(vecs, device=dev) @ proj     # (B, k, d_model)
@@ -186,8 +195,9 @@ def main(argv=None):
     ap.add_argument("--rag-dim", type=int, default=32,
                     help="query-embedding dim of the RAG retrieval stage")
     ap.add_argument("--stream-retrieval", action="store_true",
-                    help="not available in the port yet: the streaming "
-                         "scheduler is not ported")
+                    help="route the RAG retrieval through the streaming "
+                         "scheduler's slot pool (continuous batching) "
+                         "instead of one frozen search_sim batch")
     ap.add_argument("--kernel-mode", default="auto",
                     choices=["auto", "cuda", "ref", "torch"],
                     help="hot-path backend: the CUDA kernels (auto on a "
@@ -200,9 +210,6 @@ def main(argv=None):
                     help="torch device (cuda or cpu)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.stream_retrieval:
-        ap.error(f"--stream-retrieval needs the streaming scheduler, which "
-                 f"the port does not have yet ({STREAMING_ITEM})")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -214,7 +221,8 @@ def main(argv=None):
     params, tokens, fe, retrieval = serve_inputs(
         cfg, batch=args.batch, prompt_len=args.prompt_len, rag=args.rag,
         rag_dim=args.rag_dim, seed=args.seed, device=dev,
-        kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb)
+        kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
+        streaming=args.stream_retrieval)
     retrieval_launches = launch_counts()
     if retrieval is not None:
         print("retrieved neighbor ids:", retrieval["ids"][:, :4].tolist())
@@ -245,7 +253,8 @@ def main(argv=None):
         "arch": cfg.name, "device": torch.cuda.get_device_name(dev)
         if dev.type == "cuda" else "cpu",
         "batch": args.batch, "prompt_len": args.prompt_len, "gen": args.gen,
-        "rag": args.rag, "tok_s": args.batch * args.gen / dt,
+        "rag": args.rag, "stream_retrieval": args.stream_retrieval,
+        "tok_s": args.batch * args.gen / dt,
         "prefill_ms": stats["prefill_s"] * 1e3,
         "decode_ms_per_token": (stats["decode_s"] * 1e3
                                 / max(1, args.gen - 1)),

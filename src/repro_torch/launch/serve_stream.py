@@ -1,0 +1,229 @@
+"""Streaming retrieval serving driver — the NDSearch engine as an
+always-on service with open-loop (Poisson) query arrivals, on the port.
+
+Where ``repro_torch.launch.search`` runs one frozen batch per call, this
+driver keeps a fixed pool of query slots saturated through the
+streaming scheduler (core/scheduler.py): queries arrive on a Poisson
+clock, are admitted the round a slot frees up, and retire individually
+with per-query latency — the paper's query-level scheduling (§V).
+Reports slot occupancy, p50/p95/p99 latency (rounds + wall), sustained
+QPS and the host-sync model, with the reference CLI's JSON keys plus
+``device`` and ``host_syncs``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_stream --dataset tiny \\
+      --queries 128 --shards 4 --slots 8 --arrival-rate 2 --spec 4 \\
+      --spec-dynamic
+  PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cpu \\
+      --dataset tiny --n 512
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import EngineParams, pack_for_engine
+from repro_torch.core.graph import brute_force_topk, recall_at_k
+from repro_torch.core.metrics import stream_summary
+from repro_torch.core.ref_search import SearchParams
+from repro_torch.core.scheduler import poisson_arrivals, stream_search
+from repro_torch.data.vectors import PAPER_DATASETS, VectorDataset
+from repro_torch.launch.search import build_index
+from repro_torch.utils import resolve_device
+
+# the reference CLI's flags of the serving layers not ported yet, each
+# with the ROADMAP.md queue A item it belongs to: set, they fail
+UNPORTED_FLAGS = (
+    ("--topr", 10, dict(type=int, default=0)),
+    ("--leg-L", 10, dict(type=int, default=0)),
+    ("--ring", 10, dict(type=int, default=0)),
+    ("--overload", 10, dict(default="block")),
+    ("--kill-shard", 10, dict(action="append")),
+    ("--delay-shard", 10, dict(action="append")),
+    ("--corrupt-pages", 10, dict(type=float, default=0.0)),
+    ("--corrupt-mode", 10, dict(default="nan")),
+    ("--nan-guard", 10, dict(action="store_true")),
+    ("--down-shards", 10, dict(default="")),
+    ("--device-pages", 11, dict(type=int, default=0)),
+    ("--prefetch", 11, dict(action=argparse.BooleanOptionalAction,
+                            default=True)),
+    ("--prefetch-page-w", 11, dict(type=float, default=1.0)),
+    ("--insert-rate", 12, dict(type=float, default=0.0)),
+    ("--delete-rate", 12, dict(type=float, default=0.0)),
+    ("--delta-cap", 12, dict(type=int, default=0)),
+    ("--refresh-every", 12, dict(type=int, default=0)),
+)
+
+
+class StreamingRetriever:
+    """Retrieval-as-a-service facade for the two-stage RAG pipeline.
+
+    Owns a packed index (on ``device``) + engine params; each
+    :meth:`retrieve` call is a streaming client session — queries flow
+    through the slot pool with retire/refill instead of one frozen batch
+    (``repro_torch.launch.serve --rag --stream-retrieval``)."""
+
+    def __init__(self, db: np.ndarray, packed, *, L=16, W=1, k=4,
+                 num_slots=4, spec=0, dynamic_spec=False,
+                 kernel_mode="auto", coalesce_qb=8, round_chunk=8,
+                 injit_admit=None, device="cuda"):
+        self.db = db
+        self.device = resolve_device(device)
+        self.consts, self.geom, self.entry = pack_for_engine(
+            packed, device=self.device)
+        self.params = EngineParams.lossless(
+            SearchParams(L=L, W=W, k=k), num_slots, packed.max_degree,
+            spec_width=spec, kernel_mode=kernel_mode,
+            coalesce_qb=coalesce_qb)
+        self.num_slots = num_slots
+        self.dynamic_spec = dynamic_spec
+        self.round_chunk = round_chunk
+        self.injit_admit = injit_admit
+
+    def retrieve(self, queries: np.ndarray, arrivals=None):
+        """(N, d) queries -> (vecs (N, k, d), ids, dists, StreamStats)."""
+        ids, dists, stats = stream_search(
+            self.consts, self.geom, self.params, self.entry, queries,
+            num_slots=self.num_slots, arrivals=arrivals,
+            dynamic_spec=self.dynamic_spec, round_chunk=self.round_chunk,
+            injit_admit=self.injit_admit, device=self.device)
+        vecs = self.db[np.clip(ids, 0, self.db.shape[0] - 1)]
+        return vecs, ids, dists, stats
+
+
+def stream_report(consts, geom, params, entry, db, queries, *, slots,
+                  arrival_rate, seed, dynamic_spec=False, refill=True,
+                  round_chunk=8, injit_admit=None, spec_page_w=0.0,
+                  device="cuda") -> dict:
+    """Run one streaming session on the flat pool and build the serving
+    report: Poisson arrivals -> scheduler -> recall vs brute force +
+    ``stream_summary`` metrics. The keys of the serving layers not
+    ported (routing, ring, faults, tiered store, live index) report
+    their at-rest values."""
+    arrivals = poisson_arrivals(arrival_rate, queries.shape[0], seed)
+    ids, _, st = stream_search(
+        consts, geom, params, entry, queries, num_slots=slots,
+        arrivals=arrivals, dynamic_spec=dynamic_spec, refill=refill,
+        round_chunk=round_chunk, injit_admit=injit_admit,
+        spec_page_w=spec_page_w, device=device)
+    true_ids, _ = brute_force_topk(db, queries, params.search.k)
+    return {
+        "shards": geom.num_shards, "slots_per_shard": slots,
+        "arrival_rate": arrival_rate, "refill": refill,
+        "spec": params.spec_width, "spec_dynamic": dynamic_spec,
+        "round_chunk": round_chunk, "topr": 0,
+        "deadline_rounds": params.deadline_rounds,
+        "ring": 0, "overload": "block", "device_pages": 0, "live": False,
+        "delta_cap": 0, "inserts": 0, "nan_guard": False, "faults": False,
+        "down_shards": [],
+        # injit_admit arrives via stream_summary: the scheduler's
+        # *resolved* admission path
+        "recall@k": round(float(recall_at_k(ids, true_ids)), 4),
+        **stream_summary(st),
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="tiny",
+                    choices=sorted(PAPER_DATASETS) + ["tiny"])
+    ap.add_argument("--n", type=int, default=0)
+    ap.add_argument("--queries", type=int, default=128)
+    ap.add_argument("--shards", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=64)
+    ap.add_argument("--degree", type=int, default=16)
+    ap.add_argument("--L", type=int, default=32)
+    ap.add_argument("--W", type=int, default=1)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--slots", type=int, default=8,
+                    help="query slots per shard")
+    ap.add_argument("--arrival-rate", type=float, default=2.0,
+                    help="mean Poisson arrivals per engine round "
+                         "(0 = all at round 0)")
+    ap.add_argument("--spec", type=int, default=0,
+                    help="max speculative prefetch width")
+    ap.add_argument("--spec-dynamic", action="store_true",
+                    help="per-query hit-rate speculation controller")
+    ap.add_argument("--spec-page-w", type=float, default=0.0,
+                    help="page-efficiency weight for the dynamic "
+                         "controller (0 = hit-rate only)")
+    ap.add_argument("--no-refill", action="store_true",
+                    help="frozen-batch discipline (baseline): admit "
+                         "only into an all-free pool")
+    ap.add_argument("--round-chunk", type=int, default=8,
+                    help="engine rounds per dispatch (engine_run_chunk); "
+                         "the schedule stays exactly per-round")
+    ap.add_argument("--injit-admit", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="seat arrived queries from a device-side "
+                         "pending queue inside the round chunk (auto = "
+                         "on whenever refill admission is active)")
+    ap.add_argument("--deadline-rounds", type=int, default=0,
+                    help="force-retire a query after this many serving "
+                         "rounds in a slot, flagging it truncated "
+                         "(0 = no deadline)")
+    ap.add_argument("--kernel-mode", default="auto",
+                    choices=["auto", "cuda", "ref", "torch"],
+                    help="hot-path backend: the CUDA kernels (auto on a "
+                         "card), their plain versions (ref), or inline "
+                         "torch ops")
+    ap.add_argument("--coalesce-qb", type=int, default=8)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for the search (cuda or cpu)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="")
+    for flag, _, kw in UNPORTED_FLAGS:
+        ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
+    args = ap.parse_args(argv)
+    for flag, item, _ in UNPORTED_FLAGS:
+        dest = flag[2:].replace("-", "_")
+        if getattr(args, dest) != ap.get_default(dest):
+            ap.error(f"{flag} belongs to a serving layer the port does "
+                     f"not have yet (ROADMAP.md queue A item {item})")
+
+    dev = resolve_device(args.device)
+    if args.dataset == "tiny":
+        ds = VectorDataset("tiny", n=args.n or 4096, dim=48, clusters=32)
+    else:
+        ds = PAPER_DATASETS[args.dataset]
+        if args.n:
+            ds = dataclasses.replace(ds, n=args.n)
+    db0 = ds.materialize()
+    queries = ds.queries(args.queries, seed=args.seed + 1)
+    db, packed = build_index(
+        db0, shards=args.shards, page_size=args.page_size, r=args.degree,
+        pref_width=args.spec, seed=args.seed)
+    consts, geom, entry = pack_for_engine(packed, device=dev)
+    params = EngineParams.lossless(
+        SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
+        packed.max_degree, spec_width=args.spec,
+        kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
+        deadline_rounds=args.deadline_rounds)
+
+    res = {
+        "dataset": ds.name, "n": int(db.shape[0]),
+        "kernel_mode": args.kernel_mode,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
+        else "cpu",
+        **stream_report(consts, geom, params, entry, db, queries,
+                        slots=args.slots, arrival_rate=args.arrival_rate,
+                        seed=args.seed + 2,
+                        dynamic_spec=args.spec_dynamic,
+                        refill=not args.no_refill,
+                        round_chunk=args.round_chunk,
+                        injit_admit={"auto": None, "on": True,
+                                     "off": False}[args.injit_admit],
+                        spec_page_w=args.spec_page_w, device=dev),
+    }
+    print(json.dumps(res, indent=1))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,6 +13,7 @@ from repro_torch.core.engine import EngineParams, pack_for_engine, search_sim
 from repro_torch.core.graph import build_vamana
 from repro_torch.core.luncsr import LUNCSR, Geometry, pack_index
 from repro_torch.core.ref_search import SearchParams
+from repro_torch.core.scheduler import stream_search
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.distance import (paged_distances,
                                           paged_distances_ref)
@@ -293,6 +294,69 @@ def test_search_sim_cuda_matches_cpu_ref(dev):
         torch.testing.assert_close(out["cuda"][2][k], v, rtol=0, atol=0)
 
 
+@pytest.fixture(scope="module")
+def int_index():
+    """An integer-valued index with prefetch lists (speculation)."""
+    rng = np.random.default_rng(1)
+    n, dim, S = 1024, 32, 4
+    db = rng.integers(-8, 9, size=(n, dim)).astype(np.float32)
+    queries = rng.integers(-8, 9, size=(48, dim)).astype(np.float32)
+    adj, medoid = build_vamana(db, r=12, seed=1)
+    geo = Geometry(num_shards=S, page_size=32, pages_per_block=2, dim=dim)
+    packed = pack_index(LUNCSR.from_adjacency(db, adj, geo, entry=medoid,
+                                              pref_width=8), max_degree=12)
+    return packed, queries
+
+
+@pytest.mark.parametrize("injit,dynamic", [(True, False), (True, True),
+                                           (False, True)])
+def test_stream_search_cuda_matches_cpu_ref(dev, int_index, injit,
+                                            dynamic):
+    """The stepper and scheduler on the card equal CPU ref mode on an
+    integer index: ids, dists, every per-query record but its wall time,
+    and the round schedule."""
+    packed, queries = int_index
+    arrivals = np.random.default_rng(2).integers(0, 30, len(queries))
+    out = {}
+    for mode, where in (("cuda", dev), ("ref", "cpu")):
+        params = EngineParams.lossless(SearchParams(L=16, W=1, k=10), 3, 12,
+                                       spec_width=4, kernel_mode=mode,
+                                       deadline_rounds=40)
+        consts, geom, entry = pack_for_engine(packed, device=where)
+        ids, dists, st = stream_search(
+            consts, geom, params, entry, queries, num_slots=3,
+            arrivals=arrivals, round_chunk=8, injit_admit=injit,
+            dynamic_spec=dynamic, device=where)
+        out[mode] = (ids, dists, {r.qid: (tuple(r.ids), tuple(r.dists),
+                                          r.admit_round, r.retire_round,
+                                          r.service_rounds, r.n_dist,
+                                          r.truncated) for r in st.results},
+                     st.total_rounds, st.occupancy_trace, st.spec_trace,
+                     st.host_dispatches)
+    np.testing.assert_array_equal(out["cuda"][0], out["ref"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["ref"][1])
+    assert out["cuda"][2:] == out["ref"][2:]
+
+
+def test_stream_search_launches_fused_merge_once_per_round(dev, int_index):
+    """Every engine round the scheduler steps — the warmup chunk's
+    included — launches the distance kernel and the fused Gather merge
+    once each, and the standalone sort and merge never."""
+    packed, queries = int_index
+    consts, geom, entry = pack_for_engine(packed, device=dev)
+    params = EngineParams.lossless(SearchParams(L=16, W=1, k=10), 4, 12,
+                                   spec_width=4)
+    reset_launch_counts()
+    _, _, st = stream_search(consts, geom, params, entry, queries,
+                             num_slots=4, round_chunk=8, device=dev)
+    counts = launch_counts()
+    rounds = st.total_rounds + st.warmup_rounds
+    assert counts["paged_distance"] == rounds
+    assert counts["bitonic_merge_unsorted"] == rounds
+    assert counts["bitonic_sort"] == counts["bitonic_merge"] == 0
+    assert st.host_syncs >= st.total_rounds
+
+
 def _qkv(B, H, Hkv, S, dh, dtype, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return tuple((0.5 * torch.randn(shape, generator=g, device=dev)).to(dtype)
@@ -394,3 +458,24 @@ def test_serve_cli_on_card(dev, capsys):
     assert all(res["launches"]["retrieval"][k] > 0 for k in (
         "paged_distance", "bitonic_merge_unsorted"))
     assert res["launches"]["generate"]["flash_attention"] == 4
+
+
+def test_serve_cli_stream_retrieval_on_card(dev, capsys):
+    """``serve --rag --stream-retrieval`` on the card: the retrieval runs
+    through the streaming scheduler (the search kernels launch) and
+    returns the frozen batch's ids."""
+    import json
+
+    from repro_torch.launch.serve import main
+    argv = ["--arch", "gemma3-1b", "--reduced", "--rag", "--batch", "4",
+            "--prompt-len", "40", "--gen", "3"]
+    out = {}
+    for stream in (False, True):
+        assert main(argv + ["--stream-retrieval"] * stream) == 0
+        lines = capsys.readouterr().out.strip().splitlines()
+        out[stream] = (lines[0], json.loads(lines[-1]))
+    assert out[True][0] == out[False][0]          # the retrieved ids
+    res = out[True][1]
+    assert res["stream_retrieval"] is True
+    assert all(res["launches"]["retrieval"][k] > 0 for k in (
+        "paged_distance", "bitonic_merge_unsorted"))

@@ -107,7 +107,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert not bad, bad\n"
         "for m in ('repro_torch.configs.registry', 'repro_torch.models."
         "transformer', 'repro_torch.models.convert', 'repro_torch.kernels."
-        "flash_attention.kernel', 'repro_torch.launch.serve'):\n"
+        "flash_attention.kernel', 'repro_torch.launch.serve', "
+        "'repro_torch.core.scheduler', 'repro_torch.core.metrics', "
+        "'repro_torch.launch.serve_stream'):\n"
         "    assert m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env={"PYTHONPATH": str(REPO / "src"),
