@@ -7,7 +7,8 @@ Phases, each printed as one JSON object per line (a phase that fails
 raises, so the script exits nonzero and prints no result line):
 
   1. device  — the card's name and power limit (as nvidia-smi prints
-               them), torch and CUDA versions; TF32 is switched off.
+               them), torch and CUDA versions, whether torch offers
+               conditional CUDA-graph nodes; TF32 is switched off.
   2. build   — compile the CUDA kernels from src/repro_torch/kernels/csrc;
                each kernel's registers and spills as ptxas reports them.
   3. kernels — hold each search kernel against its plain PyTorch version
@@ -32,33 +33,51 @@ raises, so the script exits nonzero and prints no result line):
                window below it, and non-causal; each within its stated
                tolerance.
   5. int     — search_sim on an integer-valued index: cuda mode on the
-               card equals ref mode on the CPU bit for bit.
+               card, captured as CUDA graphs of SEARCH_CHUNK predicated
+               rounds, equals the same search uncaptured (capture=False)
+               on the card and ref mode on the CPU bit for bit; one host
+               read per chunk.
   6. main    — the sift-1b stand-in at the CLI defaults (n=16384, d=128,
                8 shards, page 64, degree 16, L=32, W=1, k=10, 256
                queries): host build (with prefetch lists of 8, which
                spec 0 never reads), then search_sim in auto mode (the
-               kernels). Launch counts are zeroed just before and read
-               just after; every search kernel must have launched (the
-               fused Gather merge once per round, the standalone sort and
-               merge not at all), and recall@k must be within 0.01 of
-               the reference package's value.
+               kernels): a warm-up call captures the chunk, the measured
+               call replays it. Launch counts are zeroed just before and
+               read just after; every search kernel must have launched
+               (the distance kernel and the fused Gather merge once per
+               round the device ran — every replay runs its chunk's
+               SEARCH_CHUNK rounds, dead ones included — the standalone
+               sort and merge not at all); recall@k, rounds,
+               pages_unique and items_recv must equal the port's
+               standing counts (MAIN_COUNTS); the captured search must
+               equal the uncaptured one bit for bit. Printed: captures,
+               replays, host syncs, dead rounds, host ms per round, QPS
+               over REPEATS more calls and uncaptured; then a profiled
+               call (the device's idle share).
   7. stream  — the streaming scheduler (launch/serve_stream.py's
-               stream_search) on the same host builds. (a) The integer
-               index: cuda-mode streaming on the card equals one-shot
-               search_sim in cuda mode and the same stream in ref mode
-               on the CPU bit for bit (ids, dists, rounds, n_dist), at
-               spec 0 and 4. (b) The sift-1b stand-in: 2048 queries,
+               stream_search) on the same host builds; its chunks run
+               as captured CUDA graphs (one capture per session's chunk
+               program, in the warmup; one host read per chunk). (a)
+               The integer index: the captured stream on the card equals
+               the uncaptured one and the same stream in ref mode on the
+               CPU in every per-query record, and one-shot search_sim in
+               cuda mode in ids, dists, rounds and n_dist, bit for bit,
+               at spec 0 and 4. (b) The sift-1b stand-in: 2048 queries,
                Poisson arrivals at 8 per round into a 32-slot-per-shard
                pool, round chunk 8, in-device admission, spec 4: refill
-               static, refill dynamic and frozen runs, each with QPS,
-               latency percentiles, occupancy, syncs, recall@10, launch
-               counts and a profiled window (the refill static run also
-               a host+device one). Checks: one distance and
-               one fused Gather-merge launch per engine round stepped,
-               none of the standalone sort and merge; the static run's
-               ids equal one-shot search_sim's (up to a distance
-               near-tie); dynamic recall within 0.01 of static; refill
-               occupancy above frozen.
+               static, refill dynamic and frozen runs, each with QPS
+               (and REPEATS more sessions'), latency percentiles,
+               occupancy, captures, replays, syncs,
+               dead rounds, host ms per round, recall@10, launch counts,
+               the uncaptured session's QPS and a profiled window (the
+               refill static run also a host+device one). Checks: one
+               distance and one fused Gather-merge launch per round the
+               device ran, none of the standalone sort and merge; every
+               run's records equal its uncaptured session's bit for
+               bit; the static run takes 417 rounds and its ids equal
+               one-shot search_sim's (up to a distance near-tie);
+               dynamic recall within 0.01 of static; refill occupancy
+               above frozen.
   8. serve   — gemma3-1b at full width (26 layers, d_model 1152, vocab
                262144; random weights from a seed) through
                launch/serve.py's functions in auto mode: RAG retrieval
@@ -84,6 +103,7 @@ present, and when the repository's package is missing.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -119,6 +139,14 @@ F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def drop_traces() -> None:
+    """Free the torch.profiler traces just taken. Their events (some
+    million Python objects per stream window) sit in reference cycles
+    that only the cyclic collector frees; left there, every later full
+    collection walks them all, inside whatever is being timed then."""
+    gc.collect()
 
 
 def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -398,12 +426,42 @@ def check_topk(dev) -> float:
 # ---------------------------------------------------------------------------
 # Phases 5 and 6: the search main path
 # ---------------------------------------------------------------------------
+def capture_line(stats, live_rounds: int, syncs: int) -> dict:
+    """The capture cache's counters over one run: captures, replays, the
+    rounds the device ran (the captures' eager warm-up rounds and every
+    replay's K masked rounds), and how many of the replayed rounds were
+    dead (past the loop's exit), beside the run's host syncs."""
+    return {"captures": stats.captures, "replays": stats.replays,
+            "device_rounds": stats.rounds, "warm_rounds": stats.warm_rounds,
+            "dead_rounds": stats.rounds - stats.warm_rounds - live_rounds,
+            "host_syncs": syncs}
+
+
+def idle_share(prof, wall_ms: float):
+    """(device busy ms, idle share of ``wall_ms``) from a torch.profiler
+    run over device activity."""
+    busy_ms = sum(us for us, _ in device_kernel_us(prof).values()) / 1e3
+    return busy_ms, 1.0 - busy_ms / wall_ms
+
+
+def check_launches(what: str, launches: dict, device_rounds: int) -> None:
+    """Every round the device ran launched the distance kernel and the
+    fused Gather merge once each, the standalone sort and merge never."""
+    if launches["paged_distance"] != device_rounds or \
+            launches["bitonic_merge_unsorted"] != device_rounds or \
+            launches["bitonic_sort"] or launches["bitonic_merge"]:
+        raise AssertionError(f"{what}: {device_rounds} rounds on the "
+                             f"device, launches {launches}")
+
+
 def integer_main_path(dev):
     """Returns the index and queries, for phase 7."""
     import numpy as np
     import torch
-    from repro_torch.core.engine import (EngineParams, pack_for_engine,
-                                         search_sim)
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import (SEARCH_CHUNK, EngineParams,
+                                         pack_for_engine, search_sim)
     from repro_torch.core.ref_search import SearchParams
     from repro_torch.launch.search import build_index
 
@@ -416,29 +474,71 @@ def integer_main_path(dev):
                             pref_width=8)
     build_s = time.perf_counter() - t0
     qsh = queries.reshape(shards, nq // shards, dim)
-    out = {}
-    for mode, where in (("cuda", dev), ("ref", torch.device("cpu"))):
+    out, syncs = {}, {}
+    for name, mode, where, capture in (
+            ("captured", "cuda", dev, True),
+            ("uncaptured", "cuda", dev, False),
+            ("ref", "ref", torch.device("cpu"), True)):
         params = EngineParams.lossless(SearchParams(L=32, W=1, k=10),
                                        nq // shards, 16, kernel_mode=mode)
         consts, geom, entry = pack_for_engine(packed, device=where)
+        CACHE.reset_stats()
         ids, dists, st = search_sim(consts, qsh, *entry, params, geom,
-                                    device=where)
-        out[mode] = {"ids": ids.cpu(), "dists": dists.cpu(),
-                     **{k: v.cpu() for k, v in st.items()
-                        if k != "host_syncs"}}
-    for key, want in out["ref"].items():
-        if not torch.equal(out["cuda"][key], want):
-            raise AssertionError(f"integer main path: cuda-mode {key} "
-                                 f"differs from CPU ref mode")
+                                    device=where, capture=capture)
+        syncs[name] = st.pop("host_syncs")
+        out[name] = {"ids": ids.cpu(), "dists": dists.cpu().view(torch.int32),
+                     **{k: v.cpu() for k, v in st.items()}}
+        if name == "captured":
+            cap = capture_line(CACHE.stats,
+                               int(st["total_rounds"].max()), syncs[name])
+            captured = (params, consts, geom, entry)
+    for name in ("captured", "uncaptured"):
+        for key, want in out["ref"].items():
+            if not torch.equal(out[name][key], want):
+                raise AssertionError(f"integer main path: {name} cuda-mode "
+                                     f"{key} differs from CPU ref mode")
+    rounds = int(out["ref"]["total_rounds"].max())
+    if syncs["captured"] != -(-rounds // SEARCH_CHUNK):
+        raise AssertionError(f"integer main path: {syncs['captured']} host "
+                             f"syncs for {rounds} rounds")
+    # one more captured search (replays only), timed, then profiled
+    params, consts, geom, entry = captured
+    qdev = torch.as_tensor(qsh, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search_sim(consts, qdev, *entry, params, geom, device=dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        search_sim(consts, qdev, *entry, params, geom, device=dev)
+        torch.cuda.synchronize()
+    busy_ms, idle = idle_share(prof, wall_ms)
+    del prof
+    drop_traces()
     emit({"phase": "int", "n": n, "d": dim, "shards": shards, "queries": nq,
-          "host_build_s": round(build_s, 2),
-          "rounds": int(out["ref"]["total_rounds"].max()),
-          "bit_identical": sorted(out["ref"])})
+          "host_build_s": round(build_s, 2), "rounds": rounds,
+          "search_chunk": SEARCH_CHUNK, **cap,
+          "host_ms_per_round": wall_ms / rounds,
+          "device_busy_ms": busy_ms, "device_idle_share": idle,
+          "bit_identical": {"captured_vs_uncaptured_vs_cpu_ref":
+                            sorted(out["ref"])}})
     return packed, queries
+
+
+# phase main's standing counts (recall@k equals the reference's)
+MAIN_COUNTS = {"recall@k": REFERENCE_RECALL, "rounds": 98,
+               "pages_unique": 11337, "items_recv": 71738}
+# measured repeats of the main path (its QPS spread within one process)
+REPEATS = 5
 
 
 def real_main_path(dev):
     """Returns the kernels' launch counts, and the build for phase 7."""
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import (EngineParams, pack_for_engine,
+                                         search_sim)
+    from repro_torch.core.ref_search import SearchParams
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.search import build_index, dataset, run_search
 
@@ -452,48 +552,75 @@ def real_main_path(dev):
     build_s = time.perf_counter() - t0
     cfg = dict(shards=SHARDS, L=L, W=W, k=K, spec=0, kernel_mode="auto",
                coalesce_qb=QB, device=dev)
-    run_search(packed, db, queries, **cfg)             # warm-up
+    engine = pack_for_engine(packed, device=dev)
+    t0 = time.perf_counter()
+    run_search(engine, db, queries, **cfg)     # warm-up: builds the capture
+    warm_s = time.perf_counter() - t0
     reset_launch_counts()
-    res = run_search(packed, db, queries, **cfg)
+    CACHE.reset_stats()
+    res = run_search(engine, db, queries, **cfg)
     launches = launch_counts()
+    cap = capture_line(CACHE.stats, res["rounds"], res["host_syncs"])
+    qps = [run_search(engine, db, queries, **cfg)["qps"]
+           for _ in range(REPEATS)]
     res.update(dataset=ds.name, host_build_s=round(build_s, 2),
+               warmup_s=warm_s, qps_repeats=qps, **cap,
+               host_ms_per_round=res["search_s"] * 1e3 / res["rounds"],
                launches=launches,
-               launches_per_round={k: v / res["rounds"]
-                                   for k, v in launches.items()})
-    emit({"phase": "main", **res})
-    if not all(launches[k] > 0 for k in SEARCH_KERNELS):
-        raise AssertionError(f"a kernel did not launch on the main path: "
-                             f"{launches}")
-    if launches["bitonic_merge_unsorted"] != res["rounds"] or \
-            launches["bitonic_sort"] or launches["bitonic_merge"]:
-        raise AssertionError(f"the Gather merge must be one fused launch "
-                             f"per round ({res['rounds']} rounds): "
-                             f"{launches}")
-    if not math.isfinite(res["recall@k"]) or \
-            abs(res["recall@k"] - REFERENCE_RECALL) > RECALL_TOL:
-        raise AssertionError(f"recall@k {res['recall@k']} not within "
-                             f"{RECALL_TOL} of {REFERENCE_RECALL}")
-    if not math.isfinite(res["mean_dists_per_query"]):
-        raise AssertionError("non-finite distance count")
-    profile_main_path(packed, queries, res["search_s"], dev)
-    return launches, (db, packed)
-
-
-def profile_main_path(packed, queries, wall_s: float, dev) -> None:
-    """One more search_sim call under torch.profiler (device activity
-    only): the card's kernel time by name, and its busy share of the
-    unprofiled call's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.engine import (EngineParams, pack_for_engine,
-                                         search_sim)
-    from repro_torch.core.ref_search import SearchParams
-
-    consts, geom, entry = pack_for_engine(packed, device=dev)
+               launches_per_device_round={
+                   k: v / cap["device_rounds"] for k, v in launches.items()})
+    # the same search run eagerly on the card, outside the cache
+    consts, geom, entry = engine
     params = EngineParams.lossless(SearchParams(L=L, W=W, k=K),
                                    NQ // SHARDS, DEGREE, coalesce_qb=QB)
     qsh = torch.as_tensor(queries.reshape(SHARDS, NQ // SHARDS, -1),
                           device=dev)
+    got = {}
+    for capture in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i, d, st = search_sim(consts, qsh, *entry, params, geom, device=dev,
+                              capture=capture)
+        i = i.cpu()
+        got[capture] = (time.perf_counter() - t0, i, d.cpu().view(
+            torch.int32), {k: v.cpu() for k, v in st.items()
+                           if k != "host_syncs"})
+    res["uncaptured_qps"] = NQ / got[False][0]
+    same = [torch.equal(a, b) for a, b in zip(got[True][1:3],
+                                               got[False][1:3])]
+    same += [torch.equal(got[True][3][k], got[False][3][k])
+             for k in got[True][3]]
+    res["captured_equals_uncaptured"] = all(same)
+    emit({"phase": "main", **res})
+    if not all(same):
+        raise AssertionError("main path: the captured search differs from "
+                             "the uncaptured one")
+    if not all(launches[k] > 0 for k in SEARCH_KERNELS):
+        raise AssertionError(f"a kernel did not launch on the main path: "
+                             f"{launches}")
+    check_launches("main path", launches, cap["device_rounds"])
+    if cap["captures"] or cap["replays"] != res["host_syncs"]:
+        raise AssertionError(f"main path: a warm search must replay its "
+                             f"capture once per chunk: {cap}")
+    for key, want in MAIN_COUNTS.items():
+        if res[key] != want:
+            raise AssertionError(f"main path: {key} {res[key]}, not {want}")
+    if not math.isfinite(res["mean_dists_per_query"]):
+        raise AssertionError("non-finite distance count")
+    profile_main_path(consts, geom, entry, params, qsh, res["search_s"], dev)
+    drop_traces()
+    return launches, (db, packed)
+
+
+def profile_main_path(consts, geom, entry, params, qsh, wall_s: float,
+                      dev) -> None:
+    """One more (captured) search_sim call under torch.profiler (device
+    activity only): the card's kernel time by name, and its busy share
+    of the unprofiled call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import search_sim
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, st = search_sim(consts, qsh, *entry, params, geom, device=dev)
@@ -530,6 +657,8 @@ STREAM_RUNS = {"refill_static": dict(refill=True, dynamic_spec=False),
 # real-valued ids may differ from one-shot search_sim's only where two
 # distances tie within f32 rounding
 NEAR_TIE = 1e-5
+# the refill static run's standing schedule
+STATIC_ROUNDS = 417
 
 
 def per_query(st, n: int, field: str):
@@ -541,14 +670,35 @@ def per_query(st, n: int, field: str):
     return out
 
 
+def stream_records(st, n: int) -> dict:
+    """Every per-query record but its wall time, in query order."""
+    import numpy as np
+    return {f: per_query(st, n, f) for f in (
+        "arrival_round", "admit_round", "retire_round", "service_rounds",
+        "n_dist", "truncated")} | {
+        "ids": np.stack([r.ids for r in sorted(st.results,
+                                               key=lambda r: r.qid)]),
+        "dists": np.stack([r.dists for r in sorted(
+            st.results, key=lambda r: r.qid)]).view(np.int32)}
+
+
+def first_difference(got: dict, want: dict):
+    import numpy as np
+    return next((k for k in want if not np.array_equal(got[k], want[k])),
+                None)
+
+
 def stream_integer(packed, queries, dev) -> None:
     """(a) On phase int's integer index: stream_search in cuda mode on the
-    card equals one-shot search_sim in cuda mode on the same queries, and
-    the same stream in ref mode on the CPU, in ids, dists, rounds and
-    n_dist (refill, in-device admission, round chunk 8, random
-    arrivals)."""
+    card, captured, equals the same stream uncaptured on the card, in ref
+    mode on the CPU, and one-shot search_sim in cuda mode on the same
+    queries, in ids, dists, rounds and n_dist (and every per-query
+    record against the other streams); refill, in-device admission,
+    round chunk 8, random arrivals."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.core.capture import CACHE
     from repro_torch.core.engine import (EngineParams, pack_for_engine,
                                          search_sim)
     from repro_torch.core.ref_search import SearchParams
@@ -559,88 +709,130 @@ def stream_integer(packed, queries, dev) -> None:
     sp = SearchParams(L=32, W=1, k=10)
     for spec in (0, 4):
         out = {}
-        for mode, where in (("cuda", dev), ("ref", torch.device("cpu"))):
+        for name, mode, where, capture in (
+                ("captured", "cuda", dev, True),
+                ("uncaptured", "cuda", dev, False),
+                ("ref", "ref", torch.device("cpu"), True)):
             params = EngineParams.lossless(sp, slots, 16, spec_width=spec,
                                            kernel_mode=mode)
             consts, geom, entry = pack_for_engine(packed, device=where)
-            ids, dists, st = stream_search(
+            CACHE.reset_stats()
+            _, _, st = stream_search(
                 consts, geom, params, entry, queries, num_slots=slots,
                 arrivals=arrivals, round_chunk=8, injit_admit=True,
-                device=where)
-            out[mode] = {"ids": ids, "dists": dists,
-                         "rounds": per_query(st, nq, "service_rounds"),
-                         "n_dist": per_query(st, nq, "n_dist")}
-            if mode == "cuda":
+                device=where, capture=capture)
+            out[name] = stream_records(st, nq)
+            if name == "captured":
                 stats, cuda_build = st, (consts, geom, entry)
+                cap = capture_line(CACHE.stats,
+                                   st.total_rounds + st.warmup_rounds,
+                                   st.host_syncs)
         consts, geom, entry = cuda_build
         params = EngineParams.lossless(sp, nq // SHARDS, 16, spec_width=spec,
                                        kernel_mode="cuda")
         i, d, st1 = search_sim(consts, queries.reshape(SHARDS, nq // SHARDS,
                                                        -1),
                                *entry, params, geom, device=dev)
-        out["oneshot"] = {"ids": i.reshape(nq, -1).cpu().numpy(),
-                          "dists": d.reshape(nq, -1).cpu().numpy(),
-                          "rounds": st1["rounds"].reshape(nq).cpu().numpy(),
-                          "n_dist": st1["n_dist"].reshape(nq).cpu().numpy()}
-        for other in ("ref", "oneshot"):
-            for key, want in out[other].items():
-                got = out["cuda"][key]
-                if key == "dists":        # bit for bit
-                    got, want = got.view(np.int32), want.view(np.int32)
-                if not np.array_equal(got, want):
-                    raise AssertionError(f"integer stream, spec {spec}: "
-                                         f"cuda-mode {key} differs from "
-                                         f"{other}")
+        oneshot = {"ids": i.reshape(nq, -1).cpu().numpy(),
+                   "dists": d.reshape(nq, -1).cpu().numpy().view(np.int32),
+                   "service_rounds": st1["rounds"].reshape(nq).cpu().numpy(),
+                   "n_dist": st1["n_dist"].reshape(nq).cpu().numpy()}
+        for other, want in (("uncaptured", out["uncaptured"]),
+                            ("ref", out["ref"]), ("oneshot", oneshot)):
+            key = first_difference(out["captured"], want)
+            if key is not None:
+                raise AssertionError(f"integer stream, spec {spec}: the "
+                                     f"captured stream's {key} differs "
+                                     f"from {other}")
+        if stats.host_syncs != stats.host_dispatches or cap["captures"] != 1:
+            raise AssertionError(f"integer stream, spec {spec}: one read "
+                                 f"per chunk and one capture expected: "
+                                 f"{cap}, {stats.host_dispatches} chunks")
+        params = EngineParams.lossless(sp, slots, 16, spec_width=spec,
+                                       kernel_mode="cuda")
+        prof, _, wall_ms, window = profiled_session(
+            lambda m: stream_search(consts, geom, params, entry,
+                                    queries[:m], num_slots=slots,
+                                    arrivals=arrivals[:m], round_chunk=8,
+                                    injit_admit=True, device=dev)[2],
+            nq, [ProfilerActivity.CUDA])
+        busy_ms, idle = idle_share(prof, wall_ms)
+        del prof
+        drop_traces()
         emit({"phase": "stream_int", "spec": spec, "queries": nq,
               "slots_per_shard": slots, "total_rounds": stats.total_rounds,
-              "host_dispatches": stats.host_dispatches,
-              "host_syncs": stats.host_syncs,
-              "bit_identical": {"cpu_ref_stream": sorted(out["ref"]),
-                                "cuda_oneshot_search_sim":
-                                    sorted(out["oneshot"])}})
+              "warmup_rounds": stats.warmup_rounds,
+              "host_dispatches": stats.host_dispatches, **cap,
+              "host_ms_per_round": stats.wall_s * 1e3 / stats.total_rounds,
+              "profiled_session": {**window, "wall_ms": wall_ms,
+                                   "device_busy_ms": busy_ms,
+                                   "device_idle_share": idle},
+              "bit_identical": {"uncaptured_and_cpu_ref_streams":
+                                sorted(out["ref"]),
+                                "cuda_oneshot_search_sim": sorted(oneshot)}})
+
+
+def profiled_session(run, n: int, activities):
+    """(profiler, stats, wall ms, capture line) of ``run(n)`` under
+    torch.profiler. An unprofiled ``run(n)`` first captures the
+    session's chunk program; a profiled session that captured anyway
+    (its staged queue landed at another address, a new cache key) is
+    run again, at most three times, so the window holds replays only
+    when it can."""
+    import torch
+    from torch.profiler import profile
+    from repro_torch.core.capture import CACHE
+    run(n)
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        CACHE.reset_stats()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            st = run(n)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if CACHE.stats.captures == 0:
+            break
+    live = st.total_rounds + st.warmup_rounds
+    return prof, st, wall_ms, {"attempts": attempt, **capture_line(
+        CACHE.stats, live, st.host_syncs)}
 
 
 def profile_stream_window(run, host: bool) -> dict:
     """stream_search calls under torch.profiler (``run(n)``: the run's
-    configuration on the first n queries). Device activity only, over
-    STREAM["window"] queries: the card's kernel time and its share of
-    the call's wall time. With ``host``, host and device activity over
-    STREAM["host_window"] queries: per engine round, the host time
-    inside torch ops (their self CPU time) against the wall time, the
-    kernel launches and the host's waits and copies (CUDA runtime
-    calls), and the torch ops that take the most host time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st = run(STREAM["window"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    configuration on the first n queries; :func:`profiled_session`).
+    Device activity only, over STREAM["window"] queries: the card's
+    kernel time and its share of the call's wall time. With ``host``,
+    host and device activity over STREAM["host_window"] queries: per
+    engine round, the host time inside torch ops (their self CPU time)
+    against the wall time, the kernel and graph launches and the host's
+    waits and copies (CUDA runtime calls), and the torch ops that take
+    the most host time."""
+    from torch.profiler import ProfilerActivity
+    prof, st, wall_ms, cap = profiled_session(
+        run, STREAM["window"], [ProfilerActivity.CUDA])
     kern = device_kernel_us(prof)
     busy_ms = sum(us for us, _ in kern.values()) / 1e3
     out = {"queries": STREAM["window"],
-           "rounds": st.total_rounds + st.warmup_rounds,
+           "rounds": st.total_rounds + st.warmup_rounds, **cap,
            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_ops": sum(c for _, c in kern.values())}
     if not host:
         return out
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st = run(STREAM["host_window"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, st, wall_ms, cap = profiled_session(
+        run, STREAM["host_window"],
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     ev = prof.key_averages()
     rounds = st.total_rounds + st.warmup_rounds
     runtime = {e.key: e.count / rounds for e in ev if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaStreamSynchronize",
-        "cudaMemcpyAsync", "cudaDeviceSynchronize")}
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+        "cudaStreamSynchronize", "cudaMemcpyAsync",
+        "cudaDeviceSynchronize")}
     ops = [e for e in ev if e.key.startswith("aten::")]
     top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]
     out["host"] = {
-        "queries": STREAM["host_window"], "rounds": rounds,
+        "queries": STREAM["host_window"], "rounds": rounds, **cap,
         "wall_ms_per_round": wall_ms / rounds,
         "aten_self_cpu_ms_per_round": sum(
             e.self_cpu_time_total for e in ops) / 1e3 / rounds,
@@ -657,6 +849,7 @@ def stream_path(db, packed, dev) -> None:
     runs (refill static, refill dynamic, frozen), each checked against
     its own launch counts, the static one against one-shot search_sim."""
     import numpy as np
+    from repro_torch.core.capture import CACHE
     from repro_torch.core.engine import (EngineParams, pack_for_engine,
                                          search_sim)
     from repro_torch.core.graph import brute_force_topk, recall_at_k
@@ -688,19 +881,27 @@ def stream_path(db, packed, dev) -> None:
     shot_i, shot_d = np.concatenate(shot_i), np.concatenate(shot_d)
     oneshot_s = time.perf_counter() - t0
 
-    def serve(kw, n=nq):
+    def serve(kw, n=nq, capture=True):
         return stream_search(consts, geom, params, entry, queries[:n],
                              num_slots=slots, arrivals=arrivals[:n],
                              round_chunk=STREAM["chunk"], injit_admit=True,
-                             device=dev, **kw)
+                             device=dev, capture=capture, **kw)
 
     res = {}
     for name, kw in STREAM_RUNS.items():
         reset_launch_counts()
+        CACHE.reset_stats()
         ids, dists, st = serve(kw)
         launches = launch_counts()
-        summ = stream_summary(st)
         stepped = st.total_rounds + st.warmup_rounds
+        cap = capture_line(CACHE.stats, stepped, st.host_syncs)
+        summ = stream_summary(st)
+        # more sessions of the same stream (QPS spread in this process)
+        repeats = [serve(kw)[2] for _ in range(REPEATS)]
+        # the same session run eagerly on the card, outside the cache
+        _, _, st_eager = serve(kw, capture=False)
+        differ = first_difference(stream_records(st, nq),
+                                  stream_records(st_eager, nq))
         line = {"phase": "stream", "run": name, **kw, "queries": nq,
                 "slots_per_shard": slots, "shards": SHARDS,
                 "arrival_rate": STREAM["rate"],
@@ -713,19 +914,31 @@ def stream_path(db, packed, dev) -> None:
                 "idle_rounds": st.idle_rounds,
                 "warmup_rounds": st.warmup_rounds,
                 "warmup_s": st.compile_s,
-                "host_dispatches": st.host_dispatches,
-                "host_syncs": st.host_syncs,
+                "host_dispatches": st.host_dispatches, **cap,
+                "host_ms_per_round": st.wall_s * 1e3 / st.total_rounds,
+                "qps_repeats": [nq / r.wall_s for r in repeats],
                 "pages_unique": st.pages_unique,
                 "mean_spec_w": summ["mean_spec_w"],
                 "recall@k": float(recall_at_k(ids, true_ids)),
                 "launches": launches,
-                "launches_per_round": {k: v / stepped
-                                       for k, v in launches.items()}}
-        if launches["paged_distance"] != stepped or \
-                launches["bitonic_merge_unsorted"] != stepped or \
-                launches["bitonic_sort"] or launches["bitonic_merge"]:
-            raise AssertionError(f"stream {name}: {stepped} engine rounds "
-                                 f"stepped, launches {launches}")
+                "launches_per_device_round": {
+                    k: v / cap["device_rounds"] for k, v in launches.items()},
+                "uncaptured_qps": nq / st_eager.wall_s,
+                "uncaptured_host_ms_per_round":
+                    st_eager.wall_s * 1e3 / st_eager.total_rounds,
+                "captured_equals_uncaptured": differ is None}
+        if differ is not None:
+            raise AssertionError(f"stream {name}: the captured session's "
+                                 f"{differ} differs from the uncaptured one")
+        check_launches(f"stream {name}", launches, cap["device_rounds"])
+        if st.host_syncs != st.host_dispatches or cap["captures"] > 1 or \
+                cap["replays"] != st.host_dispatches + 1:
+            raise AssertionError(f"stream {name}: one read per chunk and at "
+                                 f"most one capture expected: {cap}, "
+                                 f"{st.host_dispatches} chunks")
+        if name == "refill_static" and st.total_rounds != STATIC_ROUNDS:
+            raise AssertionError(f"stream {name}: {st.total_rounds} rounds, "
+                                 f"not {STATIC_ROUNDS}")
         if name == "refill_static":
             differ = np.flatnonzero((ids != shot_i).any(1))
             near = np.abs(dists - shot_d) <= NEAR_TIE * np.abs(shot_d) \
@@ -739,6 +952,7 @@ def stream_path(db, packed, dev) -> None:
                                      f"distance near-tie")
         line["profile_window"] = profile_stream_window(
             lambda n, kw=kw: serve(kw, n)[2], host=name == "refill_static")
+        drop_traces()
         emit(line)
         res[name] = line
     if abs(res["refill_dynamic"]["recall@k"]
@@ -1211,6 +1425,8 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "kind": name,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
+          "cuda_graph_if_node": hasattr(torch.cuda.CUDAGraph,
+                                        "begin_capture_to_if_node"),
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
 

@@ -33,6 +33,18 @@ and the round-stepper API of the streaming scheduler
 (``engine_init / engine_round / engine_admit / engine_retire /
 engine_run_chunk / engine_run_chunk_admit``, bundled by
 ``make_stepper``).
+
+The round loops run on the device, as the reference's
+``lax.while_loop``s do: a chunk is K *predicated* rounds
+(:func:`_predicated`). Each round computes the loop condition ``go`` as
+a device boolean, runs, and keeps its results only where ``go`` holds
+(``torch.where`` on every carried value), so a round past the loop's
+exit — a dead round — is an exact no-op and the chunk reads nothing
+from the device. On a card the chunk is captured once as a CUDA graph
+and replayed (core/capture.py); the host reads the device once per
+chunk. A dead round still costs a round of device time: the torch
+release the port runs on (2.11) has no conditional graph node
+(``begin_capture_to_if_node``) to skip it.
 """
 from __future__ import annotations
 
@@ -42,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import capture as cap
 from repro_torch.core.backend import KernelBackend
 from repro_torch.core.dispatch import (bucket_mask, compute_ranks,
                                        gather_from_buckets,
@@ -51,11 +64,14 @@ from repro_torch.core.ref_search import SearchParams
 from repro_torch.core.traversal import (dedup_in_round, merge_candidates,
                                         select_expand)
 from repro_torch.utils import (BIG_DIST, ID_SENTINEL, INVALID, bloom_insert,
-                               bloom_query, resolve_device)
+                               bloom_query, resolve_device, to_host)
 
 # the deadline of a row with no deadline: an age no row reaches (the
 # reference keeps it in ft/inject.py)
 NEVER = 2**31 - 1
+# rounds per search_sim chunk: the host reads one boolean per chunk, and
+# the last chunk of a search runs up to SEARCH_CHUNK - 1 dead rounds
+SEARCH_CHUNK = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,41 +399,102 @@ def _sim_round(state: EngineState, consts, queries, qq, spec_w,
                      params)
 
 
+def _keep(go, new, old):
+    """``new`` where the round's condition ``go`` (a 0-d bool) holds,
+    ``old`` elsewhere, over a tree of tensors."""
+    if isinstance(old, torch.Tensor):
+        return torch.where(go, new, old)
+    vals = [_keep(go, n, o) for n, o in zip(new, old)]
+    return old._make(vals) if hasattr(old, "_make") else type(old)(vals)
+
+
+def _predicated(carry, cond, body, K: int):
+    """K rounds of ``body`` under ``cond``: each round computes ``go =
+    cond(carry)`` on the device, runs, and keeps its results only where
+    ``go`` holds, so a round past the loop's exit is an exact no-op. No
+    round reads the device. The condition never turns true again once
+    false (a dead round changes nothing it reads), so on the CPU, where
+    reading it costs nothing, the chunk stops after its first dead
+    round."""
+    for _ in range(K):
+        go = cond(carry)
+        carry = _keep(go, body(carry), carry)
+        if not go.is_cuda and not bool(go):
+            break
+    return carry
+
+
+def _consts_key(consts) -> tuple:
+    return cap.tensor_ptrs(*(consts[k] for k in sorted(consts)))
+
+
+def _search_chunk(consts, state: EngineState, t, queries,
+                  params: EngineParams, geom: EngineGeom, K: int):
+    """K predicated rounds of the one-shot search under the reference's
+    loop condition ``(~done).any() & (t < rounds_cap)``. Returns
+    (state, t, the condition after the chunk)."""
+    qq = _qq(queries)
+    spec_w = torch.full(queries.shape[:2], params.spec_width,
+                        dtype=torch.int32, device=queries.device)
+
+    def cond(c):
+        return (~c[0].done).any() & (c[1] < params.search.rounds_cap)
+
+    def body(c):
+        return (_sim_round(c[0], consts, queries, qq, spec_w, params, geom),
+                c[1] + 1)
+
+    state, t = _predicated((state, t), cond, body, K)
+    return state, t, cond((state, t))
+
+
 def search_sim(consts, queries, entry_vec, entry_norm, entry_id: int,
-               params: EngineParams, geom: EngineGeom, device="cuda"):
+               params: EngineParams, geom: EngineGeom, device="cuda",
+               capture: bool = True):
     """Single-device simulation of the sharded search: the shard axis
     leads every array. ``queries`` (S, Qs, d) is moved to ``device``;
     ``consts`` must already live there (``pack_for_engine``).
 
-    The round loop runs on the host: before each round it reads one
-    boolean ("is any row still searching?") from the device — one host
-    sync per round, plus the one that ends the loop. Returns (ids
+    The reference's ``lax.while_loop`` as chunks of SEARCH_CHUNK
+    predicated rounds (captured once and replayed on a card): after each
+    chunk the host reads the loop condition and the round counter in one
+    transfer, and stops when every row is done or ``rounds_cap`` is
+    reached. ``capture=False`` runs the chunks eagerly on the card (the
+    proof that captured and uncaptured runs agree). Returns (ids
     (S, Qs, k), dists (S, Qs, k), stats); stats["total_rounds"] is the
     round count per shard (all shards step in lockstep) and
-    stats["host_syncs"] the number of those reads.
+    stats["host_syncs"] the number of chunks (one read each).
     """
     dev = resolve_device(device)
     if consts["db"].device.type != dev.type:
         raise ValueError(f"consts live on {consts['db'].device}, the search "
                          f"runs on {dev}: pack_for_engine(packed, device)")
     queries = torch.as_tensor(queries, device=consts["db"].device).float()
-    qq = (queries * queries).sum(-1)                   # (S, Qs)
-    state = _init_state(queries, qq, entry_vec, entry_norm, entry_id,
-                        params)
-    spec_w = torch.full(queries.shape[:2], params.spec_width,
-                        dtype=torch.int32, device=queries.device)
-    t = syncs = 0
-    while t < params.search.rounds_cap:
+    state = _init_state(queries, _qq(queries), entry_vec, entry_norm,
+                        entry_id, params)
+    t = torch.zeros((), dtype=torch.int32, device=queries.device)
+    K = SEARCH_CHUNK
+    key = (params, geom, K, _consts_key(consts))
+
+    def chunk(*a):
+        return _search_chunk(consts, EngineState(*a[:-2]), a[-2], a[-1],
+                             params, geom, K)
+
+    syncs = 0
+    while True:
+        state, t, go = cap.CACHE.run("search_sim", chunk, key,
+                                     (*state, t, queries), K, capture)
+        go, rounds = to_host(go, t)
         syncs += 1
-        if not bool((~state.done).any()):
+        if not go:
             break
-        state = _sim_round(state, consts, queries, qq, spec_w, params, geom)
-        t += 1
+    # the chunk's outputs are the cache entry's buffers: copy them out
     out_i, out_d, stats = _finalize(state, params.search.k)
-    stats["total_rounds"] = torch.full((queries.shape[0],), t,
+    stats = {name: v.clone() for name, v in stats.items()}
+    stats["total_rounds"] = torch.full((queries.shape[0],), int(rounds),
                                        dtype=torch.int32)
     stats["host_syncs"] = syncs
-    return out_i, out_d, stats
+    return out_i.clone(), out_d.clone(), stats
 
 
 # ---------------------------------------------------------------------------
@@ -494,11 +571,12 @@ def spec_update(spec_w, hit, peak, accepted, worked, cfg,
 # counter, retires finished slot rows and refills them with fresh queries.
 # ``engine_run_chunk`` runs up to K rounds per call (speculation widths
 # stepping per round); ``engine_run_chunk_admit`` also seats arrived
-# queries from a device-side pending queue at every round boundary. The
-# reference runs a chunk as one device ``lax.while_loop``; here the loop
-# runs on the host and reads its condition once per round (one small
-# device-to-host read, as ``search_sim`` does), so a chunk costs one
-# host sync per round plus the one that ends it.
+# queries from a device-side pending queue at every round boundary. As
+# the reference's device ``lax.while_loop`` does, a chunk runs K
+# predicated rounds (:func:`_predicated`) and returns without reading
+# the device: ``steps``, the traces and the cursor stay device tensors
+# that the host reads with the chunk boundary's one transfer. On a card
+# each chunk program is captured once and replayed (core/capture.py).
 # ---------------------------------------------------------------------------
 class EngineStepper(NamedTuple):
     """(init, round, admit, retire, run_chunk, run_chunk_admit) bound to
@@ -596,16 +674,20 @@ def engine_retire(state: EngineState, k: int):
 def _chunk_round(carry, round_fn, rounds_cap: int, dynamic: bool,
                  spec_cfg):
     """One in-chunk round, shared by both chunk drivers: record the
-    per-round traces at index j, step the round, park rows reaching the
-    per-query round cap at the boundary the per-round scheduler would
-    retire them, age every row live at entry and force-retire those at
-    their deadline (truncated; a row that converged this very round is
-    not), and — in dynamic mode — step the widths with the widths used
-    and the round's unique-page delta (:func:`spec_update`)."""
+    per-round traces at index j (a device scalar; the write index is
+    clamped so a dead round at j == K writes in bounds, and its result
+    is discarded), step the round, park rows reaching the per-query
+    round cap at the boundary the per-round scheduler would retire them,
+    age every row live at entry and force-retire those at their
+    deadline (truncated; a row that converged this very round is not),
+    and — in dynamic mode — step the widths with the widths used and the
+    round's unique-page delta (:func:`spec_update`)."""
     st, sw, hi, pk, phi, ppk, prev_nd, prev_pg, j, lc, ws = carry
     worked = ~st.done
-    lc[j] = worked.sum()
-    ws[j] = torch.where(worked, sw, 0).sum()
+    at = j.clamp(max=lc.shape[0] - 1).long().reshape(1)
+    lc = lc.index_copy(0, at, worked.sum().int().reshape(1))
+    ws = ws.index_copy(0, at, torch.where(worked, sw, 0).sum().int()
+                       .reshape(1))
     st = round_fn(st, sw)
     st = st._replace(done=st.done | (st.rounds >= rounds_cap))
     age = st.age + worked.int()
@@ -620,10 +702,47 @@ def _chunk_round(carry, round_fn, rounds_cap: int, dynamic: bool,
             lc, ws)
 
 
+def _scalar(x, dtype, device) -> torch.Tensor:
+    """A host number or a device scalar -> a 0-d tensor on ``device``
+    (a fill, not a copy from host memory)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).reshape(())
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def _run_chunk(consts, state: EngineState, queries, spec_state, budget,
+               stop, spec_cfg, params: EngineParams, geom: EngineGeom,
+               K: int, dynamic: bool):
+    """The program of :func:`engine_run_chunk` (device tensors only)."""
+    spec_w, hit, peak, phit, ppeak = spec_state
+    qq = _qq(queries)
+    live0 = ~state.done
+    zeros_k = torch.zeros((K,), dtype=torch.int32, device=queries.device)
+
+    def round_fn(st, sw):
+        return _sim_round(st, consts, queries, qq, sw, params, geom)
+
+    def cond(c):
+        st, j = c[0], c[8]
+        return (j < budget) & (~st.done).any() & \
+            ~(stop & (st.done & live0).any())
+
+    def body(c):
+        return _chunk_round(c, round_fn, params.search.rounds_cap, dynamic,
+                            spec_cfg)
+
+    carry = (state, spec_w, hit, peak, phit, ppeak, state.n_dist,
+             state.pages_unique, torch.zeros_like(budget), zeros_k,
+             zeros_k.clone())
+    state, spec_w, hit, peak, phit, ppeak, _, _, steps, lc, ws = \
+        _predicated(carry, cond, body, K)
+    return state, (spec_w, hit, peak, phit, ppeak), steps, lc, ws
+
+
 def engine_run_chunk(consts, state: EngineState, queries, spec_state,
-                     spec_cfg, budget: int, stop_on_finish: bool,
+                     spec_cfg, budget, stop_on_finish,
                      params: EngineParams, geom: EngineGeom, K: int,
-                     dynamic: bool = False):
+                     dynamic: bool = False, capture: bool = True):
     """Run up to ``K`` engine rounds in one call, with the per-round
     semantics of K :func:`engine_round` calls and the host controller in
     between: rows reaching ``rounds_cap`` park at the exact boundary the
@@ -632,43 +751,40 @@ def engine_run_chunk(consts, state: EngineState, queries, spec_state,
     is the controller's ``(spec_w, hit, peak, page_hit, page_peak)``,
     ``spec_cfg`` its parameters).
 
-    The chunk ends early after ``budget`` (<= K) rounds, when every live
-    row has finished, or — with ``stop_on_finish`` — as soon as any row
-    live at entry finishes (the host sets it while unadmitted queries
-    wait, so a freed slot is refilled on exactly the round the per-round
-    scheduler would refill it). This is the host-paced-admission chunk:
-    the frozen-mode path and the ``injit_admit=False`` baseline.
+    The loop condition is the reference's ``(j < budget) &
+    (~done).any() & ~(stop_on_finish & (done & live0).any())``: the
+    chunk ends after ``budget`` (<= K) rounds, when every live row has
+    finished, or — with ``stop_on_finish`` — as soon as any row live at
+    entry finishes (the host sets it while unadmitted queries wait, so a
+    freed slot is refilled on exactly the round the per-round scheduler
+    would refill it). This is the host-paced-admission chunk: the
+    frozen-mode path and the ``injit_admit=False`` baseline.
 
-    Returns ``(state, spec_state', steps, live_cnt (K,), width_sum (K,),
-    syncs)``: ``steps`` rounds ran; the traces hold the live rows and the
-    summed widths over live rows per round; ``syncs`` counts the loop
-    condition's device-to-host reads.
+    K predicated rounds, captured once per key on a card; ``budget`` and
+    ``stop_on_finish`` may be host values or device scalars. Returns
+    ``(state, spec_state', steps, live_cnt (K,), width_sum (K,))``
+    without reading the device: ``steps`` (a 0-d device tensor) rounds
+    ran; the traces hold the live rows and the summed widths over live
+    rows per round (entries past ``steps`` are 0). The outputs are the
+    capture cache's buffers, overwritten by the next call of the same
+    program.
     """
-    spec_w, hit, peak, phit, ppeak = spec_state
-    qq = _qq(queries)
-    live0 = ~state.done
-    budget = min(int(budget), K)
-    zeros_k = torch.zeros((K,), dtype=torch.int32, device=queries.device)
-    carry = (state, _widths(spec_w, queries.shape[:2], queries.device), hit,
-             peak, phit, ppeak, state.n_dist, state.pages_unique, 0,
-             zeros_k, zeros_k.clone())
+    dev = queries.device
+    spec_state = (_widths(spec_state[0], queries.shape[:2], dev),
+                  *spec_state[1:])
+    budget = _scalar(budget, torch.int32, dev).clamp(max=K)
+    stop = _scalar(stop_on_finish, torch.bool, dev)
+    key = (params, geom, K, dynamic, tuple(spec_cfg), _consts_key(consts))
 
-    def round_fn(st, sw):
-        return _sim_round(st, consts, queries, qq, sw, params, geom)
+    def chunk(*a):
+        n = len(EngineState._fields)
+        return _run_chunk(consts, EngineState(*a[:n]), a[n], a[n + 1:n + 6],
+                          a[n + 6], a[n + 7], spec_cfg, params, geom, K,
+                          dynamic)
 
-    syncs = 0
-    while carry[8] < budget:
-        st = carry[0]
-        go = (~st.done).any()
-        if stop_on_finish:
-            go = go & ~(st.done & live0).any()
-        syncs += 1
-        if not bool(go):
-            break
-        carry = _chunk_round(carry, round_fn, params.search.rounds_cap,
-                             dynamic, spec_cfg)
-    state, spec_w, hit, peak, phit, ppeak, _, _, steps, lc, ws = carry
-    return state, (spec_w, hit, peak, phit, ppeak), steps, lc, ws, syncs
+    return cap.CACHE.run("engine_run_chunk", chunk, key,
+                         (*state, queries, *spec_state, budget, stop), K,
+                         capture)
 
 
 def _seat_pending(free, cursor, avail, pend_q, queries_rows):
@@ -685,19 +801,91 @@ def _seat_pending(free, cursor, avail, pend_q, queries_rows):
     return seat, pidx.int(), new_q
 
 
-def _pending_avail(pend_arr, cursor, tnow: int):
+def _pending_avail(pend_arr, cursor, tnow):
     """Pending entries whose arrival round has passed and that the
     cursor has not consumed (``pend_arr`` is sorted by arrival, so the
-    arrived count is a binary search)."""
-    arrived = torch.searchsorted(pend_arr, tnow, right=True)
-    return (arrived - cursor).clamp_min(0)
+    arrived count is a binary search); ``tnow`` is a 0-d int32 device
+    tensor."""
+    arrived = torch.searchsorted(pend_arr, tnow.reshape(1), right=True)
+    return (arrived.reshape(()) - cursor).clamp_min(0)
+
+
+def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
+                     budget, cursor, t0, pend_q, pend_arr, entry, spec_cfg,
+                     params: EngineParams, geom: EngineGeom, K: int,
+                     dynamic: bool):
+    """The program of :func:`engine_run_chunk_admit` (device tensors
+    only)."""
+    k = params.search.k
+    S, Qs = state.done.shape
+    dev = queries.device
+    spec_max = int(spec_cfg[0])
+    zeros_k = torch.zeros((K,), dtype=torch.int32, device=dev)
+    zeros_sq = torch.zeros((K, S, Qs), dtype=torch.int32, device=dev)
+
+    def put(trace, at, val):
+        return trace.index_copy(0, at, val[None])
+
+    def cond(c):
+        st, cur, j = c[0], c[7], c[8]
+        avail = _pending_avail(pend_arr, cur, t0 + j)
+        return (j < budget) & ((~st.done).any() | (avail > 0))
+
+    def body(c):
+        (st, q, sw, hi, pk, phi, ppk, cur, j, lc, ws, aq, ri, rd, rr, rn,
+         ra, rt) = c
+        at = j.clamp(max=K - 1).long().reshape(1)
+        avail = _pending_avail(pend_arr, cur, t0 + j)
+        # boundary j (global round t0 + j): record the would-be-evicted
+        # rows' results, then seat arrived pending queries
+        fin_i, fin_d, _ = _finalize(st, k)
+        ri, rd = put(ri, at, fin_i), put(rd, at, fin_d)
+        rr, rn = put(rr, at, st.rounds), put(rn, at, st.n_dist)
+        ra, rt = put(ra, at, st.age), put(rt, at, st.truncated)
+        seat, pidx, new_q = _seat_pending(st.done.reshape(-1), cur, avail,
+                                          pend_q, q.reshape(S * Qs, -1))
+        mask = seat.reshape(S, Qs)
+        st, q = _admit_rows(st, q, mask, new_q.reshape(S, Qs, -1), *entry,
+                            params)
+        cur = cur + seat.sum()
+        aq = put(aq, at, pidx.reshape(S, Qs))
+        if dynamic:   # fresh rows restart the controller at full width
+            sw = torch.where(mask, spec_max, sw)
+            hi = torch.where(mask, -1.0, hi)
+            pk = torch.where(mask, 0.0, pk)
+            phi = torch.where(mask, -1.0, phi)
+            ppk = torch.where(mask, 0.0, ppk)
+        # the round itself; prev_nd is the post-admission n_dist, so a
+        # seated row's first accepted-count delta starts from 0 exactly
+        # like a host-admitted fresh row's
+        qq = _qq(q)
+        st, sw, hi, pk, phi, ppk, _, _, j, lc, ws = _chunk_round(
+            (st, sw, hi, pk, phi, ppk, st.n_dist, st.pages_unique, j, lc,
+             ws),
+            lambda s, w: _sim_round(s, consts, q, qq, w, params, geom),
+            params.search.rounds_cap, dynamic, spec_cfg)
+        return (st, q, sw, hi, pk, phi, ppk, cur, j, lc, ws, aq, ri, rd,
+                rr, rn, ra, rt)
+
+    carry = (state, queries, *spec_state, cursor, torch.zeros_like(t0),
+             zeros_k, zeros_k.clone(),
+             torch.full((K, S, Qs), -1, dtype=torch.int32, device=dev),
+             torch.full((K, S, Qs, k), INVALID, dtype=torch.int32,
+                        device=dev),
+             torch.zeros((K, S, Qs, k), dtype=torch.float32, device=dev),
+             zeros_sq, zeros_sq.clone(), zeros_sq.clone(),
+             torch.zeros((K, S, Qs), dtype=torch.bool, device=dev))
+    (st, q, sw, hi, pk, phi, ppk, cur, steps, lc, ws, aq, ri, rd, rr, rn,
+     ra, rt) = _predicated(carry, cond, body, K)
+    return (st, q, (sw, hi, pk, phi, ppk), steps, lc, ws, aq, ri, rd, rr,
+            rn, ra, rt, cur)
 
 
 def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
-                           spec_cfg, budget: int, pend_q, pend_arr, cursor,
-                           t0: int, entry_vec, entry_norm, entry_id: int,
+                           spec_cfg, budget, pend_q, pend_arr, cursor, t0,
+                           entry_vec, entry_norm, entry_id: int,
                            params: EngineParams, geom: EngineGeom, K: int,
-                           dynamic: bool = False):
+                           dynamic: bool = False, capture: bool = True):
     """:func:`engine_run_chunk` with an admission stage: the pending
     queue lives on the device (``pend_q`` (N, d) vectors and ``pend_arr``
     (N,) int32 arrival rounds, sorted by arrival; ``cursor`` the first
@@ -716,80 +904,53 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
     finalize, rounds, n_dist, age and truncated flag (``ret_*[j]``) —
     from which the host replays the accounting bit-exactly.
 
-    The chunk ends early only when no row is live and no pending entry
-    has arrived. Returns ``(state, queries', spec_state', steps,
-    live_cnt, width_sum, admit_qidx, ret_i, ret_d, ret_rounds,
-    ret_ndist, ret_age, ret_trunc, cursor', syncs)``; the traces lead
-    with K, ``cursor'`` is a device scalar and ``syncs`` counts the loop
-    condition's reads.
+    The loop condition is the reference's ``(j < budget) &
+    ((~done).any() | avail > 0)``: the chunk ends early only when no row
+    is live and no pending entry has arrived. K predicated rounds,
+    captured once per key on a card (the pending queue and the consts
+    are read in place: their addresses are part of the key); ``budget``,
+    ``cursor`` and ``t0`` may be host values or device scalars. Returns
+    ``(state, queries', spec_state', steps, live_cnt, width_sum,
+    admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age, ret_trunc,
+    cursor')`` without reading the device; the traces lead with K,
+    ``steps`` and ``cursor'`` are 0-d device tensors, and all are the
+    capture cache's buffers.
     """
     if pend_arr.dim() != 1:
         raise NotImplementedError(
             "per-shard pending queues belong to routed serving "
             "(ROADMAP.md queue A item 10), not ported yet")
     _check_entry(entry_vec)
-    k = params.search.k
-    S, Qs = state.done.shape
     dev = queries.device
-    spec_w, hit, peak, phit, ppeak = spec_state
-    spec_w = _widths(spec_w, (S, Qs), dev)
-    spec_max = int(spec_cfg[0])
-    budget = min(int(budget), K)
-    cur = (cursor.long() if isinstance(cursor, torch.Tensor) else
-           torch.full((), int(cursor), dtype=torch.int64, device=dev))
-    zeros_k = torch.zeros((K,), dtype=torch.int32, device=dev)
-    lc, ws = zeros_k, zeros_k.clone()
-    aq = torch.full((K, S, Qs), -1, dtype=torch.int32, device=dev)
-    ri = torch.full((K, S, Qs, k), INVALID, dtype=torch.int32, device=dev)
-    rd = torch.zeros((K, S, Qs, k), dtype=torch.float32, device=dev)
-    rr, rn, ra = (torch.zeros((K, S, Qs), dtype=torch.int32, device=dev)
-                  for _ in range(3))
-    rt = torch.zeros((K, S, Qs), dtype=torch.bool, device=dev)
-    st, q = state, queries
-    j = syncs = 0
-    while j < budget:
-        avail = _pending_avail(pend_arr, cur, t0 + j)
-        syncs += 1
-        if not bool((~st.done).any() | (avail > 0)):
-            break
-        # boundary j (global round t0 + j): record the would-be-evicted
-        # rows' results, then seat arrived pending queries
-        fin_i, fin_d, _ = _finalize(st, k)
-        ri[j], rd[j] = fin_i, fin_d
-        rr[j], rn[j], ra[j], rt[j] = st.rounds, st.n_dist, st.age, \
-            st.truncated
-        seat, pidx, new_q = _seat_pending(st.done.reshape(-1), cur, avail,
-                                          pend_q, q.reshape(S * Qs, -1))
-        mask = seat.reshape(S, Qs)
-        st, q = _admit_rows(st, q, mask, new_q.reshape(S, Qs, -1),
-                            entry_vec, entry_norm, entry_id, params)
-        cur = cur + seat.sum()
-        aq[j] = pidx.reshape(S, Qs)
-        if dynamic:   # fresh rows restart the controller at full width
-            spec_w = torch.where(mask, spec_max, spec_w)
-            hit = torch.where(mask, -1.0, hit)
-            peak = torch.where(mask, 0.0, peak)
-            phit = torch.where(mask, -1.0, phit)
-            ppeak = torch.where(mask, 0.0, ppeak)
-        # the round itself; prev_nd is the post-admission n_dist, so a
-        # seated row's first accepted-count delta starts from 0 exactly
-        # like a host-admitted fresh row's
-        qq = _qq(q)
-        st, spec_w, hit, peak, phit, ppeak, _, _, j, lc, ws = _chunk_round(
-            (st, spec_w, hit, peak, phit, ppeak, st.n_dist,
-             st.pages_unique, j, lc, ws),
-            lambda s, w: _sim_round(s, consts, q, qq, w, params, geom),
-            params.search.rounds_cap, dynamic, spec_cfg)
-    return (st, q, (spec_w, hit, peak, phit, ppeak), j, lc, ws, aq, ri, rd,
-            rr, rn, ra, rt, cur, syncs)
+    S, Qs = state.done.shape
+    spec_state = (_widths(spec_state[0], (S, Qs), dev), *spec_state[1:])
+    budget = _scalar(budget, torch.int32, dev).clamp(max=K)
+    cursor = _scalar(cursor, torch.int64, dev)
+    t0 = _scalar(t0, torch.int32, dev)
+    entry = (entry_vec, entry_norm, entry_id)
+    key = (params, geom, K, dynamic, tuple(spec_cfg), _consts_key(consts),
+           cap.tensor_ptrs(pend_q, pend_arr, entry_vec, entry_norm),
+           int(entry_id))
+
+    def chunk(*a):
+        n = len(EngineState._fields)
+        return _run_chunk_admit(
+            consts, EngineState(*a[:n]), a[n], a[n + 1:n + 6], a[n + 6],
+            a[n + 7], a[n + 8], pend_q, pend_arr, entry, spec_cfg, params,
+            geom, K, dynamic)
+
+    return cap.CACHE.run("engine_run_chunk_admit", chunk, key,
+                         (*state, queries, *spec_state, budget, cursor, t0),
+                         K, capture)
 
 
 def make_stepper(params: EngineParams, geom: EngineGeom, mesh=None,
-                 round_chunk: int = 1,
-                 routed: bool = False) -> EngineStepper:
+                 round_chunk: int = 1, routed: bool = False,
+                 capture: bool = True) -> EngineStepper:
     """Bundle the stepper stages for the single-device sim driver.
     ``round_chunk`` is the K of the chunk stages: the most rounds one
-    ``run_chunk`` call runs before the host is consulted."""
+    ``run_chunk`` call runs before the host is consulted. ``capture``
+    (default on) runs the chunks as captured graphs on a card."""
     if mesh is not None:
         raise NotImplementedError(
             "the multi-device stepper is ROADMAP.md queue A item 13, "
@@ -817,13 +978,13 @@ def make_stepper(params: EngineParams, geom: EngineGeom, mesh=None,
                   stop_on_finish, dynamic=False):
         return engine_run_chunk(consts, state, queries, spec_state,
                                 spec_cfg, budget, stop_on_finish, params,
-                                geom, K, dynamic)
+                                geom, K, dynamic, capture)
 
     def run_chunk_admit(consts, state, queries, spec_state, spec_cfg,
                         budget, pend, cursor, t0, entry, dynamic=False):
         return engine_run_chunk_admit(
             consts, state, queries, spec_state, spec_cfg, budget, *pend,
-            cursor, t0, *entry, params, geom, K, dynamic)
+            cursor, t0, *entry, params, geom, K, dynamic, capture)
 
     return EngineStepper(init, rnd, admit, retire, run_chunk, K,
                          run_chunk_admit)

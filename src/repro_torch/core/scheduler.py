@@ -32,13 +32,16 @@ engine_retire``):
 to ``round_chunk`` rounds; the pending queue is staged on the device
 (vectors and arrival rounds sorted by arrival, a device cursor) and
 every round boundary seats arrived queries into freed slots with the
-same math and staging order the host would use. The reference runs a
-chunk as one device loop and syncs once per chunk; this port's chunk
-loop runs on the host and reads its condition from the device once per
-round, so the host blocks once per round plus once per chunk boundary,
-where everything the accounting needs (per-round traces, admit/evict
-traces, the pool's counters and results, the controller state) moves
-to the host in one transfer. ``StreamStats.host_syncs`` counts both.
+same math and staging order the host would use. As the reference's
+device loop does, a chunk runs on the device without consulting the
+host: it is K predicated rounds, captured once per session as a CUDA
+graph (in :meth:`StreamScheduler._warmup`) and replayed. The host
+blocks once per chunk, at its boundary, where everything the accounting
+needs (the rounds run, per-round traces, admit/evict traces, the pool's
+counters and results, the controller state) moves to the host in one
+transfer. ``StreamStats.host_syncs`` counts those reads: one per
+dispatch, what the reference's ``host_dispatches`` counts. Host arrays
+go to the device through pinned memory without a wait.
 
 The schedule is *exactly* the per-round schedule: a seated row evicts a
 finished one whose results were captured in per-boundary admit traces,
@@ -78,23 +81,12 @@ import torch
 from repro_torch.core.engine import (EngineGeom, EngineParams, _finalize,
                                      make_stepper, spec_update)
 from repro_torch.core.metrics import slot_occupancy
-from repro_torch.utils import INVALID, resolve_device
+from repro_torch.utils import INVALID, resolve_device, to_device, to_host
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is ROADMAP.md queue A item {item}, not ported yet")
-
-
-def _to_host(*tensors) -> list:
-    """Tensors -> numpy arrays with one wait for the device: the copies
-    are queued without blocking and the host synchronises once."""
-    if tensors[0].is_cuda:
-        out = [t.to("cpu", non_blocking=True) for t in tensors]
-        torch.cuda.current_stream(tensors[0].device).synchronize()
-    else:
-        out = tensors
-    return [t.numpy() for t in out]
 
 
 @dataclasses.dataclass
@@ -166,14 +158,15 @@ class SpecController:
         self._ppeak[mask] = 0.0
 
     def state(self, device="cpu"):
-        """The controller state as tensors on ``device``."""
-        return tuple(torch.as_tensor(x, device=device) for x in (
+        """The controller state as tensors on ``device`` (copies to a
+        card are queued without a wait)."""
+        return tuple(to_device(x, device) for x in (
             self.spec_w, self._hit, self._peak, self._phit, self._ppeak))
 
     def store(self, spec_state):
         """Adopt the post-chunk controller state (tensors or arrays)."""
         if isinstance(spec_state[0], torch.Tensor):
-            spec_state = _to_host(*spec_state)
+            spec_state = to_host(*spec_state)
         sw, hi, pk, phi, ppk = spec_state
         # private mutable copies: reset_rows writes them in place
         self.spec_w = np.array(sw, np.int32)
@@ -256,8 +249,8 @@ class StreamStats:
     wall_s: float             # steady-state wall clock (excl. warmup)
     host_dispatches: int = 0  # chunk launches
     host_syncs: int = 0       # device-to-host reads the host blocked on:
-                              # one per in-chunk round-loop condition,
-                              # one per chunk-boundary transfer
+                              # the chunk boundary's one transfer per
+                              # dispatch (the reference's host blocks)
     compile_s: float = 0.0    # one-time warmup seconds (kernel builds)
     warmup_rounds: int = 0    # engine rounds the warmup chunk ran on a
                               # throwaway pool, off the serving clock
@@ -295,7 +288,9 @@ class StreamScheduler:
     before the host replays the accounting; any value produces the
     exact per-round schedule. ``injit_admit`` selects the device-side
     pending queue (None = on whenever ``refill`` is; frozen mode keeps
-    the host-side all-free gate).
+    the host-side all-free gate). ``capture=False`` runs the chunks
+    eagerly on a card instead of as captured graphs (the proof that the
+    two agree).
     """
 
     def __init__(self, consts, geom: EngineGeom, params: EngineParams,
@@ -305,7 +300,7 @@ class StreamScheduler:
                  injit_admit: Optional[bool] = None,
                  routed: bool = False, ring_capacity: int = 0,
                  overload: str = "block", pagestore=None, live=None,
-                 device="cuda"):
+                 device="cuda", capture: bool = True):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if round_chunk < 1:
@@ -339,7 +334,8 @@ class StreamScheduler:
         self.controller = controller
         self.refill = refill
         self.round_chunk = round_chunk
-        self.stepper = make_stepper(params, geom, round_chunk=round_chunk)
+        self.stepper = make_stepper(params, geom, round_chunk=round_chunk,
+                                    capture=capture)
         self.injit_admit = refill if injit_admit is None \
             else bool(injit_admit) and refill
         self.S = geom.num_shards
@@ -369,8 +365,9 @@ class StreamScheduler:
     def _warmup(self, queries: np.ndarray, pend) -> tuple[float, int]:
         """Run one chunk of the dispatch path :meth:`run` uses on a
         throwaway pool whose rows are all live (the first queries,
-        repeated), so the kernels are built and warm before the serving
-        clock starts. With ``pend`` the staged queue rides along with an
+        repeated), so the kernels are built and the chunk captured
+        before the serving clock starts, as the reference's warmup
+        compiles it. With ``pend`` the staged queue rides along with an
         exhausted cursor: the admission stage runs and seats nothing.
         Returns (seconds, rounds run)."""
         S, Qs = self.S, self.num_slots
@@ -390,8 +387,8 @@ class StreamScheduler:
                                          dynamic=dyn)
             steps = out[2]
         ids, dists, _ = self.stepper.retire(out[0])
-        _to_host(ids, dists)
-        return time.perf_counter() - t0, steps
+        steps, _, _ = to_host(steps, ids, dists)
+        return time.perf_counter() - t0, int(steps)
 
     def run(self, queries: np.ndarray,
             arrivals: Optional[np.ndarray] = None,
@@ -413,9 +410,8 @@ class StreamScheduler:
         pend = None
         if injit:
             # device-side pending queue, staged once in admission order
-            pend = (torch.as_tensor(queries[order], device=dev),
-                    torch.as_tensor(arrivals[order].astype(np.int32),
-                                    device=dev))
+            pend = (to_device(queries[order], dev),
+                    to_device(arrivals[order].astype(np.int32), dev))
         compile_s, warm_rounds = (self._warmup(queries, pend) if N
                                   else (0.0, 0))
         qbuf = torch.zeros((S, Qs, d), dtype=torch.float32, device=dev)
@@ -464,8 +460,8 @@ class StreamScheduler:
                         admit_t[s, r] = t
                         admit_wall[s, r] = now_wall
                     state, qbuf = self.stepper.admit(
-                        state, qbuf, torch.as_tensor(mask, device=dev),
-                        torch.as_tensor(new_q, device=dev), *self.entry)
+                        state, qbuf, to_device(mask, dev),
+                        to_device(new_q, dev), *self.entry)
                     if self.controller is not None:
                         self.controller.reset_rows(mask)
 
@@ -487,13 +483,9 @@ class StreamScheduler:
                 # admit/evict traces replay the accounting below
                 launch_wall = time.perf_counter()
                 (state, qbuf, spec_state, steps, live_cnt, width_sum,
-                 admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age,
-                 ret_trunc, cur, nsync) = self.stepper.run_chunk_admit(
+                 *extra) = self.stepper.run_chunk_admit(
                     self.consts, state, qbuf, spec_state, cfg, K, pend,
                     next_q, t, self.entry, dynamic=dyn)
-                extra = (admit_qidx[:steps], ret_i[:steps], ret_d[:steps],
-                         ret_rounds[:steps], ret_ndist[:steps],
-                         ret_age[:steps], ret_trunc[:steps], cur)
             else:
                 # -- host-paced admission wakes the chunk exactly when
                 # admission could matter. Free slots: nothing can be
@@ -507,26 +499,30 @@ class StreamScheduler:
                         budget = max(1, min(K, na - t))
                     else:
                         stop_on_finish = na <= t + K
-                (state, spec_state, steps, live_cnt, width_sum,
-                 nsync) = self.stepper.run_chunk(
+                (state, spec_state, steps, live_cnt,
+                 width_sum) = self.stepper.run_chunk(
                     self.consts, state, qbuf, spec_state, cfg, budget,
                     stop_on_finish, dynamic=dyn)
                 extra = ()
             dispatches += 1
-            # the chunk boundary's one transfer: traces, the pool's
-            # counters and results, the controller, the admit traces
+            # the chunk boundary's one transfer: the rounds run, traces,
+            # the pool's counters and results, the controller, the admit
+            # traces
             fin_i, fin_d, _ = _finalize(state, k)
             ctrl = spec_state if self.controller is not None else ()
-            host = _to_host(live_cnt[:steps], width_sum[:steps], state.done,
-                            state.rounds, state.n_dist, state.age,
-                            state.truncated, fin_i, fin_d, *ctrl, *extra)
-            syncs += nsync + 1
+            host = to_host(steps, live_cnt, width_sum, state.done,
+                           state.rounds, state.n_dist, state.age,
+                           state.truncated, fin_i, fin_d, *ctrl, *extra)
+            syncs += 1
             now_wall = time.perf_counter()
+            steps = int(host[0])
             (live_cnt, width_sum, done, rounds, n_dist, age, trunc, out_i,
-             out_d) = host[:9]
+             out_d) = host[1:10]
+            live_cnt, width_sum = live_cnt[:steps], width_sum[:steps]
             if self.controller is not None:
-                self.controller.store(host[9:14])
+                self.controller.store(host[10:15])
             if injit:
+                # entries past `steps` are the traces' initial values
                 (admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age,
                  ret_trunc, cur) = host[-8:]
                 for j in range(steps):
@@ -560,7 +556,7 @@ class StreamScheduler:
             retired += int(fin.sum())
 
         # end-of-session counters: one transfer for the whole summary
-        pages_unique, items_recv, props_sent, drops_b = _to_host(
+        pages_unique, items_recv, props_sent, drops_b = to_host(
             state.pages_unique, state.items_recv, state.props_sent,
             state.drops_b)
         return StreamStats(
@@ -613,9 +609,10 @@ def stream_search(consts, geom, params, entry, queries,
                   round_chunk: int = 1, injit_admit=None,
                   spec_page_w: float = 0.0, ring_capacity: int = 0,
                   overload: str = "block", pagestore=None, live=None,
-                  device="cuda"):
+                  device="cuda", capture: bool = True):
     """Run the streaming scheduler on ``device`` and return (ids (N, k),
-    dists (N, k), StreamStats) in query order."""
+    dists (N, k), StreamStats) in query order. ``capture=False`` runs
+    the chunks eagerly on a card (see :class:`StreamScheduler`)."""
     ctrl = _make_controller(params, geom, dynamic_spec, spec_page_w)
     sched = StreamScheduler(consts, geom, params, entry,
                             num_slots=num_slots, mesh=mesh,
@@ -624,7 +621,7 @@ def stream_search(consts, geom, params, entry, queries,
                             injit_admit=injit_admit,
                             ring_capacity=ring_capacity,
                             overload=overload, pagestore=pagestore,
-                            live=live, device=device)
+                            live=live, device=device, capture=capture)
     stats = sched.run(queries, arrivals)
     k = params.search.k
     n = np.asarray(queries).shape[0]

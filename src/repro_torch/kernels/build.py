@@ -11,6 +11,9 @@ source, so an edited source never loads a stale build.
 A :class:`Kernel` is one wrapper's handle: its name, the Pallas kernel it
 replaces, its C entry point, and a plain integer count of its launches.
 The count grows by one exactly where the wrapper launches its kernel.
+A launch made while the current stream captures a CUDA graph runs
+nothing: it counts in ``recorded`` instead, and the graph's replays add
+what they launch through :meth:`Kernel.credit` (core/capture.py).
 """
 from __future__ import annotations
 
@@ -112,6 +115,7 @@ class Kernel:
     entry: str         # C launch function
     replaces: str      # the Pallas kernel it ports (file:line)
     launches: int = 0
+    recorded: int = 0  # launches recorded into CUDA graphs under capture
 
     def launch(self, *args) -> None:
         """Call the C entry point on the current stream; raise if the
@@ -123,7 +127,14 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.recorded += 1
+        else:
+            self.launches += 1
+
+    def credit(self, n: int) -> None:
+        """Count ``n`` launches a CUDA graph replay made."""
+        self.launches += n
 
 
 def check_cuda_operands(name: str, specs: dict) -> None:

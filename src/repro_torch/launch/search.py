@@ -6,9 +6,15 @@ striped LUN-CSR packing), runs the sharded NDSearch engine
 (``search_sim``) on the device and reports recall@k / QPS / locality
 stats with the same JSON keys as the reference driver.
 
+With ``--stream`` the queries go through the streaming scheduler
+instead (a fixed slot pool, retire and refill, Poisson arrivals; the
+report of ``launch/serve_stream.py``).
+
   PYTHONPATH=src python -m repro_torch.launch.search --dataset sift-1b
   PYTHONPATH=src python -m repro_torch.launch.search --device cpu \\
       --dataset tiny --n 512 --queries 32
+  PYTHONPATH=src python -m repro_torch.launch.search --device cpu \\
+      --dataset tiny --n 512 --queries 32 --stream --arrival-rate 2
 """
 from __future__ import annotations
 
@@ -54,17 +60,19 @@ def dataset(name: str, n: int = 0) -> VectorDataset:
     return dataclasses.replace(ds, n=n) if n else ds
 
 
-def run_search(packed, db, queries, *, shards: int, L: int, W: int, k: int,
+def run_search(engine, db, queries, *, shards: int, L: int, W: int, k: int,
                spec: int, kernel_mode: str, coalesce_qb: int, device):
-    """Pack onto ``device``, run ``search_sim`` over the first
-    ``queries`` rows (a multiple of ``shards``), score recall@k. Returns
-    the report dict (reference keys plus device, host_syncs)."""
+    """Run ``search_sim`` over the first ``queries`` rows (a multiple of
+    ``shards``) on the index ``engine`` = ``pack_for_engine(packed,
+    device)``, score recall@k. Repeated calls on one ``engine`` replay
+    one captured chunk on a card. Returns the report dict (reference
+    keys plus device, host_syncs)."""
     dev = resolve_device(device)
-    consts, geom, entry = pack_for_engine(packed, device=dev)
+    consts, geom, entry = engine
     nq = queries.shape[0]
     qs = nq - nq % shards or shards
     params = EngineParams.lossless(
-        SearchParams(L=L, W=W, k=k), qs // shards, packed.max_degree,
+        SearchParams(L=L, W=W, k=k), qs // shards, geom.max_degree,
         spec_width=spec, kernel_mode=kernel_mode, coalesce_qb=coalesce_qb)
     qsh = torch.as_tensor(queries[:qs].reshape(shards, qs // shards, -1),
                           device=dev)
@@ -114,11 +122,48 @@ def main(argv=None):
                     help="per-page query-tile width in kernel modes: one "
                          "page read serves up to this many assignments "
                          "(0 = one page read per assignment)")
+    ap.add_argument("--stream", action="store_true",
+                    help="streaming scheduler: a fixed slot pool whose "
+                         "finished queries retire and whose freed slots "
+                         "refill (continuous batching) instead of one "
+                         "frozen batch")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="streaming: query slots per shard")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="streaming: mean Poisson arrivals per engine "
+                         "round (0 = all queries arrive at round 0)")
+    ap.add_argument("--spec-dynamic", action="store_true",
+                    help="streaming: adapt each query's speculation "
+                         "width to its hit rate (paper §V-B) instead of "
+                         "the static --spec width")
+    ap.add_argument("--spec-page-w", type=float, default=0.0,
+                    help="streaming: page-efficiency weight of the "
+                         "dynamic controller (0 = hit rate only)")
+    ap.add_argument("--round-chunk", type=int, default=8,
+                    help="streaming: engine rounds per device dispatch; "
+                         "the host reads the device once per chunk")
+    ap.add_argument("--injit-admit", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="streaming: seat arrived queries from a "
+                         "device-side pending queue inside the round "
+                         "chunk (auto = on with refill admission)")
+    ap.add_argument("--deadline-rounds", type=int, default=0,
+                    help="streaming: force-retire a query after this "
+                         "many serving rounds in a slot (0 = none)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for the search (cuda or cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
+    # lazy import: serve_stream imports build_index from this module
+    from repro_torch.launch.serve_stream import UNPORTED_FLAGS, stream_report
+    for flag, _, kw in UNPORTED_FLAGS:
+        ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
     args = ap.parse_args(argv)
+    for flag, item, _ in UNPORTED_FLAGS:
+        dest = flag[2:].replace("-", "_")
+        if getattr(args, dest) != ap.get_default(dest):
+            ap.error(f"{flag} belongs to a serving layer the port does "
+                     f"not have yet (ROADMAP.md queue A item {item})")
 
     dev = resolve_device(args.device)
     ds = dataset(args.dataset, args.n)
@@ -137,12 +182,34 @@ def main(argv=None):
         from repro_torch.kernels.build import build_all
         build_all()                        # kernel build stays off the clock
 
-    res = {"dataset": ds.name,
-           **run_search(packed, db, queries, shards=args.shards, L=args.L,
-                        W=args.W, k=args.k, spec=args.spec,
-                        kernel_mode=args.kernel_mode,
-                        coalesce_qb=args.coalesce_qb, device=dev),
-           "build_s": round(build_s, 1)}
+    if args.stream:
+        consts, geom, entry = pack_for_engine(packed, device=dev)
+        params = EngineParams.lossless(
+            SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
+            packed.max_degree, spec_width=args.spec,
+            kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
+            deadline_rounds=args.deadline_rounds)
+        res = {"dataset": ds.name, "mode": "stream",
+               "kernel_mode": args.kernel_mode, "n": int(db.shape[0]),
+               "device": torch.cuda.get_device_name(dev)
+               if dev.type == "cuda" else "cpu",
+               **stream_report(consts, geom, params, entry, db,
+                               queries[:args.queries], slots=args.slots,
+                               arrival_rate=args.arrival_rate,
+                               seed=args.seed + 2,
+                               dynamic_spec=args.spec_dynamic,
+                               round_chunk=args.round_chunk,
+                               injit_admit={"auto": None, "on": True,
+                                            "off": False}[args.injit_admit],
+                               spec_page_w=args.spec_page_w, device=dev)}
+    else:
+        res = {"dataset": ds.name,
+               **run_search(pack_for_engine(packed, device=dev), db,
+                            queries, shards=args.shards,
+                            L=args.L, W=args.W, k=args.k, spec=args.spec,
+                            kernel_mode=args.kernel_mode,
+                            coalesce_qb=args.coalesce_qb, device=dev),
+               "build_s": round(build_s, 1)}
     print(json.dumps(res, indent=1))
     if args.out:
         with open(args.out, "w") as f:

@@ -33,6 +33,26 @@ def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 2 ** math.ceil(math.log2(n))
 
 
+def to_host(*tensors) -> list:
+    """Tensors -> numpy arrays with one wait for the device: the copies
+    are queued without blocking and the host synchronises once."""
+    if tensors[0].is_cuda:
+        out = [t.to("cpu", non_blocking=True) for t in tensors]
+        torch.cuda.current_stream(tensors[0].device).synchronize()
+    else:
+        out = tensors
+    return [t.numpy() for t in out]
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, without a wait: a copy to a
+    card goes through pinned memory, queued on the current stream."""
+    t = torch.as_tensor(x)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on. ``"cuda"`` (the default of every
     entry point) raises when no card is present: the port never falls

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.engine import EngineParams, pack_for_engine, search_sim
+from repro_torch.core.capture import CACHE, CaptureCache
+from repro_torch.core.engine import (SEARCH_CHUNK, EngineParams,
+                                     pack_for_engine, search_sim)
 from repro_torch.core.graph import build_vamana
 from repro_torch.core.luncsr import LUNCSR, Geometry, pack_index
 from repro_torch.core.ref_search import SearchParams
@@ -261,7 +263,7 @@ def test_sort_rejects_bad_widths(dev):
         sort_op(d[:, :16], i[:, :16], p[:, :16], p[:, :16], mode="cuda")
 
 
-def test_search_sim_cuda_matches_cpu_ref(dev):
+def _search_index(dev):
     rng = np.random.default_rng(0)
     n, dim, S = 512, 16, 4
     db = rng.integers(-8, 9, size=(n, dim)).astype(np.float32)
@@ -270,28 +272,68 @@ def test_search_sim_cuda_matches_cpu_ref(dev):
     geo = Geometry(num_shards=S, page_size=16, pages_per_block=2, dim=dim)
     packed = pack_index(LUNCSR.from_adjacency(db, adj, geo, entry=medoid,
                                               pref_width=4), max_degree=8)
-    qsh = queries.reshape(S, -1, dim)
+    return packed, queries.reshape(S, -1, dim)
+
+
+@pytest.mark.parametrize("spec", [0, 4])
+def test_search_sim_cuda_matches_cpu_ref(dev, spec):
+    """search_sim captured on the card == run eagerly on the card == CPU
+    ref mode, bit for bit; one capture, then one replay per chunk, and
+    the kernels' launches equal the rounds the device ran (the eager
+    warm-up's and every replay's SEARCH_CHUNK masked rounds)."""
+    packed, qsh = _search_index(dev)
     out = {}
-    for mode, where in (("cuda", dev), ("ref", "cpu")):
+    for name, mode, where, capture in (
+            ("captured", "cuda", dev, True), ("eager", "cuda", dev, False),
+            ("ref", "ref", "cpu", True)):
         params = EngineParams.lossless(SearchParams(L=16, W=2, k=10),
-                                       qsh.shape[1], 8, spec_width=4,
+                                       qsh.shape[1], 8, spec_width=spec,
                                        kernel_mode=mode)
         consts, geom, entry = pack_for_engine(packed, device=where)
         reset_launch_counts()
+        CACHE.reset_stats()
         ids, dists, st = search_sim(consts, qsh, *entry, params, geom,
-                                    device=where)
-        out[mode] = (ids.cpu(), dists.cpu(),
+                                    device=where, capture=capture)
+        out[name] = (ids.cpu(), dists.cpu(),
                      {k: v.cpu() for k, v in st.items() if k != "host_syncs"})
-        if mode == "cuda":     # one fused Gather merge per round
-            counts = launch_counts()
-            assert counts["paged_distance"] > 0
+        rounds = int(st["total_rounds"].max())
+        counts = launch_counts()
+        assert counts["bitonic_sort"] == counts["bitonic_merge"] == 0
+        if name == "captured":
+            assert st["host_syncs"] == -(-rounds // SEARCH_CHUNK)
+            assert CACHE.stats.captures == 1
+            assert CACHE.stats.replays == st["host_syncs"]
+            device_rounds = SEARCH_CHUNK * (1 + st["host_syncs"])
+            assert CACHE.stats.rounds == device_rounds
+            assert counts["paged_distance"] == device_rounds
+            assert counts["bitonic_merge_unsorted"] == device_rounds
+        elif name == "eager":   # every chunk's K rounds, none captured
+            assert CACHE.stats.replays == 0
             assert counts["bitonic_merge_unsorted"] == \
-                int(st["total_rounds"].max())
-            assert counts["bitonic_sort"] == counts["bitonic_merge"] == 0
-    for a, b in zip(out["cuda"][:2], out["ref"][:2]):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
-    for k, v in out["ref"][2].items():
-        torch.testing.assert_close(out["cuda"][2][k], v, rtol=0, atol=0)
+                SEARCH_CHUNK * st["host_syncs"]
+    for name in ("captured", "eager"):
+        for a, b in zip(out[name][:2], out["ref"][:2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for k, v in out["ref"][2].items():
+            torch.testing.assert_close(out[name][2][k], v, rtol=0, atol=0)
+
+
+def test_search_sim_replays_its_capture(dev):
+    """A second search with the same shapes replays the first one's
+    graph (no new capture) and returns its own results, not the
+    graph's buffers."""
+    packed, qsh = _search_index(dev)
+    params = EngineParams.lossless(SearchParams(L=16, W=1, k=10),
+                                   qsh.shape[1], 8)
+    consts, geom, entry = pack_for_engine(packed, device=dev)
+    first = search_sim(consts, qsh, *entry, params, geom, device=dev)
+    CACHE.reset_stats()
+    second = search_sim(consts, qsh[:, ::-1].copy(), *entry, params, geom,
+                        device=dev)
+    assert CACHE.stats.captures == 0 and CACHE.stats.replays > 0
+    again = search_sim(consts, qsh, *entry, params, geom, device=dev)
+    torch.testing.assert_close(first[0], again[0], rtol=0, atol=0)
+    torch.testing.assert_close(first[0].flip(1), second[0], rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
@@ -308,53 +350,86 @@ def int_index():
     return packed, queries
 
 
-@pytest.mark.parametrize("injit,dynamic", [(True, False), (True, True),
-                                           (False, True)])
-def test_stream_search_cuda_matches_cpu_ref(dev, int_index, injit,
+@pytest.mark.parametrize("spec,injit,dynamic", [
+    (0, True, False), (4, True, False), (4, True, True), (0, False, False),
+    (4, False, True)])
+def test_stream_search_cuda_matches_cpu_ref(dev, int_index, spec, injit,
                                             dynamic):
-    """The stepper and scheduler on the card equal CPU ref mode on an
-    integer index: ids, dists, every per-query record but its wall time,
-    and the round schedule."""
+    """The scheduler's chunks captured on the card == run eagerly on the
+    card == CPU ref mode on an integer index: ids, dists, every
+    per-query record but its wall time, and the round schedule; one read
+    per chunk; one capture of the session's chunk program."""
     packed, queries = int_index
     arrivals = np.random.default_rng(2).integers(0, 30, len(queries))
     out = {}
-    for mode, where in (("cuda", dev), ("ref", "cpu")):
+    for name, mode, where, capture in (
+            ("captured", "cuda", dev, True), ("eager", "cuda", dev, False),
+            ("ref", "ref", "cpu", True)):
         params = EngineParams.lossless(SearchParams(L=16, W=1, k=10), 3, 12,
-                                       spec_width=4, kernel_mode=mode,
+                                       spec_width=spec, kernel_mode=mode,
                                        deadline_rounds=40)
         consts, geom, entry = pack_for_engine(packed, device=where)
+        CACHE.reset_stats()
         ids, dists, st = stream_search(
             consts, geom, params, entry, queries, num_slots=3,
             arrivals=arrivals, round_chunk=8, injit_admit=injit,
-            dynamic_spec=dynamic, device=where)
-        out[mode] = (ids, dists, {r.qid: (tuple(r.ids), tuple(r.dists),
+            dynamic_spec=dynamic, device=where, capture=capture)
+        assert st.host_syncs == st.host_dispatches
+        if name == "captured":
+            assert CACHE.stats.captures == 1
+            assert CACHE.stats.replays == st.host_dispatches + 1  # warmup
+        out[name] = (ids, dists, {r.qid: (tuple(r.ids), tuple(r.dists),
                                           r.admit_round, r.retire_round,
                                           r.service_rounds, r.n_dist,
                                           r.truncated) for r in st.results},
                      st.total_rounds, st.occupancy_trace, st.spec_trace,
                      st.host_dispatches)
-    np.testing.assert_array_equal(out["cuda"][0], out["ref"][0])
-    np.testing.assert_array_equal(out["cuda"][1], out["ref"][1])
-    assert out["cuda"][2:] == out["ref"][2:]
+    for name in ("captured", "eager"):
+        np.testing.assert_array_equal(out[name][0], out["ref"][0])
+        np.testing.assert_array_equal(out[name][1].view(np.int32),
+                                      out["ref"][1].view(np.int32))
+        assert out[name][2:] == out["ref"][2:]
 
 
-def test_stream_search_launches_fused_merge_once_per_round(dev, int_index):
-    """Every engine round the scheduler steps — the warmup chunk's
-    included — launches the distance kernel and the fused Gather merge
-    once each, and the standalone sort and merge never."""
+@pytest.mark.parametrize("refill", [True, False])
+def test_stream_search_launches_fused_merge_once_per_round(dev, int_index,
+                                                          refill):
+    """Launch accounting under capture: every round the device ran —
+    the capture's eager warm-up and each replay's K masked rounds, dead
+    ones included — launches the distance kernel and the fused Gather
+    merge once each, and the standalone sort and merge never. The live
+    rounds (served and warmup) are at most those; one read per chunk."""
     packed, queries = int_index
     consts, geom, entry = pack_for_engine(packed, device=dev)
     params = EngineParams.lossless(SearchParams(L=16, W=1, k=10), 4, 12,
                                    spec_width=4)
+    arrivals = np.random.default_rng(4).integers(0, 20, len(queries))
     reset_launch_counts()
+    CACHE.reset_stats()
     _, _, st = stream_search(consts, geom, params, entry, queries,
-                             num_slots=4, round_chunk=8, device=dev)
+                             num_slots=4, arrivals=arrivals, round_chunk=8,
+                             refill=refill, device=dev)
     counts = launch_counts()
-    rounds = st.total_rounds + st.warmup_rounds
-    assert counts["paged_distance"] == rounds
-    assert counts["bitonic_merge_unsorted"] == rounds
+    device_rounds = 8 * (CACHE.stats.captures + CACHE.stats.replays)
+    assert CACHE.stats.rounds == device_rounds
+    assert counts["paged_distance"] == device_rounds
+    assert counts["bitonic_merge_unsorted"] == device_rounds
     assert counts["bitonic_sort"] == counts["bitonic_merge"] == 0
-    assert st.host_syncs >= st.total_rounds
+    assert st.total_rounds + st.warmup_rounds <= device_rounds
+    assert st.host_syncs == st.host_dispatches == CACHE.stats.replays - 1
+
+
+def test_failed_capture_raises(dev):
+    """A chunk program that reads the device inside the capture is
+    refused: the capture raises, nothing falls back to an eager run."""
+    cache = CaptureCache()
+    x = torch.arange(8, device=dev, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="capture of the bad chunk"):
+        cache.run("bad", lambda a: a * float(a.sum()), (), (x,), 1)
+    assert cache.count("bad") == 0
+    torch.cuda.synchronize()
+    good = cache.run("good", lambda a: a * 2, (), (x,), 1)
+    torch.testing.assert_close(good, x * 2)
 
 
 def _qkv(B, H, Hkv, S, dh, dtype, dev, seed=0):

@@ -19,6 +19,7 @@ from repro.data.vectors import PAPER_DATASETS as J_DATASETS
 from repro.data.vectors import VectorDataset as JDataset
 from repro.launch.search import build_index as j_build_index
 from repro.launch.search import main as j_main
+from repro_torch.core.engine import SEARCH_CHUNK, pack_for_engine
 from repro_torch.core.graph import brute_force_topk, build_vamana, recall_at_k
 from repro_torch.core.luncsr import pack_index
 from repro_torch.data.vectors import PAPER_DATASETS, VectorDataset
@@ -76,7 +77,8 @@ def test_real_valued_recall_agrees(tiny):
     ids may differ in a near-tie; recall@k must agree within 0.01."""
     ds, _, (db, packed), _ = tiny
     queries = ds.queries(32, seed=1)
-    port = run_search(packed, db, queries, shards=4, L=16, W=1, k=10,
+    port = run_search(pack_for_engine(packed, device="cpu"), db, queries,
+                      shards=4, L=16, W=1, k=10,
                       spec=0, kernel_mode="ref", coalesce_qb=8, device="cpu")
     consts, geom, entry = j_pack(packed)
     p = JParams.lossless(JSP(L=16, W=1, k=10), 8, 8, kernel_mode="jnp")
@@ -117,4 +119,48 @@ def test_cli_json_matches_reference(tmp_path, capsys):
                 "items_recv"):
         assert port[key] == ref[key], key
     assert port["kernel_mode"] == "auto" and port["device"] == "cpu"
-    assert port["host_syncs"] == port["rounds"] + 1
+    # one read per chunk of SEARCH_CHUNK predicated rounds
+    assert port["host_syncs"] == -(-port["rounds"] // SEARCH_CHUNK)
+
+
+# the serving report's wall clocks, and the backend's name
+STREAM_CLOCKS = {"kernel_mode", "wall_latency_ms", "sustained_qps", "wall_s",
+                 "compile_s"}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--arrival-rate", "2", "--slots", "3", "--round-chunk", "4"],
+    ["--spec", "2", "--spec-dynamic", "--spec-page-w", "0.5",
+     "--arrival-rate", "0.5", "--deadline-rounds", "9",
+     "--injit-admit", "off"]])
+def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
+    """``--stream`` serves the queries through the streaming scheduler:
+    the JSON equals the reference's ``--stream --kernel-mode jnp`` JSON
+    but the clocks; the port adds device, host_syncs (one read per
+    chunk: the reference's host blocks) and warmup_rounds."""
+    argv = ["--dataset", "tiny", "--n", "512", "--queries", "32",
+            "--stream"] + flags
+    assert main(argv + ["--device", "cpu",
+                        "--out", str(tmp_path / "port.json")]) == 0
+    j_main(argv + ["--kernel-mode", "jnp",
+                   "--out", str(tmp_path / "ref.json")])
+    capsys.readouterr()
+    port = json.loads((tmp_path / "port.json").read_text())
+    ref = json.loads((tmp_path / "ref.json").read_text())
+    assert set(port) == set(ref) | {"device", "host_syncs",
+                                    "warmup_rounds"}
+    for key in set(ref) - STREAM_CLOCKS:
+        assert port[key] == ref[key], key
+    assert port["mode"] == "stream" and port["device"] == "cpu"
+    assert port["host_syncs"] == port["host_dispatches"] > 0
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--topr", "2"], 10), (["--kill-shard", "0:3"], 10),
+    (["--device-pages", "4"], 11), (["--delta-cap", "16"], 12)])
+def test_cli_stream_refuses_unported_flags(capsys, flag, item):
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", "--dataset", "tiny", "--n", "512",
+              "--stream"] + flag)
+    err = capsys.readouterr().err
+    assert flag[0] in err and f"item {item}" in err

@@ -182,11 +182,12 @@ def test_run_chunk_matches_reference(ds, dynamic, deadline):
         _same_state(got[0], want[0], f"chunk K={K}")
         for a, b in zip(got[1], want[1]):
             _eq(a, b, "controller")
-        assert got[2] == int(want[2])
+        assert int(got[2]) == int(want[2])
         _eq(got[3], want[3], "live_cnt")
         _eq(got[4], want[4], "width_sum")
-        # one condition read per round, plus the one that ended the loop
-        assert got[5] == got[2] + (got[2] < min(budget, K))
+        # the reference's outputs: steps is a device scalar, read by the
+        # caller with the chunk boundary's transfer
+        assert len(got) == len(want) and got[2].dim() == 0
         ps, js, pspec, jspec = got[0], want[0], got[1], want[1]
 
 
@@ -226,13 +227,13 @@ def test_run_chunk_admit_matches_reference(ds, spec, dynamic, deadline):
         _eq(got[1], want[1], "query buffer")
         for a, b in zip(got[2], want[2]):
             _eq(a, b, "controller")
-        assert got[3] == int(want[3])
+        assert int(got[3]) == int(want[3])
         for a, b, name in zip(got[4:14], want[4:14], names):
             _eq(a, b, name)
         ps, pq, pspec, pcur = got[0], got[1], got[2], got[13]
         js, jq, jspec, jcur = want[0], want[1], want[2], want[13]
-        t += got[3]
-        if got[3] == 0:
+        t += int(got[3])
+        if int(got[3]) == 0:
             break
     assert int(pcur) == len(queries) and bool(ps.done.all())
 
