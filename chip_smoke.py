@@ -15,10 +15,15 @@ raises, so the script exits nonzero and prints no result line):
                on the card: the SiN distance at the main path's tile
                shapes (page-sorted, as dispatched, and unsorted) and on a
                1M-vector (512 MiB) paged store, exact on integer-valued
-               inputs and within RTOL_REAL on real ones;
+               inputs and within RTOL_REAL on real ones; its bf16
+               instantiations (bf16 queries, a bf16 store, both) at the
+               main path's tiles and on the 1M-vector store, the same
+               way and bit for bit against the f32 kernel on the upcast
+               operands;
                the bitonic sort and merge exactly, with a payload lane,
-               ties and duplicated (dist, id, payload) entries, in both
-               bodies (registers up to M 128, shared memory up to 2048);
+               ties and duplicated (dist, id, payload) entries, -0.0 /
+               NaN / inf, in both bodies (registers up to M 128, shared
+               memory up to 2048);
                the fused Gather merge (merge_unsorted) bit for bit
                against its plain version, the two-launch composition
                (sort, then merge) and its other body: ties across the
@@ -54,6 +59,24 @@ raises, so the script exits nonzero and prints no result line):
                replays, host syncs, dead rounds, host ms per round, QPS
                over REPEATS more calls and uncaptured; then a profiled
                call (the device's idle share).
+  6b. engine_variants — the engine's static variants and fault plans.
+               (a) Phase int's integer index: search_sim captured in
+               cuda mode with gather_vectors (the baseline that moves
+               vectors: no distance launch, the fused Gather merge once
+               per device round), with payload_bf16 (the bf16-query
+               distance instantiation once per device round) and after a
+               block refresh (frac 0.5), each equal to CPU ref mode bit
+               for bit and to NDP's ids, dists, rounds and n_dist; then
+               stream_search under a delay plan, a kill plan with a
+               deadline, page corruption ("neg", 0.08) with the guard
+               and NaN corruption without it, each equal to CPU ref mode
+               per query. (b) Phase main's sift-1b build: search_sim
+               with gather_vectors and with payload_bf16 beside NDP:
+               recall@k, rounds, items_recv, QPS and the modelled bucket
+               bytes of the exchange per round; the
+               baseline must return NDP's ids, bf16 payloads keep recall
+               within RECALL_TOL. The bf16-query instantiation's launches
+               in the kernels line are payload_bf16's measured search.
   7. stream  — the streaming scheduler (launch/serve_stream.py's
                stream_search) on the same host builds; its chunks run
                as captured CUDA graphs (one capture per session's chunk
@@ -89,7 +112,9 @@ raises, so the script exits nonzero and prints no result line):
                attention on the card gives the reference logits and
                tokens.
   9. timing  — each kernel at its path's shapes: its time, its bound,
-               the plain version's time and one library call's; flash
+               the plain version's time and one library call's (the
+               distance kernel's bf16 instantiations on the same tiles,
+               their bound counting bf16 operands' halved bytes); flash
                attention also at gemma3-1b's global layer (window 0) and
                the fused Gather merge also at spec 4's proposals (LB 20),
                each on a line of its own; each bitonic kernel also at one
@@ -104,6 +129,7 @@ present, and when the repository's package is missing.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import re
@@ -135,6 +161,7 @@ ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 LOGIT_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12           # H100 SXM bf16 on the tensor cores, dense
 
 
 def emit(obj) -> None:
@@ -200,10 +227,12 @@ def device_ms(fn, iters: int = 50, warmup: int = 5, tries: int = 3):
     return event_ms(fn, iters, warmup), "events"
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, bf16_ops: float = 0.0):
     """(least time in ms, what bounds it) for moving ``nbytes`` through
-    HBM and doing ``ops`` f32 operations outside the tensor cores."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    HBM and doing ``ops`` f32 operations outside the tensor cores and
+    ``bf16_ops`` bf16 ones on them."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS + bf16_ops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -258,6 +287,25 @@ def main_path_tiles():
 # ---------------------------------------------------------------------------
 # Phase 3: search kernels against their plain versions
 # ---------------------------------------------------------------------------
+def bf16_distance() -> dict:
+    """The distance kernel's bf16 instantiations: {name: (queries dtype,
+    store dtype)}."""
+    from repro_torch.kernels.distance.kernel import KERNEL, KERNELS
+    return {k.name: (q, d) for (q, d), k in KERNELS.items() if k is not KERNEL}
+
+
+def dtype_name(dt) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+def as_dtypes(args, qt, dt):
+    """A distance case with q cast to ``qt`` and the store to ``dt``; qq
+    and vnorm are the self dots of the (exactly) upcast operands."""
+    pid, q, _, db, _ = args
+    q, db = q.to(qt), db.to(dt)
+    return (pid, q, (q.float() ** 2).sum(-1), db, (db.float() ** 2).sum(-1))
+
+
 def distance_case(T, QB, P, d, NP, dev, integer: bool, seed: int,
                   sort: bool = True):
     import torch
@@ -276,6 +324,8 @@ def distance_case(T, QB, P, d, NP, dev, integer: bool, seed: int,
 
 
 def check_distance(shapes: dict, dev) -> float:
+    """The f32 kernel against its plain version; returns the worst max
+    abs error."""
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
     worst = 0.0
@@ -302,6 +352,53 @@ def check_distance(shapes: dict, dev) -> float:
                   "max_abs_err": max_abs, "max_rel_err": max_rel,
                   "tolerance": "exact" if integer else f"rtol {RTOL_REAL}"})
             del args, out, ref, err
+    return worst
+
+
+def check_distance_bf16(shapes: dict, dev) -> dict:
+    """Each bf16 instantiation against its plain version (exact on
+    integer inputs, RTOL_REAL on real ones) and against the f32 kernel
+    on the upcast operands (bit for bit); returns each one's worst max
+    abs error against its plain version."""
+    import torch
+    from repro_torch.kernels.distance import (paged_distances,
+                                              paged_distances_ref)
+    worst = {}
+    for name, (qt, dt) in bf16_distance().items():
+        worst[name] = 0.0
+        for label, (T, QB, P, d, NP, sort) in shapes.items():
+            for integer in (True, False):
+                args = as_dtypes(distance_case(T, QB, P, d, NP, dev, integer,
+                                               seed=T + NP, sort=sort), qt, dt)
+                out = paged_distances(*args)
+                ref = paged_distances_ref(*args)
+                f32 = paged_distances(args[0], args[1].float(), args[2],
+                                      args[3].float(), args[4])
+                err = (out - ref).abs()
+                max_abs = float(err.max())
+                max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
+                if not torch.equal(out.view(torch.int32),
+                                   f32.view(torch.int32)):
+                    raise AssertionError(f"{name} {label}: differs from the "
+                                         f"f32 kernel on upcast operands")
+                if integer and max_abs != 0.0:
+                    raise AssertionError(f"{name} {label}: integer-valued "
+                                         f"inputs differ by {max_abs}")
+                if not integer and max_rel > RTOL_REAL:
+                    raise AssertionError(f"{name} {label}: relative error "
+                                         f"{max_rel} > {RTOL_REAL}")
+                worst[name] = max(worst[name], max_abs)
+                emit({"phase": "kernels", "kernel": name, "case": label,
+                      "queries": dtype_name(qt), "store": dtype_name(dt),
+                      "T": T, "QB": QB, "P": P, "d": d, "NP": NP,
+                      "store_mib": NP * P * d * dt.itemsize / 2**20,
+                      "page_sorted": sort,
+                      "inputs": "integer" if integer else "real",
+                      "max_abs_err": max_abs, "max_rel_err": max_rel,
+                      "equals_f32_kernel_on_upcast": True,
+                      "tolerance": "exact" if integer
+                      else f"rtol {RTOL_REAL}"})
+                del args, out, ref, f32, err
     return worst
 
 
@@ -377,8 +474,13 @@ def check_topk(dev) -> float:
                                   "bitonic_sort"),
                                  (bitonic_merge, bitonic_merge_ref,
                                   "bitonic_merge")):
-        for B, M in ((256, 16), (256, 64), (7, 128), (7, 2048), (5, 1)):
+        for (B, M), special in itertools.product(
+                ((256, 16), (256, 64), (7, 128), (7, 2048), (5, 1)),
+                (False, True)):
             d, i, p = sort_rows(B, M, dev, seed=M)
+            if special and M >= 4:   # -0.0 beside 0.0 on one id, NaN, inf
+                d[:, 0], d[:, 1], i[:, 1] = -0.0, 0.0, i[:, 0]
+                d[:, 2], d[:, 3] = float("nan"), float("inf")
             if kernel is bitonic_merge:     # make each row bitonic
                 d, i, p = bitonic_sort_ref(d, i, p)
                 h = M // 2
@@ -388,12 +490,14 @@ def check_topk(dev) -> float:
                 got = kernel(d, i, *lanes)
                 if not bits_equal(got, plain(d, i, *lanes)) or \
                         not bits_equal(got, kernel(d, i, *lanes, shared=True)):
-                    raise AssertionError(f"{label} B={B} M={M}: kernel "
-                                         f"differs from plain version or "
-                                         f"from its shared-memory body")
+                    raise AssertionError(f"{label} B={B} M={M} special="
+                                         f"{special}: kernel differs from "
+                                         f"plain version or from its "
+                                         f"shared-memory body")
             emit({"phase": "kernels", "kernel": label, "B": B, "M": M,
-                  "payload_lanes": [1, 0], "bodies": ["auto", "shared"],
-                  "max_abs_err": 0.0, "tolerance": "exact"})
+                  "special_values": special, "payload_lanes": [1, 0],
+                  "bodies": ["auto", "shared"], "max_abs_err": 0.0,
+                  "tolerance": "exact (bits)"})
     # the Gather merge: path shape, ragged row counts, non-power-of-two
     # widths, the register body's widest rows and the shared body's
     for R, la, lb in ((GATHER["R"], GATHER["LA"], GATHER["LB"]),
@@ -406,10 +510,8 @@ def check_topk(dev) -> float:
                 got = merge_unsorted(*case, out_w)
                 checks = {"two_launch": two_launch_merge(*case, out_w),
                           "shared_body": merge_unsorted(*case, out_w,
-                                                        shared=True)}
-                # a stable sort need not match the network on -0.0 / NaN
-                if not special:
-                    checks["plain"] = merge_unsorted_ref(*case, out_w)
+                                                        shared=True),
+                          "plain": merge_unsorted_ref(*case, out_w)}
                 for what, want in checks.items():
                     if not bits_equal(got, want):
                         raise AssertionError(
@@ -609,7 +711,9 @@ def real_main_path(dev):
         raise AssertionError("non-finite distance count")
     profile_main_path(consts, geom, entry, params, qsh, res["search_s"], dev)
     drop_traces()
-    return launches, (db, packed)
+    return launches, (db, packed), dict(
+        engine=engine, queries=queries, ids=got[True][1],
+        dists=got[True][2].view(torch.float32), res=res)
 
 
 def profile_main_path(consts, geom, entry, params, qsh, wall_s: float,
@@ -642,6 +746,229 @@ def profile_main_path(consts, geom, entry, params, qsh, wall_s: float,
                                 for k, v in ours.items()},
           "top": [{"name": name[:80], "ms": us / 1e3, "count": c}
                   for name, (us, c) in top]})
+
+
+# ---------------------------------------------------------------------------
+# Phase engine_variants: the engine's static variants and fault plans
+# ---------------------------------------------------------------------------
+def exchange_bytes(engine, queries, params, items_per_round: float) -> dict:
+    """Modelled bytes of one round's simulated exchange, from the bucket
+    tensors one eager round hands to it (``exchange_buckets``):
+    ``dense``, every bucket of the four exchanges (static shapes, at any
+    occupancy), and ``phase_cd_sent``, phases C and D's bytes per bucket
+    slot times the ``items_per_round`` slots actually filled (ids and
+    query payloads out, scalar distances back for NDP, whole vectors
+    back for the gather_vectors baseline). On one card the exchange is a
+    view, so neither is a count of bytes copied."""
+    from repro_torch.core.engine import exchange_buckets
+    consts, geom, entry = engine
+    ex = exchange_buckets(consts, queries, *entry, params, geom)
+    return {"dense": sum(e["bytes"] for e in ex),
+            "phase_cd_sent": items_per_round * sum(
+                e["bytes"] / e["slots"] for e in ex[2:])}
+
+
+def engine_variants_integer(packed, queries, dev) -> None:
+    """On phase int's integer index: search_sim captured on the card in
+    cuda mode with gather_vectors, with payload_bf16 and after a block
+    refresh (frac 0.5), and stream_search with a delay plan, a kill plan
+    under a deadline, page corruption ("neg", 0.08) with the guard and
+    NaN corruption without it: each equal to CPU ref mode bit for bit,
+    with its launch accounting (the fused merge sorts a NaN proposal
+    after every number, as the plain version does)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import (EngineParams, pack_for_engine,
+                                         search_sim)
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.refresh import refresh_blocks
+    from repro_torch.core.scheduler import stream_search
+    from repro_torch.ft.inject import fault_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    shards, nq = SHARDS, len(queries)
+    qsh = queries.reshape(shards, nq // shards, -1)
+    refreshed = refresh_blocks(packed, np.random.default_rng(42), frac=0.5)
+    sp = SearchParams(L=32, W=1, k=10)
+    searches = {"gather_vectors": (packed, dict(gather_vectors=True)),
+                "payload_bf16": (packed, dict(payload_bf16=True)),
+                "refresh_frac_0.5": (refreshed, {}),
+                "ndp": (packed, {})}
+    found = {}
+    for name, (index, kw) in searches.items():
+        out = {}
+        for where, mode in ((dev, "cuda"), (torch.device("cpu"), "ref")):
+            params = EngineParams.lossless(sp, nq // shards, 16,
+                                           kernel_mode=mode, **kw)
+            consts, geom, entry = pack_for_engine(index, device=where)
+            reset_launch_counts()
+            CACHE.reset_stats()
+            ids, dists, st = search_sim(consts, qsh, *entry, params, geom,
+                                        device=where)
+            launches = launch_counts()
+            out[mode] = {"ids": ids.cpu(), "dists": dists.cpu().view(
+                torch.int32), **{k: v.cpu() for k, v in st.items()
+                                 if k != "host_syncs"}}
+            if mode == "cuda":
+                rounds = CACHE.stats.rounds
+                cuda_launches = launches
+        for key, want in out["ref"].items():
+            if not torch.equal(out["cuda"][key], want):
+                raise AssertionError(f"engine variant {name}: cuda-mode "
+                                     f"{key} differs from CPU ref mode")
+        dist = {k: v for k, v in cuda_launches.items()
+                if k.startswith("paged_distance") and v}
+        want_dist = {"gather_vectors": {},
+                     "payload_bf16": {"paged_distance_bf16q": rounds}}.get(
+            name, {"paged_distance": rounds})
+        if dist != want_dist or \
+                cuda_launches["bitonic_merge_unsorted"] != rounds:
+            raise AssertionError(f"engine variant {name}: {rounds} device "
+                                 f"rounds, launches {cuda_launches}")
+        found[name] = out["ref"]
+        emit({"phase": "engine_variants", "index": "integer", "run": name,
+              "search": "search_sim", "rounds": int(
+                  out["ref"]["total_rounds"].max()), "device_rounds": rounds,
+              "launches": {k: v for k, v in cuda_launches.items() if v},
+              "bit_identical_to_cpu_ref": sorted(out["ref"])})
+    for name in ("gather_vectors", "payload_bf16", "refresh_frac_0.5"):
+        for key in ("ids", "dists", "rounds", "n_dist"):
+            if not torch.equal(found[name][key], found["ndp"][key]):
+                raise AssertionError(f"engine variant {name}: {key} "
+                                     f"differs from NDP's")
+
+    arrivals = np.random.default_rng(3).integers(0, 64, nq)
+    dl = 60
+    plans = {"delay": (fault_plan(shards).delay(0, 4, 6).delay(5, 10, 3),
+                       {}),
+             "kill": (fault_plan(shards).kill(2, 6), {"deadline_rounds": dl}),
+             "corrupt_neg_guarded": (fault_plan(shards).corrupt(
+                 0.08, "neg", seed=3), {"guard_nonfinite": True}),
+             "corrupt_nan_unguarded": (fault_plan(shards).corrupt(
+                 0.08, "nan", seed=3), {})}
+    for name, (faults, kw) in plans.items():
+        out = {}
+        for where, mode in ((dev, "cuda"), (torch.device("cpu"), "ref")):
+            params = dataclasses.replace(EngineParams.lossless(
+                sp, 8, 16, kernel_mode=mode, faults=faults), **kw)
+            consts, geom, entry = pack_for_engine(packed, device=where)
+            _, _, st = stream_search(consts, geom, params, entry, queries,
+                                     num_slots=8, arrivals=arrivals,
+                                     round_chunk=8, device=where)
+            out[mode] = (stream_records(st, nq) | {
+                "stall_rounds": per_query(st, nq, "stall_rounds")},
+                {"quarantined": st.quarantined, "truncated": st.truncated,
+                 "stalls": st.stalls, "total_rounds": st.total_rounds})
+        differ = first_difference(out["cuda"][0], out["ref"][0])
+        same = differ is None and out["cuda"][1] == out["ref"][1]
+        emit({"phase": "engine_variants", "index": "integer", "run": name,
+              "search": "stream_search", "queries": nq, "slots_per_shard": 8,
+              **out["ref"][1], "cuda_equals_cpu_ref": same,
+              "first_difference": differ})
+        if not same:
+            raise AssertionError(f"fault plan {name}: the card's stream "
+                                 f"differs from CPU ref mode ({differ}, "
+                                 f"{out['cuda'][1]} vs {out['ref'][1]})")
+        if (name == "corrupt_neg_guarded" and not out["ref"][1]["quarantined"]
+                or name == "kill" and not out["ref"][1]["truncated"]
+                or name == "delay" and not out["ref"][1]["stalls"]):
+            raise AssertionError(f"fault plan {name} did not bite: "
+                                 f"{out['ref'][1]}")
+
+
+def engine_variants_sift(main: dict, dev) -> dict:
+    """On phase main's sift-1b build: search_sim with gather_vectors and
+    with payload_bf16 beside NDP (phase main's numbers): recall@k,
+    rounds, items_recv, QPS (REPEATS calls) and the modelled bucket bytes
+    of the exchange per round. The baseline must return NDP's ids, bf16 payloads keep recall
+    within RECALL_TOL. Returns each run's launch counts (zeroed just
+    before its measured call, read just after)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import EngineParams, search_sim
+    from repro_torch.core.graph import brute_force_topk, recall_at_k
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.traversal import gather_baseline_bytes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    consts, geom, entry = main["engine"]
+    queries, ndp = main["queries"], main["res"]
+    qsh = torch.as_tensor(queries.reshape(SHARDS, NQ // SHARDS, -1),
+                          device=dev)
+    true_ids, _ = brute_force_topk(main["db"], queries, K)
+    base = EngineParams.lossless(SearchParams(L=L, W=W, k=K), NQ // SHARDS,
+                                 DEGREE, coalesce_qb=QB)
+
+    def timed(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i, d, st = search_sim(consts, qsh, *entry, params, geom, device=dev)
+        i = i.cpu()
+        return time.perf_counter() - t0, i, st, d.cpu()
+
+    per_round = ndp["items_recv"] / ndp["rounds"]
+    out = {"ndp": {"recall@k": ndp["recall@k"], "rounds": ndp["rounds"],
+                   "items_recv": ndp["items_recv"], "qps": ndp["qps"],
+                   "qps_repeats": ndp["qps_repeats"],
+                   "modelled_bucket_bytes_per_round": exchange_bytes(
+                       main["engine"], qsh, base, per_round)}}
+    launches = {}
+    for name in ("gather_vectors", "payload_bf16"):
+        params = dataclasses.replace(base, **{name: True})
+        timed(params)                                # warm-up: the capture
+        reset_launch_counts()
+        CACHE.reset_stats()
+        wall, ids, st, dists = timed(params)
+        launches[name] = launch_counts()
+        device_rounds = CACHE.stats.rounds
+        rounds = int(st["total_rounds"].max())
+        items = int(st["items_recv"].sum())
+        qps = [NQ / timed(params)[0] for _ in range(REPEATS)]
+        flat = ids.reshape(NQ, -1).numpy()
+        out[name] = {
+            "recall@k": round(float(recall_at_k(flat, true_ids)), 4),
+            "rounds": rounds, "items_recv": items,
+            "pages_unique": int(st["pages_unique"].sum()),
+            "qps": NQ / wall, "qps_repeats": qps,
+            "device_rounds": device_rounds,
+            "launches": {k: v for k, v in launches[name].items() if v},
+            "modelled_bucket_bytes_per_round": exchange_bytes(
+                main["engine"], qsh, params, items / rounds)}
+        if name == "gather_vectors":
+            # the baseline's dot is a torch sum over d, the kernel's a
+            # sequential FMA chain: ids may differ only in a near-tie
+            rows = (ids != main["ids"]).reshape(NQ, -1).any(1)
+            near = (dists - main["dists"]).abs() <= \
+                NEAR_TIE * main["dists"].abs() + NEAR_TIE
+            out[name]["ids_differ_from_ndp_rows"] = \
+                rows.nonzero().flatten().tolist()
+            out[name]["ids_equal_ndp_up_to_near_ties"] = bool(
+                near.reshape(NQ, -1)[rows].all())
+    emit({"phase": "engine_variants", "index": "sift-1b", **out,
+          "napkin_bytes_per_expansion": gather_baseline_bytes(
+              SearchParams(L=L, W=W, k=K), DIM, R=DEGREE)})
+    if not out["gather_vectors"]["ids_equal_ndp_up_to_near_ties"]:
+        raise AssertionError("gather_vectors: ids differ from NDP's beyond "
+                             "a distance near-tie")
+    if abs(out["payload_bf16"]["recall@k"] - ndp["recall@k"]) > RECALL_TOL:
+        raise AssertionError(f"payload_bf16 moved recall by more than "
+                             f"{RECALL_TOL}: {out['payload_bf16']}")
+    gv = launches["gather_vectors"]
+    rounds = out["gather_vectors"]["device_rounds"]
+    if any(gv[k] for k in gv if k.startswith("paged_distance")) or \
+            gv["bitonic_merge_unsorted"] != rounds:
+        raise AssertionError(f"gather_vectors launched {gv} over {rounds} "
+                             f"device rounds")
+    bf = launches["payload_bf16"]
+    if bf["paged_distance_bf16q"] != out["payload_bf16"]["device_rounds"] \
+            or bf["paged_distance"]:
+        raise AssertionError(f"payload_bf16 launched {bf}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1303,12 +1630,34 @@ def time_kernels(dev) -> list:
     nbytes = (pid.numel() * 4 + q.numel() * 4 + qq.numel() * 4
               + uniq * P * (d + 1) * 4 + T * qb * P * 4)
     rows = []
-    b, by = bound_ms(nbytes, 2.0 * T * qb * P * d + 3.0 * T * qb * P)
+    ops = 2.0 * T * qb * P * d + 3.0 * T * qb * P
+    b, by = bound_ms(nbytes, ops)
     rows.append(("paged_distance", dargs, paged_distances,
                  paged_distances_ref,
                  lambda: torch.baddbmm(base, q, pages.transpose(1, 2),
                                        alpha=-2.0),
                  b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages)))
+    # the bf16 instantiations on the same tiles: bf16 operands move half
+    # the bytes; the library call is baddbmm on the upcast, pre-gathered
+    # operands
+    for name, (qt, dt) in bf16_distance().items():
+        args = as_dtypes(dargs, qt, dt)
+        qf, pf = args[1].float(), args[3][pid.long()].float()
+        base_b = args[2][:, :, None] + args[4][pid.long()][:, None, :]
+        saved = q.numel() * (4 - qt.itemsize) + \
+            uniq * P * d * (4 - dt.itemsize)
+        # bf16 x bf16 products at the tensor cores' bf16 rate; a product
+        # with an f32 operand, and the qq / vnorm adds, at the f32 rate
+        dot = 2.0 * T * qb * P * d
+        both = qt == dt == torch.bfloat16
+        b, by = bound_ms(nbytes - saved, ops - dot if both else ops,
+                         bf16_ops=dot if both else 0.0)
+        rows.append((name, args, paged_distances, paged_distances_ref,
+                     lambda qf=qf, pf=pf, base_b=base_b: torch.baddbmm(
+                         base_b, qf, pf.transpose(1, 2), alpha=-2.0),
+                     b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages,
+                                 queries=dtype_name(qt),
+                                 store=dtype_name(dt))))
     rows += bitonic_rows(dev)
     # flash attention at gemma3-1b's prefill shape (a local layer, and on a
     # line of its own a global one); the library call is SDPA on repeated
@@ -1439,6 +1788,9 @@ def main() -> int:
         "main path tiles": (T, qb, P, d, pages, True),
         "main path tiles, pages unsorted": (T, qb, P, d, pages, False),
         "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev)}
+    errs.update(check_distance_bf16({
+        "main path tiles": (T, qb, P, d, pages, True),
+        "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev))
     errs["bitonic_sort"] = errs["bitonic_merge"] = \
         errs["bitonic_merge_unsorted"] = check_topk(dev)
     torch.cuda.empty_cache()
@@ -1450,7 +1802,15 @@ def main() -> int:
           "seconds": round(time.perf_counter() - t0, 2)})
 
     int_index = integer_main_path(dev)
-    launches, (db, packed) = real_main_path(dev)
+    launches, (db, packed), main_run = real_main_path(dev)
+    t0 = time.perf_counter()
+    engine_variants_integer(*int_index, dev)
+    variants = engine_variants_sift(dict(main_run, db=db), dev)
+    # the bf16-query instantiation's path is payload_bf16's search
+    launches["paged_distance_bf16q"] = \
+        variants["payload_bf16"]["paged_distance_bf16q"]
+    emit({"phase": "engine_variants",
+          "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
     stream_integer(*int_index, dev)
     stream_path(db, packed, dev)

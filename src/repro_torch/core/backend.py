@@ -164,6 +164,17 @@ class KernelBackend:
             return coalesce_num_tiles(items, npages, self.coalesce_qb)
         return items
 
+    def coalesce_occupancy(self, items: int, npages: int) -> float:
+        """Fraction of coalesced-tile query lanes holding a real
+        assignment: ``items / (grid_steps * qb)``. 1.0 means every page
+        read serves a full qb-wide tile; the per-item paths (qb == 0, or
+        low reuse) are width-1 tiles, 1.0 by construction."""
+        qb = self.coalesce_qb
+        if qb <= 0 or items <= 0 or not self.coalesce_active(items,
+                                                             npages):
+            return 1.0
+        return items / (self.distance_grid_steps(items, npages) * qb)
+
     def paged_distance(self, page_ids, queries, qq, db, vnorm):
         """(T, QB, d) query tiles x (NP, P, d) paged db -> (T, QB, P)."""
         return paged_distance_op(page_ids, queries, qq, db, vnorm,

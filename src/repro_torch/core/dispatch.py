@@ -88,3 +88,50 @@ def gather_from_buckets(buckets: torch.Tensor, dest, rank, valid,
     return torch.where(ok.reshape(ok.shape + (1,) * len(rest)), out,
                        torch.zeros((), dtype=buckets.dtype,
                                    device=buckets.device))
+
+
+def dispatch_stats(dest, rank, valid, num_shards: int, capacity: int):
+    """(#items sent, #dropped to overflow, per-shard load) over the last
+    axis (leading axes are batch axes)."""
+    ok = valid & (rank < capacity)
+    dropped = valid & (rank >= capacity)
+    shards = torch.arange(num_shards, device=dest.device)
+    onehot = (dest[..., None] == shards) & ok[..., None]
+    return ok.sum(-1), dropped.sum(-1), onehot.sum(-2)
+
+
+# ---------------------------------------------------------------------------
+# Page-tile builder (offline, host): the SiN kernel consumes fixed (T, QB)
+# tiles, one page per tile; this groups a routed batch by page id and pads
+# each page group to QB rows.
+# ---------------------------------------------------------------------------
+def build_page_tiles(page_ids, payload_rows, qb: int):
+    """numpy: group rows by page into (T, QB) tiles (INVALID-padded).
+
+    Returns (tile_page (T,), tile_rows (T, QB) indices into payload order,
+    tile_valid (T, QB)). ``payload_rows`` is unused, as in the reference.
+    """
+    import numpy as np
+
+    page_ids = np.asarray(page_ids)
+    order = np.argsort(page_ids, kind="stable")
+    sorted_pages = page_ids[order]
+    tiles_p, tiles_r, tiles_v = [], [], []
+    i = 0
+    m = len(sorted_pages)
+    while i < m:
+        j = i
+        while j < m and sorted_pages[j] == sorted_pages[i]:
+            j += 1
+        group = order[i:j]
+        for s in range(0, len(group), qb):
+            chunk = group[s: s + qb]
+            rows = np.full(qb, INVALID, dtype=np.int64)
+            rows[: len(chunk)] = chunk
+            tiles_p.append(sorted_pages[i])
+            tiles_r.append(rows)
+            tiles_v.append(rows != INVALID)
+        i = j
+    return (np.asarray(tiles_p, dtype=np.int32),
+            np.stack(tiles_r).astype(np.int64),
+            np.stack(tiles_v))

@@ -49,6 +49,7 @@ release the port runs on (2.11) has no conditional graph node
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -63,12 +64,12 @@ from repro_torch.core.luncsr import PackedIndex, physical_page_of
 from repro_torch.core.ref_search import SearchParams
 from repro_torch.core.traversal import (dedup_in_round, merge_candidates,
                                         select_expand)
+from repro_torch.ft import inject as ftinject
+from repro_torch.ft.guard import quarantine_distances
+from repro_torch.ft.inject import NEVER, FaultSpec
 from repro_torch.utils import (BIG_DIST, ID_SENTINEL, INVALID, bloom_insert,
                                bloom_query, resolve_device, to_host)
 
-# the deadline of a row with no deadline: an age no row reaches (the
-# reference keeps it in ft/inject.py)
-NEVER = 2**31 - 1
 # rounds per search_sim chunk: the host reads one boolean per chunk, and
 # the last chunk of a search runs up to SEARCH_CHUNK - 1 dead rounds
 SEARCH_CHUNK = 8
@@ -130,6 +131,10 @@ class EngineParams:
     capacity_b: int                 # phase-B assignment slots per destination
     sort_by_page: bool = True       # dynamic allocating (page-locality stats)
     spec_width: int = 0             # 2nd-order speculative prefetch width
+    gather_vectors: bool = False    # baseline: move vectors, not distances
+    payload_bf16: bool = False      # halve the exchange's query bytes:
+                                    # bf16 query payloads (the distance
+                                    # kernel's bf16-query instantiation)
     kernel_mode: str = "auto"       # hot-path backend: auto|cuda|ref|torch
                                     # (core/backend.py)
     coalesce_qb: int = 8            # per-page query-tile width in kernel
@@ -139,6 +144,16 @@ class EngineParams:
                                     # this many serving-clock rounds since
                                     # admission (best-so-far top-k, the
                                     # `truncated` flag set); 0 = NEVER
+    guard_nonfinite: bool = False   # quarantine corrupt (NaN/-inf-ish)
+                                    # phase-B distances to BIG_DIST and
+                                    # count them instead of letting them
+                                    # enter the bitonic merge (ft/guard.py)
+    faults: FaultSpec | None = None  # deterministic fault plan
+                                    # (ft/inject.py): shard kills/delays
+                                    # apply at the in-device admission
+                                    # chunk's round boundaries, page
+                                    # corruption in the phase-B distance
+                                    # read. None adds no op.
 
     @property
     def backend(self) -> KernelBackend:
@@ -174,6 +189,8 @@ class EngineState(NamedTuple):
     pages_unique: torch.Tensor   # (S,) unique page reads (dynamic allocating)
     drops_b: torch.Tensor        # (S,) phase-B overflow drops at this source
     props_sent: torch.Tensor     # (S,) accepted proposals sent by this source
+    quarantined: torch.Tensor    # (S,) corrupt distances quarantined to
+                                 # BIG_DIST by the guard (guard_nonfinite)
 
 
 def _exchange(tree: dict) -> dict:
@@ -205,7 +222,7 @@ def _init_state(queries, qq, entry_vec, entry_norm, entry_id: int,
     dl = params.deadline_rounds if params.deadline_rounds > 0 else NEVER
     return EngineState(cand_d, cand_i, cand_e, bloom, z.bool(), z, z, z,
                        torch.full((S, Qs), dl, dtype=torch.int32,
-                                  device=dev), z.bool(), zs, zs, zs, zs)
+                                  device=dev), z.bool(), zs, zs, zs, zs, zs)
 
 
 def _fa_select(state: EngineState, params: EngineParams, geom: EngineGeom):
@@ -280,15 +297,19 @@ def _fc_propose(state: EngineState, keep_a, recv_b, queries, qq, spec_w,
     ok = flat_valid & (rank < params.capacity_b)
     drops = (flat_valid & ~ok).sum(-1).to(torch.int32)
 
-    qidx = torch.arange(Qs, device=props.device).repeat_interleave(M)
     C = params.capacity_b
     send = {
         "vid": scatter_to_buckets(dest, rank, ok, flat_vid, S, C,
                                   fill=INVALID),
         "mask": bucket_mask(dest, rank, ok, S, C),
-        "qvec": scatter_to_buckets(dest, rank, ok, queries[:, qidx], S, C),
-        "qq": scatter_to_buckets(dest, rank, ok, qq[:, qidx], S, C),
     }
+    if not params.gather_vectors:
+        qidx = torch.arange(Qs, device=props.device).repeat_interleave(M)
+        qpay = queries[:, qidx]
+        if params.payload_bf16:
+            qpay = qpay.bfloat16()
+        send["qvec"] = scatter_to_buckets(dest, rank, ok, qpay, S, C)
+        send["qq"] = scatter_to_buckets(dest, rank, ok, qq[:, qidx], S, C)
     keep = {"dest": dest, "rank": rank, "ok": ok, "props": props,
             "drops": drops}
     return send, keep
@@ -298,8 +319,12 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
                  geom: EngineGeom):
     """Owner SiN: translate id -> physical page/slot, compute distances.
 
-    Also counts page-buffer statistics per shard: unique pages (dynamic
-    allocating shares a page read across assignments) vs raw items.
+    In gather_vectors mode returns the raw vectors instead (the
+    baseline). Also counts page-buffer statistics per shard: unique
+    pages (dynamic allocating shares a page read across assignments) vs
+    raw items. A fault plan with page corruption rewrites the distances
+    of its bad pages (salted by each owner shard) to garbage, exactly as
+    damaged media would, on every visit; the baseline is exempt.
     """
     vid, mask = recv["vid"], recv["mask"]              # (S, S_src, C_B)
     S, _, C = vid.shape
@@ -315,24 +340,57 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
     first[:, 1:] = sorted_pages[:, 1:] != sorted_pages[:, :-1]
     uniq = (first & (sorted_pages != 2**30)).sum(-1).to(torch.int32)
 
+    if params.gather_vectors:
+        srow = torch.arange(S, device=vid.device)[:, None]
+        v = db[srow, ppage, slot].float()                  # (S, S*C, d)
+        vn = vnorm[srow, ppage, slot]
+        return {"vec": torch.where(flat_mask[..., None], v, 0.0
+                                   ).reshape(S, S, C, -1),
+                "vn": torch.where(flat_mask, vn, 0.0).reshape(S, S, C)
+                }, items, uniq
     dist = params.backend.item_distances(
         ppage, slot, flat_mask, recv["qvec"].reshape(S, S * C, -1),
         recv["qq"].reshape(S, -1), db, vnorm)
+    if params.faults is not None and params.faults.any_corrupt:
+        shard = torch.arange(S, device=vid.device)[:, None]
+        bad = ftinject.bad_page_mask(params.faults, ppage, shard)
+        dist = torch.where(bad & flat_mask,
+                           ftinject.corrupt_value(params.faults), dist)
     return {"dist": dist.reshape(S, S, C)}, items, uniq
 
 
 def _fe_merge(state: EngineState, keep_a, keep_c, recv_d, items, uniq,
-              params: EngineParams):
-    """Requester: recover distances, bloom-insert, merge, re-terminate."""
+              queries, qq, params: EngineParams):
+    """Requester: recover distances, bloom-insert, merge, re-terminate.
+
+    The gather_vectors baseline computes its distances here, from the
+    returned vectors, in plain torch (the reference computes them
+    outside any kernel too). With ``guard_nonfinite`` corrupt distances
+    become worthless-but-harmless candidates: they still count as
+    accepted proposals (the read happened), but a BIG_DIST entry never
+    displaces a real one in the merge.
+    """
     L = params.search.L
     props = keep_c["props"]                            # (S, Qs, M)
     S, Qs, M = props.shape
-    dist = gather_from_buckets(recv_d["dist"], keep_c["dest"],
-                               keep_c["rank"], keep_c["ok"],
-                               params.capacity_b)
+    gather = [keep_c["dest"], keep_c["rank"], keep_c["ok"],
+              params.capacity_b]
+    if params.gather_vectors:
+        vec = gather_from_buckets(recv_d["vec"], *gather)  # (S, Qs*M, d)
+        vn = gather_from_buckets(recv_d["vn"], *gather)
+        qidx = torch.arange(Qs, device=props.device).repeat_interleave(M)
+        qv = (queries[:, qidx].float() * vec).sum(-1)
+        dist = (qq[:, qidx] - 2.0 * qv) + vn
+    else:
+        dist = gather_from_buckets(recv_d["dist"], *gather)
     accepted = keep_c["ok"].reshape(S, Qs, M)
     dist = torch.where(accepted, dist.reshape(S, Qs, M), BIG_DIST)
     keep = state.done
+    quarantined = state.quarantined
+    if params.guard_nonfinite:
+        dist, quar = quarantine_distances(dist, accepted, BIG_DIST,
+                                          dim=(1, 2))
+        quarantined = quarantined + quar
 
     bloom = bloom_insert(state.bloom, props, accepted)
     cand_d, cand_i, cand_e = merge_candidates(
@@ -352,7 +410,7 @@ def _fe_merge(state: EngineState, keep_a, keep_c, recv_d, items, uniq,
         state.age, state.deadline, state.truncated,
         state.items_recv + items, state.pages_unique + uniq,
         state.drops_b + keep_c["drops"],
-        state.props_sent + accepted.sum((1, 2)).int())
+        state.props_sent + accepted.sum((1, 2)).int(), quarantined)
 
 
 def _finalize(state: EngineState, k: int):
@@ -362,7 +420,7 @@ def _finalize(state: EngineState, k: int):
         "rounds": state.rounds, "n_dist": state.n_dist,
         "items_recv": state.items_recv, "pages_unique": state.pages_unique,
         "drops_b": state.drops_b, "props_sent": state.props_sent,
-        "truncated": state.truncated,
+        "truncated": state.truncated, "quarantined": state.quarantined,
     }
     return out_i, state.cand_d[..., :k], stats
 
@@ -385,18 +443,42 @@ def pack_for_engine(packed: PackedIndex, device="cuda"):
 
 
 def _sim_round(state: EngineState, consts, queries, qq, spec_w,
-               params: EngineParams, geom: EngineGeom) -> EngineState:
+               params: EngineParams, geom: EngineGeom,
+               exchange=_exchange) -> EngineState:
     """One engine round over all shards; exchanges swap the bucket axes."""
     send_a, keep_a = _fa_select(state, params, geom)
-    send_b = _fb_adjacency(_exchange(send_a), consts["adj"], consts["pref"],
+    send_b = _fb_adjacency(exchange(send_a), consts["adj"], consts["pref"],
                            params, geom)
-    send_c, keep_c = _fc_propose(state, keep_a, _exchange(send_b), queries,
+    send_c, keep_c = _fc_propose(state, keep_a, exchange(send_b), queries,
                                  qq, spec_w, params, geom)
-    send_d, items, uniq = _fd_distance(_exchange(send_c), consts["db"],
+    send_d, items, uniq = _fd_distance(exchange(send_c), consts["db"],
                                        consts["vnorm"], consts["blk_perm"],
                                        params, geom)
-    return _fe_merge(state, keep_a, keep_c, _exchange(send_d), items, uniq,
-                     params)
+    return _fe_merge(state, keep_a, keep_c, exchange(send_d), items, uniq,
+                     queries, qq, params)
+
+
+def exchange_buckets(consts, queries, entry_vec, entry_norm, entry_id: int,
+                     params: EngineParams, geom: EngineGeom) -> list:
+    """The bucket tensors that one eager round from a fresh state hands
+    to its four exchanges (phases A to D): per exchange, ``bytes``, their
+    total size, and ``slots``, the (source, destination, capacity) slots
+    they hold. Their shapes are static, so the numbers hold at any
+    occupancy; the exchange itself is a view and copies nothing."""
+    queries = torch.as_tensor(queries, device=consts["db"].device).float()
+    out = []
+
+    def tally(tree):
+        out.append({"bytes": sum(v.nbytes for v in tree.values()),
+                    "slots": math.prod(next(iter(tree.values())).shape[:3])})
+        return _exchange(tree)
+
+    state = engine_init(consts, queries, entry_vec, entry_norm, entry_id,
+                        params, geom)
+    _sim_round(state, consts, queries, _qq(queries),
+               _widths(params.spec_width, queries.shape[:2], queries.device),
+               params, geom, exchange=tally)
+    return out
 
 
 def _keep(go, new, old):
@@ -672,7 +754,7 @@ def engine_retire(state: EngineState, k: int):
 
 
 def _chunk_round(carry, round_fn, rounds_cap: int, dynamic: bool,
-                 spec_cfg):
+                 spec_cfg, stall=None):
     """One in-chunk round, shared by both chunk drivers: record the
     per-round traces at index j (a device scalar; the write index is
     clamped so a dead round at j == K writes in bounds, and its result
@@ -681,14 +763,27 @@ def _chunk_round(carry, round_fn, rounds_cap: int, dynamic: bool,
     age every row live at entry and force-retire those at their
     deadline (truncated; a row that converged this very round is not),
     and — in dynamic mode — step the widths with the widths used and the
-    round's unique-page delta (:func:`spec_update`)."""
+    round's unique-page delta (:func:`spec_update`).
+
+    ``stall`` (None, or a bool tensor broadcastable against ``done``)
+    marks rows whose shard is not serving this round (a fault plan's
+    kill or delay): they are parked for the round — no phase work, no
+    merge, no ``rounds`` advance — and un-parked afterwards with their
+    traversal state intact. The serving clock still ages every live row,
+    stalled or not, so the deadline retires rows a dead shard will never
+    finish."""
     st, sw, hi, pk, phi, ppk, prev_nd, prev_pg, j, lc, ws = carry
     worked = ~st.done
     at = j.clamp(max=lc.shape[0] - 1).long().reshape(1)
     lc = lc.index_copy(0, at, worked.sum().int().reshape(1))
     ws = ws.index_copy(0, at, torch.where(worked, sw, 0).sum().int()
                        .reshape(1))
-    st = round_fn(st, sw)
+    if stall is None:
+        st = round_fn(st, sw)
+    else:
+        pre_done = st.done
+        st = round_fn(st._replace(done=st.done | stall), sw)
+        st = st._replace(done=torch.where(stall, pre_done, st.done))
     st = st._replace(done=st.done | (st.rounds >= rounds_cap))
     age = st.age + worked.int()
     hit = ~st.done & (age >= st.deadline)
@@ -820,6 +915,8 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
     S, Qs = state.done.shape
     dev = queries.device
     spec_max = int(spec_cfg[0])
+    faults = params.faults
+    stalls = faults is not None and faults.any_stall
     zeros_k = torch.zeros((K,), dtype=torch.int32, device=dev)
     zeros_sq = torch.zeros((K, S, Qs), dtype=torch.int32, device=dev)
 
@@ -863,7 +960,9 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
             (st, sw, hi, pk, phi, ppk, st.n_dist, st.pages_unique, j, lc,
              ws),
             lambda s, w: _sim_round(s, consts, q, qq, w, params, geom),
-            params.search.rounds_cap, dynamic, spec_cfg)
+            params.search.rounds_cap, dynamic, spec_cfg,
+            stall=ftinject.stall_at(faults, t0 + j)[:, None] if stalls
+            else None)
         return (st, q, sw, hi, pk, phi, ppk, cur, j, lc, ws, aq, ri, rd,
                 rr, rn, ra, rt)
 
@@ -909,7 +1008,13 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
     is live and no pending entry has arrived. K predicated rounds,
     captured once per key on a card (the pending queue and the consts
     are read in place: their addresses are part of the key); ``budget``,
-    ``cursor`` and ``t0`` may be host values or device scalars. Returns
+    ``cursor`` and ``t0`` may be host values or device scalars. With a
+    fault plan on ``params`` (ft/inject.py), shard kill and delay windows
+    are evaluated against the global round ``t0 + j`` (a device scalar)
+    at every boundary: a stalled shard's rows do no phase work that round
+    but keep aging, so the deadline retires them. This is the only chunk
+    driver that knows the global round, which is why stall faults need
+    in-device admission. Returns
     ``(state, queries', spec_state', steps, live_cnt, width_sum,
     admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age, ret_trunc,
     cursor')`` without reading the device; the traces lead with K,
@@ -923,6 +1028,10 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
     _check_entry(entry_vec)
     dev = queries.device
     S, Qs = state.done.shape
+    if params.faults is not None and params.faults.any_stall and \
+            params.faults.num_shards != S:
+        raise ValueError(f"fault plan covers {params.faults.num_shards} "
+                         f"shards but the pool has {S}")
     spec_state = (_widths(spec_state[0], (S, Qs), dev), *spec_state[1:])
     budget = _scalar(budget, torch.int32, dev).clamp(max=K)
     cursor = _scalar(cursor, torch.int64, dev)

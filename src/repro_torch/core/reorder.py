@@ -7,7 +7,10 @@ near-optimal average vertex bandwidth
     beta(G, f) = (1/n) * sum_v  max_{(i,j) in E(v)} |f(i) - f(j)|
 
 The result is a permutation `order` with new_id = rank[old_id], applied
-by `apply_reordering`; `bandwidth_beta` scores an ordering.
+by `apply_reordering`; `bandwidth_beta` scores an ordering. The paper's
+baselines (Fig. 16) are `random_bfs` (random roots and neighbour order,
+from a seeded numpy stream: the reference's orders exactly) and
+`identity_order`.
 """
 from __future__ import annotations
 
@@ -71,6 +74,43 @@ def degree_ascending_bfs(adjacency: np.ndarray,
                     visited[u] = True
                     queue.append(int(u))
     return order
+
+
+def random_bfs(adjacency: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Random-root, random-neighbour-order BFS (the 'ran bfs' baseline)."""
+    n, _ = adjacency.shape
+    rng = np.random.default_rng(seed)
+    adj = _adjacency_sets(adjacency)
+    visited = np.zeros(n, dtype=bool)
+    order = np.empty(n, dtype=np.int64)
+    pos = 0
+    from collections import deque
+    queue: deque[int] = deque()
+    roots = rng.permutation(n)
+    root_ptr = 0
+    while pos < n:
+        while visited[roots[root_ptr]]:
+            root_ptr += 1
+        root = int(roots[root_ptr])
+        visited[root] = True
+        queue.append(root)
+        while queue:
+            v = queue.popleft()
+            order[pos] = v
+            pos += 1
+            nbrs = adj[v]
+            nbrs = nbrs[~visited[nbrs]]
+            if len(nbrs) == 0:
+                continue
+            for u in rng.permutation(nbrs):
+                if not visited[u]:
+                    visited[u] = True
+                    queue.append(int(u))
+    return order
+
+
+def identity_order(n: int) -> np.ndarray:
+    return np.arange(n, dtype=np.int64)
 
 
 def apply_reordering(vectors: np.ndarray, adjacency: np.ndarray,

@@ -64,6 +64,12 @@ first freed slot while queries wait. Per-query results are
 each row's math depends only on its own state, so neither its pool
 neighbours nor its admission round change its trajectory.
 
+Fault plans (``params.faults``, ft/inject.py) are checked up front, as
+the reference checks them: a kill needs a deadline, stalls need the
+in-device admission chunk (the only one that knows the global round),
+and the plan must cover the pool's shards. The guard's quarantine count
+is reported in ``StreamStats.quarantined``.
+
 Not ported here (each raises ``NotImplementedError`` naming its
 ROADMAP.md queue A item): routed admission and the admission ring with
 overload policies (item 10), the tiered page store (11), the live
@@ -219,7 +225,7 @@ class QueryResult:
                               # flat path
     coverage: float = 1.0     # routed serving (not ported)
     stall_rounds: int = 0     # serving-clock rounds aged without working
-                              # (0 on the ported paths: no stalls)
+                              # (a fault plan's kill or delay)
 
     @property
     def wait_rounds(self) -> int:
@@ -233,8 +239,8 @@ class QueryResult:
 @dataclasses.dataclass
 class StreamStats:
     """Aggregate scheduler run statistics. The fields of the parts not
-    ported (routing, the ring, faults, the tiered store, the live index)
-    keep the reference's at-rest values."""
+    ported (routing, the ring, the tiered store, the live index) keep the
+    reference's at-rest values."""
 
     results: list             # [QueryResult] in retirement order
     total_rounds: int         # engine rounds stepped (busy rounds)
@@ -262,7 +268,8 @@ class StreamStats:
                               # per-shard items_recv
     shed: int = 0             # admission ring (not ported)
     truncated: int = 0        # queries retired by their deadline
-    quarantined: int = 0      # NaN guard (not ported)
+    quarantined: int = 0      # corrupt distances quarantined to
+                              # BIG_DIST by the guard (guard_nonfinite)
     legs_fused_hist: list = dataclasses.field(default_factory=list)
                               # routed serving (not ported)
     stalls: int = 0           # sum of QueryResult.stall_rounds
@@ -339,6 +346,22 @@ class StreamScheduler:
         self.injit_admit = refill if injit_admit is None \
             else bool(injit_admit) and refill
         self.S = geom.num_shards
+        if params.faults is not None:
+            f = params.faults
+            if f.num_shards != self.S:
+                raise ValueError(
+                    f"faults.num_shards={f.num_shards} != "
+                    f"num_shards={self.S}")
+            if f.any_stall and not self.injit_admit:
+                raise ValueError(
+                    "fault stalls (kill/delay) are evaluated on the "
+                    "in-device serving clock: run with in-jit admission "
+                    "(refill=True, injit_admit not disabled)")
+            if f.any_kill and params.deadline_rounds == 0:
+                raise ValueError(
+                    "a killed shard never finishes its rows: set "
+                    "deadline_rounds > 0 so they force-retire with "
+                    "best-so-far results instead of hanging the run")
         self._static_spec = None
 
     # -- host-side pool bookkeeping -----------------------------------------
@@ -556,9 +579,9 @@ class StreamScheduler:
             retired += int(fin.sum())
 
         # end-of-session counters: one transfer for the whole summary
-        pages_unique, items_recv, props_sent, drops_b = to_host(
+        pages_unique, items_recv, props_sent, drops_b, quarantined = to_host(
             state.pages_unique, state.items_recv, state.props_sent,
-            state.drops_b)
+            state.drops_b, state.quarantined)
         return StreamStats(
             results=results, total_rounds=stepped,
             occupancy=slot_occupancy(occ_trace, S * Qs, stepped + idle),
@@ -573,6 +596,7 @@ class StreamScheduler:
             idle_rounds=idle, injit_admit=self.injit_admit,
             items_by_shard=[int(x) for x in items_recv],
             truncated=sum(1 for r in results if r.truncated),
+            quarantined=int(quarantined.sum()),
             stalls=sum(r.stall_rounds for r in results))
 
 

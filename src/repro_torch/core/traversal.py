@@ -231,3 +231,16 @@ def search(db, adj, vnorm, queries, entry: int, params: SearchParams,
     stats = {"rounds": state.rounds, "n_dist": state.n_dist,
              "page_accesses": state.page_acc, "total_rounds": t}
     return out_i, state.cand_d[:, :k], stats
+
+
+def gather_baseline_bytes(params: SearchParams, d: int, dtype_bytes: int = 4,
+                          R: int = 32) -> dict:
+    """Napkin traffic model of one expansion, for the filtering claim.
+
+    'gather' = SmartSSD-only-like design: move R full vectors to the query.
+    'ndsearch' = move the query vector + ids out, scalar dists back.
+    """
+    gather = R * d * dtype_bytes
+    ndsearch = d * dtype_bytes + R * 4 + R * 4
+    return {"gather_bytes": gather, "ndsearch_bytes": ndsearch,
+            "filter_ratio": gather / ndsearch}

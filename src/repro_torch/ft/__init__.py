@@ -1,0 +1,5 @@
+from repro_torch.ft.guard import all_finite, quarantine_distances, select_tree
+from repro_torch.ft.inject import FaultSpec, fault_plan, parse_fault_args
+
+__all__ = ["all_finite", "quarantine_distances", "select_tree",
+           "FaultSpec", "fault_plan", "parse_fault_args"]

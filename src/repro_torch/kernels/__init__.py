@@ -3,14 +3,14 @@
 :data:`KERNELS` lists every kernel wrapper's handle; each carries a
 plain integer count of its launches.
 """
-from repro_torch.kernels.distance.kernel import KERNEL as _DISTANCE
+from repro_torch.kernels.distance.kernel import KERNELS as _DISTANCE
 from repro_torch.kernels.flash_attention.kernel import KERNEL as _FLASH
 from repro_torch.kernels.topk.kernel import (MERGE_KERNEL,
                                              MERGE_UNSORTED_KERNEL,
                                              SORT_KERNEL)
 
-KERNELS = (_DISTANCE, SORT_KERNEL, MERGE_KERNEL, MERGE_UNSORTED_KERNEL,
-           _FLASH)
+KERNELS = (*_DISTANCE.values(), SORT_KERNEL, MERGE_KERNEL,
+           MERGE_UNSORTED_KERNEL, _FLASH)
 
 
 def launch_counts() -> dict[str, int]:

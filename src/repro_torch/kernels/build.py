@@ -48,6 +48,11 @@ SIGNATURES = {
                                _F, _I, _I, _F, _I, _P),
 }
 
+# the bf16 instantiations of the distance kernel take the same arguments
+for _dt in ("bf16q", "bf16db", "bf16q_bf16db"):
+    SIGNATURES[f"paged_distance_{_dt}_launch"] = \
+        SIGNATURES["paged_distance_launch"]
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas: registers, spills, shared memory per kernel) of

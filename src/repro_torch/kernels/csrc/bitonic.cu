@@ -34,13 +34,21 @@
 //   M / 2 threads per row, one compare-exchange pair per thread per
 //   stage, keys and payload in shared memory, a block barrier after
 //   every stage; small rows pack several to a block of up to 256 threads.
-// Both apply `_cmp_exchange`'s rule per element exactly as the reference
-// writes it: partner = idx ^ (1 << j), ascending iff bit k of idx is
-// unset, partner_less = dp < d || (dp == d && ip < i), and an element
-// takes its partner's entry iff (ascending == is_lower) ? partner_less
-// : !partner_less. So both reproduce the reference network bit for bit,
-// exact (dist, id) ties, -0.0 / 0.0 and NaN included. There is no
-// arithmetic to round.
+// Both apply `_cmp_exchange`'s rule per element as the reference writes
+// it: partner = idx ^ (1 << j), ascending iff bit k of idx is unset, and
+// an element takes its partner's entry iff (ascending == is_lower) ?
+// partner_less : !partner_less. Two orders decide partner_less:
+// - a merge pass (`bitonic_merge`, the Gather merge's last stage) uses
+//   the reference's IEEE compare, dp < d || (dp == d && ip < i), as the
+//   plain `merge_network` does;
+// - a sort (`bitonic_sort`, the Gather merge's proposal sort) orders by
+//   (dist with NaN after every number and all NaNs equal, id, position
+//   in the input row), each entry carrying its input position: a total
+//   order, so the network gives the result of a stable sort, as
+//   `lax.sort` (the reference's jnp tier) and the plain version's
+//   `torch.sort` do, -0.0 / 0.0, NaN and exact (dist, id) ties included.
+// So both bodies give the plain versions' bits. There is no arithmetic
+// to round.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -59,6 +67,25 @@ __device__ __forceinline__ bool partner_less(float dp, int ip, float d,
   return dp < d || (dp == d && ip < i);
 }
 
+// A sort's order: dist (NaN last, NaNs equal), then id, then position.
+__device__ __forceinline__ bool sort_less(float dp, int ip, int op, float d,
+                                          int i, int o) {
+  const bool np = isnan(dp), n = isnan(d);
+  if (np != n) return n;
+  if (!np && dp != d) return dp < d;
+  return ip < i || (ip == i && op < o);
+}
+
+// The order of a stage: a sort's (with the positions `o`) or a merge's.
+template <bool SORT>
+__device__ __forceinline__ bool less_than(float dp, int ip, int op, float d,
+                                          int i, int o) {
+  if constexpr (SORT)
+    return sort_less(dp, ip, op, d, i, o);
+  else
+    return partner_less(dp, ip, d, i);
+}
+
 // A row of M = 2^LOG2M entries in registers: G lanes, E slots per lane,
 // RPW rows per warp.
 template <int LOG2M>
@@ -70,10 +97,12 @@ struct RegRow {
 };
 
 // Stage (K, J) over the slots below `width` (warp-uniform; the slots
-// above it hold filler that no later step reads).
-template <int G, int E, int K, int J, bool PAY>
+// above it hold filler that no later step reads). With SORT, the input
+// positions `o` ride along and break ties; without, `o` is not read.
+template <int G, int E, int K, int J, bool PAY, bool SORT>
 __device__ __forceinline__ void reg_stage(float (&d)[E], int (&id)[E],
-                                          int (&p)[E], int g, int width) {
+                                          int (&p)[E], int (&o)[E], int g,
+                                          int width) {
   constexpr int kStride = 1 << J;
   if constexpr (kStride < G) {
 #pragma unroll
@@ -81,16 +110,18 @@ __device__ __forceinline__ void reg_stage(float (&d)[E], int (&id)[E],
       if (s * G < width) {
         const float dp = __shfl_xor_sync(kFull, d[s], kStride, G);
         const int ip = __shfl_xor_sync(kFull, id[s], kStride, G);
-        int pp = 0;
+        int pp = 0, op = 0;
         if constexpr (PAY) pp = __shfl_xor_sync(kFull, p[s], kStride, G);
+        if constexpr (SORT) op = __shfl_xor_sync(kFull, o[s], kStride, G);
         const int pos = s * G + g;
         const bool asc = (pos & (1 << K)) == 0;
         const bool lower = (pos & kStride) == 0;
-        const bool pl = partner_less(dp, ip, d[s], id[s]);
+        const bool pl = less_than<SORT>(dp, ip, op, d[s], id[s], o[s]);
         if (asc == lower ? pl : !pl) {
           d[s] = dp;
           id[s] = ip;
           if constexpr (PAY) p[s] = pp;
+          if constexpr (SORT) o[s] = op;
         }
       }
     }
@@ -101,8 +132,10 @@ __device__ __forceinline__ void reg_stage(float (&d)[E], int (&id)[E],
       if ((a & kSx) == 0 && a * G < width) {
         const int b = a | kSx;
         const bool asc = ((a * G + g) & (1 << K)) == 0;  // bit K shared
-        const bool less_lo = partner_less(d[b], id[b], d[a], id[a]);
-        const bool less_hi = partner_less(d[a], id[a], d[b], id[b]);
+        const bool less_lo =
+            less_than<SORT>(d[b], id[b], o[b], d[a], id[a], o[a]);
+        const bool less_hi =
+            less_than<SORT>(d[a], id[a], o[a], d[b], id[b], o[b]);
         const bool take_lo = asc ? less_lo : !less_lo;   // a: is_lower
         const bool take_hi = asc ? !less_hi : less_hi;   // b: !is_lower
         const float da = d[a], db = d[b];
@@ -116,42 +149,52 @@ __device__ __forceinline__ void reg_stage(float (&d)[E], int (&id)[E],
           p[a] = take_lo ? pb : pa;
           p[b] = take_hi ? pa : pb;
         }
+        if constexpr (SORT) {
+          const int oa = o[a], ob = o[b];
+          o[a] = take_lo ? ob : oa;
+          o[b] = take_hi ? oa : ob;
+        }
       }
     }
   }
 }
 
 // Stages (K, J), (K, J-1), ..., (K, 0), (K+1, K), ... while k <= klast.
-template <int G, int E, int LOG2M, int K, int J, bool PAY>
+template <int G, int E, int LOG2M, int K, int J, bool PAY, bool SORT>
 __device__ __forceinline__ void reg_stages(float (&d)[E], int (&id)[E],
-                                           int (&p)[E], int g, int width,
-                                           int klast) {
+                                           int (&p)[E], int (&o)[E], int g,
+                                           int width, int klast) {
   if constexpr (K <= LOG2M) {
     if (K <= klast) {
-      reg_stage<G, E, K, J, PAY>(d, id, p, g, width);
+      reg_stage<G, E, K, J, PAY, SORT>(d, id, p, o, g, width);
       if constexpr (J > 0)
-        reg_stages<G, E, LOG2M, K, J - 1, PAY>(d, id, p, g, width, klast);
+        reg_stages<G, E, LOG2M, K, J - 1, PAY, SORT>(d, id, p, o, g, width,
+                                                     klast);
       else
-        reg_stages<G, E, LOG2M, K + 1, K, PAY>(d, id, p, g, width, klast);
+        reg_stages<G, E, LOG2M, K + 1, K, PAY, SORT>(d, id, p, o, g, width,
+                                                     klast);
     }
   }
 }
 
-// The full network over positions below `width` = 2^klast.
+// The full network over positions below `width` = 2^klast, in the
+// sort's order; `o` holds each entry's input position.
 template <int LOG2M, bool PAY, int E = RegRow<LOG2M>::E>
 __device__ __forceinline__ void reg_sort(float (&d)[E], int (&id)[E],
-                                         int (&p)[E], int g, int klast) {
-  reg_stages<RegRow<LOG2M>::G, E, LOG2M, 1, 0, PAY>(d, id, p, g, 1 << klast,
-                                                    klast);
+                                         int (&p)[E], int (&o)[E], int g,
+                                         int klast) {
+  reg_stages<RegRow<LOG2M>::G, E, LOG2M, 1, 0, PAY, true>(
+      d, id, p, o, g, 1 << klast, klast);
 }
 
-// The last log2 M stages alone (k = log2 M: every stage ascending).
+// The last log2 M stages alone (k = log2 M: every stage ascending), in
+// the merge's order.
 template <int LOG2M, bool PAY, int E = RegRow<LOG2M>::E>
 __device__ __forceinline__ void reg_merge(float (&d)[E], int (&id)[E],
                                           int (&p)[E], int g) {
   if constexpr (LOG2M > 0)
-    reg_stages<RegRow<LOG2M>::G, E, LOG2M, LOG2M, LOG2M - 1, PAY>(
-        d, id, p, g, 1 << LOG2M, LOG2M);
+    reg_stages<RegRow<LOG2M>::G, E, LOG2M, LOG2M, LOG2M - 1, PAY, false>(
+        d, id, p, p, g, 1 << LOG2M, LOG2M);
 }
 
 template <int LOG2M>
@@ -170,18 +213,19 @@ __global__ void __launch_bounds__(kRegWarps * 32)
   const bool active = row < B;
   const bool has_pay = pin != nullptr;
   float d[R::E];
-  int id[R::E], p[R::E];
+  int id[R::E], p[R::E], o[R::E];
 #pragma unroll
   for (int s = 0; s < R::E; ++s) {
     const long e = row * R::M + s * R::G + g;
     d[s] = active ? din[e] : 0.f;
     id[s] = active ? iin[e] : 0;
     p[s] = active && has_pay ? pin[e] : 0;
+    o[s] = s * R::G + g;
   }
   if (merge_only)
     reg_merge<LOG2M, true>(d, id, p, g);
   else
-    reg_sort<LOG2M, true>(d, id, p, g, LOG2M);
+    reg_sort<LOG2M, true>(d, id, p, o, g, LOG2M);
   if (active) {
 #pragma unroll
     for (int s = 0; s < R::E; ++s) {
@@ -219,7 +263,7 @@ __global__ void __launch_bounds__(kRegWarps * 32) merge_unsorted_reg_kernel(
           W::RPW + lane / W::G;
   const bool active = row < R;
   float md[W::E], bd[W::E];
-  int mi[W::E], mp[W::E], bi[W::E], bp[W::E];
+  int mi[W::E], mp[W::E], bi[W::E], bo[W::E];
 #pragma unroll
   for (int s = 0; s < W::E; ++s) {
     const int q = s * W::G + g;
@@ -233,12 +277,13 @@ __global__ void __launch_bounds__(kRegWarps * 32) merge_unsorted_reg_kernel(
     }
     bd[s] = kBigDist;
     bi[s] = kIdSentinel;
+    bo[s] = q;
     if (active && q < LB && new_valid[row * LB + q]) {
       bd[s] = new_d[row * LB + q];
       bi[s] = new_i[row * LB + q];
     }
   }
-  reg_sort<LOG2M, false>(bd, bi, bp, g, log2mb);
+  reg_sort<LOG2M, false>(bd, bi, bo, bo, g, log2mb);
 #pragma unroll
   for (int s = 0; s < W::E; ++s) {
     const float vd = __shfl_sync(kFull, bd[W::E - 1 - s], W::G - 1 - g, W::G);
@@ -265,9 +310,11 @@ __global__ void __launch_bounds__(kRegWarps * 32) merge_unsorted_reg_kernel(
 
 // Stages k = kfirst..klast of the network over a row in shared memory:
 // `pairs` threads of the row each own one compare-exchange pair, and
-// every thread of the block reaches each barrier. `sp` may be null.
-__device__ void smem_stages(float* sd, int* si, int* sp, int lane, int pairs,
-                            int kfirst, int klast, bool active) {
+// every thread of the block reaches each barrier. `sp` may be null. With
+// `so` (the entries' input positions) the stages sort in the sort's
+// order, without it they merge in the merge's.
+__device__ void smem_stages(float* sd, int* si, int* sp, int* so, int lane,
+                            int pairs, int kfirst, int klast, bool active) {
   for (int k = kfirst; k <= klast; ++k) {
     for (int j = k - 1; j >= 0; --j) {
       const int stride = 1 << j;
@@ -277,8 +324,15 @@ __device__ void smem_stages(float* sd, int* si, int* sp, int lane, int pairs,
         const float d_lo = sd[lo], d_hi = sd[hi];
         const int i_lo = si[lo], i_hi = si[hi];
         const bool asc = (lo & (1 << k)) == 0;  // bit k is shared by lo, hi
-        const bool less_lo = partner_less(d_hi, i_hi, d_lo, i_lo);
-        const bool less_hi = partner_less(d_lo, i_lo, d_hi, i_hi);
+        bool less_lo, less_hi;
+        if (so != nullptr) {
+          const int o_lo = so[lo], o_hi = so[hi];
+          less_lo = sort_less(d_hi, i_hi, o_hi, d_lo, i_lo, o_lo);
+          less_hi = sort_less(d_lo, i_lo, o_lo, d_hi, i_hi, o_hi);
+        } else {
+          less_lo = partner_less(d_hi, i_hi, d_lo, i_lo);
+          less_hi = partner_less(d_lo, i_lo, d_hi, i_hi);
+        }
         const bool take_lo = asc ? less_lo : !less_lo;   // lo: is_lower
         const bool take_hi = asc ? !less_hi : less_hi;   // hi: !is_lower
         sd[lo] = take_lo ? d_hi : d_lo;
@@ -289,6 +343,11 @@ __device__ void smem_stages(float* sd, int* si, int* sp, int lane, int pairs,
           const int p_lo = sp[lo], p_hi = sp[hi];
           sp[lo] = take_lo ? p_hi : p_lo;
           sp[hi] = take_hi ? p_lo : p_hi;
+        }
+        if (so != nullptr) {
+          const int o_lo = so[lo], o_hi = so[hi];
+          so[lo] = take_lo ? o_hi : o_lo;
+          so[hi] = take_hi ? o_lo : o_hi;
         }
       }
       __syncthreads();
@@ -315,17 +374,19 @@ __global__ void bitonic_smem_kernel(const float* __restrict__ din,
   float* sd = smem + local_row * M;
   int* si = reinterpret_cast<int*>(smem + rows_per_block * M) + local_row * M;
   int* sp = reinterpret_cast<int*>(smem + 2 * rows_per_block * M) + local_row * M;
+  int* so = reinterpret_cast<int*>(smem + 3 * rows_per_block * M) + local_row * M;
 
   if (active) {
     for (int e = lane; e < M; e += half) {
       sd[e] = din[row * M + e];
       si[e] = iin[row * M + e];
       if (has_pay) sp[e] = pin[row * M + e];
+      so[e] = e;
     }
   }
   __syncthreads();
-  smem_stages(sd, si, has_pay ? sp : nullptr, lane, M / 2,
-              merge_only ? log2m : 1, log2m, active);
+  smem_stages(sd, si, has_pay ? sp : nullptr, merge_only ? nullptr : so,
+              lane, M / 2, merge_only ? log2m : 1, log2m, active);
   if (active) {
     for (int e = lane; e < M; e += half) {
       dout[row * M + e] = sd[e];
@@ -358,9 +419,10 @@ __global__ void merge_unsorted_smem_kernel(
   float* sd = smem + local_row * M;
   int* si = reinterpret_cast<int*>(smem + rm) + local_row * M;
   int* sp = reinterpret_cast<int*>(smem + 2 * rm) + local_row * M;
+  const int rb = rows_per_block * mb;
   float* bd = smem + 3 * rm + local_row * mb;
-  int* bi = reinterpret_cast<int*>(smem + 3 * rm + rows_per_block * mb) +
-            local_row * mb;
+  int* bi = reinterpret_cast<int*>(smem + 3 * rm + rb) + local_row * mb;
+  int* bo = reinterpret_cast<int*>(smem + 3 * rm + 2 * rb) + local_row * mb;
 
   if (active) {
     for (int q = lane; q < M; q += half) {
@@ -373,10 +435,11 @@ __global__ void merge_unsorted_smem_kernel(
       const bool v = r < LB && new_valid[row * LB + r];
       bd[r] = v ? new_d[row * LB + r] : kBigDist;
       bi[r] = v ? new_i[row * LB + r] : kIdSentinel;
+      bo[r] = r;
     }
   }
   __syncthreads();
-  smem_stages(bd, bi, nullptr, lane, mb / 2, 1, log2mb, active);
+  smem_stages(bd, bi, nullptr, bo, lane, mb / 2, 1, log2mb, active);
   if (active) {
     for (int r = lane; r < LB; r += half) {
       sd[M - 1 - r] = bd[r];
@@ -385,7 +448,7 @@ __global__ void merge_unsorted_smem_kernel(
     }
   }
   __syncthreads();
-  smem_stages(sd, si, sp, lane, half, log2m, log2m, active);
+  smem_stages(sd, si, sp, nullptr, lane, half, log2m, log2m, active);
   if (active) {
     for (int q = lane; q < out_w; q += half) {
       out_d[row * out_w + q] = sd[q];
@@ -446,7 +509,7 @@ extern "C" int bitonic_launch(const float* din, const int* iin, const int* pin,
   const int half = M > 1 ? M / 2 : 1;
   const int per_block = kSmemThreads / half > 0 ? kSmemThreads / half : 1;
   const int rows = B < per_block ? B : per_block;
-  const size_t smem = static_cast<size_t>(3) * rows * M * sizeof(float);
+  const size_t smem = static_cast<size_t>(4) * rows * M * sizeof(float);
   bitonic_smem_kernel<<<(B + rows - 1) / rows, rows * half, smem, st>>>(
       din, iin, pin, dout, iout, pout, B, M, log2m, rows, merge_only);
   return static_cast<int>(cudaGetLastError());
@@ -479,7 +542,7 @@ extern "C" int merge_unsorted_launch(
   const int per_block = kSmemThreads / half > 0 ? kSmemThreads / half : 1;
   const int rows = R < per_block ? R : per_block;
   const size_t smem =
-      static_cast<size_t>(3 * M + 2 * (1 << log2mb)) * rows * sizeof(float);
+      static_cast<size_t>(3 * M + 3 * (1 << log2mb)) * rows * sizeof(float);
   merge_unsorted_smem_kernel<<<(R + rows - 1) / rows, rows * half, smem, st>>>(
       cand_d, cand_i, cand_e, new_d, new_i, new_valid, out_d, out_i, out_e, R,
       LA, LB, M, log2m, log2mb, out_w, rows);

@@ -4,8 +4,10 @@
 // `paged_distances` (body `_distance_kernel`): for every tile t,
 //     out[t] = (qq[t][:, None] - 2 * q[t] . page[page_ids[t]]^T)
 //              + vnorm[page_ids[t]][None, :]
-// accumulated in f32. Shapes: page_ids (T,) i32, q (T, QB, d) f32,
-// qq (T, QB) f32, db (NP, P, d) f32, vnorm (NP, P) f32 -> out (T, QB, P).
+// accumulated in f32. Shapes: page_ids (T,) i32, q (T, QB, d) f32 or
+// bf16, qq (T, QB) f32, db (NP, P, d) f32 or bf16, vnorm (NP, P) f32 ->
+// out (T, QB, P) f32. Each of the four (q, db) type pairs is one
+// instantiation of the kernel template, with its own C entry point.
 //
 // What bounds it on this card: bytes and operations about equally. At
 // the search path's shape (T 4320, QB 8, P 64, d 128) the query tiles,
@@ -33,6 +35,12 @@
 //   for (P 64, d 128: 66 KiB, three blocks per SM, whose staging overlaps
 //   each other's compute); otherwise d is walked in chunks (d 784) and
 //   both are staged again for each chunk.
+// - bf16 operands are upcast to f32 as they are staged (16-byte loads of
+//   8 values when d % 8 == 0 and the pointers are aligned, else one value
+//   per load), so shared memory, its pitch and the compute loop are the
+//   f32 kernel's. The upcast is exact, so a bf16 launch gives the bits of
+//   the f32 launch on q.float() and db.float(). The loads are plain,
+//   not cp.async: a block waits for its bf16 staging.
 // - Register blocking. A chunk of at most kMQ = 64 flat query rows is
 //   computed by 256 threads; a thread owns 2 page rows (r and r + P/2)
 //   x 8 query rows, 16 accumulators: per 4 columns of d, 2 float4 of the
@@ -47,6 +55,7 @@
 //
 // Registers and spills (nvcc -Xptxas -v, sm_90a, in chip_smoke.py's
 // build phase): PERF.md.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,8 +83,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Stage columns [c0, c0 + w) of `rows` rows of src (row stride ld) into
-// dst (row pitch `pitch`), zero-filling columns [w, w4). One warp per
-// row; the caller waits (cp_async_wait_all) and synchronises.
+// dst (row pitch `pitch`) as f32, zero-filling columns [w, w4). One warp
+// per row; the caller waits (cp_async_wait_all) and synchronises.
 __device__ __forceinline__ void stage_rows(float* dst, int pitch,
                                            const float* src, long ld,
                                            int rows, int c0, int w, int w4,
@@ -95,11 +104,44 @@ __device__ __forceinline__ void stage_rows(float* dst, int pitch,
   }
 }
 
+// bf16 -> f32 is a 16-bit shift: of a 32-bit word holding two bf16
+// values, element 0 is the low half.
+__device__ __forceinline__ float4 upcast4(unsigned a, unsigned b) {
+  return make_float4(__uint_as_float(a << 16),
+                     __uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b << 16),
+                     __uint_as_float(b & 0xffff0000u));
+}
+
+// The same for bf16 rows, upcast on the way: with `vec` (w % 8 == 0,
+// 16-byte aligned rows) one 16-byte load of 8 values per lane and step.
+__device__ __forceinline__ void stage_rows(float* dst, int pitch,
+                                           const __nv_bfloat16* src, long ld,
+                                           int rows, int c0, int w, int w4,
+                                           bool vec) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kWarps) {
+    const __nv_bfloat16* s = src + r * ld + c0;
+    float* o = dst + r * pitch;
+    if (vec) {
+      for (int c = 8 * lane; c < w; c += 256) {
+        const uint4 u = *reinterpret_cast<const uint4*>(s + c);
+        *reinterpret_cast<float4*>(o + c) = upcast4(u.x, u.y);
+        *reinterpret_cast<float4*>(o + c + 4) = upcast4(u.z, u.w);
+      }
+    } else {
+      for (int c = lane; c < w4; c += 32)
+        o[c] = c < w ? __bfloat162float(s[c]) : 0.0f;
+    }
+  }
+}
+
+template <typename TQ, typename TD>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 paged_distance_kernel(const int* __restrict__ page_ids,
-                      const float* __restrict__ q,
+                      const TQ* __restrict__ q,
                       const float* __restrict__ qq,
-                      const float* __restrict__ db,
+                      const TD* __restrict__ db,
                       const float* __restrict__ vnorm,
                       float* __restrict__ out, int T, int QB, int P, int d,
                       int NP, int dc, int group, int vec) {
@@ -117,7 +159,7 @@ paged_distance_kernel(const int* __restrict__ page_ids,
     int t1 = t + 1;
     while (t1 < t_end && page_ids[t1] == pid) ++t1;
     pid = pid < 0 ? 0 : (pid >= NP ? NP - 1 : pid);
-    const float* page = db + static_cast<long>(pid) * P * d;
+    const TD* page = db + static_cast<long>(pid) * P * d;
     const float* vn = vnorm + static_cast<long>(pid) * P;
     const long m_end = static_cast<long>(t1) * QB;
 
@@ -203,27 +245,44 @@ size_t smem_bytes(int P, int dc) {
   return static_cast<size_t>(2 * ((P + 1) / 2) + kMQ) * pitch * sizeof(float);
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. Launches ceil(T / group) blocks on
-// `stream` (the caller's current stream), allocates nothing, and returns
-// the first CUDA error (setting the shared-memory attribute, or
-// cudaGetLastError() right after the launch) so that a refused launch is
-// reported. dc: the d-chunk, a multiple of 4 (>= d stages d whole);
-// vec: 16-byte copies (d % 4 == 0 and q, db 16-byte aligned).
-extern "C" int paged_distance_launch(const int* page_ids, const float* q,
-                                     const float* qq, const float* db,
-                                     const float* vnorm, float* out, int T,
-                                     int QB, int P, int d, int NP, int dc,
-                                     int group, int vec, void* stream) {
+template <typename TQ, typename TD>
+int launch(const int* page_ids, const void* q, const float* qq,
+           const void* db, const float* vnorm, float* out, int T, int QB,
+           int P, int d, int NP, int dc, int group, int vec, void* stream) {
   const size_t smem = smem_bytes(P, dc);
   const cudaError_t err = cudaFuncSetAttribute(
-      paged_distance_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      paged_distance_kernel<TQ, TD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = group > 0 ? (T + group - 1) / group : 0;
-  paged_distance_kernel<<<blocks, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      page_ids, q, qq, db, vnorm, out, T, QB, P, d, NP, dc, group, vec);
+  paged_distance_kernel<TQ, TD><<<blocks, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      page_ids, static_cast<const TQ*>(q), qq, static_cast<const TD*>(db),
+      vnorm, out, T, QB, P, d, NP, dc, group, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Plain C entry points for ctypes, one per (q, db) type pair: each
+// launches ceil(T / group) blocks on `stream` (the caller's current
+// stream), allocates nothing, and returns the first CUDA error (setting
+// the shared-memory attribute, or cudaGetLastError() right after the
+// launch) so that a refused launch is reported. dc: the d-chunk, a
+// multiple of 4 (>= d stages d whole); vec: 16-byte copies (d and the
+// d-chunk a multiple of 16 bytes' worth of elements, q and db 16-byte
+// aligned).
+#define PAGED_DISTANCE_ENTRY(name, TQ, TD)                                 \
+  extern "C" int name(const int* page_ids, const void* q, const float* qq, \
+                      const void* db, const float* vnorm, float* out,      \
+                      int T, int QB, int P, int d, int NP, int dc,         \
+                      int group, int vec, void* stream) {                  \
+    return launch<TQ, TD>(page_ids, q, qq, db, vnorm, out, T, QB, P, d,    \
+                          NP, dc, group, vec, stream);                     \
+  }
+
+PAGED_DISTANCE_ENTRY(paged_distance_launch, float, float)
+PAGED_DISTANCE_ENTRY(paged_distance_bf16q_launch, __nv_bfloat16, float)
+PAGED_DISTANCE_ENTRY(paged_distance_bf16db_launch, float, __nv_bfloat16)
+PAGED_DISTANCE_ENTRY(paged_distance_bf16q_bf16db_launch, __nv_bfloat16,
+                     __nv_bfloat16)

@@ -8,6 +8,10 @@ the (P, d) page ``page_ids[t]`` of the paged store (``csrc/
 paged_distance.cu`` has the design and what bounds it).
 
 Distances use  q.q - 2 q.v + v.v ; qq and vnorm are precomputed.
+Queries and store are f32 or bf16, in any pair: each pair is one
+instantiation of the kernel, with a launch count of its own, and bf16
+operands are upcast to f32 as they are staged (the f32 result on the
+upcast operands, bit for bit).
 """
 from __future__ import annotations
 
@@ -18,9 +22,17 @@ import torch
 from repro_torch.kernels.build import Kernel, check_cuda_operands
 from repro_torch.kernels.distance.ref import paged_distances_ref
 
-KERNEL = Kernel(name="paged_distance", source="paged_distance.cu",
-                entry="paged_distance_launch",
-                replaces="src/repro/kernels/distance/kernel.py:40")
+_F32, _BF16 = torch.float32, torch.bfloat16
+# one handle per (queries, db) dtype pair: the kernel template's
+# instantiations, each with its own C entry point and launch count
+KERNELS = {
+    (q, d): Kernel(name=f"paged_distance{sfx}", source="paged_distance.cu",
+                   entry=f"paged_distance{sfx}_launch",
+                   replaces="src/repro/kernels/distance/kernel.py:40")
+    for (q, d), sfx in (((_F32, _F32), ""), ((_BF16, _F32), "_bf16q"),
+                        ((_F32, _BF16), "_bf16db"),
+                        ((_BF16, _BF16), "_bf16q_bf16db"))}
+KERNEL = KERNELS[(_F32, _F32)]
 
 SMEM_MAX = 227 * 1024        # dynamic shared memory one block may ask for
 SMEM_SM = 228 * 1024         # shared memory of one SM
@@ -60,29 +72,32 @@ def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
                     vnorm: torch.Tensor) -> torch.Tensor:
     """Per-tile query->page squared-L2 distances.
 
-    page_ids : (T,)        i32  page read per tile
-    queries  : (T, QB, d)  f32  query tiles (dispatcher-grouped)
-    qq       : (T, QB)     f32  per-query self dot
-    db       : (NP, P, d)  f32  paged vector store
-    vnorm    : (NP, P)     f32  per-vector self dot
+    page_ids : (T,)        i32       page read per tile
+    queries  : (T, QB, d)  f32/bf16  query tiles (dispatcher-grouped)
+    qq       : (T, QB)     f32       per-query self dot
+    db       : (NP, P, d)  f32/bf16  paged vector store
+    vnorm    : (NP, P)     f32       per-vector self dot
     returns  : (T, QB, P)  f32
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (f32 only — a bf16 store raises) or raise.
+    instantiation of the (queries, db) dtypes, or raise.
     """
     if not queries.is_cuda:
         return paged_distances_ref(page_ids, queries, qq, db, vnorm)
     T, QB, d = queries.shape
     NP, P = db.shape[0], db.shape[1]
-    f32 = torch.float32
+    kernel = KERNELS.get((queries.dtype, db.dtype))
+    if kernel is None:
+        raise TypeError(f"paged_distance: queries and db must be float32 "
+                        f"or bfloat16, got {queries.dtype} and {db.dtype}")
     check_cuda_operands("paged_distance", {
         "page_ids": (page_ids, torch.int32, (T,)),
-        "queries": (queries, f32, (T, QB, d)),
-        "qq": (qq, f32, (T, QB)),
-        "db": (db, f32, (NP, P, d)),
-        "vnorm": (vnorm, f32, (NP, P)),
+        "queries": (queries, queries.dtype, (T, QB, d)),
+        "qq": (qq, _F32, (T, QB)),
+        "db": (db, db.dtype, (NP, P, d)),
+        "vnorm": (vnorm, _F32, (NP, P)),
     })
-    out = torch.empty((T, QB, P), dtype=f32, device=queries.device)
+    out = torch.empty((T, QB, P), dtype=_F32, device=queries.device)
     if T == 0 or QB == 0 or P == 0:
         return out
     if NP == 0:
@@ -93,9 +108,12 @@ def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
     dc = _dchunk(P, d)
     group = max(MQ // QB, 1, -(-T // _resident_blocks(
         queries.device.index, P, dc)))
-    vec = d % 4 == 0 and queries.data_ptr() % 16 == 0 and \
-        db.data_ptr() % 16 == 0
-    KERNEL.launch(page_ids.data_ptr(), queries.data_ptr(), qq.data_ptr(),
+    # 16-byte copies: whole 16-byte runs of d (and of the d-chunk), and
+    # aligned rows
+    run = 8 if _BF16 in (queries.dtype, db.dtype) else 4
+    vec = d % run == 0 and (dc >= d or dc % run == 0) and \
+        queries.data_ptr() % 16 == 0 and db.data_ptr() % 16 == 0
+    kernel.launch(page_ids.data_ptr(), queries.data_ptr(), qq.data_ptr(),
                   db.data_ptr(), vnorm.data_ptr(), out.data_ptr(),
                   T, QB, P, d, NP, dc, group, int(vec))
     return out

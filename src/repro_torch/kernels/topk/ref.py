@@ -27,8 +27,8 @@ def lexsort_pairs(dists: torch.Tensor, ids: torch.Tensor,
 def bitonic_sort_ref(dists: torch.Tensor, ids: torch.Tensor,
                      *payload: torch.Tensor):
     """Plain version of the full bitonic network: the same ascending
-    (dist, id) order. Rows with an exact (dist, id) tie must carry equal
-    payloads for the two to agree (the engine guarantees it)."""
+    (dist, id) order, a NaN after every number, equal keys in input
+    order (the kernel breaks ties by input position)."""
     return lexsort_pairs(dists, ids, *payload)
 
 

@@ -155,7 +155,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     # lazy import: serve_stream imports build_index from this module
-    from repro_torch.launch.serve_stream import UNPORTED_FLAGS, stream_report
+    from repro_torch.launch.serve_stream import (UNPORTED_FLAGS,
+                                                 add_fault_args,
+                                                 fault_params, stream_report)
+    add_fault_args(ap, prefix="streaming: ")
     for flag, _, kw in UNPORTED_FLAGS:
         ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
     args = ap.parse_args(argv)
@@ -188,7 +191,7 @@ def main(argv=None):
             SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
             packed.max_degree, spec_width=args.spec,
             kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
-            deadline_rounds=args.deadline_rounds)
+            deadline_rounds=args.deadline_rounds, **fault_params(args))
         res = {"dataset": ds.name, "mode": "stream",
                "kernel_mode": args.kernel_mode, "n": int(db.shape[0]),
                "device": torch.cuda.get_device_name(dev)

@@ -31,6 +31,7 @@ from repro_torch.core.metrics import stream_summary
 from repro_torch.core.ref_search import SearchParams
 from repro_torch.core.scheduler import poisson_arrivals, stream_search
 from repro_torch.data.vectors import PAPER_DATASETS, VectorDataset
+from repro_torch.ft.inject import parse_fault_args
 from repro_torch.launch.search import build_index
 from repro_torch.utils import resolve_device
 
@@ -41,11 +42,6 @@ UNPORTED_FLAGS = (
     ("--leg-L", 10, dict(type=int, default=0)),
     ("--ring", 10, dict(type=int, default=0)),
     ("--overload", 10, dict(default="block")),
-    ("--kill-shard", 10, dict(action="append")),
-    ("--delay-shard", 10, dict(action="append")),
-    ("--corrupt-pages", 10, dict(type=float, default=0.0)),
-    ("--corrupt-mode", 10, dict(default="nan")),
-    ("--nan-guard", 10, dict(action="store_true")),
     ("--down-shards", 10, dict(default="")),
     ("--device-pages", 11, dict(type=int, default=0)),
     ("--prefetch", 11, dict(action=argparse.BooleanOptionalAction,
@@ -100,9 +96,11 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
                   device="cuda") -> dict:
     """Run one streaming session on the flat pool and build the serving
     report: Poisson arrivals -> scheduler -> recall vs brute force +
-    ``stream_summary`` metrics. The keys of the serving layers not
-    ported (routing, ring, faults, tiered store, live index) report
-    their at-rest values."""
+    ``stream_summary`` metrics. Deadlines, fault plans and the
+    corruption guard ride on ``params`` (``deadline_rounds``, ``faults``,
+    ``guard_nonfinite``). The keys of the serving layers not ported
+    (routing, ring, tiered store, live index) report their at-rest
+    values."""
     arrivals = poisson_arrivals(arrival_rate, queries.shape[0], seed)
     ids, _, st = stream_search(
         consts, geom, params, entry, queries, num_slots=slots,
@@ -117,13 +115,49 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
         "round_chunk": round_chunk, "topr": 0,
         "deadline_rounds": params.deadline_rounds,
         "ring": 0, "overload": "block", "device_pages": 0, "live": False,
-        "delta_cap": 0, "inserts": 0, "nan_guard": False, "faults": False,
+        "delta_cap": 0, "inserts": 0,
+        "nan_guard": params.guard_nonfinite,
+        "faults": params.faults is not None,
         "down_shards": [],
         # injit_admit arrives via stream_summary: the scheduler's
         # *resolved* admission path
         "recall@k": round(float(recall_at_k(ids, true_ids)), 4),
         **stream_summary(st),
     }
+
+
+def add_fault_args(ap, prefix: str = "") -> None:
+    """The fault-injection flags of the serving CLIs (``prefix`` leads
+    each help text, as ``search --stream``'s do)."""
+    ap.add_argument("--kill-shard", action="append", default=[],
+                    metavar="S:R",
+                    help=prefix + "fault injection: shard S dies at round "
+                         "R (repeatable; needs --deadline-rounds)")
+    ap.add_argument("--delay-shard", action="append", default=[],
+                    metavar="S:R:D",
+                    help=prefix + "fault injection: shard S stalls D "
+                         "rounds from round R (repeatable)")
+    ap.add_argument("--corrupt-pages", type=float, default=0.0,
+                    help=prefix + "fault injection: corrupt this fraction "
+                         "of page reads (deterministic per page)")
+    ap.add_argument("--corrupt-mode", default="nan", choices=["nan", "neg"],
+                    help="what a corrupt read returns: NaN or a huge "
+                         "negative distance")
+    ap.add_argument("--nan-guard", action="store_true",
+                    help=prefix + "quarantine non-finite/garbage "
+                         "distances to BIG_DIST before the merge (and "
+                         "count them)")
+
+
+def fault_params(args) -> dict:
+    """EngineParams fields of the parsed fault flags: the plan (None when
+    every knob is at rest; the corruption hash salted by ``--seed``) and
+    the guard."""
+    return {"faults": parse_fault_args(
+                args.shards, kill=args.kill_shard, delay=args.delay_shard,
+                corrupt_rate=args.corrupt_pages,
+                corrupt_mode=args.corrupt_mode, seed=args.seed),
+            "guard_nonfinite": args.nan_guard}
 
 
 def main(argv=None):
@@ -165,6 +199,7 @@ def main(argv=None):
                     help="force-retire a query after this many serving "
                          "rounds in a slot, flagging it truncated "
                          "(0 = no deadline)")
+    add_fault_args(ap)
     ap.add_argument("--kernel-mode", default="auto",
                     choices=["auto", "cuda", "ref", "torch"],
                     help="hot-path backend: the CUDA kernels (auto on a "
@@ -201,7 +236,7 @@ def main(argv=None):
         SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
         packed.max_degree, spec_width=args.spec,
         kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
-        deadline_rounds=args.deadline_rounds)
+        deadline_rounds=args.deadline_rounds, **fault_params(args))
 
     res = {
         "dataset": ds.name, "n": int(db.shape[0]),

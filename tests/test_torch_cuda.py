@@ -20,6 +20,7 @@ from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.distance import (paged_distances,
                                           paged_distances_ref)
 from repro_torch.kernels.distance.kernel import KERNEL as DIST
+from repro_torch.kernels.distance.kernel import KERNELS as DISTS
 from repro_torch.kernels.flash_attention import (attention_op, attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import KERNEL as FLASH
@@ -95,11 +96,56 @@ def test_paged_distance_matches_plain(dev, T, QB, P, d, NP, order, integer):
 
 
 def test_paged_distance_rejects_bf16_and_cpu_mix(dev):
+    """q and db may be bf16; qq and vnorm stay f32, and other types and a
+    CPU operand beside CUDA ones raise."""
     pid, q, qq, db, vn = _dist_case(2, 8, 64, 32, 2, dev, True)
-    with pytest.raises(TypeError):
-        paged_distances(pid, q, qq, db.bfloat16(), vn)
+    for bad in ((pid, q, qq.bfloat16(), db, vn),
+                (pid, q, qq, db, vn.bfloat16()),
+                (pid, q.half(), qq, db, vn), (pid, q, qq, db.half(), vn)):
+        with pytest.raises(TypeError):
+            paged_distances(*bad)
     with pytest.raises(ValueError):
         paged_distances(pid.cpu(), q, qq, db, vn)
+    with pytest.raises(ValueError):
+        paged_distances(pid, q.bfloat16(), qq, db.bfloat16().cpu(), vn)
+
+
+@pytest.mark.parametrize("T,QB,P,d,NP,order", [
+    (540, 8, 64, 128, 32, "sorted"),        # the search path's tiles
+    (200, 8, 64, 128, 4, "runs"),
+    (12, 8, 256, 784, 3, "runs"),           # d in chunks (of 452: 4-wide)
+    (10, 3, 17, 30, 4, "runs"),             # d % 4 != 0: one per load
+    (9, 4, 32, 36, 5, "random"),            # d % 8 != 0: one per load
+    (33, 16, 128, 64, 5, "sorted"),
+])
+@pytest.mark.parametrize("qt,dt", [("bf16", "f32"), ("f32", "bf16"),
+                                   ("bf16", "bf16")])
+@pytest.mark.parametrize("integer", [True, False])
+def test_paged_distance_bf16_equals_f32_on_upcast(dev, T, QB, P, d, NP,
+                                                   order, qt, dt, integer):
+    """A bf16 operand is upcast exactly as it is staged: the bf16
+    instantiation gives the f32 kernel's bits on the upcast operands,
+    and equals its plain version (exactly on integer inputs), launching
+    its own instantiation once."""
+    pid, q, qq, db, vn = _dist_case(T, QB, P, d, NP, dev, integer,
+                                    order=order)
+    bf = {"bf16": torch.bfloat16, "f32": torch.float32}
+    q, db = q.to(bf[qt]), db.to(bf[dt])
+    qq, vn = (q.float() ** 2).sum(-1), (db.float() ** 2).sum(-1)
+    reset_launch_counts()
+    out = paged_distances(pid, q, qq, db, vn)
+    counts = launch_counts()
+    want = paged_distances(pid, q.float(), qq, db.float(), vn)
+    ref = paged_distances_ref(pid, q, qq, db, vn)
+    torch.cuda.synchronize()
+    name = DISTS[(q.dtype, db.dtype)].name
+    assert counts[name] == 1 and counts["paged_distance"] == 0
+    torch.testing.assert_close(out.view(torch.int32), want.view(torch.int32),
+                               rtol=0, atol=0)
+    if integer:
+        torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
 
 
 def test_paged_distance_refused_launch_raises(dev):
@@ -146,14 +192,16 @@ def test_bitonic_sort_matches_plain(dev, B, M):
 @pytest.mark.parametrize("B,M", [(256, 16), (256, 64), (33, 128), (5, 2048)])
 def test_bitonic_bodies_agree_on_ties_and_special_values(dev, B, M):
     """Exact (dist, id) ties with differing payloads, -0.0 / 0.0 and NaN:
-    the register body gives the shared-memory body's bits (the network's
-    own answer, which a stable sort need not give)."""
+    the register body gives the shared-memory body's bits, the sort
+    gives the plain version's stable, NaN-last order, and the merge pass
+    the plain network's IEEE compares."""
     d, i, p = _rows(B, M, dev, seed=M + 1)
     i = i % max(1, M // 4)
     d[:, 0], d[:, 1], i[:, 1] = -0.0, 0.0, i[:, 0]
     d[:, 2], d[:, 3] = float("nan"), float("inf")
     for fn in (bitonic_sort, bitonic_merge):
         _bits_equal(fn(d, i, p), fn(d, i, p, shared=True))
+    _bits_equal(bitonic_sort(d, i, p), bitonic_sort_ref(d, i, p))
     _bits_equal(bitonic_merge(d, i, p), bitonic_merge_ref(d, i, p))
 
 
@@ -231,10 +279,14 @@ def test_merge_unsorted_matches_plain_and_two_launches(dev, R, la, lb):
 
 @pytest.mark.parametrize("R,la,lb", [(256, 32, 16), (9, 1000, 40)])
 def test_merge_unsorted_special_values_match_two_launches(dev, R, la, lb):
+    """-0.0 beside 0.0 on one id, NaN and inf among the proposals: the
+    fused merge, the two-launch composition, the other body and the
+    plain version (a NaN proposal sorts after every number) agree."""
     case = _gather_case(R, la, lb, dev, seed=3, special=True)
     got = merge_unsorted(*case, la)
     _bits_equal(got, _two_launch(*case, la))
     _bits_equal(got, merge_unsorted(*case, la, shared=True))
+    _bits_equal(got, merge_unsorted_ref(*case, la))
 
 
 def test_merge_unsorted_rejects_bad_operands(dev):
@@ -417,6 +469,78 @@ def test_stream_search_launches_fused_merge_once_per_round(dev, int_index,
     assert counts["bitonic_sort"] == counts["bitonic_merge"] == 0
     assert st.total_rounds + st.warmup_rounds <= device_rounds
     assert st.host_syncs == st.host_dispatches == CACHE.stats.replays - 1
+
+
+@pytest.mark.parametrize("variant", ["gather_vectors", "payload_bf16"])
+def test_search_sim_variants_cuda_match_cpu_ref(dev, variant):
+    """The engine's variants captured on the card == CPU ref mode, bit
+    for bit, with their launch accounting: the gather_vectors baseline
+    runs no distance kernel (the fused Gather merge once per device
+    round), payload_bf16 the distance kernel's bf16-query instantiation
+    once per device round (the f32 one never)."""
+    packed, qsh = _search_index(dev)
+    out = {}
+    for name, mode, where in (("captured", "cuda", dev),
+                              ("ref", "ref", "cpu")):
+        params = EngineParams.lossless(SearchParams(L=16, W=2, k=10),
+                                       qsh.shape[1], 8, kernel_mode=mode,
+                                       **{variant: True})
+        consts, geom, entry = pack_for_engine(packed, device=where)
+        reset_launch_counts()
+        CACHE.reset_stats()
+        ids, dists, st = search_sim(consts, qsh, *entry, params, geom,
+                                    device=where)
+        out[name] = (ids.cpu(), dists.cpu(),
+                     {k: v.cpu() for k, v in st.items() if k != "host_syncs"})
+        if name == "captured":
+            counts = launch_counts()
+            device_rounds = CACHE.stats.rounds
+            assert device_rounds == SEARCH_CHUNK * (1 + st["host_syncs"])
+            assert counts["bitonic_merge_unsorted"] == device_rounds
+            bf16q = device_rounds if variant == "payload_bf16" else 0
+            assert counts["paged_distance_bf16q"] == bf16q
+            assert counts["paged_distance"] == 0
+    for a, b in zip(out["captured"][:2], out["ref"][:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for k, v in out["ref"][2].items():
+        torch.testing.assert_close(out["captured"][2][k], v, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("plan", ["delay", "kill", "corrupt_guarded",
+                                  "corrupt_nan_unguarded"])
+def test_stream_fault_plans_cuda_match_cpu_ref(dev, int_index, plan):
+    """Fault plans in the captured stream chunks (the stall windows read
+    the device's round counter; the corruption hash runs on the card)
+    == CPU ref mode on the integer index, per query and in the
+    quarantined count."""
+    from repro_torch.ft.inject import fault_plan
+    packed, queries = int_index
+    arrivals = np.random.default_rng(2).integers(0, 30, len(queries))
+    faults = {"delay": fault_plan(4).delay(0, 3, 6).delay(2, 9, 4),
+              "kill": fault_plan(4).kill(1, 5),
+              "corrupt_guarded": fault_plan(4).corrupt(0.08, "neg", seed=3),
+              "corrupt_nan_unguarded": fault_plan(4).corrupt(0.08, "nan",
+                                                             seed=3)}
+    out = {}
+    for name, mode, where in (("captured", "cuda", dev),
+                              ("ref", "ref", "cpu")):
+        params = EngineParams.lossless(
+            SearchParams(L=16, W=1, k=10), 3, 12, kernel_mode=mode,
+            deadline_rounds=30, faults=faults[plan],
+            guard_nonfinite=plan == "corrupt_guarded")
+        consts, geom, entry = pack_for_engine(packed, device=where)
+        ids, dists, st = stream_search(consts, geom, params, entry, queries,
+                                       num_slots=3, arrivals=arrivals,
+                                       round_chunk=8, device=where)
+        out[name] = (ids, dists.view(np.int32), {r.qid: (
+            tuple(r.ids), r.admit_round, r.retire_round, r.service_rounds,
+            r.truncated, r.stall_rounds) for r in st.results},
+            st.quarantined, st.total_rounds)
+    np.testing.assert_array_equal(out["captured"][0], out["ref"][0])
+    np.testing.assert_array_equal(out["captured"][1], out["ref"][1])
+    assert out["captured"][2:] == out["ref"][2:]
+    if plan == "corrupt_guarded":
+        assert out["ref"][3] > 0
 
 
 def test_failed_capture_raises(dev):

@@ -3,7 +3,7 @@ kernel (interpret mode) and ops, on the same numpy inputs.
 
 Tolerances: rtol 0 on integer-valued inputs (every f32 step is exact);
 rtol 1e-6 on real inputs, where torch's and XLA's products sum over d in
-different orders.
+different orders (bf16 operands too: their upcast to f32 is exact).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels.distance import coalesced_distance_op as j_coalesced
 from repro.kernels.distance import paged_distances as j_paged
+from repro.kernels.distance.ref import paged_distances_ref as j_paged_ref
 from repro.kernels.distance.ops import coalesce_num_tiles as j_num_tiles
 from repro.kernels.distance.ops import pad_tiles as j_pad_tiles
 from repro_torch.kernels.distance import (coalesce_num_tiles,
@@ -147,3 +148,64 @@ def test_pad_tiles_roundtrip():
     assert q3 is q2 and qq3 is qq2
     jq, _ = j_pad_tiles(jnp.ones((3, 5, 16)), jnp.full((3, 5), 2.0), qb=8)
     np.testing.assert_array_equal(np.asarray(jq), q2.numpy())
+
+
+# ---------------------------------------------------------------------------
+# bf16 operands: queries and store may each be bf16 (f32 accumulate)
+# ---------------------------------------------------------------------------
+def _bf16_pair(args, qt, dt):
+    """The same inputs with q and db cast to bf16 where asked, for both
+    packages: (jax arrays, torch tensors); qq and vnorm are the upcast
+    operands' self dots, f32."""
+    pid, q, _, db, _ = args
+    jq = jnp.asarray(q, jnp.bfloat16) if qt == "bf16" else jnp.asarray(q)
+    jdb = jnp.asarray(db, jnp.bfloat16) if dt == "bf16" else jnp.asarray(db)
+    qq = (np.asarray(jq, np.float32) ** 2).sum(-1)
+    vn = (np.asarray(jdb, np.float32) ** 2).sum(-1)
+    tq, tdb = torch.as_tensor(q), torch.as_tensor(db)
+    tq = tq.bfloat16() if qt == "bf16" else tq
+    tdb = tdb.bfloat16() if dt == "bf16" else tdb
+    return ((jnp.asarray(pid), jq, jnp.asarray(qq), jdb, jnp.asarray(vn)),
+            (torch.as_tensor(pid), tq, torch.as_tensor(qq), tdb,
+             torch.as_tensor(vn)))
+
+
+@pytest.mark.parametrize("T,QB,P,d,NP", SWEEP[:3] + [(9, 4, 32, 36, 5)])
+@pytest.mark.parametrize("qt,dt", [("bf16", "f32"), ("f32", "bf16"),
+                                   ("bf16", "bf16")])
+@pytest.mark.parametrize("integer", [True, False])
+def test_bf16_plain_version_matches_reference(T, QB, P, d, NP, qt, dt,
+                                              integer):
+    """bf16 q and/or db: the plain version equals the reference's
+    ``paged_distances_ref`` and its Pallas kernel (interpret mode) — bit
+    for bit on integer inputs, within 1e-6 relative on real ones (the
+    products sum over d in different orders) — and equals the f32 plain
+    version on the upcast operands exactly."""
+    jargs, targs = _bf16_pair(_mk(T, QB, P, d, NP, integer, seed=3), qt, dt)
+    got = paged_distances_ref(*targs).numpy()
+    rtol = 0 if integer else 1e-6
+    np.testing.assert_allclose(got, np.asarray(j_paged_ref(*jargs)),
+                               rtol=rtol, atol=0)
+    np.testing.assert_allclose(
+        got, np.asarray(j_paged(*jargs, interpret=True)), rtol=rtol, atol=0)
+    up = (targs[0], targs[1].float(), targs[2], targs[3].float(), targs[4])
+    assert torch.equal(paged_distances_ref(*up), paged_distances_ref(*targs))
+    assert torch.equal(paged_distances(*targs), paged_distances_ref(*targs))
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("qb", [1, 3, 8])
+def test_coalesced_bf16_queries_match_reference(qb, ragged):
+    """``payload_bf16``'s shape of the call: bf16 per-assignment query
+    payloads against the f32 store; the tiles keep bf16 and the result
+    equals the reference's (integer inputs, exact in bf16)."""
+    pp, sl, mask, qv, qq, db, vn = _item_case(ragged=ragged, seed=13)
+    want = np.asarray(j_coalesced(pp, sl, mask, jnp.asarray(qv, jnp.bfloat16),
+                                  qq, db, vn, qb=qb, mode="interpret"))
+    targs = _t((pp, sl, mask, qv, qq, db, vn))
+    tq = targs[3].bfloat16()
+    got = coalesced_distance_op(*targs[:3], tq, *targs[4:], qb=qb,
+                                mode="ref").numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, coalesced_distance_op(*targs, qb=qb, mode="ref").numpy())

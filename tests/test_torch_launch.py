@@ -132,7 +132,11 @@ STREAM_CLOCKS = {"kernel_mode", "wall_latency_ms", "sustained_qps", "wall_s",
     ["--arrival-rate", "2", "--slots", "3", "--round-chunk", "4"],
     ["--spec", "2", "--spec-dynamic", "--spec-page-w", "0.5",
      "--arrival-rate", "0.5", "--deadline-rounds", "9",
-     "--injit-admit", "off"]])
+     "--injit-admit", "off"],
+    ["--arrival-rate", "2", "--kill-shard", "1:3", "--delay-shard",
+     "0:2:4", "--deadline-rounds", "10"],
+    ["--corrupt-pages", "0.1", "--corrupt-mode", "neg", "--nan-guard",
+     "--seed", "2"]])
 def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
     """``--stream`` serves the queries through the streaming scheduler:
     the JSON equals the reference's ``--stream --kernel-mode jnp`` JSON
@@ -156,7 +160,7 @@ def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--topr", "2"], 10), (["--kill-shard", "0:3"], 10),
+    (["--topr", "2"], 10), (["--leg-L", "8"], 10),
     (["--device-pages", "4"], 11), (["--delta-cap", "16"], 12)])
 def test_cli_stream_refuses_unported_flags(capsys, flag, item):
     with pytest.raises(SystemExit):

@@ -162,7 +162,8 @@ def test_cli_runs_on_cpu(capsys):
         assert np.isfinite(res[key]) and res[key] > 0
     # on the CPU every wrapper takes its plain version: nothing launches
     assert set(res["launches"]["generate"]) == {
-        "paged_distance", "bitonic_sort", "bitonic_merge",
+        "paged_distance", "paged_distance_bf16q", "paged_distance_bf16db",
+        "paged_distance_bf16q_bf16db", "bitonic_sort", "bitonic_merge",
         "bitonic_merge_unsorted", "flash_attention"}
     assert not any(res["launches"]["retrieval"].values())
 

@@ -76,7 +76,13 @@ def index():
 @pytest.mark.parametrize("flags", [
     [], ["--spec", "4", "--spec-dynamic", "--arrival-rate", "0.5"],
     ["--no-refill", "--round-chunk", "3", "--deadline-rounds", "6"],
-    ["--injit-admit", "off", "--slots", "3", "--spec", "2"]])
+    ["--injit-admit", "off", "--slots", "3", "--spec", "2"],
+    # the fault flags: delay plans, a kill under a deadline, page
+    # corruption guarded and unguarded (the hash salted by --seed)
+    ["--delay-shard", "0:2:5", "--delay-shard", "2:4:3"],
+    ["--kill-shard", "1:4", "--deadline-rounds", "12", "--seed", "1"],
+    ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--nan-guard"],
+    ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--spec", "2"]])
 def test_cli_json_matches_reference(tmp_path, capsys, flags):
     argv = ["--dataset", "tiny", "--n", "512", "--queries", "32"] + flags
     assert main(argv + ["--device", "cpu",
@@ -97,8 +103,8 @@ def test_cli_json_matches_reference(tmp_path, capsys, flags):
 
 @pytest.mark.parametrize("flag,item", [
     (["--topr", "2"], 10), (["--ring", "8"], 10),
-    (["--overload", "shed"], 10), (["--kill-shard", "0:3"], 10),
-    (["--nan-guard"], 10), (["--down-shards", "1"], 10),
+    (["--overload", "shed"], 10), (["--leg-L", "8"], 10),
+    (["--topr", "4", "--leg-L", "8"], 10), (["--down-shards", "1"], 10),
     (["--device-pages", "4"], 11), (["--no-prefetch"], 11),
     (["--delta-cap", "16"], 12), (["--insert-rate", "0.5"], 12)])
 def test_cli_refuses_unported_flags(capsys, flag, item):
