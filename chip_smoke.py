@@ -20,10 +20,14 @@ raises, so the script exits nonzero and prints no result line):
                main path's tiles and on the 1M-vector store, the same
                way and bit for bit against the f32 kernel on the upcast
                operands;
+               the distance at the router's shape (T 8 shards, QB 2048
+               queries, P 8 centroids, d 128);
                the bitonic sort and merge exactly, with a payload lane,
                ties and duplicated (dist, id, payload) entries, -0.0 /
                NaN / inf, in both bodies (registers up to M 128, shared
-               memory up to 2048);
+               memory up to 2048), also at the routed path's shapes (the
+               route's sort, B 2048 x M 8; the fusion merge, B 2048 x
+               M 32);
                the fused Gather merge (merge_unsorted) bit for bit
                against its plain version, the two-launch composition
                (sort, then merge) and its other body: ties across the
@@ -41,7 +45,11 @@ raises, so the script exits nonzero and prints no result line):
                card, captured as CUDA graphs of SEARCH_CHUNK predicated
                rounds, equals the same search uncaptured (capture=False)
                on the card and ref mode on the CPU bit for bit; one host
-               read per chunk.
+               read per chunk. Then traversal.search (the single-shard
+               twin, its round loop on the host) in cuda mode on the card
+               against ref mode on the CPU, bit for bit, with its
+               launches (the fused Gather merge carries its proposal
+               sort: no standalone sort or merge launch).
   6. main    — the sift-1b stand-in at the CLI defaults (n=16384, d=128,
                8 shards, page 64, degree 16, L=32, W=1, k=10, 256
                queries): host build (with prefetch lists of 8, which
@@ -101,6 +109,26 @@ raises, so the script exits nonzero and prints no result line):
                one-shot search_sim's (up to a distance near-tie);
                dynamic recall within 0.01 of static; refill occupancy
                above frozen.
+  7b. routed — two-tier routed serving (core/router.py). (a) Phase
+               int's integer data as a routed build (8 spatial shards,
+               page 64, degree 16, 8 centroids per shard): routed
+               sessions captured on the card at topr 2 and 8, in-device
+               and host-paced admission, down_shards {1}, a kill under a
+               deadline, and the flat stream with a ring of 4 under
+               block and shed, each equal to CPU ref mode in every
+               per-query record; per routed session one router distance
+               launch, one route sort, R - 1 fusion merges and at
+               most one capture. (b) The sift-1b stand-in as a routed build
+               (n 16384, d 128, 8 shards, page 64, degree 16, 8
+               centroids per shard, prefetch lists of 4): the stream
+               phase's 2048 Poisson queries at topr 2 (default leg_L)
+               and topr 8, each with recall@10, QPS, rounds, legs, work
+               per shard, distances per query, latency percentiles,
+               syncs, captures, launches per device round, a profiled
+               window's device idle share and the route's time; at
+               topr 8 every query equals the flat stream_search on the
+               same index. The phase's seconds and the build's host
+               seconds are printed.
   8. serve   — gemma3-1b at full width (26 layers, d_model 1152, vocab
                262144; random weights from a seed) through
                launch/serve.py's functions in auto mode: RAG retrieval
@@ -117,8 +145,12 @@ raises, so the script exits nonzero and prints no result line):
                their bound counting bf16 operands' halved bytes); flash
                attention also at gemma3-1b's global layer (window 0) and
                the fused Gather merge also at spec 4's proposals (LB 20),
-               each on a line of its own; each bitonic kernel also at one
-               row of two entries (the card's one-launch floor). Measured in a
+               the distance at the router's shape, the standalone sort and
+               merge also at the search's old proposal shapes, each on a
+               line of its own; the standalone sort and merge at the
+               routed path's shapes (their launches: the sift topr-2
+               routed session's); each bitonic kernel also at one row of
+               two entries (the card's one-launch floor). Measured in a
                fresh process (chip_smoke.py --timing) and printed with
                each kernel's launches on its path.
 
@@ -267,6 +299,14 @@ def ptxas_report() -> list:
 # the CLI defaults: the shape of the main path
 SHARDS, N, DIM, PAGE, DEGREE, L, W, K, NQ, QB = (8, 16384, 128, 64, 16, 32,
                                                  1, 10, 256, 8)
+# the routed path's kernel shapes (phase routed (b)): the router's
+# distance tiles (T, QB, P, d, NP, page-sorted) — one tile per shard, the
+# 2048 stream queries against the shard's 8 centroids; the route's sort
+# (B, M) of every query's 8 shard scores; the fusion merge row (B, M) =
+# A(10) ++ filler(12) ++ reversed(B(10))
+ROUTER_TILES = (SHARDS, 2048, 8, DIM, SHARDS, True)
+ROUTE_SORT = (2048, SHARDS)
+FUSE_MERGE = (2048, 32)
 
 
 def main_path_tiles():
@@ -475,8 +515,8 @@ def check_topk(dev) -> float:
                                  (bitonic_merge, bitonic_merge_ref,
                                   "bitonic_merge")):
         for (B, M), special in itertools.product(
-                ((256, 16), (256, 64), (7, 128), (7, 2048), (5, 1)),
-                (False, True)):
+                ((256, 16), (256, 64), (7, 128), (7, 2048), (5, 1),
+                 ROUTE_SORT, FUSE_MERGE), (False, True)):
             d, i, p = sort_rows(B, M, dev, seed=M)
             if special and M >= 4:   # -0.0 beside 0.0 on one id, NaN, inf
                 d[:, 0], d[:, 1], i[:, 1] = -0.0, 0.0, i[:, 0]
@@ -572,8 +612,8 @@ def integer_main_path(dev):
     db = rng.integers(-8, 9, size=(n, dim)).astype(np.float32)
     queries = rng.integers(-8, 9, size=(nq, dim)).astype(np.float32)
     t0 = time.perf_counter()
-    _, packed = build_index(db, shards=shards, page_size=64, r=16,
-                            pref_width=8)
+    db_r, packed = build_index(db, shards=shards, page_size=64, r=16,
+                               pref_width=8)
     build_s = time.perf_counter() - t0
     qsh = queries.reshape(shards, nq // shards, dim)
     out, syncs = {}, {}
@@ -624,7 +664,54 @@ def integer_main_path(dev):
           "device_busy_ms": busy_ms, "device_idle_share": idle,
           "bit_identical": {"captured_vs_uncaptured_vs_cpu_ref":
                             sorted(out["ref"])}})
-    return packed, queries
+    traversal_integer(db_r, packed, queries, dev)
+    return packed, queries, db
+
+
+def flat_adjacency(packed):
+    """(n, R) adjacency in vertex-id order from a packed index."""
+    import numpy as np
+    g, n = packed.geometry, packed.n
+    ids = np.arange(n, dtype=np.int64)
+    lslot = g.local_page_of_n(ids, n) * g.page_size + ids % g.page_size
+    return packed.adj[g.owner_of_n(ids, n), lslot]
+
+
+def traversal_integer(db, packed, queries, dev) -> None:
+    """traversal.search (one shard, the host's round loop) in cuda mode
+    on the card against ref mode on the CPU, bit for bit, with its launch
+    counts."""
+    import torch
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.traversal import search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    adj = flat_adjacency(packed)
+    vnorm = (db * db).sum(-1)
+    sp = SearchParams(L=32, W=1, k=10)
+    out = {}
+    for mode, where in (("cuda", dev), ("ref", "cpu")):
+        reset_launch_counts()
+        ids, dists, st = search(db, adj, vnorm, queries, packed.entry, sp,
+                                page_size=PAGE, kernel_mode=mode,
+                                device=where)
+        out[mode] = {"ids": ids.cpu(), "dists": dists.cpu().view(
+            torch.int32), **{k: torch.as_tensor(v).cpu()
+                             for k, v in st.items()}}
+        if mode == "cuda":
+            launches = {k: v for k, v in launch_counts().items() if v}
+    rounds = int(out["ref"]["total_rounds"])
+    emit({"phase": "int", "search": "traversal.search", "rounds": rounds,
+          "launches": launches, "bit_identical_to_cpu_ref": sorted(
+              k for k in out["ref"] if torch.equal(out["cuda"][k],
+                                                   out["ref"][k]))})
+    for key, want in out["ref"].items():
+        if not torch.equal(out["cuda"][key], want):
+            raise AssertionError(f"traversal.search: cuda-mode {key} "
+                                 f"differs from CPU ref mode")
+    if launches.get("paged_distance") != rounds or \
+            launches.get("bitonic_merge_unsorted") != rounds:
+        raise AssertionError(f"traversal.search: {rounds} rounds, launches "
+                             f"{launches}")
 
 
 # phase main's standing counts (recall@k equals the reference's)
@@ -1291,6 +1378,316 @@ def stream_path(db, packed, dev) -> None:
         raise AssertionError("refill occupancy is not above frozen")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 7b: two-tier routed serving
+# ---------------------------------------------------------------------------
+# routed builds: 8 centroids per shard; (b) keeps the stream phase's
+# traffic with prefetch lists of 4 (spec 4) and serves topr 2 (the
+# default leg_L) and 8 (every shard: the fan-out semantics)
+ROUTED = dict(centroids=8, spec=4, toprs=(2, SHARDS), window=512)
+# (a)'s integer sessions: 8 slots per shard, chunk 8, a kill of shard 2
+# at round 6 under a deadline of 60 rounds, a ring of 4
+ROUTED_INT = dict(slots=8, chunk=8, deadline=60, ring=4)
+
+
+def routed_on(ri, dev):
+    """A routed index built on the host, with its router (auto mode) and
+    its shard entries on ``dev``."""
+    import dataclasses
+    from repro_torch.core.backend import KernelBackend
+    router = dataclasses.replace(
+        ri.router, centroids=ri.router.centroids.to(dev),
+        cnorm=ri.router.cnorm.to(dev), backend=KernelBackend())
+    return dataclasses.replace(ri, router=router, shard_entries=tuple(
+        x.to(dev) for x in ri.shard_entries))
+
+
+def routed_launches(what: str, launches: dict, device_rounds: int,
+                    R: int) -> None:
+    """One routed session's launches: the router's distance call and one
+    distance launch per device round of the legs, the route's sort once,
+    the fusion's R - 1 merges, the fused Gather merge once per device
+    round."""
+    want = {"paged_distance": 1 + device_rounds, "bitonic_sort": 1,
+            "bitonic_merge": R - 1, "bitonic_merge_unsorted": device_rounds}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def routed_integer(db, queries, dev) -> None:
+    """(a) Phase int's integer data as a routed build: routed sessions
+    captured on the card against CPU ref mode, and the flat stream with
+    a ring of 4 under block and shed."""
+    import numpy as np
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import EngineParams, pack_for_engine
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.router import build_routed_index
+    from repro_torch.core.scheduler import routed_stream_search, stream_search
+    from repro_torch.ft.inject import fault_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    nq, slots, chunk = len(queries), ROUTED_INT["slots"], ROUTED_INT["chunk"]
+    t0 = time.perf_counter()
+    ri = build_routed_index(db, shards=SHARDS, page_size=PAGE, r=DEGREE,
+                            centroids_per_shard=ROUTED["centroids"],
+                            pref_width=8, kernel_mode="ref", device="cpu")
+    build_s = time.perf_counter() - t0
+    where = {"cuda": dev, "ref": "cpu"}
+    built = {"cuda": routed_on(ri, dev), "ref": ri}
+    engines = {m: pack_for_engine(ri.packed, device=w)
+               for m, w in where.items()}
+    arrivals = np.random.default_rng(3).integers(0, 64, nq)
+    sp = SearchParams(L=32, W=1, k=10)
+    kill = dict(faults=fault_plan(SHARDS).kill(2, 6),
+                deadline_rounds=ROUTED_INT["deadline"])
+    sessions = {"topr2_in_device": (2, True, None, {}),
+                "topr2_host_paced": (2, False, None, {}),
+                f"topr{SHARDS}_in_device": (SHARDS, True, None, {}),
+                f"topr{SHARDS}_host_paced": (SHARDS, False, None, {}),
+                "topr2_down_shards_1": (2, True, [1], {}),
+                "topr2_kill_deadline": (2, True, None, kill)}
+    for name, (topr, injit, down, extra) in sessions.items():
+        out = {}
+        for mode, w in where.items():
+            consts, geom, entry = engines[mode]
+            params = EngineParams.lossless(sp, slots, DEGREE,
+                                           kernel_mode=mode, **extra)
+            reset_launch_counts()
+            CACHE.reset_stats()
+            _, _, st = routed_stream_search(
+                consts, geom, params, entry, queries,
+                router=built[mode].router, topr=topr, num_slots=slots,
+                arrivals=arrivals, round_chunk=chunk, injit_admit=injit,
+                shard_entries=built[mode].shard_entries, down_shards=down,
+                device=w)
+            out[mode] = (stream_records(st, nq) | {
+                f: per_query(st, nq, f) for f in ("legs_fused",
+                                                  "stall_rounds")},
+                {"legs": st.legs, "legs_fused_hist": st.legs_fused_hist,
+                 "items_by_shard": st.items_by_shard,
+                 "truncated": st.truncated, "total_rounds": st.total_rounds})
+            if mode == "cuda":
+                launches = launch_counts()
+                cap = capture_line(CACHE.stats,
+                                   st.total_rounds + st.warmup_rounds,
+                                   st.host_syncs)
+        differ = first_difference(out["cuda"][0], out["ref"][0])
+        same = differ is None and out["cuda"][1] == out["ref"][1]
+        R = 1 if topr >= SHARDS else topr
+        emit({"phase": "routed", "index": "integer", "run": name,
+              "topr": topr, "injit_admit": injit, "down_shards": down or [],
+              "queries": nq, "slots_per_shard": slots, **out["ref"][1],
+              **cap, "launches": {k: v for k, v in launches.items() if v},
+              "cuda_equals_cpu_ref": same, "first_difference": differ})
+        if not same:
+            raise AssertionError(f"routed {name}: the card's session "
+                                 f"differs from CPU ref mode ({differ})")
+        routed_launches(f"routed {name}", launches, cap["device_rounds"], R)
+        # a session whose staged queue lands at an earlier session's
+        # addresses replays that session's capture
+        if cap["captures"] > 1:
+            raise AssertionError(f"routed {name}: {cap['captures']} "
+                                 f"captures, at most one expected")
+        if (extra and not out["ref"][1]["truncated"]
+                or down and not out["ref"][1]["legs_fused_hist"][1]):
+            raise AssertionError(f"routed {name} did not bite: "
+                                 f"{out['ref'][1]}")
+    for overload in ("block", "shed"):
+        out = {}
+        for mode, w in where.items():
+            consts, geom, entry = engines[mode]
+            params = EngineParams.lossless(sp, slots, DEGREE,
+                                           kernel_mode=mode)
+            CACHE.reset_stats()
+            _, _, st = stream_search(
+                consts, geom, params, entry, queries, num_slots=slots,
+                arrivals=arrivals, round_chunk=chunk, injit_admit=True,
+                ring_capacity=ROUTED_INT["ring"], overload=overload,
+                device=w)
+            out[mode] = (stream_records(st, nq), {
+                "shed": st.shed, "served": len(st.results),
+                "total_rounds": st.total_rounds})
+            if mode == "cuda":
+                captures = CACHE.stats.captures
+        differ = first_difference(out["cuda"][0], out["ref"][0])
+        same = differ is None and out["cuda"][1] == out["ref"][1]
+        emit({"phase": "routed", "index": "integer", "run": f"ring_{overload}",
+              "ring": ROUTED_INT["ring"], **out["ref"][1],
+              "captures": captures, "cuda_equals_cpu_ref": same,
+              "first_difference": differ})
+        if not same or captures > 1:
+            raise AssertionError(f"ring {overload}: card vs CPU ref mode "
+                                 f"{differ}, {captures} captures")
+        if (overload == "shed") != (out["ref"][1]["shed"] > 0):
+            raise AssertionError(f"ring {overload}: shed "
+                                 f"{out['ref'][1]['shed']}")
+    emit({"phase": "routed", "index": "integer", "host_build_s": build_s})
+
+
+def build_routed_sift():
+    """The sift-1b stand-in's routed build on the host (CPU tensors):
+    (RoutedIndex, host seconds). Run in a child process (``spawn``)
+    while the earlier phases use the card."""
+    from repro_torch.core.router import build_routed_index
+    from repro_torch.launch.search import dataset
+    t0 = time.perf_counter()
+    ri = build_routed_index(dataset("sift-1b").materialize(), shards=SHARDS,
+                            page_size=PAGE, r=DEGREE,
+                            centroids_per_shard=ROUTED["centroids"],
+                            pref_width=ROUTED["spec"], device="cpu")
+    return ri, time.perf_counter() - t0
+
+
+def start_routed_build():
+    """Start :func:`build_routed_sift` in a one-process spawn pool with
+    two BLAS threads (the host's other cores drive the card meanwhile);
+    returns (pool, async result). The caller terminates the pool."""
+    import multiprocessing
+    import os
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
+                                            "OPENBLAS_NUM_THREADS")}
+    os.environ.update({k: "2" for k in saved})
+    try:
+        pool = multiprocessing.get_context("spawn").Pool(1)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return pool, pool.apply_async(build_routed_sift)
+
+
+def routed_sift(dev, built) -> dict:
+    """(b) The sift-1b stand-in as a routed build (``built``: the async
+    result of :func:`start_routed_build`), served as the stream phase's
+    Poisson stream at topr 2 and 8; topr 8 against the flat stream on
+    the same index. Returns the topr-2 session's launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import EngineParams, pack_for_engine
+    from repro_torch.core.graph import brute_force_topk, recall_at_k
+    from repro_torch.core.metrics import stream_summary
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.scheduler import (default_leg_L, poisson_arrivals,
+                                            routed_stream_search,
+                                            stream_search)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.search import dataset
+
+    ds = dataset("sift-1b")
+    t0 = time.perf_counter()
+    ri, build_s = built.get()
+    wait_s = time.perf_counter() - t0
+    ri = routed_on(ri, dev)
+    nq, slots = STREAM["queries"], STREAM["slots"]
+    queries = ds.queries(nq, seed=1)
+    arrivals = poisson_arrivals(STREAM["rate"], nq, seed=0)
+    true_ids, _ = brute_force_topk(ri.db, queries, K)
+    consts, geom, entry = pack_for_engine(ri.packed, device=dev)
+    params = EngineParams.lossless(SearchParams(L=L, W=W, k=K), slots,
+                                   DEGREE, spec_width=ROUTED["spec"],
+                                   coalesce_qb=QB)
+
+    def serve(topr, n=nq):
+        return routed_stream_search(
+            consts, geom, params, entry, queries[:n], router=ri.router,
+            topr=topr, num_slots=slots, arrivals=arrivals[:n],
+            round_chunk=STREAM["chunk"], injit_admit=True,
+            shard_entries=ri.shard_entries, device=dev)
+
+    res, keep = {}, {}
+    for topr in ROUTED["toprs"]:
+        R = 1 if topr >= SHARDS else topr
+        reset_launch_counts()
+        CACHE.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, dists, st = serve(topr)
+        call_s = time.perf_counter() - t0
+        launches = launch_counts()
+        cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
+                           st.host_syncs)
+        summ = stream_summary(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ri.router.route(queries, topr)
+        route_ms = (time.perf_counter() - t0) * 1e3
+        prof, _, wall_ms, window = profiled_session(
+            lambda m, topr=topr: serve(topr, m)[2], ROUTED["window"],
+            [ProfilerActivity.CUDA])
+        busy_ms, idle = idle_share(prof, wall_ms)
+        del prof
+        drop_traces()
+        line = {"phase": "routed", "index": "sift-1b", "topr": topr,
+                "legs_per_query": R,
+                "leg_L": (params.search.L if R == 1 else max(K, default_leg_L(
+                    geom.n // SHARDS, geom.max_degree, K))),
+                "queries": nq, "slots_per_shard": slots,
+                "arrival_rate": STREAM["rate"],
+                "round_chunk": STREAM["chunk"], "spec": ROUTED["spec"],
+                "recall@k": float(recall_at_k(ids, true_ids)),
+                "qps": nq / st.wall_s, "wall_s": st.wall_s,
+                "call_s": call_s, "warmup_s": st.compile_s,
+                "route_ms": route_ms,
+                "total_rounds": st.total_rounds, "legs": st.legs,
+                "items_by_shard": st.items_by_shard,
+                "mean_dists_per_query": sum(r.n_dist for r in st.results)
+                / nq,
+                "pages_unique": st.pages_unique,
+                "latency_rounds": summ["latency_rounds"],
+                "wall_latency_ms": summ["wall_latency_ms"],
+                "occupancy": st.occupancy,
+                "host_dispatches": st.host_dispatches, **cap,
+                "host_ms_per_round": st.wall_s * 1e3 / st.total_rounds,
+                "launches": {k: v for k, v in launches.items() if v},
+                "launches_per_device_round": {
+                    k: v / cap["device_rounds"] for k, v in launches.items()
+                    if v},
+                "profile_window": {**window, "wall_ms": wall_ms,
+                                   "device_busy_ms": busy_ms,
+                                   "device_idle_share": idle}}
+        emit(line)
+        routed_launches(f"routed sift topr {topr}", launches,
+                        cap["device_rounds"], R)
+        if cap["captures"] > 1 or st.host_syncs != st.host_dispatches:
+            raise AssertionError(f"routed sift topr {topr}: {cap}, "
+                                 f"{st.host_dispatches} chunks")
+        res[topr] = line
+        keep[topr] = (ids, dists, launches)
+    ids_f, dists_f, st_f = stream_search(
+        consts, geom, params, entry, queries, num_slots=slots,
+        arrivals=arrivals, round_chunk=STREAM["chunk"], injit_admit=True,
+        device=dev)
+    ids8, dists8, _ = keep[SHARDS]
+    rows = np.flatnonzero((ids8 != ids_f).any(1) | (
+        dists8.view(np.int32) != dists_f.view(np.int32)).any(1))
+    emit({"phase": "routed", "index": "sift-1b", "host_build_s": build_s,
+          "build_wait_s": wait_s,
+          "flat_stream": {"recall@k": float(recall_at_k(ids_f, true_ids)),
+                          "qps": nq / st_f.wall_s,
+                          "total_rounds": st_f.total_rounds,
+                          "latency_rounds":
+                              stream_summary(st_f)["latency_rounds"],
+                          "wall_latency_ms":
+                              stream_summary(st_f)["wall_latency_ms"],
+                          "mean_dists_per_query": sum(
+                              r.n_dist for r in st_f.results) / nq},
+          f"topr{SHARDS}_rows_differing_from_flat": rows.tolist(),
+          "topr2_dists_per_query_vs_flat":
+              res[2]["mean_dists_per_query"]
+              / (sum(r.n_dist for r in st_f.results) / nq)})
+    if rows.size:
+        raise AssertionError(f"routed topr {SHARDS}: rows {rows.tolist()} "
+                             f"differ from the flat stream")
+    return keep[2][2]
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: flash attention against its plain version
 # ---------------------------------------------------------------------------
@@ -1540,12 +1937,86 @@ def attn_pairs(S: int, causal: bool, window: int) -> int:
 # ---------------------------------------------------------------------------
 # Phase 9: timing at each path's shapes
 # ---------------------------------------------------------------------------
+def routed_bitonic_rows(dev) -> list:
+    """Timing rows of the standalone sort and merge at the routed path's
+    shapes, no payload lane: the route's sort of every query's shard
+    scores (B 2048, M 8) and the fusion merge row A(10) ++ filler(12) ++
+    reversed(B(10)) (B 2048, M 32). Each also carries its operands at one
+    row of two entries (the one-launch floor)."""
+    import torch
+    from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
+                                          bitonic_sort, bitonic_sort_ref)
+    from repro_torch.utils import BIG_DIST, ID_SENTINEL
+    rows = []
+    tiny = sort_rows(1, 2, dev, seed=2)[:2]
+    B, M = ROUTE_SORT
+    g = torch.Generator(device=dev).manual_seed(11)
+    sd = torch.rand((B, M), generator=g, device=dev) * 1e4
+    si = torch.arange(M, dtype=torch.int32, device=dev).expand(B, M)
+    si = si.contiguous()
+    s = int(math.log2(M))
+    b, by = bound_ms(2 * B * M * 8, B * (M // 2) * s * (s + 1) // 2)
+    rows.append(("bitonic_sort", (sd, si), bitonic_sort, bitonic_sort_ref,
+                 lambda: torch.sort(sd, dim=-1, stable=True), b, by,
+                 dict(B=B, M=M, payload_lanes=0,
+                      row="route: one query's 8 shard scores",
+                      floor_args=tiny)))
+    B, M = FUSE_MERGE
+    k = K
+    ad, ai = bitonic_sort_ref(*sort_rows(B, k, dev, seed=k)[:2])
+    bd, bi = bitonic_sort_ref(*sort_rows(B, k, dev, seed=k + 1)[:2])
+    fill = M - 2 * k
+    md = torch.cat([ad, ad.new_full((B, fill), BIG_DIST), bd.flip(1)], 1)
+    mi = torch.cat([ai, ai.new_full((B, fill), ID_SENTINEL), bi.flip(1)], 1)
+    cat_d = torch.cat([ad, bd], 1)
+    b, by = bound_ms(2 * B * M * 8, B * (M // 2) * int(math.log2(M)))
+    rows.append(("bitonic_merge", (md, mi), bitonic_merge,
+                 bitonic_merge_ref,
+                 lambda: torch.sort(cat_d, dim=-1, stable=True), b, by,
+                 dict(B=B, M=M, payload_lanes=0,
+                      row="fusion: A(10) ++ filler(12) ++ reversed(B(10))",
+                      floor_args=tiny)))
+    return rows
+
+
+def router_distance_row(dev):
+    """The timing row of the distance kernel at the router's shape: one
+    tile per shard, the stream's 2048 sift-1b queries (S contiguous
+    copies, as ShardRouter.shard_scores passes them) against the shard's
+    8 centroids (rows of the stand-in)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.distance import (paged_distances,
+                                              paged_distances_ref)
+    from repro_torch.launch.search import dataset
+    T, qb, P, d, NP, _ = ROUTER_TILES
+    ds = dataset("sift-1b")
+    q = torch.as_tensor(ds.queries(qb, seed=1), device=dev)
+    rows = np.random.default_rng(0).choice(ds.n, NP * P, replace=False)
+    cent = torch.as_tensor(ds.materialize()[rows], device=dev)
+    cent = cent.reshape(NP, P, d).contiguous()
+    cnorm = (cent * cent).sum(-1)
+    qt = q[None].expand(T, -1, -1).contiguous()
+    qqt = (qt * qt).sum(-1)
+    pid = torch.arange(T, dtype=torch.int32, device=dev)
+    base = qqt[:, :, None] + cnorm[:, None, :]
+    nbytes = (T * 4 + qt.numel() * 4 + qqt.numel() * 4 + cent.numel() * 4
+              + cnorm.numel() * 4 + T * qb * P * 4)
+    b, by = bound_ms(nbytes, 2.0 * T * qb * P * d + 3.0 * T * qb * P)
+    return ("paged_distance", (pid, qt, qqt, cent, cnorm), paged_distances,
+            paged_distances_ref,
+            lambda: torch.baddbmm(base, qt, cent.transpose(1, 2),
+                                  alpha=-2.0),
+            b, by, dict(T=T, QB=qb, P=P, d=d, NP=NP))
+
+
 def bitonic_rows(dev) -> list:
-    """Timing rows of the three bitonic kernels at the search path's
-    shapes: the proposals' sort (B 256, M 16), the merge row A(32) ++
-    filler(16) ++ reversed(B(16)) (M 64), and the fused Gather merge
-    (R 256, LA 32, LB 16, out_w 32). Each also carries its operands at
-    one row of two entries (the one-launch floor)."""
+    """Timing rows of the search path's bitonic shapes: the proposals'
+    sort (B 256, M 16) and the merge row A(32) ++ filler(16) ++
+    reversed(B(16)) (M 64), which no path launches (the fused Gather
+    merge does their work), and the fused Gather merge (R 256, LA 32, LB 16,
+    out_w 32). Each also carries its operands at one row of two entries
+    (the one-launch floor)."""
     import torch
     from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
                                           bitonic_sort, bitonic_sort_ref)
@@ -1658,7 +2129,8 @@ def time_kernels(dev) -> list:
                      b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages,
                                  queries=dtype_name(qt),
                                  store=dtype_name(dt))))
-    rows += bitonic_rows(dev)
+    search_bitonic = bitonic_rows(dev)
+    rows += routed_bitonic_rows(dev) + search_bitonic[2:]
     # flash attention at gemma3-1b's prefill shape (a local layer, and on a
     # line of its own a global one); the library call is SDPA on repeated
     # kv with an explicit boolean mask
@@ -1689,7 +2161,10 @@ def time_kernels(dev) -> list:
     extra = [(flash_rows[1], dict(case="global layer (window 0)",
                                   layers_per_prefill=GLOBAL_LAYERS)),
              (gather_row(GATHER["R"], GATHER["LA"], GATHER["LB_SPEC"], dev),
-              dict(case="spec 4 proposals (W * (R + spec) = 20)"))]
+              dict(case="spec 4 proposals (W * (R + spec) = 20)")),
+             (router_distance_row(dev), dict(case=ROUTER_CASE)),
+             (search_bitonic[0], dict(case=OLD_BITONIC_CASE)),
+             (search_bitonic[1], dict(case=OLD_BITONIC_CASE))]
     out = []
     by_name = {k.name: k for k in KERNELS}
     for (name, args, kern, plain, lib, b, by, shape), case in \
@@ -1733,17 +2208,28 @@ def timing_in_child() -> list:
     return json.loads(out.stdout.strip().splitlines()[-1])["timed"]
 
 
+# the timing lines' cases of this slice: the router's distance (its
+# launches, one per routed session, beside the line), and the standalone
+# sort and merge at the search's old proposal shapes (no path launches
+# them: the fused Gather merge does their work)
+ROUTER_CASE = "router shape (routed path)"
+OLD_BITONIC_CASE = "search proposals' shape (no caller: the fused merge)"
+
+
 def report_timing(timed, launches, errs) -> list:
     """Print the timing lines with each kernel's launches on its path and
     its largest error against its plain version; returns the kernels'
-    summary entries (the global-layer flash row only has a line of its
-    own)."""
+    summary entries (the rows with a case only have a line of their
+    own; the router's distance line carries its launches per routed
+    session)."""
     kernels = []
     for entry, line in timed:
         entry = {**entry, "max_abs_err": errs[entry["name"]]}
         if "case" not in line:
             entry["launches"] = launches[entry["name"]]
             kernels.append(entry)
+        elif line["case"] == ROUTER_CASE:
+            line = {**line, "launches_per_routed_session": 1}
         emit({"phase": "timing", **entry, **line})
     return kernels
 
@@ -1781,13 +2267,26 @@ def main() -> int:
 
     emit({"phase": "build", "seconds": round(build_all(), 2),
           "ptxas": ptxas_report()})
+    pool, routed_build = start_routed_build()
+    try:
+        return run_phases(dev, name, routed_build)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run_phases(dev, name: str, routed_build) -> int:
+    """Phases 3 to 9; ``routed_build`` is the sift-1b routed build
+    running in a child process since phase 2."""
+    import torch
 
     t0 = time.perf_counter()
     T, qb, P, d, pages = main_path_tiles()
     errs = {"paged_distance": check_distance({
         "main path tiles": (T, qb, P, d, pages, True),
         "main path tiles, pages unsorted": (T, qb, P, d, pages, False),
-        "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev)}
+        "1M-vector store": (T, qb, P, d, 2**20 // P, True),
+        "router": ROUTER_TILES}, dev)}
     errs.update(check_distance_bf16({
         "main path tiles": (T, qb, P, d, pages, True),
         "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev))
@@ -1804,7 +2303,7 @@ def main() -> int:
     int_index = integer_main_path(dev)
     launches, (db, packed), main_run = real_main_path(dev)
     t0 = time.perf_counter()
-    engine_variants_integer(*int_index, dev)
+    engine_variants_integer(*int_index[:2], dev)
     variants = engine_variants_sift(dict(main_run, db=db), dev)
     # the bf16-query instantiation's path is payload_bf16's search
     launches["paged_distance_bf16q"] = \
@@ -1812,9 +2311,17 @@ def main() -> int:
     emit({"phase": "engine_variants",
           "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
-    stream_integer(*int_index, dev)
+    stream_integer(*int_index[:2], dev)
     stream_path(db, packed, dev)
     emit({"phase": "stream", "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
+    routed_integer(int_index[2], int_index[1], dev)
+    # the standalone sort and merge run on the routed path: their
+    # launches are the sift topr-2 session's (route sort, fusion merges)
+    routed = routed_sift(dev, routed_build)
+    launches["bitonic_sort"] = routed["bitonic_sort"]
+    launches["bitonic_merge"] = routed["bitonic_merge"]
+    emit({"phase": "routed", "seconds": round(time.perf_counter() - t0, 2)})
     launches["flash_attention"] = serve_path(dev)["flash_attention"]
     kernels = report_timing(timing_in_child(), launches, errs)
     print(json.dumps({"kernels": kernels}), flush=True)

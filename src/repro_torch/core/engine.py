@@ -68,7 +68,8 @@ from repro_torch.ft import inject as ftinject
 from repro_torch.ft.guard import quarantine_distances
 from repro_torch.ft.inject import NEVER, FaultSpec
 from repro_torch.utils import (BIG_DIST, ID_SENTINEL, INVALID, bloom_insert,
-                               bloom_query, resolve_device, to_host)
+                               bloom_query, resolve_device, to_device,
+                               to_host)
 
 # rounds per search_sim chunk: the host reads one boolean per chunk, and
 # the last chunk of a search runs up to SEARCH_CHUNK - 1 dead rounds
@@ -140,6 +141,10 @@ class EngineParams:
     coalesce_qb: int = 8            # per-page query-tile width in kernel
                                     # modes: one page read serves up to
                                     # this many assignments (0 = per-item)
+    local_only: bool = False        # routed legs: drop proposals owned by
+                                    # other shards, so a slot row traverses
+                                    # only its home shard's subgraph
+                                    # (core/router.py two-tier search)
     deadline_rounds: int = 0        # force-retire a row once it has aged
                                     # this many serving-clock rounds since
                                     # admission (best-so-far top-k, the
@@ -201,11 +206,23 @@ def _exchange(tree: dict) -> dict:
 # ---------------------------------------------------------------------------
 # Stage functions — each works on all shards (leading axis S) at once.
 # ---------------------------------------------------------------------------
-def _init_state(queries, qq, entry_vec, entry_norm, entry_id: int,
+def _entry_rows(entry_vec, entry_norm, entry_id):
+    """The entry as operands that broadcast against (S, Qs) rows: the
+    global entry ((d,) vector, 0-d norm, int id) as it is, per-shard
+    entries ((S, d), (S,), (S,): routed legs seed at their home shard's
+    medoid) with a row axis after the shard axis."""
+    if entry_vec.dim() == 1:
+        return entry_vec, entry_norm, entry_id
+    return entry_vec[:, None], entry_norm[:, None], entry_id.reshape(-1, 1)
+
+
+def _init_state(queries, qq, entry_vec, entry_norm, entry_id,
                 params: EngineParams) -> EngineState:
     S, Qs = queries.shape[:2]
     L = params.search.L
     dev = queries.device
+    entry_vec, entry_norm, entry_id = _entry_rows(entry_vec, entry_norm,
+                                                  entry_id)
     # multiply + reduce, as the reference writes it (not a matmul)
     e_d = (qq - 2.0 * (queries * entry_vec.float()).sum(-1)) + entry_norm
     cand_d = torch.cat([e_d[..., None],
@@ -267,6 +284,12 @@ def _fc_propose(state: EngineState, keep_a, recv_b, queries, qq, spec_w,
     ``spec_w`` (S, Qs) is the per-query speculation width in
     [0, params.spec_width]; prefetch columns at or beyond a query's width
     are masked to INVALID.
+
+    With ``params.local_only`` (routed legs) every proposal owned by
+    another shard than the row's own is dropped before ranking and
+    bucketing, so a leg's traversal, and all of its phase-B distance
+    work, stays on its home shard and an idle shard receives nothing.
+    Without it no mask is built: the fan-out stage as it was.
     """
     S, Qs = state.done.shape
     W, R = params.search.W, geom.max_degree
@@ -291,8 +314,11 @@ def _fc_propose(state: EngineState, keep_a, recv_b, queries, qq, spec_w,
 
     flat_vid = props.reshape(S, Qs * M)
     flat_valid = valid.reshape(S, Qs * M)
-    dest = torch.where(flat_valid, geom.owner(flat_vid.clamp(0, geom.n - 1)),
-                       0)
+    own = geom.owner(flat_vid.clamp(0, geom.n - 1))
+    if params.local_only:
+        my_shard = torch.arange(S, device=own.device)[:, None]
+        flat_valid = flat_valid & (own == my_shard)
+    dest = torch.where(flat_valid, own, 0)
     rank, _ = compute_ranks(dest, flat_valid, geom.num_shards)
     ok = flat_valid & (rank < params.capacity_b)
     drops = (flat_valid & ~ok).sum(-1).to(torch.int32)
@@ -686,19 +712,14 @@ def _widths(spec_w, shape, device):
     return torch.full(shape, int(spec_w), dtype=torch.int32, device=device)
 
 
-def _check_entry(entry_vec) -> None:
-    if entry_vec.dim() != 1:
-        raise NotImplementedError(
-            "per-shard entry vertices belong to routed serving "
-            "(ROADMAP.md queue A item 10), not ported yet")
-
-
-def engine_init(consts, queries, entry_vec, entry_norm, entry_id: int,
+def engine_init(consts, queries, entry_vec, entry_norm, entry_id,
                 params: EngineParams, geom: EngineGeom) -> EngineState:
-    """Fresh state for an (S, Qs, d) slot pool: every row starts at the
-    global entry vertex ((d,) ``entry_vec``), as one-shot init does."""
+    """Fresh state for an (S, Qs, d) slot pool, as one-shot init does:
+    every row starts at the global entry vertex ((d,) ``entry_vec``,
+    int ``entry_id``) or at its shard's entry (per-shard ``(S, d)``,
+    ``(S,)``, ``(S,)``: routed legs seed at their home shard's
+    medoid)."""
     del consts, geom
-    _check_entry(entry_vec)
     return _init_state(queries, _qq(queries), entry_vec, entry_norm,
                        entry_id, params)
 
@@ -714,8 +735,7 @@ def engine_round(consts, state: EngineState, queries, spec_w,
 
 
 def _admit_rows(state: EngineState, queries, admit_mask, new_q,
-                entry_vec, entry_norm, entry_id: int,
-                params: EngineParams):
+                entry_vec, entry_norm, entry_id, params: EngineParams):
     """The slot-refill math, shared by the host-side :func:`engine_admit`
     and the admission stage of :func:`engine_run_chunk_admit`: rows where
     ``admit_mask`` restart from the entry vertex with the vectors in
@@ -736,14 +756,14 @@ def _admit_rows(state: EngineState, queries, admit_mask, new_q,
 
 
 def engine_admit(state: EngineState, queries, admit_mask, new_q,
-                 entry_vec, entry_norm, entry_id: int,
+                 entry_vec, entry_norm, entry_id,
                  params: EngineParams, geom: EngineGeom):
     """Refill freed slots (slot compaction by replacement): a reused slot
     is bit-identical to a fresh one; the shard-cumulative counters
-    (items_recv, pages_unique, drops_b, props_sent) are kept. Returns the
-    new state and the updated (S, Qs, d) query buffer."""
+    (items_recv, pages_unique, drops_b, props_sent) are kept. The entry
+    may be per-shard, as in :func:`engine_init`. Returns the new state
+    and the updated (S, Qs, d) query buffer."""
     del geom
-    _check_entry(entry_vec)
     return _admit_rows(state, queries, admit_mask, new_q, entry_vec,
                        entry_norm, entry_id, params)
 
@@ -883,26 +903,33 @@ def engine_run_chunk(consts, state: EngineState, queries, spec_state,
 
 
 def _seat_pending(free, cursor, avail, pend_q, queries_rows):
-    """Seat arrived pending queries into the free rows of the flattened
-    pool, in the host staging order (rows in order, pending entries in
-    arrival order): the free row of exclusive free-rank r < ``avail``
-    takes pending entry ``cursor + r``. Returns (seat mask, seated
+    """Seat arrived pending queries into free rows, in the host staging
+    order (rows in order, pending entries in arrival order): the free
+    row of exclusive free-rank r < ``avail`` takes pending entry
+    ``cursor + r``. One queue: ``free`` (R,) is the flattened pool,
+    ``cursor``/``avail`` 0-d, ``pend_q`` (N, d). Per-shard queues (routed
+    serving): ``free`` (S, Qs), ``cursor``/``avail`` (S,), ``pend_q``
+    (S, N, d); each shard seats its own queue from rank 0, with no
+    coupling of free ranks across shards. Returns (seat mask, seated
     pending indices with -1 elsewhere, updated query rows)."""
-    rank = torch.cumsum(free.int(), 0) - 1
-    seat = free & (rank < avail)
-    pidx = torch.where(seat, cursor + rank, -1)
-    safe = pidx.clamp(0, pend_q.shape[0] - 1)
-    new_q = torch.where(seat[:, None], pend_q[safe], queries_rows)
+    rank = torch.cumsum(free.int(), -1) - 1
+    seat = free & (rank < avail[..., None])
+    pidx = torch.where(seat, cursor[..., None] + rank, -1)
+    safe = pidx.clamp(0, pend_q.shape[-2] - 1)
+    picked = torch.take_along_dim(pend_q, safe[..., None], dim=-2)
+    new_q = torch.where(seat[..., None], picked, queries_rows)
     return seat, pidx.int(), new_q
 
 
 def _pending_avail(pend_arr, cursor, tnow):
     """Pending entries whose arrival round has passed and that the
     cursor has not consumed (``pend_arr`` is sorted by arrival, so the
-    arrived count is a binary search); ``tnow`` is a 0-d int32 device
-    tensor."""
-    arrived = torch.searchsorted(pend_arr, tnow.reshape(1), right=True)
-    return (arrived.reshape(()) - cursor).clamp_min(0)
+    arrived count is a binary search), per queue: ``pend_arr`` (N,) or
+    per-shard (S, N) with cursors of the leading shape; ``tnow`` is a 0-d
+    int32 device tensor."""
+    t = tnow.reshape(1).expand(pend_arr.shape[:-1] + (1,)).contiguous()
+    arrived = torch.searchsorted(pend_arr, t, right=True)[..., 0]
+    return (arrived - cursor).clamp_min(0)
 
 
 def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
@@ -923,10 +950,12 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
     def put(trace, at, val):
         return trace.index_copy(0, at, val[None])
 
+    per_shard = pend_arr.dim() == 2
+
     def cond(c):
         st, cur, j = c[0], c[7], c[8]
         avail = _pending_avail(pend_arr, cur, t0 + j)
-        return (j < budget) & ((~st.done).any() | (avail > 0))
+        return (j < budget) & ((~st.done).any() | (avail > 0).any())
 
     def body(c):
         (st, q, sw, hi, pk, phi, ppk, cur, j, lc, ws, aq, ri, rd, rr, rn,
@@ -939,12 +968,17 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
         ri, rd = put(ri, at, fin_i), put(rd, at, fin_d)
         rr, rn = put(rr, at, st.rounds), put(rn, at, st.n_dist)
         ra, rt = put(ra, at, st.age), put(rt, at, st.truncated)
-        seat, pidx, new_q = _seat_pending(st.done.reshape(-1), cur, avail,
-                                          pend_q, q.reshape(S * Qs, -1))
+        if per_shard:
+            seat, pidx, new_q = _seat_pending(st.done, cur, avail, pend_q,
+                                              q)
+        else:
+            seat, pidx, new_q = _seat_pending(st.done.reshape(-1), cur,
+                                              avail, pend_q,
+                                              q.reshape(S * Qs, -1))
         mask = seat.reshape(S, Qs)
         st, q = _admit_rows(st, q, mask, new_q.reshape(S, Qs, -1), *entry,
                             params)
-        cur = cur + seat.sum()
+        cur = cur + seat.sum(-1)
         aq = put(aq, at, pidx.reshape(S, Qs))
         if dynamic:   # fresh rows restart the controller at full width
             sw = torch.where(mask, spec_max, sw)
@@ -982,7 +1016,7 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
 
 def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
                            spec_cfg, budget, pend_q, pend_arr, cursor, t0,
-                           entry_vec, entry_norm, entry_id: int,
+                           entry_vec, entry_norm, entry_id,
                            params: EngineParams, geom: EngineGeom, K: int,
                            dynamic: bool = False, capture: bool = True):
     """:func:`engine_run_chunk` with an admission stage: the pending
@@ -1014,18 +1048,19 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
     at every boundary: a stalled shard's rows do no phase work that round
     but keep aging, so the deadline retires them. This is the only chunk
     driver that knows the global round, which is why stall faults need
-    in-device admission. Returns
+    in-device admission.
+
+    Routed serving stages per-shard queues (``pend_q`` (S, N, d),
+    ``pend_arr`` (S, N) padded with INT32_MAX, ``cursor`` (S,)): each
+    shard seats its own queue from offset 0 (``admit_qidx`` holds indices
+    into its shard's queue), the exit test is taken in lockstep over all
+    of them, and per-shard entries seed the seated rows. Returns
     ``(state, queries', spec_state', steps, live_cnt, width_sum,
     admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age, ret_trunc,
     cursor')`` without reading the device; the traces lead with K,
-    ``steps`` and ``cursor'`` are 0-d device tensors, and all are the
-    capture cache's buffers.
+    ``steps`` is a 0-d device tensor and ``cursor'`` has the cursor's
+    shape, and all are the capture cache's buffers.
     """
-    if pend_arr.dim() != 1:
-        raise NotImplementedError(
-            "per-shard pending queues belong to routed serving "
-            "(ROADMAP.md queue A item 10), not ported yet")
-    _check_entry(entry_vec)
     dev = queries.device
     S, Qs = state.done.shape
     if params.faults is not None and params.faults.any_stall and \
@@ -1034,12 +1069,18 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
                          f"shards but the pool has {S}")
     spec_state = (_widths(spec_state[0], (S, Qs), dev), *spec_state[1:])
     budget = _scalar(budget, torch.int32, dev).clamp(max=K)
-    cursor = _scalar(cursor, torch.int64, dev)
+    if pend_arr.dim() == 2:           # per-shard cursors
+        cursor = (cursor.to(dev, torch.int64)
+                  if isinstance(cursor, torch.Tensor)
+                  else to_device(np.asarray(cursor, np.int64), dev))
+    else:
+        cursor = _scalar(cursor, torch.int64, dev)
     t0 = _scalar(t0, torch.int32, dev)
     entry = (entry_vec, entry_norm, entry_id)
     key = (params, geom, K, dynamic, tuple(spec_cfg), _consts_key(consts),
-           cap.tensor_ptrs(pend_q, pend_arr, entry_vec, entry_norm),
-           int(entry_id))
+           cap.tensor_ptrs(pend_q, pend_arr, *(
+               x for x in entry if isinstance(x, torch.Tensor))),
+           None if isinstance(entry_id, torch.Tensor) else int(entry_id))
 
     def chunk(*a):
         n = len(EngineState._fields)
@@ -1059,15 +1100,15 @@ def make_stepper(params: EngineParams, geom: EngineGeom, mesh=None,
     """Bundle the stepper stages for the single-device sim driver.
     ``round_chunk`` is the K of the chunk stages: the most rounds one
     ``run_chunk`` call runs before the host is consulted. ``capture``
-    (default on) runs the chunks as captured graphs on a card."""
+    (default on) runs the chunks as captured graphs on a card.
+    ``routed=True`` (the two-tier layout, core/router.py) needs nothing
+    more on the sim driver: the stages take per-shard pending queues,
+    cursors and entries by their shapes, as the reference's sim leg
+    does."""
     if mesh is not None:
         raise NotImplementedError(
             "the multi-device stepper is ROADMAP.md queue A item 13, "
             "not ported yet")
-    if routed:
-        raise NotImplementedError(
-            "the routed stepper is ROADMAP.md queue A item 10, not "
-            "ported yet")
     K = max(1, int(round_chunk))
 
     def init(consts, queries, evec, enorm, eid):

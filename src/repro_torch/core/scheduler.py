@@ -70,23 +70,42 @@ in-device admission chunk (the only one that knows the global round),
 and the plan must cover the pool's shards. The guard's quarantine count
 is reported in ``StreamStats.quarantined``.
 
+**Routed admission** (``routed=True``, ``run(target_shards=...)``):
+each query row may only sit in its target shard's slot rows, and each
+shard drains its own arrival-ordered queue, host-paced or staged on the
+device as per-shard queues with per-shard cursors; a shard with no
+routed work stays parked. :func:`routed_stream_search` builds the
+two-tier search on it (core/router.py): one *leg* per (query, routed
+shard), confined to that shard's subgraph, fused at retire time, with
+degraded fusion over known-down shards.
+
+**Admission ring** (``ring_capacity`` > 0, flat in-device path): the
+device pending queue is a window of at most that many staged queries,
+copied into the same device buffers at every chunk boundary, so device
+memory stays flat however long the stream is and the chunk's capture is
+reused. When the window is full, ``overload="block"`` keeps arrivals
+waiting on the host and ``"shed"`` rejects every arrival that finds it
+full (``StreamStats.shed``).
+
 Not ported here (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue A item): routed admission and the admission ring with
-overload policies (item 10), the tiered page store (11), the live
+ROADMAP.md queue A item): the tiered page store (item 11), the live
 index (12) and the multi-device stepper (13).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.dispatch import compute_ranks, scatter_to_buckets
 from repro_torch.core.engine import (EngineGeom, EngineParams, _finalize,
                                      make_stepper, spec_update)
 from repro_torch.core.metrics import slot_occupancy
+from repro_torch.ft.inject import NEVER
 from repro_torch.utils import INVALID, resolve_device, to_device, to_host
 
 
@@ -219,13 +238,18 @@ class QueryResult:
     service_rounds: int       # rounds the query actually worked
     n_dist: int
     wall_latency_s: float     # admit -> retire wall clock
-    truncated: bool = False   # retired by its deadline with its
-                              # best-so-far ids, not converged
-    legs_fused: int = 0       # routed serving (not ported): 0 on the
-                              # flat path
-    coverage: float = 1.0     # routed serving (not ported)
+    truncated: bool = False   # retired incomplete: deadline hit, or a
+                              # routed leg dropped/deadlined — the ids
+                              # are the best-so-far, not a converged
+                              # traversal
+    legs_fused: int = 0       # routed: legs that finished cleanly and
+                              # were fused (0 on the flat path)
+    coverage: float = 1.0     # routed: legs_fused / R — the fraction
+                              # of the query's routed shards searched
+                              # to completion
     stall_rounds: int = 0     # serving-clock rounds aged without working
-                              # (a fault plan's kill or delay)
+                              # (a fault plan's kill or delay; routed:
+                              # summed over legs)
 
     @property
     def wait_rounds(self) -> int:
@@ -239,8 +263,8 @@ class QueryResult:
 @dataclasses.dataclass
 class StreamStats:
     """Aggregate scheduler run statistics. The fields of the parts not
-    ported (routing, the ring, the tiered store, the live index) keep the
-    reference's at-rest values."""
+    ported (the tiered store, the live index) keep the reference's
+    at-rest values."""
 
     results: list             # [QueryResult] in retirement order
     total_rounds: int         # engine rounds stepped (busy rounds)
@@ -263,15 +287,24 @@ class StreamStats:
     idle_rounds: int = 0      # serving-clock rounds the pool sat empty
                               # waiting for an arrival (no engine work)
     injit_admit: bool = False  # admission path the run actually used
-    legs: int = 0             # routed serving (not ported)
+    legs: int = 0             # routed serving: slot-pool rows served
+                              # (N queries x R target shards, less the
+                              # legs of down shards); 0 = one row per
+                              # query
     items_by_shard: list = dataclasses.field(default_factory=list)
-                              # per-shard items_recv
-    shed: int = 0             # admission ring (not ported)
-    truncated: int = 0        # queries retired by their deadline
+                              # per-shard items_recv — the routed path's
+                              # work-skew/idle-shard evidence
+    shed: int = 0             # queries rejected by the shed overload
+                              # policy (admission ring full at arrival)
+    truncated: int = 0        # queries retired incomplete: deadline
+                              # force-retire, or routed legs lost to a
+                              # down shard / leg deadline
     quarantined: int = 0      # corrupt distances quarantined to
                               # BIG_DIST by the guard (guard_nonfinite)
     legs_fused_hist: list = dataclasses.field(default_factory=list)
-                              # routed serving (not ported)
+                              # routed: legs_fused histogram, index f =
+                              # queries whose f legs finished cleanly
+                              # (length R+1; empty on the flat path)
     stalls: int = 0           # sum of QueryResult.stall_rounds
     prefetch_hits: int = 0    # tiered page store (not ported)
     prefetch_issued: int = 0  # tiered page store (not ported)
@@ -295,9 +328,11 @@ class StreamScheduler:
     before the host replays the accounting; any value produces the
     exact per-round schedule. ``injit_admit`` selects the device-side
     pending queue (None = on whenever ``refill`` is; frozen mode keeps
-    the host-side all-free gate). ``capture=False`` runs the chunks
-    eagerly on a card instead of as captured graphs (the proof that the
-    two agree).
+    the host-side all-free gate). ``routed`` allows per-shard
+    ``target_shards`` in :meth:`run` (the entry may then be per-shard);
+    ``ring_capacity``/``overload`` bound the flat in-device queue (module
+    doc). ``capture=False`` runs the chunks eagerly on a card instead of
+    as captured graphs (the proof that the two agree).
     """
 
     def __init__(self, consts, geom: EngineGeom, params: EngineParams,
@@ -313,6 +348,10 @@ class StreamScheduler:
         if round_chunk < 1:
             raise ValueError(
                 f"round_chunk must be >= 1, got {round_chunk}")
+        if routed and not refill:
+            # per-shard schedules are the point of routing; the frozen
+            # all-free gate is a global condition that contradicts it
+            raise ValueError("routed serving requires refill=True")
         if overload not in ("shed", "block"):
             raise ValueError(
                 f"overload must be 'shed' or 'block', got {overload!r}")
@@ -320,9 +359,6 @@ class StreamScheduler:
             raise ValueError(
                 f"ring_capacity must be >= 0, got {ring_capacity}")
         for what, on, item in (
-                ("routed serving", routed, 10),
-                ("the bounded admission ring", ring_capacity > 0, 10),
-                ("the shed overload policy", overload == "shed", 10),
                 ("the tiered page store", pagestore is not None, 11),
                 ("the live index", live is not None, 12),
                 ("multi-device serving", mesh is not None, 13)):
@@ -340,12 +376,24 @@ class StreamScheduler:
         self.num_slots = num_slots               # per shard
         self.controller = controller
         self.refill = refill
+        self.routed = routed
         self.round_chunk = round_chunk
         self.stepper = make_stepper(params, geom, round_chunk=round_chunk,
-                                    capture=capture)
+                                    routed=routed, capture=capture)
         self.injit_admit = refill if injit_admit is None \
             else bool(injit_admit) and refill
         self.S = geom.num_shards
+        if ring_capacity > 0:
+            if not self.injit_admit:
+                raise ValueError(
+                    "ring_capacity > 0 bounds the *device* pending queue: "
+                    "it needs the in-jit admission path (refill=True, "
+                    "injit_admit not disabled)")
+            if routed:
+                raise ValueError(
+                    "ring_capacity applies to the flat pending queue; "
+                    "routed serving stages per-shard queues whose device "
+                    "footprint is already bounded by the bucket capacity")
         if params.faults is not None:
             f = params.faults
             if f.num_shards != self.S:
@@ -362,6 +410,8 @@ class StreamScheduler:
                     "a killed shard never finishes its rows: set "
                     "deadline_rounds > 0 so they force-retire with "
                     "best-so-far results instead of hanging the run")
+        self.ring_capacity = int(ring_capacity)
+        self.overload = overload
         self._static_spec = None
 
     # -- host-side pool bookkeeping -----------------------------------------
@@ -391,8 +441,8 @@ class StreamScheduler:
         repeated), so the kernels are built and the chunk captured
         before the serving clock starts, as the reference's warmup
         compiles it. With ``pend`` the staged queue rides along with an
-        exhausted cursor: the admission stage runs and seats nothing.
-        Returns (seconds, rounds run)."""
+        exhausted cursor (per shard, for per-shard queues): the admission
+        stage runs and seats nothing. Returns (seconds, rounds run)."""
         S, Qs = self.S, self.num_slots
         t0 = time.perf_counter()
         fill = np.resize(queries, (S * Qs, queries.shape[1]))
@@ -400,9 +450,12 @@ class StreamScheduler:
         state = self.stepper.init(self.consts, qw, *self.entry)
         spec_state, cfg, dyn = self._spec_inputs((S, Qs))
         if pend is not None:
+            done = pend[1].shape[-1]
+            if pend[1].dim() == 2:
+                done = np.full(pend[1].shape[0], done, np.int64)
             out = self.stepper.run_chunk_admit(
                 self.consts, state, qw, spec_state, cfg, self.round_chunk,
-                pend, pend[1].shape[0], 0, self.entry, dynamic=dyn)
+                pend, done, 0, self.entry, dynamic=dyn)
             steps = out[3]
         else:
             out = self.stepper.run_chunk(self.consts, state, qw, spec_state,
@@ -413,25 +466,80 @@ class StreamScheduler:
         steps, _, _ = to_host(steps, ids, dists)
         return time.perf_counter() - t0, int(steps)
 
+    def _stage_routed(self, queries, arrivals, order, target_shards,
+                      injit: bool):
+        """Per-shard admission queues in arrival order, staged once with
+        the Allocator's bucket discipline (core/dispatch.py): shard s's
+        queue holds the rows routed to it and is drained by its own
+        cursor. Returns (row id per (shard, place) (S, cap), arrival
+        rounds per (shard, place) padded with INT32_MAX, which sorts after
+        every real arrival, rows per shard, and the device queue when
+        ``injit``)."""
+        S = self.S
+        dest = torch.as_tensor(np.asarray(target_shards, np.int64)[order])
+        valid = torch.ones(len(order), dtype=torch.bool)
+        rank, counts = compute_ranks(dest, valid, S)
+        counts = counts.numpy()
+        cap = max(1, int(counts.max()))
+
+        def bucket(x, fill=0):
+            return np.ascontiguousarray(scatter_to_buckets(
+                dest, rank, valid, torch.as_tensor(x), S, cap,
+                fill=fill).numpy())
+
+        legidx = bucket(order.astype(np.int32), fill=INVALID)
+        arr_by_shard = bucket(arrivals[order].astype(np.int32),
+                              fill=np.iinfo(np.int32).max)
+        pend = None
+        if injit:
+            pend = (to_device(bucket(queries[order]), self.device),
+                    to_device(arr_by_shard, self.device))
+        return legidx, arr_by_shard, counts, pend
+
     def run(self, queries: np.ndarray,
             arrivals: Optional[np.ndarray] = None,
             target_shards: Optional[np.ndarray] = None) -> StreamStats:
         """Serve ``queries`` (N, d); ``arrivals`` are arrival rounds
-        (default: all at round 0). Returns per-query results + metrics."""
-        if target_shards is not None:
-            raise _not_ported("routed admission (target_shards)", 10)
+        (default: all at round 0). Returns per-query results + metrics.
+
+        ``target_shards`` (N,) switches to **routed admission** (needs
+        ``routed=True`` at construction): row i may only be seated in
+        shard ``target_shards[i]``'s slot rows, each shard drains its
+        own arrival-ordered queue independently, and a shard with no
+        routed work stays parked — the two-tier serving discipline
+        (:func:`routed_stream_search` fans queries into per-shard legs
+        and fuses their top-k)."""
         queries = np.asarray(queries, np.float32)
         N, d = queries.shape
         arrivals = (np.zeros(N, np.int64) if arrivals is None
                     else np.asarray(arrivals, np.int64))
         order = np.argsort(arrivals, kind="stable")
+        routed = target_shards is not None
+        if routed and not self.routed:
+            raise ValueError("pass routed=True at construction to serve "
+                             "per-shard target_shards")
         S, Qs, K = self.S, self.num_slots, self.round_chunk
         k = self.params.search.k
         dev = self.device
         stepped = idle = dispatches = syncs = 0
         injit = self.injit_admit and N > 0
+        # bounded admission ring (flat in-device path only): the device
+        # queue is a window of at most `ring` staged queries, copied
+        # into the same two buffers at each chunk boundary
+        ring = self.ring_capacity if injit and not routed else 0
+        staged: list[int] = []        # ring window: qids, arrival order
+        shed_qids: list[int] = []     # rejected by the shed policy
+        stream_pos = 0                # ring cursor into `order`
         pend = None
-        if injit:
+        if routed:
+            legidx, arr_by_shard, counts, pend = self._stage_routed(
+                queries, arrivals, order, target_shards, injit)
+            next_qs = np.zeros(S, np.int64)           # per-shard cursors
+        elif ring:
+            pend = (torch.zeros((ring, d), dtype=torch.float32, device=dev),
+                    torch.full((ring,), NEVER, dtype=torch.int32,
+                               device=dev))
+        elif injit:
             # device-side pending queue, staged once in admission order
             pend = (to_device(queries[order], dev),
                     to_device(arrivals[order].astype(np.int32), dev))
@@ -461,35 +569,73 @@ class StreamScheduler:
                 wall_latency_s=now_wall - admit_wall[s, r],
                 truncated=bool(trunc), stall_rounds=int(age - rounds)))
 
-        while retired < N:
-            if not injit:
-                # -- host-paced admission: fill free slots from the
-                # arrived pending queue
-                free = np.argwhere(owner == INVALID)
-                can_admit = self.refill or len(free) == S * Qs
-                staged = []
-                while (can_admit and len(staged) < len(free) and next_q < N
-                       and arrivals[order[next_q]] <= t):
-                    staged.append(order[next_q])
-                    next_q += 1
+        def next_arrival():
+            """Earliest arrival round among unadmitted queries (None once
+            every queue is drained)."""
+            if routed:
+                nas = [arr_by_shard[s, next_qs[s]] for s in range(S)
+                       if next_qs[s] < counts[s]]
+                return int(min(nas)) if nas else None
+            if ring:
                 if staged:
-                    mask = np.zeros((S, Qs), bool)
-                    new_q = np.zeros((S, Qs, d), np.float32)
-                    now_wall = time.perf_counter()
-                    for (s, r), qid in zip(free[:len(staged)], staged):
+                    return int(arrivals[staged[0]])
+                return (int(arrivals[order[stream_pos]])
+                        if stream_pos < N else None)
+            return int(arrivals[order[next_q]]) if next_q < N else None
+
+        def seat_host(mask, new_q):
+            nonlocal state, qbuf
+            state, qbuf = self.stepper.admit(
+                state, qbuf, to_device(mask, dev), to_device(new_q, dev),
+                *self.entry)
+            if self.controller is not None:
+                self.controller.reset_rows(mask)
+
+        while retired + len(shed_qids) < N:
+            if not injit and routed:
+                # -- host-paced routed admission: each shard fills its
+                # own free rows from its own arrived queue
+                mask = np.zeros((S, Qs), bool)
+                new_q = np.zeros((S, Qs, d), np.float32)
+                now_wall = time.perf_counter()
+                for s in range(S):
+                    for r in np.flatnonzero(owner[s] == INVALID):
+                        if next_qs[s] >= counts[s] or \
+                                arr_by_shard[s, next_qs[s]] > t:
+                            break
+                        qid = int(legidx[s, next_qs[s]])
                         mask[s, r] = True
                         new_q[s, r] = queries[qid]
                         owner[s, r] = qid
                         admit_t[s, r] = t
                         admit_wall[s, r] = now_wall
-                    state, qbuf = self.stepper.admit(
-                        state, qbuf, to_device(mask, dev),
-                        to_device(new_q, dev), *self.entry)
-                    if self.controller is not None:
-                        self.controller.reset_rows(mask)
+                        next_qs[s] += 1
+                if mask.any():
+                    seat_host(mask, new_q)
+            elif not injit:
+                # -- host-paced admission: fill free slots from the
+                # arrived pending queue
+                free = np.argwhere(owner == INVALID)
+                can_admit = self.refill or len(free) == S * Qs
+                waiting = []
+                while (can_admit and len(waiting) < len(free) and next_q < N
+                       and arrivals[order[next_q]] <= t):
+                    waiting.append(order[next_q])
+                    next_q += 1
+                if waiting:
+                    mask = np.zeros((S, Qs), bool)
+                    new_q = np.zeros((S, Qs, d), np.float32)
+                    now_wall = time.perf_counter()
+                    for (s, r), qid in zip(free[:len(waiting)], waiting):
+                        mask[s, r] = True
+                        new_q[s, r] = queries[qid]
+                        owner[s, r] = qid
+                        admit_t[s, r] = t
+                        admit_wall[s, r] = now_wall
+                    seat_host(mask, new_q)
 
             live = int((owner != INVALID).sum())
-            na = int(arrivals[order[next_q]]) if next_q < N else None
+            na = next_arrival()
             if live == 0 and not (injit and na is not None and na <= t):
                 # pool idle until the next arrival: jump the serving
                 # clock without a dispatch. The skipped rounds are real
@@ -505,19 +651,51 @@ class StreamScheduler:
                 # slots are reseated at the exact boundary and the
                 # admit/evict traces replay the accounting below
                 launch_wall = time.perf_counter()
+                if ring:
+                    # slide the window forward (refill in arrival order
+                    # while seats are free), then, shedding, reject every
+                    # query that has arrived while the window is full
+                    # (judged at chunk boundaries)
+                    while len(staged) < ring and stream_pos < N:
+                        staged.append(int(order[stream_pos]))
+                        stream_pos += 1
+                    if self.overload == "shed":
+                        while (len(staged) == ring and stream_pos < N
+                               and arrivals[order[stream_pos]] <= t):
+                            shed_qids.append(int(order[stream_pos]))
+                            stream_pos += 1
+                    # restage the window into the same buffers (the
+                    # capture reads them in place); NEVER-padded tails
+                    # sort after every real arrival
+                    win = list(staged)
+                    wq = np.zeros((ring, d), np.float32)
+                    wa = np.full((ring,), NEVER, np.int32)
+                    wq[:len(win)] = queries[win]
+                    wa[:len(win)] = arrivals[win]
+                    pend[0].copy_(to_device(wq, dev))
+                    pend[1].copy_(to_device(wa, dev))
+                    cursor = 0
+                else:
+                    cursor = next_qs if routed else next_q
                 (state, qbuf, spec_state, steps, live_cnt, width_sum,
                  *extra) = self.stepper.run_chunk_admit(
                     self.consts, state, qbuf, spec_state, cfg, K, pend,
-                    next_q, t, self.entry, dynamic=dyn)
+                    cursor, t, self.entry, dynamic=dyn)
             else:
                 # -- host-paced admission wakes the chunk exactly when
                 # admission could matter. Free slots: nothing can be
                 # admitted before the next arrival, so cap the chunk
                 # there. Full pool: a finish may seat a waiting or
-                # imminent arrival, so stop on the first finish. Both
-                # keep the schedule identical to round_chunk=1
+                # imminent arrival, so stop on the first finish. Routed:
+                # a freed row only helps a waiting leg of its own shard,
+                # which a global stop-on-finish cannot tell, so pace
+                # per round while an arrived leg waits. All keep the
+                # schedule identical to round_chunk=1
                 budget, stop_on_finish = K, False
-                if self.refill and na is not None:
+                if routed:
+                    if na is not None:
+                        budget = max(1, min(K, na - t))
+                elif self.refill and na is not None:
                     if live < S * Qs:
                         budget = max(1, min(K, na - t))
                     else:
@@ -558,10 +736,20 @@ class StreamScheduler:
                                  ret_age[j, s, r], ret_trunc[j, s, r],
                                  now_wall)
                             retired += 1
-                        owner[s, r] = int(order[admit_qidx[j, s, r]])
+                        # routed: the index is into shard s's own queue;
+                        # ring: into this dispatch's window
+                        p = admit_qidx[j, s, r]
+                        owner[s, r] = int(legidx[s, p] if routed
+                                          else win[p] if ring
+                                          else order[p])
                         admit_t[s, r] = t + j
                         admit_wall[s, r] = launch_wall
-                next_q = int(cur)
+                if routed:
+                    next_qs = cur.astype(np.int64)
+                elif ring:
+                    del staged[:int(cur)]     # consumed window seats
+                else:
+                    next_q = int(cur)
             t += steps
             stepped += steps
             occ_trace.extend(int(c) for c in live_cnt)
@@ -595,6 +783,7 @@ class StreamScheduler:
             compile_s=compile_s, warmup_rounds=warm_rounds,
             idle_rounds=idle, injit_admit=self.injit_admit,
             items_by_shard=[int(x) for x in items_recv],
+            shed=len(shed_qids),
             truncated=sum(1 for r in results if r.truncated),
             quarantined=int(quarantined.sum()),
             stalls=sum(r.stall_rounds for r in results))
@@ -654,4 +843,184 @@ def stream_search(consts, geom, params, entry, queries,
     for r in stats.results:
         ids[r.qid] = r.ids
         dists[r.qid] = r.dists
+    return ids, dists, stats
+
+
+def default_leg_L(n_shard: int, max_degree: int, k: int) -> int:
+    """Routed per-leg candidate-list length from per-shard graph depth.
+
+    A Vamana-style leg converges after roughly the shard graph's
+    greedy-path depth ``log_R(n_shard)`` hops, each hop displacing at
+    most a few frontier entries, so the list needs the k result seats
+    plus headroom proportional to that depth, independent of the global
+    L the caller tuned for the full graph. ``leg_L`` stays the explicit
+    override."""
+    depth = math.ceil(math.log(max(n_shard, 2))
+                      / math.log(max(max_degree, 2)))
+    return k + 2 * depth
+
+
+def routed_stream_search(consts, geom, params, entry, queries, *,
+                         router, topr: int, num_slots: int,
+                         arrivals=None, mesh=None,
+                         dynamic_spec: bool = False,
+                         round_chunk: int = 1, injit_admit=None,
+                         shard_entries=None, leg_L=None,
+                         spec_page_w: float = 0.0, down_shards=None,
+                         live=None, device="cuda", capture: bool = True):
+    """Two-tier routed serving (core/router.py) on ``device``: coarse-
+    route each query to its top-R shards, serve one *leg* per (query,
+    shard) on that shard's independent slot schedule, and fuse the
+    per-leg top-k at retire time through the backend's bitonic merge
+    tree (on a card, R - 1 launches of the standalone merge kernel).
+
+    ``topr >= num_shards`` degenerates to the all-shard fan-out
+    semantics: one leg per query (global proposals, global entry), with
+    per-query results bit-identical to :func:`stream_search` — the
+    routed layer only changes *where* the row sits. ``topr <
+    num_shards`` confines each leg to its home shard's subgraph
+    (``local_only``) seeded at that shard's own medoid
+    (``shard_entries``, as ``build_routed_index`` builds them), with the
+    per-leg candidate list ``leg_L`` long (default
+    :func:`default_leg_L`, from the per-shard graph depth).
+
+    Returns (ids (N, k), dists (N, k), StreamStats) in query order;
+    ``stats.results`` holds fused per-query records (``n_dist`` summed
+    over legs, latency the slowest leg's: a query retires when all its
+    legs have) and ``stats.legs`` the slot rows served.
+
+    **Degraded fusion** (``down_shards``): legs routed to a shard in
+    ``down_shards`` are dropped on the host before scheduling; the
+    healthy legs run normally and the query fuses whatever finished,
+    reporting ``legs_fused`` / ``coverage`` and ``truncated=True``
+    instead of stalling on a shard that will never answer. A shard that
+    dies mid-run is the engine's job instead: a kill in
+    ``params.faults`` (with ``deadline_rounds``) force-retires its legs
+    with best-so-far results, which count as non-clean legs. A query
+    whose every leg is down retires at its arrival round with
+    all-INVALID ids, coverage 0.
+    """
+    from repro_torch.core.router import BIG_DIST, fuse_topk
+
+    if live is not None:
+        raise _not_ported("the live index", 12)
+    dev = resolve_device(device)
+    queries = np.asarray(queries, np.float32)
+    N = queries.shape[0]
+    S = geom.num_shards
+    k = params.search.k
+    arrivals = (np.zeros(N, np.int64) if arrivals is None
+                else np.asarray(arrivals, np.int64))
+    topr = int(topr)
+    if topr < 1:
+        raise ValueError(f"topr must be >= 1, got {topr}")
+    if topr >= S:
+        R = 1
+        targets = np.asarray(router.route(queries, 1))
+        leg_params = params
+        evec, enorm, eid = entry
+        sh_entry = (evec.expand(S, -1).contiguous(),
+                    enorm.reshape(1).expand(S).contiguous(),
+                    torch.full((S,), int(eid), dtype=torch.int32,
+                               device=evec.device))
+    else:
+        R = topr
+        if shard_entries is None:
+            raise ValueError(
+                "topr < num_shards needs per-shard entries "
+                "(shard_entries; build_routed_index provides them)")
+        targets = np.asarray(router.route(queries, R))
+        lg = (int(leg_L) if leg_L
+              else default_leg_L(geom.n // S, geom.max_degree, k))
+        leg_params = dataclasses.replace(
+            params,
+            search=dataclasses.replace(params.search, L=max(k, lg)),
+            local_only=True)
+        sh_entry = tuple(torch.as_tensor(a, device=dev)
+                         for a in shard_entries)
+
+    # leg rows: query i's leg j is row i*R + j, inheriting the query's
+    # vector and arrival and targeting its j-th routed shard
+    leg_q = np.repeat(queries, R, axis=0)
+    leg_arr = np.repeat(arrivals, R)
+    leg_tgt = targets[:, :R].reshape(-1).astype(np.int32)
+
+    # degraded routing: drop legs whose target shard is known-down, so
+    # nothing can stall on a dead shard's never-draining queue
+    down = np.zeros(S, bool)
+    if down_shards is not None:
+        ds = np.asarray(down_shards, np.int64).reshape(-1)
+        if ds.size and (ds.min() < 0 or ds.max() >= S):
+            raise ValueError(f"down_shards must be in [0, {S}), "
+                             f"got {sorted(set(ds.tolist()))}")
+        down[ds] = True
+        if down.all():
+            raise ValueError("every shard is down — nothing to serve")
+    alive_rows = np.flatnonzero(~down[leg_tgt])
+    # leg row id -> its position (= qid) in the scheduled alive subset
+    pos_of = {int(row): p for p, row in enumerate(alive_rows)}
+
+    ctrl = _make_controller(leg_params, geom, dynamic_spec, spec_page_w)
+    sched = StreamScheduler(consts, geom, leg_params, sh_entry,
+                            num_slots=num_slots, mesh=mesh,
+                            controller=ctrl, refill=True,
+                            round_chunk=round_chunk,
+                            injit_admit=injit_admit, routed=True,
+                            device=dev, capture=capture)
+    leg_stats = sched.run(leg_q[alive_rows], leg_arr[alive_rows],
+                          target_shards=leg_tgt[alive_rows])
+
+    by = leg_stats.by_qid()
+    leg_i = np.full((N, R, k), INVALID, np.int32)
+    leg_d = np.zeros((N, R, k), np.float32)
+    for p, rec in by.items():
+        row = int(alive_rows[p])
+        leg_i[row // R, row % R] = rec.ids
+        leg_d[row // R, row % R] = rec.dists
+    if R == 1:
+        ids, dists = leg_i[:, 0].copy(), leg_d[:, 0].copy()
+        # fuse_topk's padding contract on the degenerate path: a
+        # dropped or absent leg reads (INVALID, BIG_DIST), not 0.0
+        dists[ids == INVALID] = BIG_DIST
+    else:
+        di, ii = fuse_topk(leg_d, leg_i, leg_params.backend, device=dev)
+        dists, ids = to_host(di, ii)
+
+    results = []
+    hist = [0] * (R + 1)       # index f: queries with f clean legs
+    for i in range(N):
+        legs = [by[pos_of[i * R + j]] for j in range(R)
+                if i * R + j in pos_of]
+        # a leg is fused cleanly if it ran and converged; a deadlined
+        # (truncated) leg still gave its best-so-far candidates, but the
+        # query's coverage no longer spans that shard's subgraph
+        fused = sum(1 for lr in legs if not lr.truncated)
+        hist[fused] += 1
+        if legs:
+            results.append(QueryResult(
+                qid=i, ids=ids[i].copy(), dists=dists[i].copy(),
+                arrival_round=int(arrivals[i]),
+                admit_round=min(lr.admit_round for lr in legs),
+                retire_round=max(lr.retire_round for lr in legs),
+                service_rounds=max(lr.service_rounds for lr in legs),
+                n_dist=sum(lr.n_dist for lr in legs),
+                wall_latency_s=max(lr.wall_latency_s for lr in legs),
+                truncated=fused < R, legs_fused=fused,
+                coverage=fused / R,
+                stall_rounds=sum(lr.stall_rounds for lr in legs)))
+        else:
+            # every routed shard down: retire at once, empty-handed
+            results.append(QueryResult(
+                qid=i, ids=ids[i].copy(), dists=dists[i].copy(),
+                arrival_round=int(arrivals[i]),
+                admit_round=int(arrivals[i]),
+                retire_round=int(arrivals[i]), service_rounds=0,
+                n_dist=0, wall_latency_s=0.0, truncated=True,
+                legs_fused=0, coverage=0.0))
+    results.sort(key=lambda r: (r.retire_round, r.qid))
+    stats = dataclasses.replace(
+        leg_stats, results=results, legs=len(alive_rows),
+        truncated=sum(1 for r in results if r.truncated),
+        legs_fused_hist=hist,
+        stalls=sum(r.stall_rounds for r in results))
     return ids, dists, stats

@@ -8,13 +8,16 @@ stats with the same JSON keys as the reference driver.
 
 With ``--stream`` the queries go through the streaming scheduler
 instead (a fixed slot pool, retire and refill, Poisson arrivals; the
-report of ``launch/serve_stream.py``).
+report of ``launch/serve_stream.py``); ``--topr R`` then builds the
+spatially partitioned index and serves each query as R routed legs.
 
   PYTHONPATH=src python -m repro_torch.launch.search --dataset sift-1b
   PYTHONPATH=src python -m repro_torch.launch.search --device cpu \\
       --dataset tiny --n 512 --queries 32
   PYTHONPATH=src python -m repro_torch.launch.search --device cpu \\
       --dataset tiny --n 512 --queries 32 --stream --arrival-rate 2
+  PYTHONPATH=src python -m repro_torch.launch.search --dataset tiny \\
+      --stream --topr 2 --down-shards 1
 """
 from __future__ import annotations
 
@@ -157,7 +160,11 @@ def main(argv=None):
     # lazy import: serve_stream imports build_index from this module
     from repro_torch.launch.serve_stream import (UNPORTED_FLAGS,
                                                  add_fault_args,
-                                                 fault_params, stream_report)
+                                                 add_routing_args,
+                                                 fault_params, routed_index,
+                                                 routing_report_args,
+                                                 stream_report)
+    add_routing_args(ap, prefix="streaming: ")
     add_fault_args(ap, prefix="streaming: ")
     for flag, _, kw in UNPORTED_FLAGS:
         ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
@@ -175,12 +182,22 @@ def main(argv=None):
     print(f"dataset {ds.name}: n={db0.shape[0]} d={db0.shape[1]}")
 
     t0 = time.perf_counter()
-    db, packed = build_index(
-        db0, shards=args.shards, page_size=args.page_size, r=args.degree,
-        reorder=args.reorder, pref_width=args.spec, seed=args.seed)
+    routed = None
+    if args.topr > 0:
+        if not args.stream:
+            raise SystemExit("--topr requires --stream (routing is a "
+                             "serving-path feature)")
+        routed = routed_index(db0, args, dev)
+        db, packed = routed.db, routed.packed
+    else:
+        db, packed = build_index(
+            db0, shards=args.shards, page_size=args.page_size,
+            r=args.degree, reorder=args.reorder, pref_width=args.spec,
+            seed=args.seed)
     build_s = time.perf_counter() - t0
-    print(f"index built in {build_s:.1f}s "
-          f"(reorder={args.reorder}, spec={args.spec})")
+    print(f"{'routed ' if routed else ''}index built in {build_s:.1f}s "
+          f"(reorder={'none' if routed else args.reorder}, "
+          f"spec={args.spec})")
     if dev.type == "cuda" and args.kernel_mode in ("auto", "cuda"):
         from repro_torch.kernels.build import build_all
         build_all()                        # kernel build stays off the clock
@@ -204,7 +221,9 @@ def main(argv=None):
                                round_chunk=args.round_chunk,
                                injit_admit={"auto": None, "on": True,
                                             "off": False}[args.injit_admit],
-                               spec_page_w=args.spec_page_w, device=dev)}
+                               spec_page_w=args.spec_page_w,
+                               **routing_report_args(args, routed),
+                               device=dev)}
     else:
         res = {"dataset": ds.name,
                **run_search(pack_for_engine(packed, device=dev), db,

@@ -8,11 +8,16 @@ clock, are admitted the round a slot frees up, and retire individually
 with per-query latency — the paper's query-level scheduling (§V).
 Reports slot occupancy, p50/p95/p99 latency (rounds + wall), sustained
 QPS and the host-sync model, with the reference CLI's JSON keys plus
-``device`` and ``host_syncs``.
+``device`` and ``host_syncs``. With ``--topr R`` the index is built
+spatially partitioned (core/router.py) and each query runs as R routed
+legs fused at retire time; ``--ring``/``--overload`` bound the flat
+path's device admission queue.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --dataset tiny \\
       --queries 128 --shards 4 --slots 8 --arrival-rate 2 --spec 4 \\
       --spec-dynamic
+  PYTHONPATH=src python -m repro_torch.launch.serve_stream --dataset tiny \\
+      --topr 2 --down-shards 1
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cpu \\
       --dataset tiny --n 512
 """
@@ -29,7 +34,9 @@ from repro_torch.core.engine import EngineParams, pack_for_engine
 from repro_torch.core.graph import brute_force_topk, recall_at_k
 from repro_torch.core.metrics import stream_summary
 from repro_torch.core.ref_search import SearchParams
-from repro_torch.core.scheduler import poisson_arrivals, stream_search
+from repro_torch.core.router import build_routed_index
+from repro_torch.core.scheduler import (poisson_arrivals,
+                                        routed_stream_search, stream_search)
 from repro_torch.data.vectors import PAPER_DATASETS, VectorDataset
 from repro_torch.ft.inject import parse_fault_args
 from repro_torch.launch.search import build_index
@@ -38,11 +45,6 @@ from repro_torch.utils import resolve_device
 # the reference CLI's flags of the serving layers not ported yet, each
 # with the ROADMAP.md queue A item it belongs to: set, they fail
 UNPORTED_FLAGS = (
-    ("--topr", 10, dict(type=int, default=0)),
-    ("--leg-L", 10, dict(type=int, default=0)),
-    ("--ring", 10, dict(type=int, default=0)),
-    ("--overload", 10, dict(default="block")),
-    ("--down-shards", 10, dict(default="")),
     ("--device-pages", 11, dict(type=int, default=0)),
     ("--prefetch", 11, dict(action=argparse.BooleanOptionalAction,
                             default=True)),
@@ -92,33 +94,52 @@ class StreamingRetriever:
 
 def stream_report(consts, geom, params, entry, db, queries, *, slots,
                   arrival_rate, seed, dynamic_spec=False, refill=True,
-                  round_chunk=8, injit_admit=None, spec_page_w=0.0,
+                  round_chunk=8, injit_admit=None, routed=None, topr=0,
+                  leg_L=None, spec_page_w=0.0, ring_capacity=0,
+                  overload="block", down_shards=None,
                   device="cuda") -> dict:
-    """Run one streaming session on the flat pool and build the serving
-    report: Poisson arrivals -> scheduler -> recall vs brute force +
-    ``stream_summary`` metrics. Deadlines, fault plans and the
-    corruption guard ride on ``params`` (``deadline_rounds``, ``faults``,
-    ``guard_nonfinite``). The keys of the serving layers not ported
-    (routing, ring, tiered store, live index) report their at-rest
-    values."""
+    """Run one streaming session and build the serving report shared by
+    the ``search --stream`` and ``serve_stream`` CLIs: Poisson arrivals
+    -> scheduler -> recall vs brute force + ``stream_summary`` metrics.
+
+    With ``routed`` (a :class:`repro_torch.core.router.RoutedIndex`) and
+    ``topr`` > 0 the queries take the two-tier path: the coarse router
+    picks each query's top-R shards, one leg runs per target shard and
+    the legs' top-k fuse at retire time; ``down_shards`` drops the legs
+    of known-down shards (degraded fusion). ``ring_capacity`` /
+    ``overload`` bound the flat path's device admission queue.
+    Deadlines, fault plans and the corruption guard ride on ``params``
+    (``deadline_rounds``, ``faults``, ``guard_nonfinite``). The keys of
+    the serving layers not ported (tiered store, live index) report
+    their at-rest values."""
     arrivals = poisson_arrivals(arrival_rate, queries.shape[0], seed)
-    ids, _, st = stream_search(
-        consts, geom, params, entry, queries, num_slots=slots,
-        arrivals=arrivals, dynamic_spec=dynamic_spec, refill=refill,
-        round_chunk=round_chunk, injit_admit=injit_admit,
-        spec_page_w=spec_page_w, device=device)
+    if routed is not None and topr > 0:
+        ids, _, st = routed_stream_search(
+            consts, geom, params, entry, queries, router=routed.router,
+            topr=topr, num_slots=slots, arrivals=arrivals,
+            dynamic_spec=dynamic_spec, round_chunk=round_chunk,
+            injit_admit=injit_admit, shard_entries=routed.shard_entries,
+            leg_L=leg_L, spec_page_w=spec_page_w,
+            down_shards=down_shards, device=device)
+    else:
+        ids, _, st = stream_search(
+            consts, geom, params, entry, queries, num_slots=slots,
+            arrivals=arrivals, dynamic_spec=dynamic_spec, refill=refill,
+            round_chunk=round_chunk, injit_admit=injit_admit,
+            spec_page_w=spec_page_w, ring_capacity=ring_capacity,
+            overload=overload, device=device)
     true_ids, _ = brute_force_topk(db, queries, params.search.k)
     return {
         "shards": geom.num_shards, "slots_per_shard": slots,
         "arrival_rate": arrival_rate, "refill": refill,
         "spec": params.spec_width, "spec_dynamic": dynamic_spec,
-        "round_chunk": round_chunk, "topr": 0,
+        "round_chunk": round_chunk, "topr": topr,
         "deadline_rounds": params.deadline_rounds,
-        "ring": 0, "overload": "block", "device_pages": 0, "live": False,
-        "delta_cap": 0, "inserts": 0,
+        "ring": ring_capacity, "overload": overload, "device_pages": 0,
+        "live": False, "delta_cap": 0, "inserts": 0,
         "nan_guard": params.guard_nonfinite,
         "faults": params.faults is not None,
-        "down_shards": [],
+        "down_shards": sorted(int(s) for s in (down_shards or [])),
         # injit_admit arrives via stream_summary: the scheduler's
         # *resolved* admission path
         "recall@k": round(float(recall_at_k(ids, true_ids)), 4),
@@ -147,6 +168,54 @@ def add_fault_args(ap, prefix: str = "") -> None:
                     help=prefix + "quarantine non-finite/garbage "
                          "distances to BIG_DIST before the merge (and "
                          "count them)")
+
+
+def add_routing_args(ap, prefix: str = "") -> None:
+    """The routing and overload flags of the serving CLIs (``prefix``
+    leads each help text, as ``search --stream``'s do)."""
+    ap.add_argument("--topr", type=int, default=0,
+                    help=prefix + "two-tier routing: coarse-route each "
+                         "query to its top-R shards and run one leg per "
+                         "shard (0 = all-shard fan-out; builds a "
+                         "spatially partitioned index instead of the "
+                         "striped one)")
+    ap.add_argument("--leg-L", type=int, default=0,
+                    help=prefix + "routed: per-leg candidate-list length "
+                         "(0 = auto from per-shard graph depth: "
+                         "k + 2*log_deg(n/S))")
+    ap.add_argument("--ring", type=int, default=0,
+                    help=prefix + "bounded device admission ring: at most "
+                         "this many pending queries staged on the device "
+                         "(0 = stage the whole stream)")
+    ap.add_argument("--overload", default="block", choices=["block", "shed"],
+                    help=prefix + "full-ring policy: block (arrivals wait "
+                         "on the host) or shed (reject arrivals while the "
+                         "ring is full)")
+    ap.add_argument("--down-shards", default="",
+                    help=prefix + "routed: comma-separated shard ids known "
+                         "down; their legs are dropped and queries fuse "
+                         "degraded (needs --topr)")
+
+
+def routed_index(db0, args, dev):
+    """``build_routed_index`` over the largest prefix of ``db0`` that
+    fills whole pages on every shard, with the degree raised to the
+    shard count (the medoid stitch needs it), as the reference CLIs
+    build it."""
+    grid = args.shards * args.page_size
+    return build_routed_index(
+        db0[:db0.shape[0] // grid * grid], shards=args.shards,
+        page_size=args.page_size, r=max(args.degree, args.shards),
+        pref_width=args.spec, seed=args.seed,
+        kernel_mode=args.kernel_mode, device=dev)
+
+
+def routing_report_args(args, routed) -> dict:
+    """stream_report's routing and overload keywords from the flags."""
+    return dict(routed=routed, topr=args.topr, leg_L=args.leg_L or None,
+                ring_capacity=args.ring, overload=args.overload,
+                down_shards=[int(s) for s in args.down_shards.split(",")]
+                if args.down_shards else None)
 
 
 def fault_params(args) -> dict:
@@ -199,6 +268,7 @@ def main(argv=None):
                     help="force-retire a query after this many serving "
                          "rounds in a slot, flagging it truncated "
                          "(0 = no deadline)")
+    add_routing_args(ap)
     add_fault_args(ap)
     ap.add_argument("--kernel-mode", default="auto",
                     choices=["auto", "cuda", "ref", "torch"],
@@ -228,9 +298,14 @@ def main(argv=None):
             ds = dataclasses.replace(ds, n=args.n)
     db0 = ds.materialize()
     queries = ds.queries(args.queries, seed=args.seed + 1)
-    db, packed = build_index(
-        db0, shards=args.shards, page_size=args.page_size, r=args.degree,
-        pref_width=args.spec, seed=args.seed)
+    routed = None
+    if args.topr > 0:
+        routed = routed_index(db0, args, dev)
+        db, packed = routed.db, routed.packed
+    else:
+        db, packed = build_index(
+            db0, shards=args.shards, page_size=args.page_size,
+            r=args.degree, pref_width=args.spec, seed=args.seed)
     consts, geom, entry = pack_for_engine(packed, device=dev)
     params = EngineParams.lossless(
         SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
@@ -251,7 +326,8 @@ def main(argv=None):
                         round_chunk=args.round_chunk,
                         injit_admit={"auto": None, "on": True,
                                      "off": False}[args.injit_admit],
-                        spec_page_w=args.spec_page_w, device=dev),
+                        spec_page_w=args.spec_page_w,
+                        **routing_report_args(args, routed), device=dev),
     }
     print(json.dumps(res, indent=1))
     if args.out:

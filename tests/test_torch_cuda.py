@@ -543,6 +543,135 @@ def test_stream_fault_plans_cuda_match_cpu_ref(dev, int_index, plan):
         assert out["ref"][3] > 0
 
 
+@pytest.fixture(scope="module")
+def routed_int():
+    """An integer-valued routed index (4 shards of 128, page 16)."""
+    from repro_torch.core.router import build_routed_index
+    rng = np.random.default_rng(0)
+    db = rng.integers(-8, 9, size=(512, 16)).astype(np.float32)
+    queries = rng.integers(-8, 9, size=(24, 16)).astype(np.float32)
+    kw = dict(shards=4, page_size=16, r=8, centroids_per_shard=4, seed=0)
+    return ({where: build_routed_index(db, **kw, device=where)
+             for where in ("cuda", "cpu")}, queries,
+            np.cumsum(rng.integers(0, 3, len(queries))))
+
+
+def test_fuse_topk_quarantines_nonfinite_on_card(dev):
+    """fuse_topk on the card (R - 1 launches of the standalone merge)
+    == CPU ref mode bit for bit: NaN and inf legs sort last like
+    padding, all-INVALID rows come out as (INVALID, BIG_DIST), an entry
+    at the engine's BIG_DIST keeps its place before the quarantined
+    ones (the merge's filler sorts before the router's BIG_DIST)."""
+    from repro_torch.core.backend import KernelBackend
+    from repro_torch.core.router import fuse_topk
+    leg_d = np.array([[[0.1, 0.2, 0.3, 0.4], [np.nan] * 4, [0.25] * 4],
+                      [[0.1, 3.0e38, 0.0, 0.0], [np.inf, 0.0, 0.0, 0.0],
+                       [0.0] * 4],
+                      [[0.0] * 4] * 3], np.float32)
+    leg_i = np.array([[[1, 2, 3, 4], [5, 6, 7, 8], [20, 21, 22, 23]],
+                      [[9, 10, -1, -1], [11, -1, -1, -1], [-1] * 4],
+                      [[-1] * 4] * 3], np.int32)
+    reset_launch_counts()
+    got = fuse_topk(leg_d, leg_i, KernelBackend(mode="cuda"), device=dev)
+    counts = launch_counts()
+    want = fuse_topk(leg_d, leg_i, KernelBackend(mode="ref"), device="cpu")
+    assert counts["bitonic_merge"] == 2
+    np.testing.assert_array_equal(got[0].cpu().numpy().view(np.int32),
+                                  want[0].numpy().view(np.int32))
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    np.testing.assert_array_equal(want[1].numpy()[0], [1, 2, 20, 21])
+    assert (want[1].numpy()[2] == -1).all()
+
+
+def test_router_scores_on_card(dev, routed_int):
+    """ShardRouter.shard_scores launches the distance kernel once, its
+    query tile S contiguous copies of the (padded) queries: the scores
+    equal the CPU's within 1e-6 of the norms' scale; ``route`` sorts
+    them with one launch of the standalone sort; the routes equal."""
+    built, queries, _ = routed_int
+    reset_launch_counts()
+    got = built["cuda"].router.shard_scores(queries).cpu().numpy()
+    assert launch_counts()["paged_distance"] == 1
+    built["cuda"].router.route(queries, 2)
+    assert launch_counts()["bitonic_sort"] == 1
+    want = built["cpu"].router.shard_scores(queries).numpy()
+    scale = (queries * queries).sum(-1)[:, None] + \
+        built["cpu"].router.cnorm.numpy().max(-1)[None, :]
+    assert (np.abs(got - want) <= 1e-6 * scale).all()
+    for r in (1, 2, 4):
+        np.testing.assert_array_equal(built["cuda"].router.route(queries, r),
+                                      built["cpu"].router.route(queries, r))
+
+
+@pytest.mark.parametrize("topr,injit,down", [
+    (2, True, None), (2, False, None), (4, True, None), (2, True, [1])])
+def test_routed_session_cuda_matches_cpu_ref(dev, routed_int, topr, injit,
+                                             down):
+    """A routed session captured on the card == CPU ref mode on the
+    integer routed index: ids, distance bits, every per-query record,
+    legs, fused-legs histogram, work per shard. One router distance
+    launch, one route sort and R - 1 fusion merges per session; at most
+    one capture of the session's chunk program (none when its staged
+    queue lands at an earlier session's addresses)."""
+    from repro_torch.core.scheduler import routed_stream_search
+    built, queries, arrivals = routed_int
+    out = {}
+    for where, mode in (("cuda", "cuda"), ("cpu", "ref")):
+        ri = built[where]
+        consts, geom, entry = pack_for_engine(ri.packed, device=where)
+        params = EngineParams.lossless(SearchParams(L=16, W=1, k=8), 3, 8,
+                                       kernel_mode=mode)
+        reset_launch_counts()
+        CACHE.reset_stats()
+        ids, dists, st = routed_stream_search(
+            consts, geom, params, entry, queries, router=ri.router,
+            topr=topr, num_slots=3, arrivals=arrivals, round_chunk=4,
+            injit_admit=injit, shard_entries=ri.shard_entries,
+            down_shards=down, device=where)
+        if where == "cuda":
+            counts = launch_counts()
+            R = 1 if topr >= 4 else topr
+            rounds = 4 * (CACHE.stats.captures + CACHE.stats.replays)
+            assert counts["bitonic_merge"] == R - 1
+            assert counts["bitonic_sort"] == 1
+            assert counts["paged_distance"] == 1 + rounds
+            assert CACHE.stats.captures <= 1
+        out[where] = (ids, dists.view(np.int32), {r.qid: (
+            tuple(r.ids), r.admit_round, r.retire_round, r.service_rounds,
+            r.n_dist, r.truncated, r.legs_fused) for r in st.results},
+            st.legs, st.legs_fused_hist, st.items_by_shard, st.total_rounds)
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2:] == out["cpu"][2:]
+
+
+@pytest.mark.parametrize("overload", ["block", "shed"])
+def test_ring_session_captures_once_on_card(dev, int_index, overload):
+    """The admission ring re-stages its window into the same device
+    buffers at every chunk, so the session captures its chunk at most
+    once; its records equal CPU ref mode's."""
+    packed, queries = int_index
+    arrivals = np.random.default_rng(2).integers(0, 6, len(queries))
+    out = {}
+    for where, mode in ((dev, "cuda"), ("cpu", "ref")):
+        params = EngineParams.lossless(SearchParams(L=16, W=1, k=10), 2, 12,
+                                       kernel_mode=mode)
+        consts, geom, entry = pack_for_engine(packed, device=where)
+        CACHE.reset_stats()
+        ids, _, st = stream_search(consts, geom, params, entry, queries,
+                                   num_slots=2, arrivals=arrivals,
+                                   round_chunk=8, ring_capacity=4,
+                                   overload=overload, device=where)
+        if mode == "cuda":
+            assert CACHE.stats.captures <= 1
+        out[mode] = (ids, st.shed, {r.qid: (
+            tuple(r.ids), r.admit_round, r.retire_round, r.n_dist)
+            for r in st.results})
+    np.testing.assert_array_equal(out["cuda"][0], out["ref"][0])
+    assert out["cuda"][1:] == out["ref"][1:]
+    assert (out["ref"][1] > 0) == (overload == "shed")
+
+
 def test_failed_capture_raises(dev):
     """A chunk program that reads the device inside the capture is
     refused: the capture raises, nothing falls back to an eager run."""

@@ -136,7 +136,10 @@ STREAM_CLOCKS = {"kernel_mode", "wall_latency_ms", "sustained_qps", "wall_s",
     ["--arrival-rate", "2", "--kill-shard", "1:3", "--delay-shard",
      "0:2:4", "--deadline-rounds", "10"],
     ["--corrupt-pages", "0.1", "--corrupt-mode", "neg", "--nan-guard",
-     "--seed", "2"]])
+     "--seed", "2"],
+    # routed serving on the spatially partitioned index
+    ["--topr", "2", "--arrival-rate", "2"],
+    ["--topr", "2", "--leg-L", "8", "--down-shards", "1"]])
 def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
     """``--stream`` serves the queries through the streaming scheduler:
     the JSON equals the reference's ``--stream --kernel-mode jnp`` JSON
@@ -159,8 +162,17 @@ def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
     assert port["host_syncs"] == port["host_dispatches"] > 0
 
 
+def test_cli_topr_needs_stream(capsys):
+    """Routing is a serving-path feature, as in the reference CLI."""
+    with pytest.raises(SystemExit, match="--stream"):
+        main(["--device", "cpu", "--dataset", "tiny", "--n", "512",
+              "--topr", "2"])
+    with pytest.raises(SystemExit, match="--stream"):
+        j_main(["--dataset", "tiny", "--n", "512", "--topr", "2"])
+    capsys.readouterr()
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--topr", "2"], 10), (["--leg-L", "8"], 10),
     (["--device-pages", "4"], 11), (["--delta-cap", "16"], 12)])
 def test_cli_stream_refuses_unported_flags(capsys, flag, item):
     with pytest.raises(SystemExit):

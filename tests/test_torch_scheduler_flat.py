@@ -2,18 +2,24 @@
 (tests/test_scheduler.py) on the port, on the same integer index:
 streaming == one-shot ``search_sim`` over arrivals, slots, chunks and
 admission paths; chunked == per-round; slot reuse; the speculation
-controller; the serving metrics and the idle clock; deadlines; what is
-not ported raises."""
+controller; the serving metrics and the idle clock; deadlines; the
+admission ring and routed admission against the reference's sessions;
+what is not ported raises."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro.core.engine import EngineParams as JEngineParams
+from repro.core.engine import pack_for_engine as j_pack_for_engine
 from repro.core.graph import build_vamana as j_vamana
 from repro.core.luncsr import LUNCSR as JLUNCSR
 from repro.core.luncsr import Geometry as JGeometry
 from repro.core.luncsr import pack_index as j_pack_index
+from repro.core.ref_search import SearchParams as JSearchParams
+from repro.core.scheduler import StreamScheduler as JStreamScheduler
+from repro.core.scheduler import stream_search as j_stream_search
 from repro_torch.core.engine import (EngineParams, engine_admit,
                                      engine_init, engine_round,
                                      make_stepper, pack_for_engine,
@@ -66,9 +72,20 @@ def _dataset(n=1024, d=32, nq=32, S=4, page=32, seed=0, pref_width=8):
 
 
 @pytest.fixture(scope="module")
-def ds():
-    db, queries, packed = _dataset()
+def built():
+    return _dataset()
+
+
+@pytest.fixture(scope="module")
+def ds(built):
+    db, queries, packed = built
     return db, queries, pack_for_engine(as_port_index(packed), **CPU)
+
+
+@pytest.fixture(scope="module")
+def ref_engine(built):
+    """The same index in the reference package (jnp mode)."""
+    return j_pack_for_engine(built[2])
 
 
 def _records(st):
@@ -515,25 +532,155 @@ def test_deadline_off_bit_identity(ds, injit):
 
 
 # ---------------------------------------------------------------------------
+# The bounded admission ring (tests/test_scheduler.py's ring tests)
+# ---------------------------------------------------------------------------
+def _ref_lossless(sp, slots, geom, **kw):
+    return JEngineParams.lossless(JSearchParams(L=sp.L, W=sp.W, k=sp.k),
+                                  slots, geom.max_degree, kernel_mode="jnp",
+                                  **kw)
+
+
+def test_ring_full_capacity_bit_identity(ds):
+    """A ring holding the whole stream reproduces the unbounded staging
+    path exactly: schedule, traces, accounting."""
+    _, queries, (consts, geom, entry) = ds
+    params = _lossless(SearchParams(L=16, W=1, k=10), 3, geom)
+    arrivals = np.random.default_rng(6).integers(0, 15, len(queries))
+
+    def run(ring):
+        return stream_search(consts, geom, params, entry, queries,
+                             num_slots=3, arrivals=arrivals, round_chunk=8,
+                             ring_capacity=ring, **CPU)[2]
+
+    base, ringed = run(0), run(len(queries))
+    assert _records(ringed) == _records(base)
+    assert ringed.total_rounds == base.total_rounds
+    assert ringed.occupancy_trace == base.occupancy_trace
+    assert ringed.shed == 0
+
+
+@pytest.mark.parametrize("ring", [1, 2, 5, 12, 16])
+def test_ring_block_any_capacity(ds, ref_engine, ring):
+    """Under the block policy any ring capacity >= 1 serves every query
+    with the unbounded stream's per-query results (admission order is
+    arrival order either way; the window only bounds device memory),
+    and with the reference's ring session's records bit for bit."""
+    _, queries, (consts, geom, entry) = ds
+    sp = SearchParams(L=8, W=1, k=5)
+    q = queries[:12]
+    params = _lossless(sp, 2, geom)
+    arrivals = np.random.default_rng(9).integers(0, 8, len(q))
+    kw = dict(num_slots=2, arrivals=arrivals, round_chunk=8)
+    ref_i, ref_d, _ = stream_search(consts, geom, params, entry, q, **kw,
+                                    **CPU)
+    ids, dists, st = stream_search(consts, geom, params, entry, q, **kw,
+                                   ring_capacity=ring, overload="block",
+                                   **CPU)
+    np.testing.assert_array_equal(ids, ref_i)
+    np.testing.assert_array_equal(dists, ref_d)
+    assert st.shed == 0 and len(st.results) == len(q)
+    jc, jg, je = ref_engine
+    _, _, jst = j_stream_search(jc, jg, _ref_lossless(sp, 2, geom), je, q,
+                                **kw, ring_capacity=ring, overload="block")
+    assert _records(st) == _records(jst)
+    assert st.occupancy_trace == jst.occupancy_trace
+
+
+def test_ring_shed_overload(ds, ref_engine):
+    """Shed policy under a burst far beyond ring capacity: overflow
+    queries are rejected and counted, every admitted query retires with
+    exact results, shed + retired covers the stream, shed queries keep
+    INVALID rows; the same queries are shed as by the reference."""
+    _, queries, (consts, geom, entry) = ds
+    sp = SearchParams(L=16, W=1, k=10)
+    params = _lossless(sp, 1, geom)
+    nq = len(queries)
+    kw = dict(num_slots=1, arrivals=np.zeros(nq, np.int64), round_chunk=8)
+    ids, dists, st = stream_search(consts, geom, params, entry, queries,
+                                   **kw, ring_capacity=4, overload="shed",
+                                   **CPU)
+    assert st.shed > 0
+    assert st.shed + len(st.results) == nq
+    served = {r.qid for r in st.results}
+    ref_i, _, _ = stream_search(consts, geom, params, entry, queries, **kw,
+                                **CPU)
+    for r in st.results:
+        np.testing.assert_array_equal(r.ids, ref_i[r.qid])
+    for qid in range(nq):
+        if qid not in served:
+            assert (ids[qid] == INVALID).all()
+    jc, jg, je = ref_engine
+    _, _, jst = j_stream_search(jc, jg, _ref_lossless(sp, 1, geom), je,
+                                queries, **kw, ring_capacity=4,
+                                overload="shed")
+    assert st.shed == jst.shed and _records(st) == _records(jst)
+
+
+def test_ring_validation(ds):
+    """Ring knobs are validated at construction: bad policy names, the
+    host-paced path and routed serving are rejected."""
+    _, _, (consts, geom, entry) = ds
+    params = _lossless(SearchParams(L=16, W=1, k=10), 2, geom)
+    with pytest.raises(ValueError, match="overload"):
+        StreamScheduler(consts, geom, params, entry, num_slots=2,
+                        overload="panic", **CPU)
+    with pytest.raises(ValueError, match="in-jit"):
+        StreamScheduler(consts, geom, params, entry, num_slots=2,
+                        injit_admit=False, ring_capacity=4, **CPU)
+    with pytest.raises(ValueError, match="routed"):
+        StreamScheduler(consts, geom, params, entry, num_slots=2,
+                        routed=True, ring_capacity=4, **CPU)
+    with pytest.raises(ValueError, match="refill"):
+        StreamScheduler(consts, geom, params, entry, num_slots=2,
+                        routed=True, refill=False, **CPU)
+
+
+# ---------------------------------------------------------------------------
+# Routed admission: per-shard queues on the flat index
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("injit", [False, True])
+def test_routed_admission_matches_reference(ds, ref_engine, injit):
+    """``run(target_shards=...)``: each row sits only in its target
+    shard's slots and each shard drains its own queue (host-paced or
+    staged per shard on the device); every record equals the
+    reference's routed session, and per-query ids the flat stream's."""
+    _, queries, (consts, geom, entry) = ds
+    sp = SearchParams(L=16, W=1, k=10)
+    params = _lossless(sp, 2, geom)
+    rng = np.random.default_rng(4)
+    arrivals = rng.integers(0, 20, len(queries))
+    tgt = rng.integers(0, geom.num_shards, len(queries)).astype(np.int32)
+    sched = StreamScheduler(consts, geom, params, entry, 2, round_chunk=8,
+                            injit_admit=injit, routed=True, **CPU)
+    st = sched.run(queries, arrivals, target_shards=tgt)
+    jc, jg, je = ref_engine
+    jsched = JStreamScheduler(jc, jg, _ref_lossless(sp, 2, geom), je, 2,
+                              round_chunk=8, injit_admit=injit, routed=True)
+    jst = jsched.run(queries, arrivals, target_shards=tgt)
+    assert _records(st) == _records(jst)
+    assert st.occupancy_trace == jst.occupancy_trace
+    assert st.items_by_shard == jst.items_by_shard
+    flat_i, _, _ = stream_search(consts, geom, params, entry, queries,
+                                 num_slots=2, arrivals=arrivals,
+                                 round_chunk=8, **CPU)
+    for r in st.results:
+        np.testing.assert_array_equal(r.ids, flat_i[r.qid])
+    with pytest.raises(ValueError, match="routed=True"):
+        StreamScheduler(consts, geom, params, entry, 2, **CPU).run(
+            queries[:4], target_shards=tgt[:4])
+
+
+# ---------------------------------------------------------------------------
 # What is not ported raises, naming its ROADMAP item; the device rule
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kw,item", [
-    (dict(routed=True), 10), (dict(ring_capacity=4), 10),
-    (dict(overload="shed"), 10), (dict(pagestore=object()), 11),
-    (dict(live=object()), 12), (dict(mesh=object()), 13)])
+    (dict(pagestore=object()), 11), (dict(live=object()), 12),
+    (dict(mesh=object()), 13)])
 def test_unported_options_raise(ds, kw, item):
     _, queries, (consts, geom, entry) = ds
     params = _lossless(SearchParams(L=16, W=1, k=10), 2, geom)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         StreamScheduler(consts, geom, params, entry, 2, **kw, **CPU)
-
-
-def test_routed_admission_raises(ds):
-    _, queries, (consts, geom, entry) = ds
-    params = _lossless(SearchParams(L=16, W=1, k=10), 2, geom)
-    sched = StreamScheduler(consts, geom, params, entry, 2, **CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sched.run(queries[:4], target_shards=np.zeros(4, np.int32))
 
 
 def test_stream_search_without_device_cpu_raises_when_no_card(ds):

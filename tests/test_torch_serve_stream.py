@@ -82,7 +82,13 @@ def index():
     ["--delay-shard", "0:2:5", "--delay-shard", "2:4:3"],
     ["--kill-shard", "1:4", "--deadline-rounds", "12", "--seed", "1"],
     ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--nan-guard"],
-    ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--spec", "2"]])
+    ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--spec", "2"],
+    # routing (a spatially partitioned index, legs fused through the
+    # bitonic merge), degraded fusion, and the admission ring
+    ["--topr", "2"], ["--topr", "2", "--leg-L", "8"],
+    ["--topr", "4", "--leg-L", "8", "--injit-admit", "off"],
+    ["--topr", "2", "--down-shards", "1"], ["--ring", "8"],
+    ["--ring", "4", "--overload", "shed", "--arrival-rate", "0"]])
 def test_cli_json_matches_reference(tmp_path, capsys, flags):
     argv = ["--dataset", "tiny", "--n", "512", "--queries", "32"] + flags
     assert main(argv + ["--device", "cpu",
@@ -102,9 +108,6 @@ def test_cli_json_matches_reference(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--topr", "2"], 10), (["--ring", "8"], 10),
-    (["--overload", "shed"], 10), (["--leg-L", "8"], 10),
-    (["--topr", "4", "--leg-L", "8"], 10), (["--down-shards", "1"], 10),
     (["--device-pages", "4"], 11), (["--no-prefetch"], 11),
     (["--delta-cap", "16"], 12), (["--insert-rate", "0.5"], 12)])
 def test_cli_refuses_unported_flags(capsys, flag, item):

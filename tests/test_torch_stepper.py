@@ -4,6 +4,8 @@ on one integer-valued index (the scheduler tests' dataset: n 1024, d 32,
 inputs, every state field after interleaved rounds and admissions, and
 both chunk drivers' outputs — every trace, ``steps`` and the cursor.
 The index crosses packages as plain arrays."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -239,20 +241,119 @@ def test_run_chunk_admit_matches_reference(ds, spec, dynamic, deadline):
 
 
 def test_unported_stepper_variants_raise(ds):
-    queries, (pc, pg, pe), _ = ds
+    _, (pc, pg, pe), _ = ds
     pp, _ = _params()
     with pytest.raises(NotImplementedError, match="item 13"):
         P.make_stepper(pp, pg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.make_stepper(pp, pg, routed=True)
-    q0 = torch.as_tensor(queries[:S * SLOTS].reshape(S, SLOTS, -1))
-    per_shard = (pe[0].expand(S, -1), pe[1], pe[2])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.engine_init(pc, q0, *per_shard, pp, pg)
-    state = P.engine_init(pc, q0, *pe, pp, pg)
-    spec, _ = _spec_state(0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        P.engine_run_chunk_admit(
-            pc, state, q0, spec, J_NULL_CFG, 4, q0.reshape(S, SLOTS, -1),
-            torch.zeros((S, SLOTS), dtype=torch.int32), 0, 0, *pe, pp, pg,
-            4)
+
+
+def _shard_entries(pc, jc):
+    """Per-shard entries: vertex s * 32 (shard s's first slot on the
+    striped index) seeds shard s's rows, as build_routed_index's shard
+    medoids seed routed legs."""
+    ev = pc["db"][:, 0, 0].clone()
+    en = (ev * ev).sum(-1)
+    eid = torch.arange(S, dtype=torch.int32) * 32
+    return ((ev, en, eid),
+            (jnp.asarray(ev.numpy()), jnp.asarray(en.numpy()),
+             jnp.asarray(eid.numpy())))
+
+
+def _local(pp, jp):
+    return (dataclasses.replace(pp, local_only=True),
+            dataclasses.replace(jp, local_only=True))
+
+
+@pytest.mark.parametrize("local_only", [False, True])
+def test_per_shard_entries_and_local_rounds_match_reference(ds, local_only):
+    """engine_init and engine_admit with per-shard entries, then rounds
+    (with ``local_only``: proposals owned by other shards dropped):
+    every state field equal; the routed stepper is the sim stepper."""
+    queries, (pc, pg, _), (jc, jg, _) = ds
+    pp, jp = _params(spec=4)
+    if local_only:
+        pp, jp = _local(pp, jp)
+    pe, je = _shard_entries(pc, jc)
+    stepper = P.make_stepper(pp, pg, routed=True)
+    q0 = queries[:S * SLOTS].reshape(S, SLOTS, -1)
+    ps = stepper.init(pc, torch.as_tensor(q0), *pe)
+    js = J.engine_init(jc, jnp.asarray(q0), *je, params=jp, geom=jg)
+    _same_state(ps, js, "init")
+    pq, jq = torch.as_tensor(q0), jnp.asarray(q0)
+    mask = np.zeros((S, SLOTS), bool)
+    mask[1, 0] = mask[3, 1] = True
+    new = queries[S * SLOTS:2 * S * SLOTS].reshape(S, SLOTS, -1)
+    for r in range(6):
+        ps = stepper.round(pc, ps, pq, 4)
+        js = J.engine_round(jc, js, jq, 4, params=jp, geom=jg)
+        _same_state(ps, js, f"round {r}")
+        if r == 2:
+            ps, pq = stepper.admit(ps, pq, torch.as_tensor(mask),
+                                   torch.as_tensor(new), *pe)
+            js, jq = J.engine_admit(js, jq, jnp.asarray(mask),
+                                    jnp.asarray(new), *je, params=jp,
+                                    geom=jg)
+            _same_state(ps, js, "admit")
+            _eq(pq, jq, "query buffer")
+
+
+@pytest.mark.parametrize("local_only,dynamic", [(False, False),
+                                                (True, False), (True, True)])
+def test_run_chunk_admit_per_shard_queues_matches_reference(ds, local_only,
+                                                            dynamic):
+    """Routed admission chunks: per-shard pending queues ((S, Np),
+    padded with INT32_MAX), per-shard cursors and entries, each shard
+    seating its own queue from offset 0, until a chunk finds nothing to
+    do: every output equal to the reference's, the cursors included."""
+    queries, (pc, pg, _), (jc, jg, _) = ds
+    spec = 4 if dynamic else 0
+    pp, jp = _params(spec)
+    if local_only:
+        pp, jp = _local(pp, jp)
+    pe, je = _shard_entries(pc, jc)
+    rng = np.random.default_rng(2)
+    tgt = rng.integers(0, S, len(queries))
+    arr = np.sort(rng.integers(0, 12, len(queries)))
+    npend = int(np.bincount(tgt, minlength=S).max())
+    pend_q = np.zeros((S, npend, queries.shape[1]), np.float32)
+    pend_a = np.full((S, npend), np.iinfo(np.int32).max, np.int32)
+    for s in range(S):
+        rows = np.flatnonzero(tgt == s)
+        pend_q[s, :len(rows)] = queries[rows]
+        pend_a[s, :len(rows)] = arr[rows]
+    q0 = np.zeros((S, SLOTS, queries.shape[1]), np.float32)
+    ps = P.engine_init(pc, torch.as_tensor(q0), *pe, pp, pg)
+    ps = ps._replace(done=torch.ones_like(ps.done))
+    js = J.engine_init(jc, jnp.asarray(q0), *je, params=jp, geom=jg)
+    js = js._replace(done=jnp.ones(js.done.shape, bool))
+    pq, jq = torch.as_tensor(q0), jnp.asarray(q0)
+    cfg = (JSpecController(spec_max=spec, W=1, max_degree=DEG).cfg
+           if dynamic else J_NULL_CFG)
+    pspec, jspec = _spec_state(spec)
+    ppend = (torch.as_tensor(pend_q), torch.as_tensor(pend_a))
+    jpend = (jnp.asarray(pend_q), jnp.asarray(pend_a))
+    pcur = np.zeros(S, np.int64)
+    jcur = jnp.zeros(S, jnp.int32)
+    t = 0
+    names = ("live_cnt", "width_sum", "admit_qidx", "ret_i", "ret_d",
+             "ret_rounds", "ret_ndist", "ret_age", "ret_trunc", "cursor")
+    for _ in range(40):
+        got = P.engine_run_chunk_admit(pc, ps, pq, pspec, cfg, 8, *ppend,
+                                       pcur, t, *pe, pp, pg, 8, dynamic)
+        want = J.engine_run_chunk_admit(jc, js, jq, jspec, cfg, 8, *jpend,
+                                        jcur, t, *je, params=jp, geom=jg,
+                                        K=8, dynamic=dynamic)
+        _same_state(got[0], want[0], f"round {t}")
+        _eq(got[1], want[1], "query buffer")
+        for a, b in zip(got[2], want[2]):
+            _eq(a, b, "controller")
+        assert int(got[3]) == int(want[3])
+        for a, b, name in zip(got[4:14], want[4:14], names):
+            _eq(a, b, name)
+        ps, pq, pspec, pcur = got[0], got[1], got[2], got[13].clone()
+        js, jq, jspec, jcur = want[0], want[1], want[2], want[13]
+        t += int(got[3])
+        if int(got[3]) == 0:
+            break
+    assert pcur.tolist() == np.bincount(tgt, minlength=S).tolist()
+    assert bool(ps.done.all())
