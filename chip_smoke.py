@@ -21,7 +21,8 @@ raises, so the script exits nonzero and prints no result line):
                way and bit for bit against the f32 kernel on the upcast
                operands;
                the distance at the router's shape (T 8 shards, QB 2048
-               queries, P 8 centroids, d 128);
+               queries, P 8 centroids, d 128) and at phase tiered's
+               (a frame buffer of 24 pages per shard);
                the bitonic sort and merge exactly, with a payload lane,
                ties and duplicated (dist, id, payload) entries, -0.0 /
                NaN / inf, in both bodies (registers up to M 128, shared
@@ -109,6 +110,34 @@ raises, so the script exits nonzero and prints no result line):
                one-shot search_sim's (up to a distance near-tie);
                dynamic recall within 0.01 of static; refill occupancy
                above frozen.
+  7a. tiered — the tiered page store (core/pagestore.py). (a) Phase
+               int's integer vectors rebuilt in 8-vector pages (32 per
+               shard, degree 8, prefetch lists of 2): 64 queries at
+               Poisson 0.25 per round into 2 slots per shard, chunk 4;
+               half-resident sessions (prefetch on and off, in-device
+               and host-paced admission, a wrapping ring of 6) on the
+               card equal CPU ref mode in every per-query record, the
+               stalls, the store's counters and its final residency;
+               full residency equals the untiered session; each session
+               captures once, keeps its consts' addresses across
+               boundaries, reads once per chunk and launches one
+               distance and one fused merge per device round; 2 frames
+               raise the livelock guard. (b) Phase main's sift-1b build,
+               256 queries at Poisson 0.25 into 2 slots per shard, chunk
+               4, spec 2, from 32, 28, 24 and 20 frames of 32 per shard,
+               prefetch on and off, beside the untiered session: every
+               row's ids equal the untiered ids; per row QPS, latency,
+               stalls per query, the store's counters, bytes copied to
+               the card, host ms per boundary, queries per clock round,
+               launches and the device idle share (the replays times
+               one replay's device time, over the wall time). (c) A
+               2^20-vector store (8 x 2048 pages of 64 x 128 f32, 512 MiB
+               pinned) under 512 frames per shard, driven through
+               boundary() with 64 demanded pages per shard: frames equal
+               the cold tier row for row; the demand path's host ms and
+               GB/s against one pinned copy_, and whether a staged
+               prefetch copy overlaps a kernel loop on the current
+               stream.
   7b. routed — two-tier routed serving (core/router.py). (a) Phase
                int's integer data as a routed build (8 spatial shards,
                page 64, degree 16, 8 centroids per shard): routed
@@ -145,7 +174,9 @@ raises, so the script exits nonzero and prints no result line):
                their bound counting bf16 operands' halved bytes); flash
                attention also at gemma3-1b's global layer (window 0) and
                the fused Gather merge also at spec 4's proposals (LB 20),
-               the distance at the router's shape, the standalone sort and
+               the distance at the router's shape and at the tiered
+               sessions' (a frame buffer of 24 pages per shard), the
+               standalone sort and
                merge also at the search's old proposal shapes, each on a
                line of its own; the standalone sort and merge at the
                routed path's shapes (their launches: the sift topr-2
@@ -322,6 +353,20 @@ def main_path_tiles():
     qb = QB if be.coalesce_active(items, nps) else 1
     return (SHARDS * be.distance_grid_steps(items, nps), qb, PAGE, DIM,
             SHARDS * nps)
+
+
+def tiered_tiles():
+    """(T, QB, P, d, pages) of the phase-B distance launch of phase
+    tiered (b) at TIERED_TIMING_FRAMES frames per shard: every shard's
+    lossless bucket (S * slots * W * (R + spec) assignments) coalesced
+    over the frame buffer (the coalescing sees its page count)."""
+    from repro_torch.core.backend import KernelBackend
+    items = SHARDS * TIERED["slots"] * W * (DEGREE + TIERED["spec"])
+    be = KernelBackend(coalesce_qb=QB)
+    f = TIERED_TIMING_FRAMES
+    qb = QB if be.coalesce_active(items, f) else 1
+    return (SHARDS * be.distance_grid_steps(items, f), qb, PAGE, DIM,
+            SHARDS * f)
 
 
 # ---------------------------------------------------------------------------
@@ -1380,6 +1425,547 @@ def stream_path(db, packed, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7a: the tiered page store
+# ---------------------------------------------------------------------------
+# (a)'s integer build: phase int's vectors in 8-vector pages (32 pages per
+# shard; phase int's 64-vector pages give 4, too few to tier), degree 8,
+# prefetch lists of 2; its traffic: 64 queries at Poisson 0.25 per round
+# into 2 slots per shard, chunk 4, L 16, spec 2 (the reference bench's
+# tiered leg at 8 shards). With degree 16 every half-resident session on
+# this data hits the livelock guard on the CPU.
+TIERED_INT = dict(page=8, degree=8, pref=2, queries=64, rate=0.25, slots=2,
+                  chunk=4, L=16, spec=2, ring=6)
+# (b)'s traffic: the reference bench's tiered leg (Poisson 0.25 per round,
+# 2 slots per shard, chunk 4, spec 2) scaled to the sift-1b stand-in (256
+# queries, L 32, k 10) over phase main's build (32 pages per shard). At
+# 0.5 and 0.25 the sessions hit the livelock guard on the CPU (so do 18
+# frames), so the curve stops at 20 of 32 frames.
+TIERED = dict(queries=256, rate=0.25, slots=2, chunk=4, spec=2,
+              frames=(32, 28, 24, 20))
+# the frame buffer of the tiered distance row in phase timing (of 32)
+TIERED_TIMING_FRAMES = 24
+# (c): a 2**20-vector cold tier (S 8 x NP 2048 pages of 64 x 128 f32,
+# 512 MiB pinned) under 512 frames per shard (128 MiB), 64 demanded pages
+# per shard per boundary; prefetch lists of 2 over a random degree-16
+# graph for the predictor
+CAPACITY = dict(S=8, NP=2048, P=64, d=128, device_pages=512, miss=64,
+                boundaries=12, degree=16)
+
+
+def timed_boundaries(ps) -> list:
+    """Wrap ``ps.boundary`` so each call's host seconds are appended to the
+    returned list (a boundary ends in host work: its copies and installs
+    are queued, the next chunk queues behind them)."""
+    times = []
+    boundary = ps.boundary
+
+    def timed(*a):
+        t0 = time.perf_counter()
+        out = boundary(*a)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    ps.boundary = timed
+    return times
+
+
+def tiered_records(st, n: int) -> dict:
+    return {**stream_records(st, n),
+            "stall_rounds": per_query(st, n, "stall_rounds")}
+
+
+def payload_bytes(ps, pages: int) -> int:
+    """Bytes of ``pages`` cold pages (vectors and norms) copied to the
+    card."""
+    return pages * ps.P * (ps.d * ps.cold_db.element_size()
+                           + ps.cold_vn.element_size())
+
+
+def tiered_integer(db, queries, dev) -> None:
+    """(a) Phase int's integer vectors as a tiered build: sessions on the
+    card against CPU ref mode (the records, stalls, the store's counters
+    and final residency), full residency against the untiered session,
+    both admission paths, a wrapping admission ring, the livelock guard;
+    one capture per session, the consts' addresses kept across
+    boundaries, one distance and one fused merge per device round."""
+    import numpy as np
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import EngineParams, pack_for_engine
+    from repro_torch.core.pagestore import PageStore
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.scheduler import poisson_arrivals, stream_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.search import build_index
+
+    c = TIERED_INT
+    t0 = time.perf_counter()
+    _, packed = build_index(db, shards=SHARDS, page_size=c["page"],
+                            r=c["degree"], pref_width=c["pref"])
+    build_s = time.perf_counter() - t0
+    nq = c["queries"]
+    queries = queries[:nq]
+    cpu = torch.device("cpu")
+    # a tiered session's build keeps its vector pages in host memory
+    builds = {(w.type, tiered): pack_for_engine(packed, device=w,
+                                                host_pages=tiered)
+              for w in (dev, cpu) for tiered in (False, True)}
+    NP = builds["cpu", False][0]["db"].shape[1]
+
+    def session(where, frames, prefetch=True, injit=True, ring=0,
+                spaced=False):
+        consts, geom, entry = builds[where.type, bool(frames)]
+        params = EngineParams.lossless(
+            SearchParams(L=c["L"], W=1, k=K), c["slots"], c["degree"],
+            spec_width=c["spec"],
+            kernel_mode="cuda" if where.type == "cuda" else "ref",
+            store_pages=NP if frames else 0)
+        ps = PageStore(consts, geom, frames, w_select=1,
+                       prefetch=prefetch) if frames else None
+        seen = []
+        if ps is not None:
+            ptrs = {k: v.data_ptr() for k, v in ps.device_view().items()}
+            boundary = ps.boundary
+
+            def watched(*a):
+                view = boundary(*a)
+                seen.append({k: v.data_ptr() for k, v in view.items()}
+                            == ptrs)
+                return view
+
+            ps.boundary = watched
+        arrivals = (np.arange(nq) * 2 if spaced
+                    else poisson_arrivals(c["rate"], nq, seed=1))
+        reset_launch_counts()
+        CACHE.reset_stats()
+        _, _, st = stream_search(
+            consts, geom, params, entry, queries, num_slots=c["slots"],
+            arrivals=arrivals, round_chunk=c["chunk"], injit_admit=injit,
+            ring_capacity=ring, pagestore=ps, device=where)
+        cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
+                           st.host_syncs)
+        return {"records": tiered_records(st, nq), "st": st, "cap": cap,
+                "launches": launch_counts(), "addresses_kept": all(seen),
+                "store": None if ps is None else (
+                    ps.counters(), ps.ttab.copy(), ps.frame_page.copy())}
+
+    untiered = session(dev, 0)
+    runs = {"full": dict(frames=NP),
+            "half_prefetch": dict(frames=NP // 2),
+            "half_demand": dict(frames=NP // 2, prefetch=False),
+            "half_prefetch_host_paced": dict(frames=NP // 2, injit=False),
+            "half_demand_host_paced": dict(frames=NP // 2, prefetch=False,
+                                           injit=False),
+            f"half_ring{c['ring']}": dict(frames=NP // 2, ring=c["ring"],
+                                          spaced=True)}
+    for name, kw in runs.items():
+        card = session(dev, **kw)
+        st, cap = card["st"], card["cap"]
+        want = untiered if name == "full" else session(cpu, **kw)
+        differ = first_difference(card["records"], want["records"])
+        same_store = want["store"] is None or (
+            card["store"][0] == want["store"][0]
+            and all(np.array_equal(a, b) for a, b in
+                    zip(card["store"][1:], want["store"][1:])))
+        emit({"phase": "tiered", "index": "integer", "run": name,
+              "pages_per_shard": NP, "device_pages": kw["frames"],
+              "prefetch": kw.get("prefetch", True),
+              "injit_admit": st.injit_admit, "ring": kw.get("ring", 0),
+              "queries": nq, "total_rounds": st.total_rounds,
+              "stalls": st.stalls, **dict(zip(
+                  ("page_hits", "page_misses", "demand_fetches",
+                   "prefetch_issued", "prefetch_hits"),
+                  card["store"][0].values())),
+              "host_dispatches": st.host_dispatches, **cap,
+              "addresses_kept": card["addresses_kept"],
+              "launches_per_device_round": {
+                  k: v / cap["device_rounds"]
+                  for k, v in card["launches"].items() if v},
+              "equals": "untiered" if name == "full" else "cpu_ref",
+              "first_difference": differ, "store_equal": same_store})
+        if differ is not None or not same_store:
+            raise AssertionError(f"tiered integer {name}: the card's "
+                                 f"session differs from its reference "
+                                 f"({differ}, store equal {same_store})")
+        if name == "full" and st.stalls:
+            raise AssertionError("tiered integer full: stalls at full "
+                                 "residency")
+        if name != "full" and not st.stalls:
+            raise AssertionError(f"tiered integer {name}: no stall")
+        if cap["captures"] > 1 or not card["addresses_kept"] or \
+                st.host_syncs != st.host_dispatches:
+            raise AssertionError(f"tiered integer {name}: one capture, "
+                                 f"kept addresses and one read per chunk "
+                                 f"expected: {cap}, "
+                                 f"{card['addresses_kept']}")
+        check_launches(f"tiered integer {name}", card["launches"],
+                       cap["device_rounds"])
+    # a cache smaller than one round's working set: the livelock guard
+    try:
+        session(dev, 2, prefetch=False)
+    except RuntimeError as e:
+        if "tiered page store livelock" not in str(e):
+            raise
+        guard = str(e)
+    else:
+        raise AssertionError("tiered integer: 2 frames per shard did not "
+                             "raise the livelock guard")
+    emit({"phase": "tiered", "index": "integer", "run": "livelock_guard",
+          "device_pages": 2, "raised": guard,
+          "host_build_s": round(build_s, 2)})
+
+
+def tiered_sift(db, packed, dev) -> dict:
+    """(b) The sift-1b stand-in (phase main's build) served from a frame
+    cache of TIERED["frames"] pages per shard, prefetch on and off, beside
+    the untiered session: per row QPS, latency, stalls, the store's
+    counters, bytes copied to the card, host ms per boundary, queries per
+    clock round, launches, the card's memory in use and an estimate of
+    the device idle share. Every row's ids must equal the untiered
+    session's. Returns the kernels' launches in the session at
+    TIERED_TIMING_FRAMES frames with prefetch, for phase timing."""
+    import numpy as np
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import EngineParams, pack_for_engine
+    from repro_torch.core.graph import brute_force_topk, recall_at_k
+    from repro_torch.core.metrics import stream_summary
+    from repro_torch.core.pagestore import PageStore
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.scheduler import poisson_arrivals, stream_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.search import dataset
+
+    c = TIERED
+    nq = c["queries"]
+    queries = dataset("sift-1b").queries(nq, seed=1)
+    arrivals = poisson_arrivals(c["rate"], nq, seed=0)
+    true_ids, _ = brute_force_topk(db, queries, K)
+    NP = packed.db.shape[1]
+
+    def serve(frames, prefetch):
+        """One session on a build of its own: a tiered one keeps its
+        vector pages in host memory, so the card holds only the frames."""
+        consts, geom, entry = pack_for_engine(packed, device=dev,
+                                              host_pages=frames > 0)
+        params = EngineParams.lossless(
+            SearchParams(L=L, W=W, k=K), c["slots"], DEGREE,
+            spec_width=c["spec"], coalesce_qb=QB,
+            store_pages=NP if frames else 0)
+        ps = PageStore(consts, geom, frames, w_select=W,
+                       prefetch=prefetch) if frames else None
+        times = timed_boundaries(ps) if ps is not None else []
+        ids, _, st = stream_search(consts, geom, params, entry, queries,
+                                   num_slots=c["slots"], arrivals=arrivals,
+                                   round_chunk=c["chunk"], device=dev,
+                                   pagestore=ps)
+        return ids, st, (None if ps is None else ps.counters()), times, ps
+
+    def device_idle(st) -> dict:
+        """An estimate of the session's device idle share: its replays
+        times one replay's device time (CUDA events over back-to-back
+        replays of the session's captured chunk, right after the session:
+        every replay runs the same K masked rounds), against the
+        session's wall time. It leaves out the boundaries' copies and
+        frame installs. torch.profiler over a whole session (some 450k
+        kernel records) costs tens of seconds to read back."""
+        entry = next(reversed(CACHE.entries.values()))
+        replay_ms = event_ms(entry.graph.replay, iters=20, warmup=2)
+        busy_ms = st.host_dispatches * replay_ms
+        return {"replay_ms": replay_ms, "replay_busy_ms": busy_ms,
+                "device_idle_share_estimate":
+                    1.0 - busy_ms / (st.wall_s * 1e3)}
+
+    base_ids = None
+    out = {}
+    for frames, prefetch in [(0, False)] + [
+            (f, p) for f in c["frames"] for p in (True, False)]:
+        # the card's memory in use: a session's peak over what the process
+        # held before it, with no captured chunk of an earlier row alive
+        CACHE.entries.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        CACHE.reset_stats()
+        ids, st, counters, times, ps = serve(frames, prefetch)
+        torch.cuda.synchronize()
+        session_mib = (torch.cuda.max_memory_allocated(dev)
+                       - base_mem) / 2**20
+        launches = launch_counts()
+        cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
+                           st.host_syncs)
+        summ = stream_summary(st)
+        clock = st.total_rounds + st.idle_rounds
+        if base_ids is None:
+            base_ids = ids
+        differ = np.flatnonzero((ids != base_ids).any(1))
+        line = {"phase": "tiered", "index": "sift-1b",
+                "run": "untiered" if not frames else
+                f"frames{frames}_{'prefetch' if prefetch else 'demand'}",
+                "pages_per_shard": NP, "device_pages": frames or NP,
+                "resident_fraction": st.resident_fraction,
+                "prefetch": prefetch, "queries": nq,
+                "arrival_rate": c["rate"], "slots_per_shard": c["slots"],
+                "round_chunk": c["chunk"], "spec": c["spec"],
+                "qps": nq / st.wall_s, "wall_s": st.wall_s,
+                "latency_rounds": summ["latency_rounds"],
+                "wall_latency_ms": summ["wall_latency_ms"],
+                "stall_rounds_per_query": st.stalls / nq,
+                "total_rounds": st.total_rounds,
+                "idle_rounds": st.idle_rounds, "clock_rounds": clock,
+                "queries_per_clock_round": nq / clock,
+                "recall@k": float(recall_at_k(ids, true_ids)),
+                "host_dispatches": st.host_dispatches, **cap,
+                "launches": {k: v for k, v in launches.items() if v},
+                "launches_per_device_round": {
+                    k: v / cap["device_rounds"]
+                    for k, v in launches.items() if v},
+                "ids_differ_from_untiered_rows": differ.tolist(),
+                "device_peak_mib_over_base": session_mib,
+                "vector_pages_on_device_mib": (
+                    packed.db.nbytes + packed.vnorm.nbytes) / 2**20
+                if ps is None else (ps.frames.nbytes
+                                    + ps.vnf.nbytes) / 2**20}
+        if ps is not None:
+            line.update(counters, prefetch_hit_rate=(
+                counters["prefetch_hits"] / counters["prefetch_issued"]
+                if counters["prefetch_issued"] else 0.0),
+                h2d_bytes=payload_bytes(ps, counters["demand_fetches"]
+                                        + counters["prefetch_issued"]),
+                boundaries=len(times),
+                host_ms_per_boundary=1e3 * sum(times) / max(len(times), 1))
+        line.update(device_idle(st))
+        del ps
+        # one more session of the same row (QPS spread in this process)
+        line["qps_repeat"] = nq / serve(frames, prefetch)[1].wall_s
+        emit(line)
+        out[line["run"]] = line
+        if differ.size:
+            raise AssertionError(f"tiered sift {line['run']}: rows "
+                                 f"{differ.tolist()} differ from the "
+                                 f"untiered session")
+        check_launches(f"tiered sift {line['run']}", launches,
+                       cap["device_rounds"])
+        if frames == NP and st.stalls:
+            raise AssertionError("tiered sift: stalls at full residency")
+        if st.host_syncs != st.host_dispatches or cap["captures"] > 1:
+            raise AssertionError(f"tiered sift {line['run']}: one read per "
+                                 f"chunk and one capture expected: {cap}")
+    full = out[f"frames{NP}_prefetch"]
+    if full["total_rounds"] != out["untiered"]["total_rounds"] or \
+            full["latency_rounds"] != out["untiered"]["latency_rounds"]:
+        raise AssertionError("tiered sift: full residency changed the "
+                             "schedule")
+    return out[f"frames{TIERED_TIMING_FRAMES}_prefetch"]["launches"]
+
+
+def capacity_check(dev) -> None:
+    """(c) The store itself at size: a 2**20-vector cold tier pinned on
+    the host (it never lies on the card whole) under a quarter of it in
+    frames. boundary() is driven directly with synthetic bitmaps
+    (CAPACITY["miss"] demanded and as many touched pages per shard) and
+    random candidate lists; the frames must equal the cold tier row for
+    row. Printed: the card's memory the store holds, the demand path's
+    host ms per boundary and host-to-device GB/s against one large pinned
+    copy_, and the overlap of a staged prefetch copy with a kernel loop
+    queued after the boundary, as the next chunk's replay is (it fails
+    unless the two together take clearly less than one after the
+    other)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import EngineGeom
+    from repro_torch.core.pagestore import PageStore
+
+    c = CAPACITY
+    S, NP, P, d = c["S"], c["NP"], c["P"], c["d"]
+    n = S * NP * P
+    gc.collect()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated(dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    t0 = time.perf_counter()
+    db = torch.randn((S, NP, P, d), generator=g, device=dev)
+    vnorm = (db * db).sum(-1).cpu()
+    db = db.cpu()                  # the pages live on the host only
+    adj = torch.randint(0, n, (S, NP * P, c["degree"]), generator=g,
+                        device=dev, dtype=torch.int32)
+    consts = {"db": db, "vnorm": vnorm, "adj": adj,
+              "pref": adj[..., :2].contiguous(),
+              "blk_perm": torch.arange(NP // 4, dtype=torch.int32,
+                                       device=dev).expand(S, -1)}
+    geom = EngineGeom(num_shards=S, page_size=P, pages_per_block=4,
+                      pages_per_shard=NP, dim=d, max_degree=c["degree"],
+                      spec_stored=2, n=n)
+    ps = PageStore(consts, geom, c["device_pages"], w_select=1)
+    del consts, db, vnorm, adj
+    gc.collect()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_mem = torch.cuda.memory_allocated(dev) - base_mem
+    rng = np.random.default_rng(0)
+
+    def fresh():
+        """Random candidate lists: each quiet boundary stages new pages."""
+        return (rng.integers(0, n, (S, 2, 32)).astype(np.int32),
+                np.zeros((S, 2, 32), bool), np.zeros((S, 2), bool))
+
+    cands = fresh()
+    quiet = np.zeros((S, NP), bool)
+
+    def bitmaps():
+        touch, miss = quiet.copy(), quiet.copy()
+        for s in range(S):
+            touch[s, rng.choice(np.flatnonzero(ps.ttab[s] >= 0), c["miss"],
+                                replace=False)] = True
+            miss[s, rng.choice(np.flatnonzero(ps.ttab[s] < 0), c["miss"],
+                               replace=False)] = True
+        return touch, miss
+
+    demand_ms = []
+    for _ in range(c["boundaries"]):
+        touch, miss = bitmaps()
+        t0 = time.perf_counter()
+        ps.boundary(touch, miss, *cands)
+        torch.cuda.synchronize()
+        demand_ms.append((time.perf_counter() - t0) * 1e3)
+    demanded = payload_bytes(ps, S * c["miss"])
+    # one large pinned copy in the same run: a quarter of the cold tier
+    src = ps.cold_db.view(-1, P, d)[:S * c["device_pages"]]
+    dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    start.record()
+    dst.copy_(src, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    big_ms = start.elapsed_time(end)
+    del dst
+
+    # overlap, in the order of a session: a quiet boundary (it commits the
+    # last stage and stages S * budget pages, copied on the side stream),
+    # then a matmul loop on the current stream, as the next chunk's replay
+    # is queued. A gate of large matmuls holds the card while the host
+    # runs the boundary, so both start together when it ends, and each is
+    # timed from the gate's end on the card's clock (CUDA events).
+    def mm(x, loops):
+        for _ in range(loops):
+            torch.mm(x, x)
+
+    def mm_ms(x):
+        mm(x, 2)
+        start.record()
+        mm(x, 10)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 10
+
+    t0 = time.perf_counter()
+    ps.boundary(quiet, quiet, *fresh())
+    stage_host_ms = (time.perf_counter() - t0) * 1e3
+    # the store's memory on the card once its landing buffers exist (read
+    # before the matmuls' operands and BLAS workspace are allocated)
+    torch.cuda.synchronize()
+    store_mem = torch.cuda.memory_allocated(dev) - base_mem
+    small = torch.randn((1024, 1024), device=dev)
+    large = torch.randn((4096, 4096), device=dev)
+    gate = math.ceil(3 * stage_host_ms / mm_ms(large)) + 1
+
+    def staged_run(loops):
+        """(ms from the gate's end to the staged copy's end, to the
+        loop's end, whether the gate outlasted the boundary's host work,
+        pages staged)."""
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        issued = ps.prefetch_issued
+        args = (quiet, quiet, *fresh())
+        mm(large, gate)
+        marks[0].record()
+        ps.boundary(*args)
+        held = not marks[0].query()
+        if ps._staged is None:
+            raise AssertionError("capacity check: nothing was staged")
+        marks[1].record(ps._side)    # behind the staged copy
+        mm(small, loops)
+        marks[2].record()
+        torch.cuda.synchronize()
+        return (marks[0].elapsed_time(marks[1]),
+                marks[0].elapsed_time(marks[2]), held,
+                ps.prefetch_issued - issued)
+
+    copy_ms, _, held_a, staged = staged_run(0)
+    loops = max(1, round(copy_ms / mm_ms(small)))
+    start.record()
+    mm(small, loops)
+    end.record()
+    torch.cuda.synchronize()
+    loop_ms = start.elapsed_time(end)
+    copy_b, loop_b, held_b, staged2 = staged_run(loops)
+    both_ms = max(copy_b, loop_b)
+    serial_ms = copy_ms + loop_ms
+    # one after the other they take the sum; overlapped about the larger
+    overlapped = serial_ms - both_ms > 0.5 * min(copy_ms, loop_ms)
+    del small, large
+    ps.boundary(quiet, quiet, *fresh())       # commit the last stage
+    torch.cuda.synchronize()
+    # every resident frame equals its cold page, row for row
+    pages = [(s, p) for s in range(S) for p in np.flatnonzero(
+        ps.ttab[s] >= 0)]
+    src_i = torch.as_tensor([s * NP + p for s, p in pages])
+    dst_i = torch.as_tensor([s * ps.P_dev + int(ps.ttab[s, p])
+                             for s, p in pages], device=dev)
+    equal = True
+    for lo in range(0, len(pages), 512):     # 16 MiB at a time
+        want = ps.cold_db.view(-1, P, d)[src_i[lo:lo + 512]].to(dev)
+        got = ps.frames.view(-1, P, d)[dst_i[lo:lo + 512]]
+        equal &= bool(torch.equal(got, want))
+    equal &= bool(torch.equal(
+        ps.vnf.view(-1, P)[dst_i],
+        ps.cold_vn.view(-1, P)[src_i].to(dev)))
+    emit({"phase": "tiered", "check": "capacity", "vectors": n,
+          "cold_tier_mib": ps.cold_db.nbytes / 2**20,
+          "frames_mib": ps.frames.nbytes / 2**20, "pinned":
+          ps.cold_db.is_pinned(), "setup_s": setup_s,
+          "device_mib_after_setup": setup_mem / 2**20,
+          "device_mib_after_first_stage": store_mem / 2**20,
+          "boundaries": c["boundaries"],
+          "demanded_pages_per_boundary": S * c["miss"],
+          "demanded_bytes_per_boundary": demanded,
+          "demand_host_ms_per_boundary": demand_ms,
+          "demand_gb_s": [demanded / t / 1e6 for t in demand_ms],
+          "pinned_copy_mib": src.nbytes / 2**20, "pinned_copy_ms": big_ms,
+          "pinned_copy_gb_s": src.nbytes / big_ms / 1e6,
+          "counters": ps.counters(), "staged_pages": [staged, staged2],
+          "staged_bytes": payload_bytes(ps, staged),
+          "stage_boundary_host_ms": stage_host_ms, "gate_mm": gate,
+          "gate_held": [held_a, held_b],
+          "staged_copy_ms": copy_ms, "loop_mm": loops,
+          "loop_ms": loop_ms, "staged_copy_ms_beside_loop": copy_b,
+          "loop_ms_beside_copy": loop_b, "both_ms": both_ms,
+          "serial_ms": serial_ms, "overlapped": overlapped,
+          "frames_equal_cold_tier": equal, "resident_pages": len(pages)})
+    if not equal:
+        raise AssertionError("capacity check: a frame differs from its "
+                             "cold-tier page")
+    if not ps.cold_db.is_pinned():
+        raise AssertionError("capacity check: the cold tier is not pinned")
+    if staged2 < staged // 2:
+        raise AssertionError(f"capacity check: the two staged payloads "
+                             f"differ too much to compare ({staged}, "
+                             f"{staged2} pages)")
+    if not (held_a and held_b):
+        raise AssertionError("capacity check: the gate ended before the "
+                             "boundary's host work; the overlap timing "
+                             "does not hold")
+    if not overlapped:
+        raise AssertionError(f"capacity check: the staged copy did not "
+                             f"overlap the loop ({both_ms} ms together, "
+                             f"{copy_ms} + {loop_ms} ms alone)")
+
+
+# ---------------------------------------------------------------------------
 # Phase 7b: two-tier routed serving
 # ---------------------------------------------------------------------------
 # routed builds: 8 centroids per shard; (b) keeps the stream phase's
@@ -2010,6 +2596,39 @@ def router_distance_row(dev):
             b, by, dict(T=T, QB=qb, P=P, d=d, NP=NP))
 
 
+def tiered_distance_row(dev):
+    """The timing row of the distance kernel at the tiered sessions'
+    shape (tiered_tiles): the sift-1b stand-in's first vectors as the
+    frame buffer, page-sorted tiles, real vectors as queries; the library
+    call is baddbmm on pre-gathered pages."""
+    import torch
+    from repro_torch.kernels.distance import (paged_distances,
+                                              paged_distances_ref)
+    from repro_torch.launch.search import dataset
+    T, qb, P, d, npages = tiered_tiles()
+    g = torch.Generator(device=dev).manual_seed(13)
+    db0 = torch.as_tensor(dataset("sift-1b").materialize()[:npages * P],
+                          device=dev)
+    frames = db0.reshape(npages, P, d).contiguous()
+    vnorm = (frames * frames).sum(-1)
+    pid = torch.sort(torch.randint(0, npages, (T,), generator=g,
+                                   device=dev, dtype=torch.int32)).values
+    q = frames[torch.randint(0, npages, (T,), generator=g, device=dev),
+               :qb].contiguous()
+    qq = (q * q).sum(-1)
+    pages = frames[pid.long()]
+    base = qq[:, :, None] + vnorm[pid.long()][:, None, :]
+    uniq = int(torch.unique(pid).numel())
+    nbytes = (pid.numel() * 4 + q.numel() * 4 + qq.numel() * 4
+              + uniq * P * (d + 1) * 4 + T * qb * P * 4)
+    b, by = bound_ms(nbytes, 2.0 * T * qb * P * d + 3.0 * T * qb * P)
+    return ("paged_distance", (pid, q, qq, frames, vnorm), paged_distances,
+            paged_distances_ref,
+            lambda: torch.baddbmm(base, q, pages.transpose(1, 2),
+                                  alpha=-2.0),
+            b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages))
+
+
 def bitonic_rows(dev) -> list:
     """Timing rows of the search path's bitonic shapes: the proposals'
     sort (B 256, M 16) and the merge row A(32) ++ filler(16) ++
@@ -2163,6 +2782,7 @@ def time_kernels(dev) -> list:
              (gather_row(GATHER["R"], GATHER["LA"], GATHER["LB_SPEC"], dev),
               dict(case="spec 4 proposals (W * (R + spec) = 20)")),
              (router_distance_row(dev), dict(case=ROUTER_CASE)),
+             (tiered_distance_row(dev), dict(case=TIERED_CASE)),
              (search_bitonic[0], dict(case=OLD_BITONIC_CASE)),
              (search_bitonic[1], dict(case=OLD_BITONIC_CASE))]
     out = []
@@ -2213,15 +2833,17 @@ def timing_in_child() -> list:
 # sort and merge at the search's old proposal shapes (no path launches
 # them: the fused Gather merge does their work)
 ROUTER_CASE = "router shape (routed path)"
+TIERED_CASE = (f"tiered shape (a frame buffer of {TIERED_TIMING_FRAMES} "
+               "pages per shard)")
 OLD_BITONIC_CASE = "search proposals' shape (no caller: the fused merge)"
 
 
-def report_timing(timed, launches, errs) -> list:
+def report_timing(timed, launches, errs, tiered_launches: int) -> list:
     """Print the timing lines with each kernel's launches on its path and
     its largest error against its plain version; returns the kernels'
     summary entries (the rows with a case only have a line of their
     own; the router's distance line carries its launches per routed
-    session)."""
+    session, the tiered one its launches in phase tiered's session)."""
     kernels = []
     for entry, line in timed:
         entry = {**entry, "max_abs_err": errs[entry["name"]]}
@@ -2230,6 +2852,8 @@ def report_timing(timed, launches, errs) -> list:
             kernels.append(entry)
         elif line["case"] == ROUTER_CASE:
             line = {**line, "launches_per_routed_session": 1}
+        elif line["case"] == TIERED_CASE:
+            line = {**line, "launches_per_tiered_session": tiered_launches}
         emit({"phase": "timing", **entry, **line})
     return kernels
 
@@ -2286,7 +2910,8 @@ def run_phases(dev, name: str, routed_build) -> int:
         "main path tiles": (T, qb, P, d, pages, True),
         "main path tiles, pages unsorted": (T, qb, P, d, pages, False),
         "1M-vector store": (T, qb, P, d, 2**20 // P, True),
-        "router": ROUTER_TILES}, dev)}
+        "router": ROUTER_TILES,
+        "tiered frame buffer": (*tiered_tiles(), True)}, dev)}
     errs.update(check_distance_bf16({
         "main path tiles": (T, qb, P, d, pages, True),
         "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev))
@@ -2315,6 +2940,12 @@ def run_phases(dev, name: str, routed_build) -> int:
     stream_path(db, packed, dev)
     emit({"phase": "stream", "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
+    tiered_integer(int_index[2], int_index[1], dev)
+    tiered = tiered_sift(db, packed, dev)
+    capacity_check(dev)
+    torch.cuda.empty_cache()
+    emit({"phase": "tiered", "seconds": round(time.perf_counter() - t0, 2)})
+    t0 = time.perf_counter()
     routed_integer(int_index[2], int_index[1], dev)
     # the standalone sort and merge run on the routed path: their
     # launches are the sift topr-2 session's (route sort, fusion merges)
@@ -2323,7 +2954,8 @@ def run_phases(dev, name: str, routed_build) -> int:
     launches["bitonic_merge"] = routed["bitonic_merge"]
     emit({"phase": "routed", "seconds": round(time.perf_counter() - t0, 2)})
     launches["flash_attention"] = serve_path(dev)["flash_attention"]
-    kernels = report_timing(timing_in_child(), launches, errs)
+    kernels = report_timing(timing_in_child(), launches, errs,
+                            tiered["paged_distance"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

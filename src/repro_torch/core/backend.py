@@ -210,6 +210,32 @@ class KernelBackend:
         return coalesced_distance_op(ppage, slot, mask, qvec, qq, db, vnorm,
                                      qb=qb, mode=self.kernel_mode())
 
+    def translated_item_distances(self, ttab, ppage, slot, mask, qvec, qq,
+                                  frames, vnorm):
+        """:meth:`item_distances` through the tiered store's translation
+        table (core/pagestore.py).
+
+        ttab           : (NP,) or (S, NP) i32, logical page -> device
+                         frame, -1 where the page is not resident
+        frames, vnorm  : (P_dev, P, d), (P_dev, P), with the same leading
+                         shard axis: the device frame buffer
+        returns        : (dist (I,), resident (I,) bool). Resident
+                         assignments read their frame exactly as
+                         ``item_distances`` reads a full store;
+                         non-resident ones read nothing (BIG_DIST) and are
+                         reported so the owner query can stall.
+
+        The coalescing decision sees ``npages = P_dev``, as the
+        reference's does. With an identity table over a full store every
+        argument to ``item_distances`` is the untranslated call's.
+        """
+        frame = ttab.gather(-1, ppage.long().clamp(0, ttab.shape[-1] - 1))
+        resident = frame >= 0
+        fpage = frame.long().clamp(0, frames.shape[-3] - 1)
+        dist = self.item_distances(fpage, slot, mask & resident, qvec, qq,
+                                   frames, vnorm)
+        return dist, resident
+
 
 def paged_view(db: torch.Tensor, vnorm: torch.Tensor, page_size: int):
     """Reshape a flat (N, d) store into the paged (NP, P, d) layout the

@@ -159,6 +159,14 @@ class EngineParams:
                                     # chunk's round boundaries, page
                                     # corruption in the phase-B distance
                                     # read. None adds no op.
+    store_pages: int = 0            # tiered page store (core/
+                                    # pagestore.py): logical pages per
+                                    # shard when the phase-B read goes
+                                    # through the translation table
+                                    # consts["ttab"] into a device frame
+                                    # buffer; a non-resident page stalls
+                                    # its owner queries for the round.
+                                    # 0 = device-resident store, no op
 
     @property
     def backend(self) -> KernelBackend:
@@ -196,6 +204,12 @@ class EngineState(NamedTuple):
     props_sent: torch.Tensor     # (S,) accepted proposals sent by this source
     quarantined: torch.Tensor    # (S,) corrupt distances quarantined to
                                  # BIG_DIST by the guard (guard_nonfinite)
+    page_touch: torch.Tensor     # (S, store_pages) bool: logical pages each
+                                 # shard served from resident frames since
+                                 # the last chunk boundary ((S, 0) untiered)
+    page_miss: torch.Tensor      # (S, store_pages) bool: logical pages
+                                 # demanded but not resident (the demand
+                                 # set of the next chunk boundary)
 
 
 def _exchange(tree: dict) -> dict:
@@ -237,9 +251,11 @@ def _init_state(queries, qq, entry_vec, entry_norm, entry_id,
     z = torch.zeros((S, Qs), dtype=torch.int32, device=dev)
     zs = torch.zeros((S,), dtype=torch.int32, device=dev)
     dl = params.deadline_rounds if params.deadline_rounds > 0 else NEVER
+    pz = torch.zeros((S, params.store_pages), dtype=torch.bool, device=dev)
     return EngineState(cand_d, cand_i, cand_e, bloom, z.bool(), z, z, z,
                        torch.full((S, Qs), dl, dtype=torch.int32,
-                                  device=dev), z.bool(), zs, zs, zs, zs, zs)
+                                  device=dev), z.bool(), zs, zs, zs, zs, zs,
+                       pz, pz.clone())
 
 
 def _fa_select(state: EngineState, params: EngineParams, geom: EngineGeom):
@@ -342,21 +358,32 @@ def _fc_propose(state: EngineState, keep_a, recv_b, queries, qq, spec_w,
 
 
 def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
-                 geom: EngineGeom):
+                 geom: EngineGeom, ttab=None):
     """Owner SiN: translate id -> physical page/slot, compute distances.
 
     In gather_vectors mode returns the raw vectors instead (the
     baseline). Also counts page-buffer statistics per shard: unique
     pages (dynamic allocating shares a page read across assignments) vs
     raw items. A fault plan with page corruption rewrites the distances
-    of its bad pages (salted by each owner shard) to garbage, exactly as
-    damaged media would, on every visit; the baseline is exempt.
+    of its bad (logical) pages (salted by each owner shard) to garbage,
+    exactly as damaged media would, on every visit; the baseline is
+    exempt.
+
+    With the tiered page store (``params.store_pages > 0``) ``db`` /
+    ``vnorm`` are the device frame buffers (S, P_dev, ...) and ``ttab``
+    the (S, store_pages) translation table: pages clamp to the store's
+    page count, the read goes through
+    :meth:`KernelBackend.translated_item_distances`, a ``"miss"`` lane
+    rides the reply so the requester can stall the queries that demanded
+    a cold page, and the stage also returns each shard's page touch and
+    miss bitmaps (S, store_pages).
     """
     vid, mask = recv["vid"], recv["mask"]              # (S, S_src, C_B)
     S, _, C = vid.shape
     flat_vid = vid.reshape(S, -1).clamp(0, geom.n - 1)
     flat_mask = mask.reshape(S, -1)
-    ppage = geom.phys_page(flat_vid, blk_perm).clamp(0, db.shape[1] - 1)
+    npages = params.store_pages or db.shape[1]
+    ppage = geom.phys_page(flat_vid, blk_perm).clamp(0, npages - 1)
     slot = flat_vid % geom.page_size
 
     items = flat_mask.sum(-1).to(torch.int32)
@@ -367,6 +394,10 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
     uniq = (first & (sorted_pages != 2**30)).sum(-1).to(torch.int32)
 
     if params.gather_vectors:
+        if params.store_pages:
+            raise NotImplementedError(
+                "the gather_vectors baseline moves raw vectors, not page "
+                "reads: it has no tiered page store")
         srow = torch.arange(S, device=vid.device)[:, None]
         v = db[srow, ppage, slot].float()                  # (S, S*C, d)
         vn = vnorm[srow, ppage, slot]
@@ -374,19 +405,36 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
                                    ).reshape(S, S, C, -1),
                 "vn": torch.where(flat_mask, vn, 0.0).reshape(S, S, C)
                 }, items, uniq
-    dist = params.backend.item_distances(
-        ppage, slot, flat_mask, recv["qvec"].reshape(S, S * C, -1),
-        recv["qq"].reshape(S, -1), db, vnorm)
+    args = (ppage, slot, flat_mask, recv["qvec"].reshape(S, S * C, -1),
+            recv["qq"].reshape(S, -1), db, vnorm)
+    if params.store_pages:
+        dist, resident = params.backend.translated_item_distances(ttab,
+                                                                   *args)
+    else:
+        dist = params.backend.item_distances(*args)
     if params.faults is not None and params.faults.any_corrupt:
         shard = torch.arange(S, device=vid.device)[:, None]
         bad = ftinject.bad_page_mask(params.faults, ppage, shard)
         dist = torch.where(bad & flat_mask,
                            ftinject.corrupt_value(params.faults), dist)
-    return {"dist": dist.reshape(S, S, C)}, items, uniq
+    if not params.store_pages:
+        return {"dist": dist.reshape(S, S, C)}, items, uniq
+    missed = flat_mask & ~resident
+
+    def bitmap(hit):
+        # masked lanes scatter into a spill column that is sliced off
+        ext = torch.zeros((S, npages + 1), dtype=torch.bool,
+                          device=vid.device)
+        return ext.scatter_(-1, torch.where(hit, ppage, npages),
+                            True)[:, :npages]
+
+    return ({"dist": dist.reshape(S, S, C), "miss": missed.reshape(S, S, C)},
+            items, uniq, bitmap(flat_mask & resident), bitmap(missed))
 
 
 def _fe_merge(state: EngineState, keep_a, keep_c, recv_d, items, uniq,
-              queries, qq, params: EngineParams):
+              queries, qq, params: EngineParams, page_touch=None,
+              page_miss=None):
     """Requester: recover distances, bloom-insert, merge, re-terminate.
 
     The gather_vectors baseline computes its distances here, from the
@@ -395,6 +443,14 @@ def _fe_merge(state: EngineState, keep_a, keep_c, recv_d, items, uniq,
     become worthless-but-harmless candidates: they still count as
     accepted proposals (the read happened), but a BIG_DIST entry never
     displaces a real one in the merge.
+
+    Tiered store (``params.store_pages > 0``): a query with any accepted
+    assignment on a non-resident page (the reply's ``"miss"`` lane)
+    **stalls**: its whole round is restored like a ``done`` row's
+    (candidates, bloom, rounds, n_dist), so it retries the same round
+    after the boundary's demand fetch; ``age`` still advances.
+    ``page_touch`` / ``page_miss`` are the round's bitmaps, OR-ed into
+    the state for the boundary.
     """
     L = params.search.L
     props = keep_c["props"]                            # (S, Qs, M)
@@ -411,10 +467,19 @@ def _fe_merge(state: EngineState, keep_a, keep_c, recv_d, items, uniq,
         dist = gather_from_buckets(recv_d["dist"], *gather)
     accepted = keep_c["ok"].reshape(S, Qs, M)
     dist = torch.where(accepted, dist.reshape(S, Qs, M), BIG_DIST)
-    keep = state.done
+    keep, acc_eff = state.done, accepted
+    p_touch, p_miss = state.page_touch, state.page_miss
+    if params.store_pages:
+        # a live row always has an unexpanded candidate, so a stalled
+        # row is never re-terminated by the done update below
+        missf = gather_from_buckets(recv_d["miss"], *gather)
+        stall = (missf.reshape(S, Qs, M) & accepted).any(-1) & ~state.done
+        keep = state.done | stall
+        acc_eff = accepted & ~stall[..., None]
+        p_touch, p_miss = p_touch | page_touch, p_miss | page_miss
     quarantined = state.quarantined
     if params.guard_nonfinite:
-        dist, quar = quarantine_distances(dist, accepted, BIG_DIST,
+        dist, quar = quarantine_distances(dist, acc_eff, BIG_DIST,
                                           dim=(1, 2))
         quarantined = quarantined + quar
 
@@ -429,14 +494,15 @@ def _fe_merge(state: EngineState, keep_a, keep_c, recv_d, items, uniq,
     cand_e = torch.where(k3, state.cand_e, cand_e)
     bloom = torch.where(k3, state.bloom, bloom)
     rounds = state.rounds + worked.int()
-    n_dist = state.n_dist + torch.where(worked, accepted.sum(-1), 0).int()
+    n_dist = state.n_dist + torch.where(worked, acc_eff.sum(-1), 0).int()
     done = state.done | ~((~cand_e) & (cand_i != ID_SENTINEL)).any(-1)
     return EngineState(
         cand_d, cand_i, cand_e, bloom, done, rounds, n_dist,
         state.age, state.deadline, state.truncated,
         state.items_recv + items, state.pages_unique + uniq,
         state.drops_b + keep_c["drops"],
-        state.props_sent + accepted.sum((1, 2)).int(), quarantined)
+        state.props_sent + acc_eff.sum((1, 2)).int(), quarantined,
+        p_touch, p_miss)
 
 
 def _finalize(state: EngineState, k: int):
@@ -454,17 +520,24 @@ def _finalize(state: EngineState, k: int):
 # ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
-def pack_for_engine(packed: PackedIndex, device="cuda"):
+def pack_for_engine(packed: PackedIndex, device="cuda", *,
+                    host_pages: bool = False):
     """PackedIndex -> (consts dict of tensors on ``device`` with a leading
-    shard axis, geom, (entry_vec, entry_norm, entry_id))."""
+    shard axis, geom, (entry_vec, entry_norm, entry_id)).
+
+    ``host_pages`` keeps the vector pages (``db`` / ``vnorm``) in host
+    memory: the build of a tiered session, whose ``PageStore`` takes them
+    as its cold tier and puts only its frame buffers on the device."""
     dev = resolve_device(device)
     geom = EngineGeom.from_packed(packed)
-    consts = {name: torch.as_tensor(getattr(packed, name), device=dev)
-              for name in ("db", "vnorm", "adj", "pref", "blk_perm")}
+    consts = {name: torch.as_tensor(
+        getattr(packed, name),
+        device="cpu" if host_pages and name in ("db", "vnorm") else dev)
+        for name in ("db", "vnorm", "adj", "pref", "blk_perm")}
     # locate the entry vertex's physical position on its shard
     s, p, sl = (int(x[0]) for x in physical_page_of(packed, [packed.entry]))
-    entry = (consts["db"][s, p, sl].float(), consts["vnorm"][s, p, sl],
-             int(packed.entry))
+    entry = (consts["db"][s, p, sl].float().to(dev),
+             consts["vnorm"][s, p, sl].to(dev), int(packed.entry))
     return consts, geom, entry
 
 
@@ -477,11 +550,12 @@ def _sim_round(state: EngineState, consts, queries, qq, spec_w,
                            params, geom)
     send_c, keep_c = _fc_propose(state, keep_a, exchange(send_b), queries,
                                  qq, spec_w, params, geom)
-    send_d, items, uniq = _fd_distance(exchange(send_c), consts["db"],
-                                       consts["vnorm"], consts["blk_perm"],
-                                       params, geom)
+    # tiered store: stage D also returns the round's page bitmaps
+    send_d, items, uniq, *bitmaps = _fd_distance(
+        exchange(send_c), consts["db"], consts["vnorm"], consts["blk_perm"],
+        params, geom, consts.get("ttab"))
     return _fe_merge(state, keep_a, keep_c, exchange(send_d), items, uniq,
-                     queries, qq, params)
+                     queries, qq, params, *bitmaps)
 
 
 def exchange_buckets(consts, queries, entry_vec, entry_norm, entry_id: int,

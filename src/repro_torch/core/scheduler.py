@@ -87,9 +87,20 @@ reused. When the window is full, ``overload="block"`` keeps arrivals
 waiting on the host and ``"shed"`` rejects every arrival that finds it
 full (``StreamStats.shed``).
 
+**Tiered page store** (``pagestore=``, core/pagestore.py; flat pool,
+both admission paths): the consts' pages are the store's device frame
+buffers and translation table, a query whose round reads a
+non-resident page stalls for that round, and at every chunk boundary
+the page bitmaps ride the chunk's one host read into
+``PageStore.boundary`` (commit the staged prefetch, demand-fetch the
+misses, stage the next prefetch), which rewrites the frames and the
+table in place, so the chunk's capture is reused. A row whose round
+counter stays frozen for ``_LIVELOCK_BOUNDARIES`` boundaries (the cache
+cannot hold one round's working set) raises.
+
 Not ported here (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue A item): the tiered page store (item 11), the live
-index (12) and the multi-device stepper (13).
+ROADMAP.md queue A item): the live index (item 12) and the
+multi-device stepper (13).
 """
 from __future__ import annotations
 
@@ -107,6 +118,13 @@ from repro_torch.core.engine import (EngineGeom, EngineParams, _finalize,
 from repro_torch.core.metrics import slot_occupancy
 from repro_torch.ft.inject import NEVER
 from repro_torch.utils import INVALID, resolve_device, to_device, to_host
+
+
+# tiered store: consecutive no-round-progress chunk boundaries for one
+# live row before the scheduler declares a livelock (the round's page
+# working set cannot fit the device cache, so demand fetches thrash
+# forever). A legitimate page stall clears at the next boundary.
+_LIVELOCK_BOUNDARIES = 256
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -248,8 +266,8 @@ class QueryResult:
                               # of the query's routed shards searched
                               # to completion
     stall_rounds: int = 0     # serving-clock rounds aged without working
-                              # (a fault plan's kill or delay; routed:
-                              # summed over legs)
+                              # (a tiered-store page miss, a fault plan's
+                              # kill or delay; routed: summed over legs)
 
     @property
     def wait_rounds(self) -> int:
@@ -262,9 +280,8 @@ class QueryResult:
 
 @dataclasses.dataclass
 class StreamStats:
-    """Aggregate scheduler run statistics. The fields of the parts not
-    ported (the tiered store, the live index) keep the reference's
-    at-rest values."""
+    """Aggregate scheduler run statistics. The live index's fields (not
+    ported) keep the reference's at-rest values."""
 
     results: list             # [QueryResult] in retirement order
     total_rounds: int         # engine rounds stepped (busy rounds)
@@ -306,10 +323,13 @@ class StreamStats:
                               # queries whose f legs finished cleanly
                               # (length R+1; empty on the flat path)
     stalls: int = 0           # sum of QueryResult.stall_rounds
-    prefetch_hits: int = 0    # tiered page store (not ported)
-    prefetch_issued: int = 0  # tiered page store (not ported)
+    prefetch_hits: int = 0    # tiered store: prefetched pages that
+                              # were touched before eviction
+    prefetch_issued: int = 0  # tiered store: pages staged by the
+                              # speculative prefetcher
     resident_fraction: float = 1.0
-                              # tiered page store (not ported)
+                              # tiered store: device frames / logical
+                              # pages per shard (1.0 = untiered)
     delta_hits: int = 0       # live index (not ported)
     tombstoned: int = 0       # live index (not ported)
     epoch_swaps: int = 0      # live index (not ported)
@@ -358,8 +378,34 @@ class StreamScheduler:
         if ring_capacity < 0:
             raise ValueError(
                 f"ring_capacity must be >= 0, got {ring_capacity}")
+        self.pagestore = pagestore
+        if pagestore is not None:
+            # tiered page store: the sim driver's flat pool only (routed
+            # legs re-enter the scheduler; tier the flat leg instead)
+            if mesh is not None:
+                raise ValueError(
+                    "the tiered page store runs on the sim driver only "
+                    "(mesh must be None)")
+            if routed:
+                raise ValueError(
+                    "routed serving does not support the tiered page "
+                    "store")
+            if params.store_pages != pagestore.num_pages:
+                raise ValueError(
+                    f"params.store_pages={params.store_pages} != "
+                    f"pagestore.num_pages={pagestore.num_pages}")
+            if pagestore.S != geom.num_shards:
+                raise ValueError(
+                    f"pagestore built for {pagestore.S} shards, "
+                    f"geom has {geom.num_shards}")
+            # the frame buffers and the translation table stand in for
+            # the pages; the store updates them in place at boundaries
+            consts = {**consts, **pagestore.device_view()}
+        elif params.store_pages > 0:
+            raise ValueError(
+                "params.store_pages > 0 needs a PageStore (pass "
+                "pagestore=...) to own the translation table")
         for what, on, item in (
-                ("the tiered page store", pagestore is not None, 11),
                 ("the live index", live is not None, 12),
                 ("multi-device serving", mesh is not None, 13)):
             if on:
@@ -413,6 +459,9 @@ class StreamScheduler:
         self.ring_capacity = int(ring_capacity)
         self.overload = overload
         self._static_spec = None
+        # livelock watch of the tiered store (see _tier_boundary)
+        self._stall_rounds_prev = None
+        self._stall_count = None
 
     # -- host-side pool bookkeeping -----------------------------------------
     def _fresh_pool(self, queries_pool):
@@ -711,9 +760,13 @@ class StreamScheduler:
             # traces
             fin_i, fin_d, _ = _finalize(state, k)
             ctrl = spec_state if self.controller is not None else ()
+            tier = () if self.pagestore is None else (
+                state.page_touch, state.page_miss, state.cand_i,
+                state.cand_e)
             host = to_host(steps, live_cnt, width_sum, state.done,
                            state.rounds, state.n_dist, state.age,
-                           state.truncated, fin_i, fin_d, *ctrl, *extra)
+                           state.truncated, fin_i, fin_d, *ctrl, *tier,
+                           *extra)
             syncs += 1
             now_wall = time.perf_counter()
             steps = int(host[0])
@@ -722,6 +775,9 @@ class StreamScheduler:
             live_cnt, width_sum = live_cnt[:steps], width_sum[:steps]
             if self.controller is not None:
                 self.controller.store(host[10:15])
+            if tier and steps:
+                at = 10 + len(ctrl)
+                self._tier_boundary(state, *host[at:at + 4], done, rounds)
             if injit:
                 # entries past `steps` are the traces' initial values
                 (admit_qidx, ret_i, ret_d, ret_rounds, ret_ndist, ret_age,
@@ -766,6 +822,7 @@ class StreamScheduler:
                 owner[s, r] = INVALID
             retired += int(fin.sum())
 
+        ps = self.pagestore
         # end-of-session counters: one transfer for the whole summary
         pages_unique, items_recv, props_sent, drops_b, quarantined = to_host(
             state.pages_unique, state.items_recv, state.props_sent,
@@ -786,7 +843,45 @@ class StreamScheduler:
             shed=len(shed_qids),
             truncated=sum(1 for r in results if r.truncated),
             quarantined=int(quarantined.sum()),
-            stalls=sum(r.stall_rounds for r in results))
+            stalls=sum(r.stall_rounds for r in results),
+            prefetch_hits=ps.prefetch_hits if ps is not None else 0,
+            prefetch_issued=ps.prefetch_issued if ps is not None else 0,
+            resident_fraction=(ps.resident_fraction if ps is not None
+                               else 1.0))
+
+    def _tier_boundary(self, state, touch, miss, cand_i, cand_e, done,
+                       rounds) -> None:
+        """The tiered store's chunk boundary, on the chunk's one host
+        read: fold the touch/miss bitmaps into residency, commit the
+        payload staged at the previous boundary (its copy overlapped this
+        chunk), demand-fetch the misses and stage the next speculative
+        set (core/pagestore.py), all in place in the consts' tensors;
+        then zero the state's bitmaps in place.
+
+        Livelock watch: when one round's page working set exceeds the
+        cache, every boundary's demand installs evict pages the same
+        round still needs; fetches happen (so the store's own
+        no-progress guard never fires) but the round never completes. A
+        live row whose round counter stays frozen across
+        _LIVELOCK_BOUNDARIES consecutive boundaries is that
+        configuration error (a legitimate stall clears at the next
+        boundary's demand fetch)."""
+        self.pagestore.boundary(touch, miss, cand_i, cand_e, done)
+        state.page_touch.zero_()
+        state.page_miss.zero_()
+        if self._stall_count is None:
+            self._stall_count = np.zeros(rounds.shape, np.int64)
+        else:
+            stuck = ~done & (rounds == self._stall_rounds_prev)
+            self._stall_count = np.where(stuck, self._stall_count + 1, 0)
+            if (self._stall_count >= _LIVELOCK_BOUNDARIES).any():
+                raise RuntimeError(
+                    "tiered page store livelock: a query made no round "
+                    f"progress for {_LIVELOCK_BOUNDARIES} consecutive "
+                    "chunk boundaries — device_pages is smaller than a "
+                    "single round's page working set on its shard; raise "
+                    "--device-pages")
+        self._stall_rounds_prev = rounds
 
 
 def poisson_arrivals(rate: float, n: int, seed: int = 0) -> np.ndarray:

@@ -161,10 +161,13 @@ def main(argv=None):
     from repro_torch.launch.serve_stream import (UNPORTED_FLAGS,
                                                  add_fault_args,
                                                  add_routing_args,
+                                                 add_tiered_args,
                                                  fault_params, routed_index,
                                                  routing_report_args,
-                                                 stream_report)
+                                                 stream_report,
+                                                 tiered_report_args)
     add_routing_args(ap, prefix="streaming: ")
+    add_tiered_args(ap, prefix="streaming: ")
     add_fault_args(ap, prefix="streaming: ")
     for flag, _, kw in UNPORTED_FLAGS:
         ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
@@ -203,7 +206,8 @@ def main(argv=None):
         build_all()                        # kernel build stays off the clock
 
     if args.stream:
-        consts, geom, entry = pack_for_engine(packed, device=dev)
+        consts, geom, entry = pack_for_engine(
+            packed, device=dev, host_pages=args.device_pages > 0)
         params = EngineParams.lossless(
             SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
             packed.max_degree, spec_width=args.spec,
@@ -223,7 +227,7 @@ def main(argv=None):
                                             "off": False}[args.injit_admit],
                                spec_page_w=args.spec_page_w,
                                **routing_report_args(args, routed),
-                               device=dev)}
+                               **tiered_report_args(args), device=dev)}
     else:
         res = {"dataset": ds.name,
                **run_search(pack_for_engine(packed, device=dev), db,

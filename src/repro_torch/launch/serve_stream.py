@@ -11,7 +11,11 @@ QPS and the host-sync model, with the reference CLI's JSON keys plus
 ``device`` and ``host_syncs``. With ``--topr R`` the index is built
 spatially partitioned (core/router.py) and each query runs as R routed
 legs fused at retire time; ``--ring``/``--overload`` bound the flat
-path's device admission queue.
+path's device admission queue; ``--device-pages P`` keeps only P vector
+pages per shard on the device (the tiered page store,
+core/pagestore.py), the rest in host memory, fetched at chunk
+boundaries on demand and by speculative prefetch (``--no-prefetch``,
+``--prefetch-page-w``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --dataset tiny \\
       --queries 128 --shards 4 --slots 8 --arrival-rate 2 --spec 4 \\
@@ -20,6 +24,8 @@ path's device admission queue.
       --topr 2 --down-shards 1
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cpu \\
       --dataset tiny --n 512
+  PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cpu \\
+      --dataset tiny --n 512 --device-pages 4
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 from repro_torch.core.engine import EngineParams, pack_for_engine
 from repro_torch.core.graph import brute_force_topk, recall_at_k
 from repro_torch.core.metrics import stream_summary
+from repro_torch.core.pagestore import PageStore
 from repro_torch.core.ref_search import SearchParams
 from repro_torch.core.router import build_routed_index
 from repro_torch.core.scheduler import (poisson_arrivals,
@@ -45,10 +52,6 @@ from repro_torch.utils import resolve_device
 # the reference CLI's flags of the serving layers not ported yet, each
 # with the ROADMAP.md queue A item it belongs to: set, they fail
 UNPORTED_FLAGS = (
-    ("--device-pages", 11, dict(type=int, default=0)),
-    ("--prefetch", 11, dict(action=argparse.BooleanOptionalAction,
-                            default=True)),
-    ("--prefetch-page-w", 11, dict(type=float, default=1.0)),
     ("--insert-rate", 12, dict(type=float, default=0.0)),
     ("--delete-rate", 12, dict(type=float, default=0.0)),
     ("--delta-cap", 12, dict(type=int, default=0)),
@@ -96,7 +99,8 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
                   arrival_rate, seed, dynamic_spec=False, refill=True,
                   round_chunk=8, injit_admit=None, routed=None, topr=0,
                   leg_L=None, spec_page_w=0.0, ring_capacity=0,
-                  overload="block", down_shards=None,
+                  overload="block", down_shards=None, device_pages=0,
+                  prefetch=True, prefetch_page_w=1.0,
                   device="cuda") -> dict:
     """Run one streaming session and build the serving report shared by
     the ``search --stream`` and ``serve_stream`` CLIs: Poisson arrivals
@@ -109,10 +113,28 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
     of known-down shards (degraded fusion). ``ring_capacity`` /
     ``overload`` bound the flat path's device admission queue.
     Deadlines, fault plans and the corruption guard ride on ``params``
-    (``deadline_rounds``, ``faults``, ``guard_nonfinite``). The keys of
-    the serving layers not ported (tiered store, live index) report
+    (``deadline_rounds``, ``faults``, ``guard_nonfinite``).
+
+    ``device_pages`` > 0 turns on the tiered page store
+    (core/pagestore.py): that many vector pages per shard stay on the
+    device, the rest live in host memory and are fetched at chunk
+    boundaries on demand, plus speculative prefetch when ``prefetch`` is
+    set (``prefetch_page_w`` weighs the stored prefetch lists in the
+    prediction score); build its ``consts`` with
+    ``pack_for_engine(..., host_pages=True)`` so that the full store
+    stays off the device. The live index's keys (not ported) report
     their at-rest values."""
     arrivals = poisson_arrivals(arrival_rate, queries.shape[0], seed)
+    pagestore = None
+    if device_pages > 0:
+        if routed is not None and topr > 0:
+            raise SystemExit("--device-pages needs the flat path "
+                             "(tiered store is not routed-aware)")
+        pagestore = PageStore(consts, geom, device_pages,
+                              w_select=params.search.W, prefetch=prefetch,
+                              page_w=prefetch_page_w)
+        params = dataclasses.replace(params,
+                                     store_pages=pagestore.num_pages)
     if routed is not None and topr > 0:
         ids, _, st = routed_stream_search(
             consts, geom, params, entry, queries, router=routed.router,
@@ -127,7 +149,7 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
             arrivals=arrivals, dynamic_spec=dynamic_spec, refill=refill,
             round_chunk=round_chunk, injit_admit=injit_admit,
             spec_page_w=spec_page_w, ring_capacity=ring_capacity,
-            overload=overload, device=device)
+            overload=overload, pagestore=pagestore, device=device)
     true_ids, _ = brute_force_topk(db, queries, params.search.k)
     return {
         "shards": geom.num_shards, "slots_per_shard": slots,
@@ -135,7 +157,8 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
         "spec": params.spec_width, "spec_dynamic": dynamic_spec,
         "round_chunk": round_chunk, "topr": topr,
         "deadline_rounds": params.deadline_rounds,
-        "ring": ring_capacity, "overload": overload, "device_pages": 0,
+        "ring": ring_capacity, "overload": overload,
+        "device_pages": pagestore.P_dev if pagestore else 0,
         "live": False, "delta_cap": 0, "inserts": 0,
         "nan_guard": params.guard_nonfinite,
         "faults": params.faults is not None,
@@ -195,6 +218,31 @@ def add_routing_args(ap, prefix: str = "") -> None:
                     help=prefix + "routed: comma-separated shard ids known "
                          "down; their legs are dropped and queries fuse "
                          "degraded (needs --topr)")
+
+
+def add_tiered_args(ap, prefix: str = "") -> None:
+    """The tiered page store's flags of the serving CLIs (``prefix``
+    leads each help text, as ``search --stream``'s do)."""
+    ap.add_argument("--device-pages", type=int, default=0,
+                    help=prefix + "tiered page store: device-resident "
+                         "vector pages per shard; the rest live cold in "
+                         "host memory and fetch at chunk boundaries "
+                         "(0 = fully device-resident, untiered)")
+    ap.add_argument("--prefetch", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help=prefix + "tiered: double-buffered speculative "
+                         "prefetch at chunk boundaries (--no-prefetch = "
+                         "demand-only fetching)")
+    ap.add_argument("--prefetch-page-w", type=float, default=1.0,
+                    help=prefix + "tiered: weight of the stored "
+                         "speculative prefetch lists in the prediction "
+                         "score (adjacency neighbors weigh 1)")
+
+
+def tiered_report_args(args) -> dict:
+    """stream_report's tiered-store keywords from the flags."""
+    return dict(device_pages=args.device_pages, prefetch=args.prefetch,
+                prefetch_page_w=args.prefetch_page_w)
 
 
 def routed_index(db0, args, dev):
@@ -269,6 +317,7 @@ def main(argv=None):
                          "rounds in a slot, flagging it truncated "
                          "(0 = no deadline)")
     add_routing_args(ap)
+    add_tiered_args(ap)
     add_fault_args(ap)
     ap.add_argument("--kernel-mode", default="auto",
                     choices=["auto", "cuda", "ref", "torch"],
@@ -306,7 +355,10 @@ def main(argv=None):
         db, packed = build_index(
             db0, shards=args.shards, page_size=args.page_size,
             r=args.degree, pref_width=args.spec, seed=args.seed)
-    consts, geom, entry = pack_for_engine(packed, device=dev)
+    # a tiered session keeps the vector pages in host memory: only the
+    # store's frames go to the device
+    consts, geom, entry = pack_for_engine(
+        packed, device=dev, host_pages=args.device_pages > 0)
     params = EngineParams.lossless(
         SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
         packed.max_degree, spec_width=args.spec,
@@ -327,7 +379,8 @@ def main(argv=None):
                         injit_admit={"auto": None, "on": True,
                                      "off": False}[args.injit_admit],
                         spec_page_w=args.spec_page_w,
-                        **routing_report_args(args, routed), device=dev),
+                        **routing_report_args(args, routed),
+                        **tiered_report_args(args), device=dev),
     }
     print(json.dumps(res, indent=1))
     if args.out:

@@ -672,6 +672,96 @@ def test_ring_session_captures_once_on_card(dev, int_index, overload):
     assert (out["ref"][1] > 0) == (overload == "shed")
 
 
+@pytest.fixture(scope="module")
+def tiered_index():
+    """tests/test_torch_pagestore.py's integer index (32 pages of 8
+    vectors per shard), built by the port."""
+    rng = np.random.default_rng(0)
+    db = rng.integers(-8, 9, size=(1024, 32)).astype(np.float32)
+    queries = rng.integers(-8, 9, size=(12, 32)).astype(np.float32)
+    adj, medoid = build_vamana(db, r=8, alpha=1.2, seed=0)
+    geo = Geometry(num_shards=4, page_size=8, pages_per_block=2, dim=32)
+    packed = pack_index(LUNCSR.from_adjacency(db, adj, geo, entry=medoid,
+                                              pref_width=2), max_degree=8)
+    return packed, queries
+
+
+@pytest.mark.parametrize("injit,prefetch", [
+    (True, True), (True, False), (False, True)])
+def test_tiered_session_cuda_matches_cpu_ref(dev, tiered_index, injit,
+                                            prefetch):
+    """A half-resident tiered session on the card (frames in HBM, the
+    cold tier pinned and never on the card, prefetch copies on a side
+    stream) equals the same session in ref mode on the CPU: every
+    per-query record, the stalls, the store's counters and final
+    residency; one capture, one read per chunk, and the frame buffers
+    keep their addresses."""
+    from repro_torch.core.pagestore import PageStore
+    packed, queries = tiered_index
+    arrivals = np.random.default_rng(1).integers(0, 10, len(queries))
+    out = {}
+    for where, mode in ((dev, "cuda"), ("cpu", "ref")):
+        consts, geom, entry = pack_for_engine(packed, device=where,
+                                              host_pages=True)
+        assert not consts["db"].is_cuda and not consts["vnorm"].is_cuda
+        NP = consts["db"].shape[1]
+        params = EngineParams.lossless(SearchParams(L=8, W=1, k=5), 2, 8,
+                                       spec_width=2, kernel_mode=mode,
+                                       store_pages=NP)
+        ps = PageStore(consts, geom, NP // 2, w_select=1, prefetch=prefetch)
+        ptrs = {k: v.data_ptr() for k, v in ps.device_view().items()}
+        CACHE.reset_stats()
+        ids, dists, st = stream_search(
+            consts, geom, params, entry, queries, num_slots=2,
+            arrivals=arrivals, round_chunk=2, injit_admit=injit,
+            pagestore=ps, device=where)
+        assert st.host_syncs == st.host_dispatches
+        assert {k: v.data_ptr() for k, v in ps.device_view().items()} == ptrs
+        if mode == "cuda":
+            assert CACHE.stats.captures == 1
+            assert ps.frames.is_cuda and ps.cold_db.is_pinned()
+        out[mode] = (ids, dists.view(np.int32), {r.qid: (
+            tuple(r.ids), r.admit_round, r.retire_round, r.service_rounds,
+            r.n_dist, r.stall_rounds) for r in st.results}, st.stalls,
+            ps.counters(), ps.ttab.tolist(), ps.frame_page.tolist())
+        assert st.stalls > 0
+    np.testing.assert_array_equal(out["cuda"][0], out["ref"][0])
+    np.testing.assert_array_equal(out["cuda"][1], out["ref"][1])
+    assert out["cuda"][2:] == out["ref"][2:]
+
+
+def test_frame_installs_equal_cold_tier_on_card(dev, tiered_index):
+    """Demand installs (a synchronous copy from the pinned cold tier) and
+    a committed prefetch (copied on the side stream, committed at the
+    next boundary) leave every resident frame equal to its cold-tier
+    page, and the device table equal to the host's."""
+    from repro_torch.core.pagestore import PageStore
+    packed, _ = tiered_index
+    consts, geom, _ = pack_for_engine(packed, device=dev, host_pages=True)
+    NP = consts["db"].shape[1]
+    ps = PageStore(consts, geom, 4, w_select=1, prefetch_pages=2)
+    assert ps.frames.is_cuda and ps.ttab_dev.is_cuda
+    score = np.zeros((ps.S, NP))
+    score[:, NP - 1] = 5.0
+    ps._predict = lambda *a: score
+    S = ps.S
+    cands = (np.full((S, 1, 4), -1, np.int32), np.zeros((S, 1, 4), bool),
+             np.ones((S, 1), bool))
+    quiet = np.zeros((S, NP), bool)
+    miss = quiet.copy()
+    miss[:, 5:8] = True
+    ps.boundary(quiet, quiet, *cands)           # stages page NP - 1
+    ps.boundary(quiet, miss, *cands)            # commits it; demand 5-7
+    torch.cuda.synchronize()
+    assert (ps.ttab[:, NP - 1] >= 0).all() and (ps.ttab[:, 5:8] >= 0).all()
+    for s in range(S):
+        for page in np.flatnonzero(ps.ttab[s] >= 0):
+            f = ps.ttab[s, page]
+            assert torch.equal(ps.frames[s, f].cpu(), ps.cold_db[s, page])
+            assert torch.equal(ps.vnf[s, f].cpu(), ps.cold_vn[s, page])
+    np.testing.assert_array_equal(ps.ttab_dev.cpu().numpy(), ps.ttab)
+
+
 def test_failed_capture_raises(dev):
     """A chunk program that reads the device inside the capture is
     refused: the capture raises, nothing falls back to an eager run."""

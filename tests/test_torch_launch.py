@@ -139,7 +139,13 @@ STREAM_CLOCKS = {"kernel_mode", "wall_latency_ms", "sustained_qps", "wall_s",
      "--seed", "2"],
     # routed serving on the spatially partitioned index
     ["--topr", "2", "--arrival-rate", "2"],
-    ["--topr", "2", "--leg-L", "8", "--down-shards", "1"]])
+    ["--topr", "2", "--leg-L", "8", "--down-shards", "1"],
+    # the tiered page store: full residency at this size, then half the
+    # pages resident on an index of 16 pages per shard
+    ["--device-pages", "4"], ["--device-pages", "4", "--no-prefetch"],
+    ["--device-pages", "2", "--prefetch-page-w", "0.5"],
+    ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
+     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"]])
 def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
     """``--stream`` serves the queries through the streaming scheduler:
     the JSON equals the reference's ``--stream --kernel-mode jnp`` JSON
@@ -172,8 +178,19 @@ def test_cli_topr_needs_stream(capsys):
     capsys.readouterr()
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--device-pages", "4"], 11), (["--delta-cap", "16"], 12)])
+def test_cli_stream_refuses_routed_tiered_store(capsys):
+    """``--stream --topr`` with ``--device-pages`` exits, as the
+    reference CLI does: the tiered store is flat-path only."""
+    argv = ["--dataset", "tiny", "--n", "512", "--queries", "8", "--stream",
+            "--topr", "2", "--device-pages", "4"]
+    with pytest.raises(SystemExit, match="--device-pages needs the flat"):
+        main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="--device-pages needs the flat"):
+        j_main(argv + ["--kernel-mode", "jnp"])
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("flag,item", [(["--delta-cap", "16"], 12)])
 def test_cli_stream_refuses_unported_flags(capsys, flag, item):
     with pytest.raises(SystemExit):
         main(["--device", "cpu", "--dataset", "tiny", "--n", "512",

@@ -673,9 +673,32 @@ def test_routed_admission_matches_reference(ds, ref_engine, injit):
 # ---------------------------------------------------------------------------
 # What is not ported raises, naming its ROADMAP item; the device rule
 # ---------------------------------------------------------------------------
+@pytest.mark.parametrize("injit", [False, True])
+def test_full_residency_store_equals_untiered(ds, injit):
+    """The tiered page store (core/pagestore.py) at full residency is the
+    identity configuration: every record equals the untiered stream's,
+    in both admission paths (tests/test_torch_pagestore.py holds partial
+    residency against the reference)."""
+    from repro_torch.core.pagestore import PageStore
+    _, queries, (consts, geom, entry) = ds
+    sp = SearchParams(L=16, W=1, k=10)
+    arrivals = np.random.default_rng(2).integers(0, 20, len(queries))
+    kw = dict(num_slots=3, arrivals=arrivals, round_chunk=4,
+              injit_admit=injit, **CPU)
+    _, _, want = stream_search(consts, geom, _lossless(sp, 3, geom), entry,
+                               queries, **kw)
+    NP = consts["db"].shape[1]
+    ps = PageStore(consts, geom, NP, w_select=1)
+    _, _, st = stream_search(consts, geom,
+                             _lossless(sp, 3, geom, store_pages=NP), entry,
+                             queries, pagestore=ps, **kw)
+    assert _records(st) == _records(want)
+    assert st.stalls == 0 and ps.counters()["page_misses"] == 0
+    assert st.host_syncs == st.host_dispatches == want.host_dispatches
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(pagestore=object()), 11), (dict(live=object()), 12),
-    (dict(mesh=object()), 13)])
+    (dict(live=object()), 12), (dict(mesh=object()), 13)])
 def test_unported_options_raise(ds, kw, item):
     _, queries, (consts, geom, entry) = ds
     params = _lossless(SearchParams(L=16, W=1, k=10), 2, geom)

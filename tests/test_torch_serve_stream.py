@@ -1,6 +1,7 @@
 """The port's streaming serving CLI and streaming RAG retrieval vs the
 reference's: the same JSON counts from ``serve_stream`` on the same
-flags, the unported serving layers' flags refused, streaming soft-prompt
+flags (the tiered page store's among them), the live index's flags
+refused, streaming soft-prompt
 retrieval returning the reference's ids and greedy tokens with carried
 weights, and the entry points refusing to run without a card unless the
 caller asks for the CPU."""
@@ -88,7 +89,13 @@ def index():
     ["--topr", "2"], ["--topr", "2", "--leg-L", "8"],
     ["--topr", "4", "--leg-L", "8", "--injit-admit", "off"],
     ["--topr", "2", "--down-shards", "1"], ["--ring", "8"],
-    ["--ring", "4", "--overload", "shed", "--arrival-rate", "0"]])
+    ["--ring", "4", "--overload", "shed", "--arrival-rate", "0"],
+    # the tiered page store: full residency at this size, then half the
+    # pages resident on an index of 16 pages per shard
+    ["--device-pages", "4"], ["--device-pages", "4", "--no-prefetch"],
+    ["--device-pages", "2", "--prefetch-page-w", "0.5"],
+    ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
+     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"]])
 def test_cli_json_matches_reference(tmp_path, capsys, flags):
     argv = ["--dataset", "tiny", "--n", "512", "--queries", "32"] + flags
     assert main(argv + ["--device", "cpu",
@@ -107,8 +114,19 @@ def test_cli_json_matches_reference(tmp_path, capsys, flags):
     assert port["host_syncs"] == port["host_dispatches"] > 0
 
 
+def test_cli_refuses_routed_tiered_store(capsys):
+    """The tiered store is flat-path only: ``--topr`` with
+    ``--device-pages`` exits, as the reference CLI does."""
+    argv = ["--dataset", "tiny", "--n", "512", "--queries", "8", "--topr",
+            "2", "--device-pages", "4"]
+    with pytest.raises(SystemExit, match="--device-pages needs the flat"):
+        main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="--device-pages needs the flat"):
+        j_main(argv + ["--kernel-mode", "jnp"])
+    capsys.readouterr()
+
+
 @pytest.mark.parametrize("flag,item", [
-    (["--device-pages", "4"], 11), (["--no-prefetch"], 11),
     (["--delta-cap", "16"], 12), (["--insert-rate", "0.5"], 12)])
 def test_cli_refuses_unported_flags(capsys, flag, item):
     with pytest.raises(SystemExit):

@@ -76,7 +76,7 @@ def _eq(a, b, what):
 
 def _same_state(port, ref, what):
     """Every port field equals the reference's (the bloom as its uint32
-    words); the reference's fault/tiered-store fields have no twin."""
+    words)."""
     for name in P.EngineState._fields:
         a, b = getattr(port, name), getattr(ref, name)
         if name == "bloom":

@@ -109,7 +109,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "transformer', 'repro_torch.models.convert', 'repro_torch.kernels."
         "flash_attention.kernel', 'repro_torch.launch.serve', "
         "'repro_torch.core.scheduler', 'repro_torch.core.metrics', "
-        "'repro_torch.launch.serve_stream', 'repro_torch.core.capture'):\n"
+        "'repro_torch.launch.serve_stream', 'repro_torch.core.capture', "
+        "'repro_torch.core.pagestore'):\n"
         "    assert m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env={"PYTHONPATH": str(REPO / "src"),
