@@ -4,7 +4,11 @@
     python3 chip_smoke.py
 
 Phases, each printed as one JSON object per line (a phase that fails
-raises, so the script exits nonzero and prints no result line):
+raises, so the script exits nonzero and prints no result line). The
+sift-1b builds (search and routed) run in two child processes from
+phase 2 on; phases 6b to 7c run their integer parts first, while the
+builds finish, and their sift-1b parts after phase 6; each part prints
+its seconds:
 
   1. device  — the card's name and power limit (as nvidia-smi prints
                them), torch and CUDA versions, whether torch offers
@@ -138,7 +142,33 @@ raises, so the script exits nonzero and prints no result line):
                GB/s against one pinned copy_, and whether a staged
                prefetch copy overlaps a kernel loop on the current
                stream.
-  7b. routed — two-tier routed serving (core/router.py). (a) Phase
+  7b. live  — the live index (core/live.py). (a) Phase tiered's
+               integer build (phase int's vectors in 8-vector pages,
+               degree 8) and traffic (64 queries at Poisson 0.25, 2
+               slots per shard, chunk 4) with Poisson inserts (integer
+               payloads next to the queries) and deletes, a delta of 16:
+               zero churn equals the frozen stream; churn sessions (two
+               swaps or more) flat, on a half-resident tiered store and
+               routed at topr 8, each captured on the card equal to the
+               same session uncaptured and in CPU ref mode in every
+               per-query record, the live counters and the final epoch
+               (external ids, tombstones, the delta), one capture per
+               session, one distance and one fused merge per device
+               round. Twin sessions reuse the first one's reindexes
+               (memo_reindex). (b) The sift-1b stand-in from phase main's
+               graph with the stream phase's traffic: zero churn equals
+               phase stream's refill static session (ids, dists, rounds,
+               dispatches); churn at the reference bench's rates (0.35
+               inserts, 0.1 deletes per round, delta 128): one swap, the
+               reindex's host seconds, the swap's, delta hits, deletes,
+               swap stalls, p99 in rounds and wall ms against the static
+               session, recall@10 against the final live set, captures,
+               launches. (c) Live sessions on a tiered store (phase
+               tiered's traffic, 28 frames, delta 512, no swap): prefetch
+               on with the stage's copy queued after the live consts'
+               (the scheduler's order) and before them, in turns (A B B
+               A), then demand-only.
+  7c. routed — two-tier routed serving (core/router.py). (a) Phase
                int's integer data as a routed build (8 spatial shards,
                page 64, degree 16, 8 centroids per shard): routed
                sessions captured on the card at topr 2 and 8, in-device
@@ -191,6 +221,7 @@ present, and when the repository's package is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -766,24 +797,35 @@ MAIN_COUNTS = {"recall@k": REFERENCE_RECALL, "rounds": 98,
 REPEATS = 5
 
 
-def real_main_path(dev):
-    """Returns the kernels' launch counts, and the build for phase 7."""
+def build_main_sift():
+    """The sift-1b stand-in's search build on the host, with prefetch
+    lists of 8: (reordered vectors, packed index, host seconds). Run in a
+    child process (``spawn``) while the integer phases use the card."""
+    from repro_torch.launch.search import build_index, dataset
+    ds = dataset("sift-1b")
+    assert (ds.n, ds.dim) == (N, DIM)
+    t0 = time.perf_counter()
+    db, packed = build_index(ds.materialize(), shards=SHARDS, page_size=PAGE,
+                             r=DEGREE, pref_width=8)
+    return db, packed, time.perf_counter() - t0
+
+
+def real_main_path(dev, built):
+    """Returns the kernels' launch counts, and the build for phase 7
+    (``built``: the async result of :func:`build_main_sift`)."""
     import torch
     from repro_torch.core.capture import CACHE
     from repro_torch.core.engine import (EngineParams, pack_for_engine,
                                          search_sim)
     from repro_torch.core.ref_search import SearchParams
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.search import build_index, dataset, run_search
+    from repro_torch.launch.search import dataset, run_search
 
     ds = dataset("sift-1b")
-    assert (ds.n, ds.dim) == (N, DIM)
-    db0 = ds.materialize()
     queries = ds.queries(NQ, seed=1)
     t0 = time.perf_counter()
-    db, packed = build_index(db0, shards=SHARDS, page_size=PAGE, r=DEGREE,
-                             pref_width=8)
-    build_s = time.perf_counter() - t0
+    db, packed, build_s = built.get()
+    wait_s = time.perf_counter() - t0
     cfg = dict(shards=SHARDS, L=L, W=W, k=K, spec=0, kernel_mode="auto",
                coalesce_qb=QB, device=dev)
     engine = pack_for_engine(packed, device=dev)
@@ -798,7 +840,8 @@ def real_main_path(dev):
     qps = [run_search(engine, db, queries, **cfg)["qps"]
            for _ in range(REPEATS)]
     res.update(dataset=ds.name, host_build_s=round(build_s, 2),
-               warmup_s=warm_s, qps_repeats=qps, **cap,
+               host_build_wait_s=round(wait_s, 2), warmup_s=warm_s,
+               qps_repeats=qps, **cap,
                host_ms_per_round=res["search_s"] * 1e3 / res["rounds"],
                launches=launches,
                launches_per_device_round={
@@ -1303,10 +1346,12 @@ def profile_stream_window(run, host: bool) -> dict:
     return out
 
 
-def stream_path(db, packed, dev) -> None:
+def stream_path(db, packed, dev):
     """(b) The sift-1b stand-in served as an open-loop stream: three
     runs (refill static, refill dynamic, frozen), each checked against
-    its own launch counts, the static one against one-shot search_sim."""
+    its own launch counts, the static one against one-shot search_sim.
+    Returns the refill static session's (ids, dists, stats), which phase
+    live's zero-churn session must equal."""
     import numpy as np
     from repro_torch.core.capture import CACHE
     from repro_torch.core.engine import (EngineParams, pack_for_engine,
@@ -1351,6 +1396,8 @@ def stream_path(db, packed, dev) -> None:
         reset_launch_counts()
         CACHE.reset_stats()
         ids, dists, st = serve(kw)
+        if name == "refill_static":
+            static = (ids, dists, st)
         launches = launch_counts()
         stepped = st.total_rounds + st.warmup_rounds
         cap = capture_line(CACHE.stats, stepped, st.host_syncs)
@@ -1421,6 +1468,7 @@ def stream_path(db, packed, dev) -> None:
     if not res["refill_static"]["occupancy"] > \
             res["frozen_static"]["occupancy"]:
         raise AssertionError("refill occupancy is not above frozen")
+    return static
 
 
 
@@ -1481,13 +1529,15 @@ def payload_bytes(ps, pages: int) -> int:
                            + ps.cold_vn.element_size())
 
 
-def tiered_integer(db, queries, dev) -> None:
+def tiered_integer(db, queries, dev):
     """(a) Phase int's integer vectors as a tiered build: sessions on the
     card against CPU ref mode (the records, stalls, the store's counters
     and final residency), full residency against the untiered session,
     both admission paths, a wrapping admission ring, the livelock guard;
     one capture per session, the consts' addresses kept across
-    boundaries, one distance and one fused merge per device round."""
+    boundaries, one distance and one fused merge per device round.
+    Returns the build (reordered vectors, packed index) for phase
+    live."""
     import numpy as np
     import torch
     from repro_torch.core.capture import CACHE
@@ -1500,8 +1550,8 @@ def tiered_integer(db, queries, dev) -> None:
 
     c = TIERED_INT
     t0 = time.perf_counter()
-    _, packed = build_index(db, shards=SHARDS, page_size=c["page"],
-                            r=c["degree"], pref_width=c["pref"])
+    db_r, packed = build_index(db, shards=SHARDS, page_size=c["page"],
+                               r=c["degree"], pref_width=c["pref"])
     build_s = time.perf_counter() - t0
     nq = c["queries"]
     queries = queries[:nq]
@@ -1613,6 +1663,7 @@ def tiered_integer(db, queries, dev) -> None:
     emit({"phase": "tiered", "index": "integer", "run": "livelock_guard",
           "device_pages": 2, "raised": guard,
           "host_build_s": round(build_s, 2)})
+    return db_r, packed
 
 
 def tiered_sift(db, packed, dev) -> dict:
@@ -1966,7 +2017,413 @@ def capacity_check(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7b: two-tier routed serving
+# Phase 7b: the live index
+# ---------------------------------------------------------------------------
+# (a)'s integer sessions: phase tiered's integer build (phase int's vectors
+# in 8-vector pages, degree 8, prefetch lists of 2) and traffic (64
+# queries at Poisson 0.25 per round, 2 slots per shard, chunk 4, L 16,
+# spec 2), with Poisson inserts at 0.15 and deletes at 0.05 per round over
+# 320 rounds, integer payloads next to the queries, a delta of 16 rows:
+# two or three epoch swaps before the last query retires
+LIVE_INT = dict(insert=0.15, delete=0.05, horizon=320, delta_cap=16, seed=5)
+# (b)'s churn: the reference bench's live rates (benchmarks/
+# bench_serving.py:399) on the stream phase's traffic, the schedule over
+# the reference CLI's horizon (build_live_session), a delta of 128 rows,
+# refresh_every 0: about 150 inserts before the last query retires, one
+# swap
+LIVE = dict(insert=0.35, delete=0.1, delta_cap=128, seed=5)
+# (c)'s tiered live sessions: phase tiered's traffic at 28 frames (of 33
+# pages per shard at the live capacity), the same rates and a delta of
+# 512 rows: no swap, and the live consts copied at nearly every boundary
+LIVE_TIERED = dict(frames=28, delta_cap=512)
+
+
+@contextlib.contextmanager
+def memo_reindex():
+    """Within the block a reindex (``LiveIndex.refresh``) of a live set
+    already reindexed with the same seed, width and layout returns a copy
+    of that epoch instead of building it again: the twin sessions of one
+    schedule (captured and uncaptured on the card, ref mode on the CPU)
+    reach the same epochs, and each build costs seconds of host time. The
+    first session of a schedule builds every epoch itself. Yields the
+    counts of built and reused epochs."""
+    import copy
+    import hashlib
+    import numpy as np
+    from repro_torch.core import live as live_mod
+
+    real = live_mod.reindex_epoch
+    cache, counts = {}, {"built": 0, "reused": 0}
+
+    def memo(ep, *, seed=0, pref_width=0):
+        m = (ep.ext_ids >= 0) & ~ep.tombs
+        h = hashlib.sha1()
+        for a in (ep.vectors[m], ep.ext_ids[m], ep.delta_vec[ep.delta_live],
+                  ep.delta_ext[ep.delta_live]):
+            h.update(np.ascontiguousarray(a).tobytes())
+        key = (h.hexdigest(), ep.epoch, ep.capacity, ep.delta_cap,
+               ep.packed.max_degree, ep.packed.geometry, seed, pref_width)
+        if key in cache:
+            counts["reused"] += 1
+        else:
+            cache[key] = real(ep, seed=seed, pref_width=pref_width)
+            counts["built"] += 1
+        return copy.deepcopy(cache[key])
+
+    live_mod.reindex_epoch = memo
+    try:
+        yield counts
+    finally:
+        live_mod.reindex_epoch = real
+
+
+@contextlib.contextmanager
+def timed_swaps():
+    """Within the block every scheduler's epoch swap (the consts' and the
+    entry's writes, the translation of in-flight lists, the restarts)
+    appends its host seconds to the yielded list; the reindex before it
+    is ``LiveIndex.reindex_s``."""
+    from repro_torch.core.scheduler import StreamScheduler
+    real = StreamScheduler._swap_epoch
+    times = []
+
+    def timed(self, *a):
+        t0 = time.perf_counter()
+        out = real(self, *a)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    StreamScheduler._swap_epoch = timed
+    try:
+        yield times
+    finally:
+        StreamScheduler._swap_epoch = real
+
+
+def live_records(st, n: int) -> dict:
+    return {**tiered_records(st, n), **{k: getattr(st, k) for k in (
+        "epoch_swaps", "delta_hits", "tombstoned", "swap_stall_rounds",
+        "total_rounds", "host_dispatches")}}
+
+
+def live_epoch(live) -> dict:
+    ep = live.ep
+    return {"epoch": ep.epoch, "ext_ids": ep.ext_ids, "tombs": ep.tombs,
+            "delta_vec": ep.delta_vec, "delta_live": ep.delta_live,
+            "delta_ext": ep.delta_ext}
+
+
+def live_integer(build, queries, dev) -> None:
+    """(a) Live sessions on phase tiered's integer build: zero churn
+    against the frozen stream; a churn session (>= 2 swaps) flat, on a
+    half-resident tiered store and routed at topr = S, each captured on
+    the card against the same session uncaptured and in ref mode on the
+    CPU (every per-query record, the live counters, the final epoch's
+    external ids, tombstones and delta), one capture per session, its
+    launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import EngineParams, pack_for_engine
+    from repro_torch.core.live import (MutationSchedule,
+                                       live_index_from_graph,
+                                       mutation_schedule)
+    from repro_torch.core.pagestore import PageStore
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.router import build_live_router
+    from repro_torch.core.scheduler import (poisson_arrivals,
+                                            routed_stream_search,
+                                            stream_search)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    db, packed = build
+    c, lc = TIERED_INT, LIVE_INT
+    nq = c["queries"]
+    queries = queries[:nq]
+    adj = flat_adjacency(packed)
+    arrivals = poisson_arrivals(c["rate"], nq, seed=1)
+    rng = np.random.default_rng(lc["seed"])
+    s = mutation_schedule(lc["insert"], lc["delete"], lc["horizon"],
+                          db.shape[1], seed=lc["seed"])
+    vec = np.zeros_like(s.vec)
+    near = queries[rng.integers(0, nq, s.num_inserts)]
+    vec[s.is_ins] = near + rng.integers(-1, 2, near.shape)
+    churn = MutationSchedule(t=s.t, is_ins=s.is_ins, vec=vec)
+    cpu = torch.device("cpu")
+
+    def session(kind, where, capture=True, schedule=churn, live_on=True):
+        mode = "cuda" if where.type == "cuda" else "ref"
+        live = live_index_from_graph(
+            db, adj, packed.entry, shards=SHARDS, page_size=c["page"],
+            r=c["degree"], delta_cap=lc["delta_cap"],
+            capacity=len(db) + (schedule.num_inserts if schedule else 0),
+            pref_width=c["pref"], seed=lc["seed"], schedule=schedule)
+        consts, geom, entry = pack_for_engine(
+            live.ep.packed, device=where, host_pages=kind == "tiered")
+        params = EngineParams.lossless(
+            SearchParams(L=c["L"], W=1, k=K), c["slots"], c["degree"],
+            spec_width=c["spec"], kernel_mode=mode,
+            delta_cap=lc["delta_cap"] if live_on else 0)
+        kw = dict(num_slots=c["slots"], arrivals=arrivals,
+                  round_chunk=c["chunk"], injit_admit=True, device=where,
+                  capture=capture, live=live if live_on else None)
+        reset_launch_counts()
+        CACHE.reset_stats()
+        if kind == "routed":
+            live.router = build_live_router(live.ep, seed=lc["seed"],
+                                            kernel_mode=mode, device=where)
+            _, _, st = routed_stream_search(
+                consts, geom, params, entry, queries, router=live.router,
+                topr=SHARDS, **kw)
+        else:
+            ps = None
+            if kind == "tiered":
+                NP = consts["db"].shape[1]
+                ps = PageStore(consts, geom, NP // 2, w_select=1)
+                params = dataclasses.replace(params, store_pages=NP)
+            _, _, st = stream_search(consts, geom, params, entry, queries,
+                                     pagestore=ps, **kw)
+        return {"records": live_records(st, nq), "st": st,
+                "cap": capture_line(CACHE.stats,
+                                    st.total_rounds + st.warmup_rounds,
+                                    st.host_syncs),
+                "launches": launch_counts(), "epoch": live_epoch(live),
+                "reindex_s": live.reindex_s}
+
+    with memo_reindex() as builds:
+        # zero churn: the live session with no mutation is the frozen one
+        zero = session("flat", dev, schedule=None)
+        frozen = session("flat", dev, schedule=None, live_on=False)
+        differ = first_difference(zero["records"], frozen["records"])
+        emit({"phase": "live", "index": "integer", "run": "zero_churn",
+              "queries": nq, "total_rounds": zero["st"].total_rounds,
+              "host_dispatches": zero["st"].host_dispatches, **zero["cap"],
+              "equals": "frozen stream", "first_difference": differ})
+        if differ is not None or zero["cap"]["captures"] != 1:
+            raise AssertionError(f"live integer zero churn: {differ} "
+                                 f"differs from the frozen stream, or "
+                                 f"{zero['cap']['captures']} captures")
+        for kind in ("flat", "tiered", "routed"):
+            card = session(kind, dev)
+            st, cap = card["st"], card["cap"]
+            checks = {}
+            for other, kw in (("uncaptured", dict(where=dev, capture=False)),
+                              ("cpu_ref", dict(where=cpu))):
+                want = session(kind, **kw)
+                checks[other] = first_difference(card["records"],
+                                                 want["records"]) or \
+                    first_difference(card["epoch"], want["epoch"])
+            line = {"phase": "live", "index": "integer", "run": kind,
+                    "queries": nq, "delta_cap": lc["delta_cap"],
+                    "capacity": len(db) + churn.num_inserts,
+                    "scheduled_inserts": churn.num_inserts,
+                    **{k: getattr(st, k) for k in (
+                        "epoch_swaps", "delta_hits", "tombstoned",
+                        "swap_stall_rounds", "total_rounds", "stalls",
+                        "host_dispatches")},
+                    **cap, "reindex_s": card["reindex_s"],
+                    "launches_per_device_round": {
+                        k: v / cap["device_rounds"]
+                        for k, v in card["launches"].items() if v},
+                    "first_difference": checks}
+            emit(line)
+            if any(v is not None for v in checks.values()):
+                raise AssertionError(f"live integer {kind}: the captured "
+                                     f"session differs: {checks}")
+            if st.epoch_swaps < 2 or cap["captures"] != 1 or \
+                    st.host_syncs != st.host_dispatches:
+                raise AssertionError(f"live integer {kind}: >= 2 swaps, "
+                                     f"one capture and one read per chunk "
+                                     f"expected: {st.epoch_swaps}, {cap}")
+            if kind == "routed":
+                routed_launches("live integer routed", card["launches"],
+                                cap["device_rounds"], 1)
+            else:
+                check_launches(f"live integer {kind}", card["launches"],
+                               cap["device_rounds"])
+    emit({"phase": "live", "index": "integer", "reindex_epochs": builds})
+
+
+def live_sift(db, packed, static, dev) -> None:
+    """(b) The sift-1b stand-in (phase main's build) served live with the
+    stream phase's traffic: zero churn against phase stream's refill
+    static session (ids, dists, rounds, dispatches), then churn at the
+    reference bench's rates (one swap: a reindex of the whole live set on
+    the host); (c) live sessions on a tiered store at phase tiered's
+    traffic, prefetch on and off, and on with its copy queued before the
+    live consts'."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import EngineParams, pack_for_engine
+    from repro_torch.core.graph import brute_force_topk, recall_at_k
+    from repro_torch.core.live import (LiveIndex, live_index_from_graph,
+                                       mutation_schedule)
+    from repro_torch.core.luncsr import EpochIndex
+    from repro_torch.core.metrics import stream_summary
+    from repro_torch.core.pagestore import PageStore
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.scheduler import poisson_arrivals, stream_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.search import dataset
+
+    nq, slots = STREAM["queries"], STREAM["slots"]
+    queries = dataset("sift-1b").queries(nq, seed=1)
+    arrivals = poisson_arrivals(STREAM["rate"], nq, seed=0)
+    adj = flat_adjacency(packed)
+    pref = packed.pref.shape[-1]
+    n0 = len(db)
+
+    def churn_live(rate_q, n, delta_cap):
+        """Epoch 0 = phase main's graph packed at n0 + the scheduled
+        inserts, the schedule over build_live_session's horizon."""
+        arr = poisson_arrivals(rate_q, n, seed=0)
+        sched = mutation_schedule(LIVE["insert"], LIVE["delete"],
+                                  max(int(arr.max()) + 1, 2 * n), DIM,
+                                  seed=LIVE["seed"], ref=db)
+        return live_index_from_graph(
+            db, adj, packed.entry, shards=SHARDS, page_size=PAGE, r=DEGREE,
+            delta_cap=delta_cap, capacity=n0 + sched.num_inserts,
+            pref_width=pref, schedule=sched)
+
+    def serve(live, **kw):
+        consts, geom, entry = pack_for_engine(live.ep.packed, device=dev)
+        params = EngineParams.lossless(
+            SearchParams(L=L, W=W, k=K), slots, DEGREE,
+            spec_width=STREAM["spec"], coalesce_qb=QB,
+            delta_cap=live.delta_cap)
+        reset_launch_counts()
+        CACHE.reset_stats()
+        ids, dists, st = stream_search(
+            consts, geom, params, entry, queries, num_slots=slots,
+            arrivals=arrivals, round_chunk=STREAM["chunk"], injit_admit=True,
+            live=live, device=dev, **kw)
+        launches = launch_counts()
+        cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
+                           st.host_syncs)
+        return ids, dists, st, launches, cap
+
+    def line(run, st, cap, launches, live, ids, **extra):
+        summ = stream_summary(st)
+        vecs, exts = live.final_dataset()
+        true_ids = exts[brute_force_topk(vecs, queries, K)[0]]
+        return {"phase": "live", "index": "sift-1b", "run": run,
+                "queries": nq, "slots_per_shard": slots,
+                "arrival_rate": STREAM["rate"], "delta_cap": live.delta_cap,
+                "capacity": live.capacity, "qps": nq / st.wall_s,
+                "wall_s": st.wall_s,
+                "latency_rounds": summ["latency_rounds"],
+                "wall_latency_ms": summ["wall_latency_ms"],
+                **{k: getattr(st, k) for k in (
+                    "epoch_swaps", "delta_hits", "tombstoned",
+                    "swap_stall_rounds", "total_rounds", "host_dispatches",
+                    "warmup_rounds")},
+                "inserts": live.inserts, "deletes": live.deletes,
+                "recall@k_final_dataset": float(recall_at_k(ids, true_ids)),
+                **cap, "launches": launches, **extra}
+
+    s_ids, s_dists, s_st = static
+    s_summ = stream_summary(s_st)
+    zero = LiveIndex(EpochIndex.empty(packed, db, np.arange(n0),
+                                      LIVE["delta_cap"]), pref_width=pref)
+    ids, dists, st, launches, cap = serve(zero)
+    same = {"ids": np.array_equal(ids, s_ids),
+            "dists": np.array_equal(dists.view(np.int32),
+                                    s_dists.view(np.int32)),
+            "total_rounds": st.total_rounds == s_st.total_rounds,
+            "host_dispatches": st.host_dispatches == s_st.host_dispatches}
+    emit(line("zero_churn", st, cap, launches, zero, ids,
+              stream_refill_static_qps=nq / s_st.wall_s,
+              equals_stream_refill_static=same))
+    if not all(same.values()) or cap["captures"] != 1:
+        raise AssertionError(f"live sift zero churn: differs from phase "
+                             f"stream's refill static session ({same}) "
+                             f"or {cap['captures']} captures")
+    check_launches("live sift zero churn", launches, cap["device_rounds"])
+
+    live = churn_live(STREAM["rate"], nq, LIVE["delta_cap"])
+    with timed_swaps() as swap_s:
+        ids, _, st, launches, cap = serve(live)
+    emit(line("churn", st, cap, launches, live, ids,
+              scheduled_inserts=live.schedule.num_inserts,
+              reindex_s_per_swap=live.reindex_s / max(live.swaps, 1),
+              swap_s=swap_s,
+              stream_refill_static={
+                  "qps": nq / s_st.wall_s,
+                  "latency_rounds": s_summ["latency_rounds"],
+                  "wall_latency_ms": s_summ["wall_latency_ms"]}))
+    if st.epoch_swaps < 1 or cap["captures"] != 1 or \
+            st.host_syncs != st.host_dispatches:
+        raise AssertionError(f"live sift churn: >= 1 swap and one capture "
+                             f"expected: {st.epoch_swaps}, {cap}")
+    check_launches("live sift churn", launches, cap["device_rounds"])
+
+    # (c) live + tiered: the live consts' copy at a boundary goes before
+    # the stage's copy on the copy engine (PageStore.launch_stage); the
+    # "stage first" rows queue the stage first, as a store without a live
+    # index does. The two orders run in turns (A B B A), then demand-only
+    t = TIERED
+    tq = dataset("sift-1b").queries(t["queries"], seed=1)
+    tarr = poisson_arrivals(t["rate"], t["queries"], seed=0)
+    rows = {}
+    for turn, (run, prefetch, defer) in enumerate((
+            ("prefetch", True, True), ("prefetch_stage_first", True, False),
+            ("prefetch_stage_first", True, False), ("prefetch", True, True),
+            ("demand", False, True))):
+        live = churn_live(t["rate"], t["queries"], LIVE_TIERED["delta_cap"])
+        consts, geom, entry = pack_for_engine(live.ep.packed, device=dev,
+                                              host_pages=True)
+        ps = PageStore(consts, geom, LIVE_TIERED["frames"], w_select=W,
+                       prefetch=prefetch)
+        if not defer:
+            boundary = ps.boundary
+            ps.boundary = lambda *a, b=boundary: b(*a[:5])
+        times = timed_boundaries(ps)
+        params = EngineParams.lossless(
+            SearchParams(L=L, W=W, k=K), t["slots"], DEGREE,
+            spec_width=t["spec"], coalesce_qb=QB,
+            store_pages=ps.num_pages, delta_cap=live.delta_cap)
+        reset_launch_counts()
+        CACHE.reset_stats()
+        ids, _, st = stream_search(
+            consts, geom, params, entry, tq, num_slots=t["slots"],
+            arrivals=tarr, round_chunk=t["chunk"], pagestore=ps, live=live,
+            device=dev)
+        cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
+                           st.host_syncs)
+        summ = stream_summary(st)
+        rows[run] = ids
+        emit({"phase": "live", "index": "sift-1b", "run": "tiered_" + run,
+              "turn": turn, "queries": t["queries"],
+              "arrival_rate": t["rate"], "slots_per_shard": t["slots"],
+              "device_pages": ps.P_dev,
+              "pages_per_shard": ps.NP, "delta_cap": live.delta_cap,
+              "qps": t["queries"] / st.wall_s,
+              "latency_rounds": summ["latency_rounds"],
+              "wall_latency_ms": summ["wall_latency_ms"],
+              "stalls_per_query": st.stalls / t["queries"],
+              "host_ms_per_boundary": 1e3 * float(np.mean(times)),
+              **{k: getattr(st, k) for k in (
+                  "epoch_swaps", "delta_hits", "tombstoned", "total_rounds",
+                  "host_dispatches")},
+              "inserts": live.inserts, **ps.counters(), **cap})
+        if st.epoch_swaps or cap["captures"] != 1:
+            raise AssertionError(f"live sift tiered {run}: no swap and one "
+                                 f"capture expected: {st.epoch_swaps}, "
+                                 f"{cap}")
+        check_launches(f"live sift tiered {run}", launch_counts(),
+                       cap["device_rounds"])
+    # the copy order moves no decision; demand-only fetching stalls
+    # other rounds, so its mutations meet other queries
+    if not np.array_equal(rows["prefetch_stage_first"], rows["prefetch"]):
+        raise AssertionError("live sift tiered: the stage's copy order "
+                             "changed the ids")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7c: two-tier routed serving
 # ---------------------------------------------------------------------------
 # routed builds: 8 centroids per shard; (b) keeps the stream phase's
 # traffic with prefetch lists of 4 (spec 4) and serves topr 2 (the
@@ -2127,24 +2584,26 @@ def build_routed_sift():
     return ri, time.perf_counter() - t0
 
 
-def start_routed_build():
-    """Start :func:`build_routed_sift` in a one-process spawn pool with
-    two BLAS threads (the host's other cores drive the card meanwhile);
-    returns (pool, async result). The caller terminates the pool."""
+def start_host_builds():
+    """Start :func:`build_main_sift` and :func:`build_routed_sift` in a
+    two-process spawn pool with two BLAS threads each (the host's other
+    cores drive the card meanwhile); returns (pool, main build's async
+    result, routed build's). The caller terminates the pool."""
     import multiprocessing
     import os
     saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
                                             "OPENBLAS_NUM_THREADS")}
     os.environ.update({k: "2" for k in saved})
     try:
-        pool = multiprocessing.get_context("spawn").Pool(1)
+        pool = multiprocessing.get_context("spawn").Pool(2)
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
-    return pool, pool.apply_async(build_routed_sift)
+    return (pool, pool.apply_async(build_main_sift),
+            pool.apply_async(build_routed_sift))
 
 
 def routed_sift(dev, built) -> dict:
@@ -2891,17 +3350,27 @@ def main() -> int:
 
     emit({"phase": "build", "seconds": round(build_all(), 2),
           "ptxas": ptxas_report()})
-    pool, routed_build = start_routed_build()
+    pool, main_build, routed_build = start_host_builds()
     try:
-        return run_phases(dev, name, routed_build)
+        return run_phases(dev, name, main_build, routed_build)
     finally:
         pool.terminate()
         pool.join()
 
 
-def run_phases(dev, name: str, routed_build) -> int:
-    """Phases 3 to 9; ``routed_build`` is the sift-1b routed build
-    running in a child process since phase 2."""
+def timed_part(phase: str, part: str, fn, *args):
+    """``fn(*args)``, then a line with the phase's part and its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit({"phase": phase, "part": part,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    return out
+
+
+def run_phases(dev, name: str, main_build, routed_build) -> int:
+    """Phases 3 to 9; ``main_build`` and ``routed_build`` are the sift-1b
+    builds (search and routed) running in child processes since phase 2.
+    The phases' integer parts run first, while the builds finish."""
     import torch
 
     t0 = time.perf_counter()
@@ -2926,33 +3395,34 @@ def run_phases(dev, name: str, routed_build) -> int:
           "seconds": round(time.perf_counter() - t0, 2)})
 
     int_index = integer_main_path(dev)
-    launches, (db, packed), main_run = real_main_path(dev)
-    t0 = time.perf_counter()
-    engine_variants_integer(*int_index[:2], dev)
-    variants = engine_variants_sift(dict(main_run, db=db), dev)
+    packed_int, queries_int, db_int = int_index
+    timed_part("engine_variants", "integer", engine_variants_integer,
+               packed_int, queries_int, dev)
+    timed_part("stream", "integer", stream_integer, packed_int, queries_int,
+               dev)
+    tiered_build = timed_part("tiered", "integer", tiered_integer, db_int,
+                              queries_int, dev)
+    timed_part("live", "integer", live_integer, tiered_build, queries_int,
+               dev)
+    timed_part("routed", "integer", routed_integer, db_int, queries_int,
+               dev)
+    launches, (db, packed), main_run = real_main_path(dev, main_build)
+    variants = timed_part("engine_variants", "sift-1b", engine_variants_sift,
+                          dict(main_run, db=db), dev)
     # the bf16-query instantiation's path is payload_bf16's search
     launches["paged_distance_bf16q"] = \
         variants["payload_bf16"]["paged_distance_bf16q"]
-    emit({"phase": "engine_variants",
-          "seconds": round(time.perf_counter() - t0, 2)})
-    t0 = time.perf_counter()
-    stream_integer(*int_index[:2], dev)
-    stream_path(db, packed, dev)
-    emit({"phase": "stream", "seconds": round(time.perf_counter() - t0, 2)})
-    t0 = time.perf_counter()
-    tiered_integer(int_index[2], int_index[1], dev)
-    tiered = tiered_sift(db, packed, dev)
-    capacity_check(dev)
+    static = timed_part("stream", "sift-1b", stream_path, db, packed, dev)
+    tiered = timed_part("tiered", "sift-1b", tiered_sift, db, packed, dev)
+    timed_part("tiered", "capacity", capacity_check, dev)
     torch.cuda.empty_cache()
-    emit({"phase": "tiered", "seconds": round(time.perf_counter() - t0, 2)})
-    t0 = time.perf_counter()
-    routed_integer(int_index[2], int_index[1], dev)
+    timed_part("live", "sift-1b", live_sift, db, packed, static, dev)
+    torch.cuda.empty_cache()
     # the standalone sort and merge run on the routed path: their
     # launches are the sift topr-2 session's (route sort, fusion merges)
-    routed = routed_sift(dev, routed_build)
+    routed = timed_part("routed", "sift-1b", routed_sift, dev, routed_build)
     launches["bitonic_sort"] = routed["bitonic_sort"]
     launches["bitonic_merge"] = routed["bitonic_merge"]
-    emit({"phase": "routed", "seconds": round(time.perf_counter() - t0, 2)})
     launches["flash_attention"] = serve_path(dev)["flash_attention"]
     kernels = report_timing(timing_in_child(), launches, errs,
                             tiered["paged_distance"])

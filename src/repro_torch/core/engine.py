@@ -167,6 +167,15 @@ class EngineParams:
                                     # buffer; a non-resident page stalls
                                     # its owner queries for the round.
                                     # 0 = device-resident store, no op
+    delta_cap: int = 0              # live index (core/live.py): rows of
+                                    # the append-only delta segment that
+                                    # retirement brute-force-scans beside
+                                    # the main candidate list, after
+                                    # masking tombstoned ids. The delta
+                                    # and tombstone consts have a fixed
+                                    # shape, so inserts, deletes and
+                                    # epoch swaps keep the chunk's
+                                    # capture. 0 = frozen index, no op
 
     @property
     def backend(self) -> KernelBackend:
@@ -517,9 +526,71 @@ def _finalize(state: EngineState, k: int):
     return out_i, state.cand_d[..., :k], stats
 
 
+def _finalize_live(state: EngineState, queries, tombs, delta_vec,
+                   delta_norm, delta_live, k: int):
+    """Live-index retire: mask tombstones, merge the delta segment.
+
+    Three steps, each chosen so a zero-churn session stays bit-identical
+    to :func:`_finalize`:
+
+      1. tombstoned candidates are **stable-partitioned** to the back of
+         the full length-L list (all-False flags: the identity
+         permutation) and overwritten with (ID_SENTINEL, BIG_DIST), so a
+         leaked tombstone can never survive in the first k;
+      2. the delta segment is brute-force scanned with the same
+         mul+reduce distance expression as :func:`_init_state`; dead
+         rows score BIG_DIST, live rows get global ids ``capacity +
+         row``;
+      3. [main k | delta] is merged by a **stable** sort on distance:
+         main is already sorted ascending and wins ties, so an at-rest
+         delta (all BIG_DIST) reproduces the frozen output exactly.
+
+    Both sorts are ``torch.sort(stable=True)``: ties keep their position,
+    as the reference's ``jnp.argsort(stable=True)`` does (the bitonic
+    kernels break ties by id, which would reorder equal distances). The
+    first sorts the bool ``dead`` mask itself."""
+    ids = state.cand_i                                      # (S, Qs, L)
+    cap = tombs.shape[0]
+    dead = tombs[ids.long().clamp(0, cap - 1)] & (ids != ID_SENTINEL)
+    dd, order = torch.sort(dead, dim=-1, stable=True)
+    ci = ids.gather(-1, order)
+    cd = state.cand_d.gather(-1, order)
+    main_i = torch.where(dd, ID_SENTINEL, ci)[..., :k]
+    main_d = torch.where(dd, BIG_DIST, cd)[..., :k]
+
+    q = queries.float()
+    qq = (q * q).sum(-1)
+    dn = delta_vec.shape[0]
+    d_d = (qq[..., None] - 2.0 * (q[..., None, :] * delta_vec.float()).sum(-1)
+           + delta_norm)
+    d_d = torch.where(delta_live, d_d, BIG_DIST)
+    d_i = torch.where(delta_live,
+                      cap + torch.arange(dn, dtype=torch.int32,
+                                         device=ids.device), ID_SENTINEL)
+    d_i = d_i.expand(ids.shape[:-1] + (dn,))
+
+    all_d = torch.cat([main_d, d_d], -1)
+    all_i = torch.cat([main_i, d_i.to(main_i.dtype)], -1)
+    out_d, ord2 = torch.sort(all_d, dim=-1, stable=True)
+    out_i = all_i.gather(-1, ord2[..., :k])
+    out_i = torch.where(out_i != ID_SENTINEL, out_i, INVALID)
+    stats = {
+        "rounds": state.rounds, "n_dist": state.n_dist,
+        "items_recv": state.items_recv, "pages_unique": state.pages_unique,
+        "drops_b": state.drops_b, "props_sent": state.props_sent,
+        "truncated": state.truncated, "quarantined": state.quarantined,
+    }
+    return out_i, out_d[..., :k], stats
+
+
 # ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
+#: the consts a packed index gives the engine (a live index's epoch swap
+#: rewrites them in place)
+MAIN_CONST_KEYS = ("db", "vnorm", "adj", "pref", "blk_perm")
+
+
 def pack_for_engine(packed: PackedIndex, device="cuda", *,
                     host_pages: bool = False):
     """PackedIndex -> (consts dict of tensors on ``device`` with a leading
@@ -533,7 +604,7 @@ def pack_for_engine(packed: PackedIndex, device="cuda", *,
     consts = {name: torch.as_tensor(
         getattr(packed, name),
         device="cpu" if host_pages and name in ("db", "vnorm") else dev)
-        for name in ("db", "vnorm", "adj", "pref", "blk_perm")}
+        for name in MAIN_CONST_KEYS}
     # locate the entry vertex's physical position on its shard
     s, p, sl = (int(x[0]) for x in physical_page_of(packed, [packed.entry]))
     entry = (consts["db"][s, p, sl].float().to(dev),
@@ -847,6 +918,18 @@ def engine_retire(state: EngineState, k: int):
     return _finalize(state, k)
 
 
+#: consts keys a live index adds next to db/vnorm/adj/pref/blk_perm.
+LIVE_CONST_KEYS = ("tombs", "delta_vec", "delta_norm", "delta_live")
+
+
+def engine_retire_live(state: EngineState, queries, tombs, delta_vec,
+                       delta_norm, delta_live, k: int):
+    """:func:`engine_retire` through :func:`_finalize_live`: tombstones
+    masked, the delta segment merged."""
+    return _finalize_live(state, queries, tombs, delta_vec, delta_norm,
+                          delta_live, k)
+
+
 def _chunk_round(carry, round_fn, rounds_cap: int, dynamic: bool,
                  spec_cfg, stall=None):
     """One in-chunk round, shared by both chunk drivers: record the
@@ -1025,6 +1108,18 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
         return trace.index_copy(0, at, val[None])
 
     per_shard = pend_arr.dim() == 2
+    # evicted rows' results are captured before admission; with a live
+    # index (delta_cap > 0) the capture masks tombstones and merges the
+    # delta, so a mid-chunk eviction honours deletes exactly as a
+    # host-side retire does. delta_cap == 0 keeps the frozen finalize.
+    if params.delta_cap > 0:
+        live = [consts[name] for name in LIVE_CONST_KEYS]
+
+        def capture_fin(st, q):
+            return _finalize_live(st, q, *live, k)[:2]
+    else:
+        def capture_fin(st, q):
+            return _finalize(st, k)[:2]
 
     def cond(c):
         st, cur, j = c[0], c[7], c[8]
@@ -1038,7 +1133,7 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
         avail = _pending_avail(pend_arr, cur, t0 + j)
         # boundary j (global round t0 + j): record the would-be-evicted
         # rows' results, then seat arrived pending queries
-        fin_i, fin_d, _ = _finalize(st, k)
+        fin_i, fin_d = capture_fin(st, q)
         ri, rd = put(ri, at, fin_i), put(rd, at, fin_d)
         rr, rn = put(rr, at, st.rounds), put(rn, at, st.n_dist)
         ra, rt = put(ra, at, st.age), put(rt, at, st.truncated)

@@ -1,8 +1,9 @@
 """LUNCSR — the paper's graph format (§IV-B), host-side numpy.
 
 The port's own copy of the reference package's ``core/luncsr.py``
-builders (``Geometry``, ``LUNCSR``, ``PackedIndex``, ``pack_index``), so
-one seed packs bit-identical arrays in both packages.
+builders (``Geometry``, ``LUNCSR``, ``PackedIndex``, ``pack_index``,
+``pack_padded``) and the live index's ``EpochIndex``, so one seed packs
+bit-identical arrays in both packages.
 
 CSR (offsets / neighbors) extended with *physical placement* arrays so a
 logical vertex id resolves to its physical location without a translation
@@ -344,3 +345,116 @@ def physical_page_of(packed: PackedIndex, ids: np.ndarray):
     pib = lpage % g.pages_per_block
     phys = packed.blk_perm[shard, blk] * g.pages_per_block + pib
     return shard, phys, ids % g.page_size
+
+
+def pack_padded(vectors: np.ndarray, adjacency: np.ndarray,
+                geometry: Geometry, entry: int, max_degree: int,
+                capacity: int, pref_width: int = 0) -> PackedIndex:
+    """Pack a graph over ``m <= capacity`` live vertices into a
+    ``capacity``-sized :class:`PackedIndex`.
+
+    The pad seats (ids ``m .. capacity-1``) hold zero vectors and
+    INVALID adjacency: unreachable from the entry, so a search over the
+    padded index is bit-identical to one over the unpadded graph. Every
+    epoch of a live session packs at the same ``capacity``, which keeps
+    the engine consts' shapes fixed across swaps. With ``capacity == m``
+    this is exactly ``from_adjacency`` + :func:`pack_index` (the frozen
+    build path).
+    """
+    m, d = vectors.shape
+    if m > capacity:
+        raise ValueError(f"{m} live vertices exceed capacity {capacity}")
+    if m < capacity:
+        vpad = np.zeros((capacity - m, d), dtype=np.float32)
+        apad = np.full((capacity - m, adjacency.shape[1]), INVALID,
+                       dtype=np.int32)
+        vectors = np.concatenate(
+            [np.ascontiguousarray(vectors, np.float32), vpad], axis=0)
+        adjacency = np.concatenate(
+            [adjacency.astype(np.int32), apad], axis=0)
+    index = LUNCSR.from_adjacency(vectors, adjacency, geometry,
+                                  entry=entry, pref_width=pref_width)
+    return pack_index(index, max_degree=max_degree)
+
+
+# ---------------------------------------------------------------------------
+# Epoch-versioned live index: main graph + delta + tombstones.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class EpochIndex:
+    """One epoch of a live index: the packed main graph plus the mutable
+    side-state the engine scans at retire time.
+
+    The main :class:`PackedIndex` is packed at the session ``capacity``
+    (== ``packed.n``), so every epoch's device consts share one shape.
+    The delta segment is a bounded append-only buffer of freshly inserted
+    vectors, brute-force scanned by the engine's ``_finalize_live``; the
+    tombstone bitset masks deleted main-graph vertices at retire time. A
+    background reindex (core/refresh.py:``reindex_epoch``) folds both
+    into the next epoch's main graph.
+
+    vectors   : (capacity, d) logical-order mirror of the packed db
+                (row i = vertex i; pad seats zero)
+    ext_ids   : (capacity,) int64  internal id -> external id; -1 = pad
+    tombs     : (capacity,) bool   deleted main-graph vertices
+    delta_vec : (delta_cap, d) f32 inserted vectors (stale rows linger)
+    delta_norm: (delta_cap,) f32   ||v||^2, same f64 accumulate as pack
+    delta_live: (delta_cap,) bool  row currently live
+    delta_ext : (delta_cap,) int64 row -> external id; -1 = never used
+    delta_len : rows ever appended this epoch (<= delta_cap)
+    """
+
+    epoch: int
+    packed: PackedIndex
+    vectors: np.ndarray
+    ext_ids: np.ndarray
+    tombs: np.ndarray
+    delta_vec: np.ndarray
+    delta_norm: np.ndarray
+    delta_live: np.ndarray
+    delta_ext: np.ndarray
+    delta_len: int = 0
+
+    @property
+    def capacity(self) -> int:
+        return int(self.packed.n)
+
+    @property
+    def delta_cap(self) -> int:
+        return int(self.delta_vec.shape[0])
+
+    def n_live(self) -> int:
+        main = int(((self.ext_ids >= 0) & ~self.tombs).sum())
+        return main + int(self.delta_live.sum())
+
+    def live_host(self) -> dict:
+        """The four consts the engine's ``_finalize_live`` reads, as the
+        host arrays they are (the live index mutates them in place)."""
+        return {"tombs": self.tombs, "delta_vec": self.delta_vec,
+                "delta_norm": self.delta_norm, "delta_live": self.delta_live}
+
+    def live_consts(self, device) -> dict:
+        """:meth:`live_host` as fresh tensors on ``device``. Fixed shape
+        and dtype for the whole session: a mutation changes contents
+        only."""
+        import torch
+
+        return {k: torch.tensor(v, device=device)
+                for k, v in self.live_host().items()}
+
+    @staticmethod
+    def empty(packed: PackedIndex, vectors: np.ndarray, ext_ids: np.ndarray,
+              delta_cap: int, epoch: int = 0) -> "EpochIndex":
+        d = vectors.shape[1]
+        cap = int(packed.n)
+        assert vectors.shape[0] == cap and ext_ids.shape == (cap,)
+        return EpochIndex(
+            epoch=epoch, packed=packed,
+            vectors=np.ascontiguousarray(vectors, np.float32),
+            ext_ids=ext_ids.astype(np.int64),
+            tombs=np.zeros(cap, dtype=bool),
+            delta_vec=np.zeros((delta_cap, d), dtype=np.float32),
+            delta_norm=np.zeros(delta_cap, dtype=np.float32),
+            delta_live=np.zeros(delta_cap, dtype=bool),
+            delta_ext=np.full(delta_cap, -1, dtype=np.int64),
+        )

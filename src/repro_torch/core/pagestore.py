@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import EngineGeom
-from repro_torch.utils import ID_SENTINEL, INVALID, next_pow2, to_device
+from repro_torch.utils import ID_SENTINEL, INVALID, HostStaging, to_device
 
 # A boundary that demanded pages but could not install a single one
 # (every frame pinned or reserved) makes no progress; the owning queries
@@ -64,39 +64,6 @@ _NO_PROGRESS_LIMIT = 256
 _LOOKAHEAD = 16
 _SKIP = 0
 _DECAY = 0.95
-
-
-class _Staging:
-    """Host staging buffers for copies to the device, reused across
-    boundaries: pinned on a card (plain on the CPU), grown to the next
-    power of two of the rows asked for. A pinned buffer must not be
-    rewritten while a copy from it is in flight, so :meth:`take` waits
-    on the event :meth:`sent` recorded after the last such copy."""
-
-    def __init__(self, templates, pinned: bool):
-        self.templates = templates           # [(row shape, dtype)]
-        self.pinned = pinned
-        self.bufs: list = []
-        self.rows = 0
-        self.event = None
-
-    def take(self, n: int) -> list:
-        """Views of ``n`` rows of each buffer, safe to overwrite."""
-        if self.event is not None:
-            self.event.synchronize()
-            self.event = None
-        if n > self.rows:
-            self.rows = next_pow2(n)
-            self.bufs = [torch.empty((self.rows,) + tuple(shape), dtype=dt,
-                                     pin_memory=self.pinned)
-                         for shape, dt in self.templates]
-        return [b[:n] for b in self.bufs]
-
-    def sent(self, stream) -> None:
-        """A copy from the buffers was queued on ``stream``."""
-        if self.pinned:
-            self.event = torch.cuda.Event()
-            self.event.record(stream)
 
 
 class PageStore:
@@ -165,6 +132,7 @@ class PageStore:
         self.by_prefetch = np.zeros((self.S, self.P_dev), bool)
         self.reserved = np.zeros((self.S, self.P_dev), bool)
         self._staged = None          # (meta, copy event)
+        self._unsent = None          # a stage whose copy is deferred
         self._no_progress = 0
 
         self.page_hits = 0
@@ -185,10 +153,10 @@ class PageStore:
                                     device=dev)
         payload = [((self.P, self.d), self.cold_db.dtype),
                    ((self.P,), self.cold_vn.dtype)]
-        self._demand_buf = _Staging(payload, self.cuda)
-        self._stage_buf = _Staging(payload, self.cuda)
-        self._ttab_buf = _Staging([((self.S, self.NP), torch.int32)],
-                                  self.cuda)
+        self._demand_buf = HostStaging(payload, self.cuda)
+        self._stage_buf = HostStaging(payload, self.cuda)
+        self._ttab_buf = HostStaging([((self.S, self.NP), torch.int32)],
+                                     self.cuda)
         self._stage_dev = None       # device landing buffers of the stage
         self._side = torch.cuda.Stream(dev) if self.cuda else None
         self._push_ttab()
@@ -255,7 +223,7 @@ class PageStore:
                 f"epoch swap changed the store shape: "
                 f"{tuple(consts['db'].shape)} != {tuple(self.cold_db.shape)}"
                 " (pack every epoch at the session capacity)")
-        self._staged = None
+        self._staged = self._unsent = None
         self.reserved[:] = False
         self._adopt(consts)
         rows = [(s, int(self.frame_page[s, f]), f)
@@ -265,13 +233,18 @@ class PageStore:
             self._install(rows, *self._fetch(rows))
         return self.device_view()
 
-    def boundary(self, touch, miss, cand_i, cand_e, done):
+    def boundary(self, touch, miss, cand_i, cand_e, done,
+                 defer_stage: bool = False):
         """Process one round-chunk boundary; returns consts overrides.
 
         ``touch`` / ``miss``: (S, NP) bool bitmaps the engine accumulated
         since the last boundary. ``cand_i`` / ``cand_e`` / ``done``: the
         pool state the predictor looks ahead from. Arrays or host
-        tensors."""
+        tensors. ``defer_stage`` decides the speculative stage but leaves
+        its copy to :meth:`launch_stage`, so that a caller with its own
+        copies to queue before the next chunk (the live index's consts)
+        queues them ahead of the stage's on the copy engine."""
+        self.launch_stage()
         touch = np.asarray(touch)
         miss = np.asarray(miss)
         pinned = np.zeros((self.S, self.P_dev), bool)
@@ -299,7 +272,16 @@ class PageStore:
         if self.prefetch:
             self._stage(np.asarray(cand_i), np.asarray(cand_e),
                         np.asarray(done), pinned, demand_s)
+            if not defer_stage:
+                self.launch_stage()
         return self.device_view()
+
+    def launch_stage(self) -> None:
+        """Start the copy of a stage :meth:`boundary` deferred (a no-op
+        when there is none)."""
+        if self._unsent is not None:
+            meta, self._unsent = self._unsent, None
+            self._staged = (meta, self._copy_staged(meta))
 
     # -- device transfers -------------------------------------------------
     def _fetch(self, rows):
@@ -448,7 +430,7 @@ class PageStore:
                 meta.append((s, page, int(f)))
         if not meta:
             return
-        self._staged = (meta, self._copy_staged(meta))
+        self._unsent = meta
         self.prefetch_issued += len(meta)
 
     def _copy_staged(self, meta):

@@ -12,6 +12,13 @@ and vnorm rows. Search results must be invariant
 (tests/test_torch_engine_variants.py). The port's own copy of the
 reference's module; ``physical_page_of`` lives in core/luncsr.py and is
 re-exported here, where the reference keeps it.
+
+The same machinery generalises to the live index's **background
+reindex** (:func:`reindex_epoch`): instead of permuting blocks of a
+frozen graph, rebuild the graph over the current live set (main
+survivors + delta inserts), re-run the degree-ascending BFS reorder,
+and pack the result at the session capacity so the swap is a pure
+content update.
 """
 from __future__ import annotations
 
@@ -19,9 +26,12 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.luncsr import PackedIndex, physical_page_of
+from repro_torch.core.graph import build_vamana
+from repro_torch.core.luncsr import (EpochIndex, PackedIndex, pack_padded,
+                                     physical_page_of)
+from repro_torch.core.reorder import apply_reordering, degree_ascending_bfs
 
-__all__ = ["refresh_blocks", "physical_page_of"]
+__all__ = ["refresh_blocks", "physical_page_of", "reindex_epoch"]
 
 
 def refresh_blocks(packed: PackedIndex, rng: np.random.Generator,
@@ -88,3 +98,39 @@ def _refresh_blocks_loop(packed: PackedIndex, rng: np.random.Generator,
             vnorm[s, ra], vnorm[s, rb] = (vnorm[s, rb].copy(),
                                           vnorm[s, ra].copy())
     return dataclasses.replace(packed, db=db, vnorm=vnorm, blk_perm=new_perm)
+
+
+def reindex_epoch(ep: EpochIndex, *, seed: int = 0,
+                  pref_width: int = 0) -> EpochIndex:
+    """Background reindex: fold the delta + tombstones into a fresh epoch.
+
+    Collects the live set (main survivors + live delta rows), rebuilds
+    the Vamana graph over it, re-runs the degree-ascending BFS reorder
+    (static scheduling step 1 applied to the *new* graph), and packs at
+    the session capacity. External ids ride along through the reorder
+    permutation, so the result's ``ext_ids`` keeps every surviving
+    vector addressable under its original name. The new epoch starts
+    with an empty delta and a clear tombstone set.
+    """
+    main_live = (ep.ext_ids >= 0) & ~ep.tombs
+    vecs = np.concatenate(
+        [ep.vectors[main_live], ep.delta_vec[ep.delta_live]], axis=0)
+    exts = np.concatenate(
+        [ep.ext_ids[main_live], ep.delta_ext[ep.delta_live]], axis=0)
+    if vecs.shape[0] < 2:
+        raise ValueError("reindex needs at least 2 live vectors")
+    r = ep.packed.max_degree
+    adj, medoid = build_vamana(vecs, r=r, seed=seed)
+    order = degree_ascending_bfs(adj)
+    vecs, adj, entry = apply_reordering(vecs, adj, order, entry=medoid)
+    exts = exts[order]
+    packed = pack_padded(vecs, adj, ep.packed.geometry, entry, r,
+                         capacity=ep.capacity, pref_width=pref_width)
+    cap = ep.capacity
+    m = vecs.shape[0]
+    vmirror = np.zeros((cap, vecs.shape[1]), dtype=np.float32)
+    vmirror[:m] = vecs
+    emirror = np.full(cap, -1, dtype=np.int64)
+    emirror[:m] = exts
+    return EpochIndex.empty(packed, vmirror, emirror,
+                            delta_cap=ep.delta_cap, epoch=ep.epoch + 1)

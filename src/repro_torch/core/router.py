@@ -268,6 +268,57 @@ def build_routed_index(db: np.ndarray, *, shards: int, page_size: int,
                        medoids=np.asarray(medoids))
 
 
+def build_live_router(ep, centroids_per_shard: int = 8, seed: int = 0,
+                      kernel_mode: str = "auto",
+                      device="cuda") -> ShardRouter:
+    """Fit a :class:`ShardRouter` over a live epoch's striped layout, its
+    sketches on ``device``.
+
+    The live index stripes the global graph across shards (unlike
+    ``build_routed_index``'s spatial partition), so routing is only
+    meaningful in the degenerate ``topr >= S`` fan-out mode; but the
+    sketches still track the layout, so that :func:`refresh_router` has
+    something of the same shape to refresh at each swap.
+    """
+    dev = resolve_device(device)
+    S = ep.packed.geometry.num_shards
+    zero = torch.zeros((S, centroids_per_shard, ep.vectors.shape[1]),
+                       dtype=torch.float32, device=dev)
+    base = ShardRouter(centroids=zero, cnorm=zero.sum(-1),
+                       backend=KernelBackend(mode=kernel_mode))
+    return refresh_router(base, ep, seed=seed)
+
+
+def refresh_router(router: ShardRouter, ep, seed: int = 0) -> ShardRouter:
+    """Recompute the per-shard centroid sketches for a new epoch (the
+    router tracks layout churn).
+
+    ``ep`` is a live :class:`~repro_torch.core.luncsr.EpochIndex`; each
+    striping-owner shard's sketch is refit over its *live* vectors in the
+    new epoch (called right after a reindex, so the delta is empty and
+    the main mirror holds the whole live set). Shapes, device and backend
+    are kept: the swap is a content update like every other.
+    """
+    g = ep.packed.geometry
+    cap = ep.capacity
+    owner = np.asarray(g.owner_of_n(np.arange(cap, dtype=np.int64), cap))
+    live = (ep.ext_ids >= 0) & ~ep.tombs
+    S, C, d = router.centroids.shape
+    rc = np.zeros((S, C, d), np.float32)
+    for s in range(S):
+        pts = ep.vectors[live & (owner == s)]
+        if len(pts) == 0:
+            continue        # an empty shard keeps a zero sketch
+        cents, _ = _kmeans(pts, min(C, len(pts)), seed=seed + 1000 + s)
+        rc[s, :cents.shape[0]] = cents
+        if cents.shape[0] < C:
+            rc[s, cents.shape[0]:] = cents[0]   # pad: a duplicate, harmless
+    dev = router.device
+    return ShardRouter(centroids=torch.as_tensor(rc, device=dev),
+                       cnorm=torch.as_tensor((rc * rc).sum(-1), device=dev),
+                       backend=router.backend)
+
+
 # ---------------------------------------------------------------------------
 # retire-time fusion
 # ---------------------------------------------------------------------------

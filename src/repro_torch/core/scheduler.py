@@ -98,9 +98,20 @@ table in place, so the chunk's capture is reused. A row whose round
 counter stays frozen for ``_LIVELOCK_BOUNDARIES`` boundaries (the cache
 cannot hold one round's working set) raises.
 
-Not ported here (each raises ``NotImplementedError`` naming its
-ROADMAP.md queue A item): the live index (item 12) and the
-multi-device stepper (13).
+**Live index** (``live=``, core/live.py; flat or routed at topr >= S,
+tiered or not, both admission paths): at every chunk boundary where
+mutations are due, the live index applies them on the host and the
+session writes the tombstone bitset and the delta segment into its own
+device tensors in place; a triggered reindex swaps in a new epoch the
+same way (main consts, entry, the tiered store's cold tier and frames),
+in-flight candidate lists are translated into the new epoch's ids and
+rows whose whole frontier died restart. Retirement masks tombstones
+and merges the delta (``_finalize_live``), and results carry external
+ids. Every device tensor keeps its address, so a session captures its
+chunk once however many swaps it sees.
+
+Not ported here: the multi-device stepper (ROADMAP.md queue A item
+13; it raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -113,11 +124,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.dispatch import compute_ranks, scatter_to_buckets
-from repro_torch.core.engine import (EngineGeom, EngineParams, _finalize,
-                                     make_stepper, spec_update)
+from repro_torch.core.engine import (LIVE_CONST_KEYS, EngineGeom,
+                                     EngineParams, _finalize,
+                                     engine_retire_live, make_stepper,
+                                     spec_update)
 from repro_torch.core.metrics import slot_occupancy
 from repro_torch.ft.inject import NEVER
-from repro_torch.utils import INVALID, resolve_device, to_device, to_host
+from repro_torch.utils import (BIG_DIST, ID_SENTINEL, INVALID, HostStaging,
+                               bloom_insert, resolve_device, to_device,
+                               to_host)
 
 
 # tiered store: consecutive no-round-progress chunk boundaries for one
@@ -280,8 +295,7 @@ class QueryResult:
 
 @dataclasses.dataclass
 class StreamStats:
-    """Aggregate scheduler run statistics. The live index's fields (not
-    ported) keep the reference's at-rest values."""
+    """Aggregate scheduler run statistics."""
 
     results: list             # [QueryResult] in retirement order
     total_rounds: int         # engine rounds stepped (busy rounds)
@@ -330,11 +344,16 @@ class StreamStats:
     resident_fraction: float = 1.0
                               # tiered store: device frames / logical
                               # pages per shard (1.0 = untiered)
-    delta_hits: int = 0       # live index (not ported)
-    tombstoned: int = 0       # live index (not ported)
-    epoch_swaps: int = 0      # live index (not ported)
+    delta_hits: int = 0       # live index: retired result entries
+                              # served from the delta segment
+    tombstoned: int = 0       # live index: deletes applied during the
+                              # run (main tombstones + killed delta rows)
+    epoch_swaps: int = 0      # live index: background reindexes swapped
+                              # in during the run
     swap_stall_rounds: int = 0
-                              # live index (not ported)
+                              # live index: worked rounds discarded at
+                              # swaps (rows whose whole frontier died
+                              # restart from the new entry)
 
     def by_qid(self):
         return {r.qid: r for r in self.results}
@@ -353,6 +372,13 @@ class StreamScheduler:
     ``ring_capacity``/``overload`` bound the flat in-device queue (module
     doc). ``capture=False`` runs the chunks eagerly on a card instead of
     as captured graphs (the proof that the two agree).
+
+    With ``live`` (a :class:`repro_torch.core.live.LiveIndex` whose
+    current epoch ``consts`` describe, packed at its capacity, with
+    ``params.delta_cap == live.delta_cap``) the scheduler owns copies of
+    the main consts (the store's frames stand in for ``db``/``vnorm``
+    when tiered), the live index's four consts and the entry, allocated
+    once and written in place at every boundary and swap.
     """
 
     def __init__(self, consts, geom: EngineGeom, params: EngineParams,
@@ -405,11 +431,27 @@ class StreamScheduler:
             raise ValueError(
                 "params.store_pages > 0 needs a PageStore (pass "
                 "pagestore=...) to own the translation table")
-        for what, on, item in (
-                ("the live index", live is not None, 12),
-                ("multi-device serving", mesh is not None, 13)):
-            if on:
-                raise _not_ported(what, item)
+        self.live = live
+        if live is not None:
+            # the live index: its consts are content updates of a fixed
+            # shape, so the chunk's capture outlives every swap
+            if params.delta_cap <= 0:
+                raise ValueError(
+                    "a live index needs params.delta_cap > 0 (the static "
+                    "gate of the delta-merge retire)")
+            if params.delta_cap != live.delta_cap:
+                raise ValueError(
+                    f"params.delta_cap={params.delta_cap} != "
+                    f"live.delta_cap={live.delta_cap}")
+            if geom.n != live.capacity:
+                raise ValueError(
+                    f"geom.n={geom.n} != live capacity {live.capacity} "
+                    "(pack at the session capacity)")
+        elif params.delta_cap > 0:
+            raise ValueError(
+                "params.delta_cap > 0 needs a LiveIndex (pass live=...)")
+        if mesh is not None:
+            raise _not_ported("multi-device serving", 13)
         self.device = resolve_device(device)
         if consts["db"].device.type != self.device.type:
             raise ValueError(
@@ -462,6 +504,141 @@ class StreamScheduler:
         # livelock watch of the tiered store (see _tier_boundary)
         self._stall_rounds_prev = None
         self._stall_count = None
+        if live is not None:
+            self._own_live_tensors()
+
+    # -- the live index's device tensors ------------------------------------
+    def _own_live_tensors(self) -> None:
+        """Give the session its own copies of every tensor an epoch swap
+        rewrites (the main consts the store does not hold, the entry) and
+        the live index's four consts: the swaps and boundaries write them
+        in place, so their addresses, which key the captured chunk, never
+        change, and the caller's tensors are never written."""
+        store_keys = () if self.pagestore is None else ("db", "vnorm",
+                                                         "ttab")
+        self.consts = {k: v if k in store_keys else v.clone()
+                       for k, v in self.consts.items()}
+        self.consts.update(self.live.live_consts(self.device))
+        self.entry = tuple(
+            x.clone() if isinstance(x, torch.Tensor)
+            else torch.tensor(int(x), dtype=torch.int32, device=self.device)
+            for x in self.entry)
+        self._live_staging = HostStaging(
+            [(self.consts[k].shape, self.consts[k].dtype)
+             for k in LIVE_CONST_KEYS], self.device.type == "cuda")
+
+    def _push_live(self) -> None:
+        """Write the live index's tombstones and delta segment into the
+        session's tensors. ``LiveIndex.insert``/``delete`` rewrite those
+        host arrays in place, so the copy reads a pinned snapshot, and the
+        next push waits on this copy's event before it rewrites the
+        snapshot (the copy itself is queued without a wait)."""
+        host = self.live.ep.live_host()
+        bufs = self._live_staging.take(1)
+        for buf, name in zip(bufs, LIVE_CONST_KEYS):
+            buf[0].copy_(torch.from_numpy(host[name]))
+            self.consts[name].copy_(buf[0], non_blocking=True)
+        self._live_staging.sent(torch.cuda.current_stream(self.device)
+                                if self.device.type == "cuda" else None)
+
+    def _retire(self, state, qbuf):
+        """Per-slot (ids, dists): the plain finalize, or with a live
+        index the live one (tombstones masked, the delta merged; a
+        zero-churn session gives the plain one's result)."""
+        k = self.params.search.k
+        if self.live is None:
+            return _finalize(state, k)[:2]
+        return engine_retire_live(
+            state, qbuf, *(self.consts[name] for name in LIVE_CONST_KEYS),
+            k)[:2]
+
+    def _swap_epoch(self, state, qbuf, owner, age_base, rounds_base):
+        """Adopt a freshly reindexed epoch mid-session.
+
+        The swap is pure content (every epoch packs at the session
+        capacity): the main consts and the entry are written into the
+        session's tensors in place (blocking copies from host memory:
+        the swap already waited for the host's reindex); with a tiered
+        store the cold tier swaps and the resident frames restage
+        (``PageStore.swap_epoch``). Nothing is captured again.
+
+        In-flight rows keep serving across the swap: each owned row's
+        candidate list is translated old-internal -> new-internal through
+        the external ids, dead entries (deleted, or gone in the reindex)
+        are compacted out (the list stays sorted: distances are the same
+        across epochs), and its bloom filter is rebuilt over the surviving
+        list. A row whose whole list died restarts from the new entry:
+        its worked rounds are the swap's ``swap_stall_rounds``, and its
+        served age carries over through ``age_base``/``rounds_base`` so
+        latency accounting stays exact. Returns (state, qbuf, discarded
+        rounds)."""
+        live = self.live
+        mc = live.main_consts("cpu")
+        keys = ("adj", "pref", "blk_perm") if self.pagestore is not None \
+            else tuple(mc)
+        for name in keys:
+            dst, src = self.consts[name], mc[name]
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(
+                    f"epoch swap changed {name}: {tuple(src.shape)} "
+                    f"{src.dtype} != {tuple(dst.shape)} {dst.dtype} (pack "
+                    "every epoch at the session capacity)")
+            dst.copy_(src)
+        if self.pagestore is not None:
+            self.pagestore.swap_epoch(mc)
+        for dst, src in zip(self.entry, live.device_entry("cpu")):
+            dst.copy_(src.expand_as(dst))
+
+        trans = live.take_translation()
+        rows = np.argwhere(owner != INVALID)
+        if trans is None or rows.size == 0:
+            return state, qbuf, 0
+        ci, cd, ce, ages, rnds = (np.array(x) for x in to_host(
+            state.cand_i, state.cand_d, state.cand_e, state.age,
+            state.rounds))
+        tmask = np.zeros(owner.shape, bool)
+        dead_rows = np.zeros(owner.shape, bool)
+        for s, r in rows:
+            row_i = ci[s, r]
+            valid = row_i != ID_SENTINEL
+            t_ids = np.where(
+                valid, trans[np.clip(row_i, 0, trans.shape[0] - 1)], -1)
+            keep = t_ids >= 0
+            m = int(keep.sum())
+            if m == 0:
+                dead_rows[s, r] = True
+                continue
+            kd = cd[s, r][keep].copy()
+            ke = ce[s, r][keep].copy()
+            ci[s, r, :m] = t_ids[keep]
+            ci[s, r, m:] = ID_SENTINEL
+            cd[s, r, :m] = kd
+            cd[s, r, m:] = BIG_DIST
+            ce[s, r, :m] = ke
+            ce[s, r, m:] = False
+            tmask[s, r] = True
+        dev = self.device
+        if tmask.any():
+            w2 = to_device(tmask, dev)
+            ci_t = to_device(ci, dev)
+            bloom = bloom_insert(torch.zeros_like(state.bloom), ci_t,
+                                 (ci_t != ID_SENTINEL) & w2[..., None])
+            w3 = w2[..., None]
+            state = state._replace(
+                cand_i=torch.where(w3, ci_t, state.cand_i),
+                cand_d=torch.where(w3, to_device(cd, dev), state.cand_d),
+                cand_e=torch.where(w3, to_device(ce, dev), state.cand_e),
+                bloom=torch.where(w3, bloom, state.bloom))
+        stall = 0
+        if dead_rows.any():
+            stall = int(rnds[dead_rows].sum())
+            age_base[dead_rows] += ages[dead_rows]
+            rounds_base[dead_rows] += rnds[dead_rows]
+            state, qbuf = self.stepper.admit(
+                state, qbuf, to_device(dead_rows, dev), qbuf, *self.entry)
+            if self.controller is not None:
+                self.controller.reset_rows(dead_rows)
+        return state, qbuf, stall
 
     # -- host-side pool bookkeeping -----------------------------------------
     def _fresh_pool(self, queries_pool):
@@ -511,7 +688,13 @@ class StreamScheduler:
                                          cfg, self.round_chunk, False,
                                          dynamic=dyn)
             steps = out[2]
-        ids, dists, _ = self.stepper.retire(out[0])
+        ids, dists = self._retire(out[0], out[1] if pend is not None
+                                  else qw)
+        if self.live is not None:
+            # an epoch swap's restarts admit on the host on either
+            # admission path: run that stage too
+            self.stepper.admit(state, qw, torch.zeros_like(state.done), qw,
+                               *self.entry)
         steps, _, _ = to_host(steps, ids, dists)
         return time.perf_counter() - t0, int(steps)
 
@@ -568,7 +751,6 @@ class StreamScheduler:
             raise ValueError("pass routed=True at construction to serve "
                              "per-shard target_shards")
         S, Qs, K = self.S, self.num_slots, self.round_chunk
-        k = self.params.search.k
         dev = self.device
         stepped = idle = dispatches = syncs = 0
         injit = self.injit_admit and N > 0
@@ -599,6 +781,16 @@ class StreamScheduler:
         owner = np.full((S, Qs), INVALID, np.int64)   # slot -> qid
         admit_t = np.zeros((S, Qs), np.int64)
         admit_wall = np.zeros((S, Qs), np.float64)
+        # live index: serving age carried across swap restarts (zeroed at
+        # every seat; identically zero without swaps), and its counters
+        age_base = np.zeros((S, Qs), np.int64)
+        rounds_base = np.zeros((S, Qs), np.int64)
+        epoch_swaps = swap_stall = 0
+        live_ix = self.live
+        if live_ix is not None:
+            live_del0, live_hit0 = live_ix.deletes, live_ix.delta_hits
+            # mutations made through the API since construction
+            self._push_live()
         next_q = 0                                    # cursor into order
         retired = 0
         t = 0
@@ -609,14 +801,20 @@ class StreamScheduler:
 
         def emit(s, r, ids, dists, rounds, n_dist, age, trunc, now_wall):
             qid = int(owner[s, r])
+            ids, dists = ids.copy(), dists.copy()
+            if live_ix is not None:
+                ids, dists = live_ix.map_result(ids, dists)
+            age = age_base[s, r] + age
+            rounds = rounds_base[s, r] + rounds
             results.append(QueryResult(
-                qid=qid, ids=ids.copy(), dists=dists.copy(),
+                qid=qid, ids=ids, dists=dists,
                 arrival_round=int(arrivals[qid]),
                 admit_round=int(admit_t[s, r]),
                 retire_round=int(admit_t[s, r] + age),
                 service_rounds=int(rounds), n_dist=int(n_dist),
                 wall_latency_s=now_wall - admit_wall[s, r],
                 truncated=bool(trunc), stall_rounds=int(age - rounds)))
+            age_base[s, r] = rounds_base[s, r] = 0
 
         def next_arrival():
             """Earliest arrival round among unadmitted queries (None once
@@ -641,6 +839,23 @@ class StreamScheduler:
                 self.controller.reset_rows(mask)
 
         while retired + len(shed_qids) < N:
+            if live_ix is not None and live_ix.due(t):
+                # -- live-index boundary: apply every insert and delete
+                # due by the serving clock; a reindex they trigger (a
+                # full delta, refresh_every) swaps in here, the one place
+                # the pool is between dispatches
+                changed, nswaps = live_ix.advance(t)
+                if nswaps:
+                    epoch_swaps += nswaps
+                    state, qbuf, lost = self._swap_epoch(
+                        state, qbuf, owner, age_base, rounds_base)
+                    swap_stall += lost
+                if changed:
+                    self._push_live()
+            if live_ix is not None and self.pagestore is not None:
+                # the stage's copy is queued after the live consts', so
+                # the next chunk does not wait for the whole prefetch
+                self.pagestore.launch_stage()
             if not injit and routed:
                 # -- host-paced routed admission: each shard fills its
                 # own free rows from its own arrived queue
@@ -758,7 +973,7 @@ class StreamScheduler:
             # the chunk boundary's one transfer: the rounds run, traces,
             # the pool's counters and results, the controller, the admit
             # traces
-            fin_i, fin_d, _ = _finalize(state, k)
+            fin_i, fin_d = self._retire(state, qbuf)
             ctrl = spec_state if self.controller is not None else ()
             tier = () if self.pagestore is None else (
                 state.page_touch, state.page_miss, state.cand_i,
@@ -800,6 +1015,7 @@ class StreamScheduler:
                                           else order[p])
                         admit_t[s, r] = t + j
                         admit_wall[s, r] = launch_wall
+                        age_base[s, r] = rounds_base[s, r] = 0
                 if routed:
                     next_qs = cur.astype(np.int64)
                 elif ring:
@@ -847,7 +1063,12 @@ class StreamScheduler:
             prefetch_hits=ps.prefetch_hits if ps is not None else 0,
             prefetch_issued=ps.prefetch_issued if ps is not None else 0,
             resident_fraction=(ps.resident_fraction if ps is not None
-                               else 1.0))
+                               else 1.0),
+            delta_hits=(live_ix.delta_hits - live_hit0
+                        if live_ix is not None else 0),
+            tombstoned=(live_ix.deletes - live_del0
+                        if live_ix is not None else 0),
+            epoch_swaps=epoch_swaps, swap_stall_rounds=swap_stall)
 
     def _tier_boundary(self, state, touch, miss, cand_i, cand_e, done,
                        rounds) -> None:
@@ -866,7 +1087,10 @@ class StreamScheduler:
         _LIVELOCK_BOUNDARIES consecutive boundaries is that
         configuration error (a legitimate stall clears at the next
         boundary's demand fetch)."""
-        self.pagestore.boundary(touch, miss, cand_i, cand_e, done)
+        # with a live index the stage's copy waits for the live consts'
+        # (run's live boundary launches it)
+        self.pagestore.boundary(touch, miss, cand_i, cand_e, done,
+                                self.live is not None)
         state.page_touch.zero_()
         state.page_miss.zero_()
         if self._stall_count is None:
@@ -997,8 +1221,6 @@ def routed_stream_search(consts, geom, params, entry, queries, *,
     """
     from repro_torch.core.router import BIG_DIST, fuse_topk
 
-    if live is not None:
-        raise _not_ported("the live index", 12)
     dev = resolve_device(device)
     queries = np.asarray(queries, np.float32)
     N = queries.shape[0]
@@ -1009,6 +1231,13 @@ def routed_stream_search(consts, geom, params, entry, queries, *,
     topr = int(topr)
     if topr < 1:
         raise ValueError(f"topr must be >= 1, got {topr}")
+    if live is not None and topr < S:
+        # legs on topr < S shard-local subgraphs would each merge the
+        # whole delta segment, duplicating delta ids across the fused
+        # top-k (and the shard partition itself changes at every swap);
+        # only the one-leg-per-query branch is live-safe
+        raise ValueError("live index requires topr >= num_shards "
+                         "(shard-local legs cannot mask a shared delta)")
     if topr >= S:
         R = 1
         targets = np.asarray(router.route(queries, 1))
@@ -1061,7 +1290,7 @@ def routed_stream_search(consts, geom, params, entry, queries, *,
                             controller=ctrl, refill=True,
                             round_chunk=round_chunk,
                             injit_admit=injit_admit, routed=True,
-                            device=dev, capture=capture)
+                            live=live, device=dev, capture=capture)
     leg_stats = sched.run(leg_q[alive_rows], leg_arr[alive_rows],
                           target_shards=leg_tgt[alive_rows])
 

@@ -9,7 +9,10 @@ stats with the same JSON keys as the reference driver.
 With ``--stream`` the queries go through the streaming scheduler
 instead (a fixed slot pool, retire and refill, Poisson arrivals; the
 report of ``launch/serve_stream.py``); ``--topr R`` then builds the
-spatially partitioned index and serves each query as R routed legs.
+spatially partitioned index and serves each query as R routed legs, and
+``--delta-cap C`` (with ``--insert-rate``, ``--delete-rate``,
+``--refresh-every``) serves a live index whose inserts, deletes and
+epoch swaps run against the query stream.
 
   PYTHONPATH=src python -m repro_torch.launch.search --dataset sift-1b
   PYTHONPATH=src python -m repro_torch.launch.search --device cpu \\
@@ -18,6 +21,9 @@ spatially partitioned index and serves each query as R routed legs.
       --dataset tiny --n 512 --queries 32 --stream --arrival-rate 2
   PYTHONPATH=src python -m repro_torch.launch.search --dataset tiny \\
       --stream --topr 2 --down-shards 1
+  PYTHONPATH=src python -m repro_torch.launch.search --device cpu \\
+      --dataset tiny --n 512 --queries 32 --stream --insert-rate 0.35 \\
+      --delete-rate 0.1 --delta-cap 16
 """
 from __future__ import annotations
 
@@ -158,25 +164,20 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
     # lazy import: serve_stream imports build_index from this module
-    from repro_torch.launch.serve_stream import (UNPORTED_FLAGS,
-                                                 add_fault_args,
+    from repro_torch.launch.serve_stream import (add_fault_args,
+                                                 add_live_args,
                                                  add_routing_args,
                                                  add_tiered_args,
-                                                 fault_params, routed_index,
+                                                 fault_params, live_session,
+                                                 routed_index,
                                                  routing_report_args,
                                                  stream_report,
                                                  tiered_report_args)
     add_routing_args(ap, prefix="streaming: ")
     add_tiered_args(ap, prefix="streaming: ")
+    add_live_args(ap, prefix="streaming ")
     add_fault_args(ap, prefix="streaming: ")
-    for flag, _, kw in UNPORTED_FLAGS:
-        ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
     args = ap.parse_args(argv)
-    for flag, item, _ in UNPORTED_FLAGS:
-        dest = flag[2:].replace("-", "_")
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.error(f"{flag} belongs to a serving layer the port does "
-                     f"not have yet (ROADMAP.md queue A item {item})")
 
     dev = resolve_device(args.device)
     ds = dataset(args.dataset, args.n)
@@ -186,7 +187,13 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     routed = None
-    if args.topr > 0:
+    if args.delta_cap > 0 and not args.stream:
+        raise SystemExit("--delta-cap requires --stream (the live index "
+                         "is a serving-path feature)")
+    live = live_session(db0, args, args.queries, dev)
+    if live is not None:
+        db, packed = db0, live.ep.packed
+    elif args.topr > 0:
         if not args.stream:
             raise SystemExit("--topr requires --stream (routing is a "
                              "serving-path feature)")
@@ -198,9 +205,14 @@ def main(argv=None):
             r=args.degree, reorder=args.reorder, pref_width=args.spec,
             seed=args.seed)
     build_s = time.perf_counter() - t0
-    print(f"{'routed ' if routed else ''}index built in {build_s:.1f}s "
-          f"(reorder={'none' if routed else args.reorder}, "
-          f"spec={args.spec})")
+    if live is not None:
+        print(f"live index built in {build_s:.1f}s (capacity="
+              f"{live.capacity}, delta_cap={args.delta_cap}, scheduled "
+              f"mutations={len(live.schedule)})")
+    else:
+        print(f"{'routed ' if routed else ''}index built in {build_s:.1f}s "
+              f"(reorder={'none' if routed else args.reorder}, "
+              f"spec={args.spec})")
     if dev.type == "cuda" and args.kernel_mode in ("auto", "cuda"):
         from repro_torch.kernels.build import build_all
         build_all()                        # kernel build stays off the clock
@@ -212,7 +224,8 @@ def main(argv=None):
             SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
             packed.max_degree, spec_width=args.spec,
             kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
-            deadline_rounds=args.deadline_rounds, **fault_params(args))
+            deadline_rounds=args.deadline_rounds, delta_cap=args.delta_cap,
+            **fault_params(args))
         res = {"dataset": ds.name, "mode": "stream",
                "kernel_mode": args.kernel_mode, "n": int(db.shape[0]),
                "device": torch.cuda.get_device_name(dev)
@@ -227,7 +240,8 @@ def main(argv=None):
                                             "off": False}[args.injit_admit],
                                spec_page_w=args.spec_page_w,
                                **routing_report_args(args, routed),
-                               **tiered_report_args(args), device=dev)}
+                               **tiered_report_args(args), live=live,
+                               device=dev)}
     else:
         res = {"dataset": ds.name,
                **run_search(pack_for_engine(packed, device=dev), db,

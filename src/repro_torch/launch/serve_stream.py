@@ -15,7 +15,12 @@ path's device admission queue; ``--device-pages P`` keeps only P vector
 pages per shard on the device (the tiered page store,
 core/pagestore.py), the rest in host memory, fetched at chunk
 boundaries on demand and by speculative prefetch (``--no-prefetch``,
-``--prefetch-page-w``).
+``--prefetch-page-w``). ``--delta-cap C`` serves a live index
+(core/live.py): Poisson inserts (``--insert-rate``) into a delta segment
+of C rows and deletes (``--delete-rate``) as tombstones run against the
+query stream, a full delta (or ``--refresh-every`` mutations) reindexes
+and swaps a new epoch in, result ids are external ids and recall is
+measured against the final live set.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --dataset tiny \\
       --queries 128 --shards 4 --slots 8 --arrival-rate 2 --spec 4 \\
@@ -26,6 +31,9 @@ boundaries on demand and by speculative prefetch (``--no-prefetch``,
       --dataset tiny --n 512
   PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cpu \\
       --dataset tiny --n 512 --device-pages 4
+  PYTHONPATH=src python -m repro_torch.launch.serve_stream --device cpu \\
+      --dataset tiny --n 512 --insert-rate 0.35 --delete-rate 0.1 \\
+      --delta-cap 16
 """
 from __future__ import annotations
 
@@ -38,25 +46,17 @@ import torch
 
 from repro_torch.core.engine import EngineParams, pack_for_engine
 from repro_torch.core.graph import brute_force_topk, recall_at_k
+from repro_torch.core.live import build_live_index, mutation_schedule
 from repro_torch.core.metrics import stream_summary
 from repro_torch.core.pagestore import PageStore
 from repro_torch.core.ref_search import SearchParams
-from repro_torch.core.router import build_routed_index
+from repro_torch.core.router import build_live_router, build_routed_index
 from repro_torch.core.scheduler import (poisson_arrivals,
                                         routed_stream_search, stream_search)
 from repro_torch.data.vectors import PAPER_DATASETS, VectorDataset
 from repro_torch.ft.inject import parse_fault_args
 from repro_torch.launch.search import build_index
 from repro_torch.utils import resolve_device
-
-# the reference CLI's flags of the serving layers not ported yet, each
-# with the ROADMAP.md queue A item it belongs to: set, they fail
-UNPORTED_FLAGS = (
-    ("--insert-rate", 12, dict(type=float, default=0.0)),
-    ("--delete-rate", 12, dict(type=float, default=0.0)),
-    ("--delta-cap", 12, dict(type=int, default=0)),
-    ("--refresh-every", 12, dict(type=int, default=0)),
-)
 
 
 class StreamingRetriever:
@@ -95,12 +95,38 @@ class StreamingRetriever:
         return vecs, ids, dists, stats
 
 
+def build_live_session(db, *, shards, page_size, r, insert_rate,
+                       delete_rate, delta_cap, refresh_every, arrival_rate,
+                       nq, arrivals_seed, pref_width=0, seed=0,
+                       with_router=False, kernel_mode="auto",
+                       device="cuda"):
+    """A :class:`repro_torch.core.live.LiveIndex` sized for a streaming
+    session: the mutation schedule spans the session's arrival horizon
+    (the Poisson draw ``stream_report`` makes), the capacity is n0 plus
+    the scheduled inserts, and, when routing, the striped layout gets a
+    :func:`repro_torch.core.router.build_live_router` sketch (on
+    ``device``) that the index refits at every epoch swap."""
+    arr = poisson_arrivals(arrival_rate, nq, arrivals_seed)
+    horizon = max(int(arr.max()) + 1, 2 * nq)
+    sched = mutation_schedule(insert_rate, delete_rate, horizon,
+                              db.shape[1], seed=seed + 5, ref=db)
+    live = build_live_index(db, shards=shards, page_size=page_size, r=r,
+                            delta_cap=delta_cap, pref_width=pref_width,
+                            seed=seed, refresh_every=refresh_every,
+                            schedule=sched)
+    if with_router:
+        live.router = build_live_router(live.ep, seed=seed,
+                                        kernel_mode=kernel_mode,
+                                        device=device)
+    return live
+
+
 def stream_report(consts, geom, params, entry, db, queries, *, slots,
                   arrival_rate, seed, dynamic_spec=False, refill=True,
                   round_chunk=8, injit_admit=None, routed=None, topr=0,
                   leg_L=None, spec_page_w=0.0, ring_capacity=0,
                   overload="block", down_shards=None, device_pages=0,
-                  prefetch=True, prefetch_page_w=1.0,
+                  prefetch=True, prefetch_page_w=1.0, live=None,
                   device="cuda") -> dict:
     """Run one streaming session and build the serving report shared by
     the ``search --stream`` and ``serve_stream`` CLIs: Poisson arrivals
@@ -122,8 +148,13 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
     set (``prefetch_page_w`` weighs the stored prefetch lists in the
     prediction score); build its ``consts`` with
     ``pack_for_engine(..., host_pages=True)`` so that the full store
-    stays off the device. The live index's keys (not ported) report
-    their at-rest values."""
+    stays off the device.
+
+    A ``live`` :class:`repro_torch.core.live.LiveIndex` turns on the
+    live-index path: its mutation schedule runs against the query
+    stream, result ids are external ids, and recall is measured against
+    the *final* live dataset; with ``topr`` > 0 it serves the one-leg
+    fan-out over the striped layout through the index's own router."""
     arrivals = poisson_arrivals(arrival_rate, queries.shape[0], seed)
     pagestore = None
     if device_pages > 0:
@@ -135,7 +166,14 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
                               page_w=prefetch_page_w)
         params = dataclasses.replace(params,
                                      store_pages=pagestore.num_pages)
-    if routed is not None and topr > 0:
+    if live is not None and topr > 0:
+        ids, _, st = routed_stream_search(
+            consts, geom, params, entry, queries, router=live.router,
+            topr=topr, num_slots=slots, arrivals=arrivals,
+            dynamic_spec=dynamic_spec, round_chunk=round_chunk,
+            injit_admit=injit_admit, spec_page_w=spec_page_w,
+            down_shards=down_shards, live=live, device=device)
+    elif routed is not None and topr > 0:
         ids, _, st = routed_stream_search(
             consts, geom, params, entry, queries, router=routed.router,
             topr=topr, num_slots=slots, arrivals=arrivals,
@@ -149,8 +187,14 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
             arrivals=arrivals, dynamic_spec=dynamic_spec, refill=refill,
             round_chunk=round_chunk, injit_admit=injit_admit,
             spec_page_w=spec_page_w, ring_capacity=ring_capacity,
-            overload=overload, pagestore=pagestore, device=device)
-    true_ids, _ = brute_force_topk(db, queries, params.search.k)
+            overload=overload, pagestore=pagestore, live=live,
+            device=device)
+    k = params.search.k
+    if live is not None:
+        vecs, exts = live.final_dataset()
+        true_ids = exts[brute_force_topk(vecs, queries, k)[0]]
+    else:
+        true_ids, _ = brute_force_topk(db, queries, k)
     return {
         "shards": geom.num_shards, "slots_per_shard": slots,
         "arrival_rate": arrival_rate, "refill": refill,
@@ -159,7 +203,8 @@ def stream_report(consts, geom, params, entry, db, queries, *, slots,
         "deadline_rounds": params.deadline_rounds,
         "ring": ring_capacity, "overload": overload,
         "device_pages": pagestore.P_dev if pagestore else 0,
-        "live": False, "delta_cap": 0, "inserts": 0,
+        "live": live is not None, "delta_cap": params.delta_cap,
+        "inserts": live.inserts if live is not None else 0,
         "nan_guard": params.guard_nonfinite,
         "faults": params.faults is not None,
         "down_shards": sorted(int(s) for s in (down_shards or [])),
@@ -237,6 +282,42 @@ def add_tiered_args(ap, prefix: str = "") -> None:
                     help=prefix + "tiered: weight of the stored "
                          "speculative prefetch lists in the prediction "
                          "score (adjacency neighbors weigh 1)")
+
+
+def add_live_args(ap, prefix: str = "") -> None:
+    """The live index's flags of the serving CLIs (``prefix`` leads each
+    help text, as ``search --stream``'s do)."""
+    ap.add_argument("--insert-rate", type=float, default=0.0,
+                    help=prefix + "live index: mean Poisson vector inserts "
+                         "per engine round (needs --delta-cap)")
+    ap.add_argument("--delete-rate", type=float, default=0.0,
+                    help=prefix + "live index: mean Poisson tombstone "
+                         "deletes per engine round (needs --delta-cap)")
+    ap.add_argument("--delta-cap", type=int, default=0,
+                    help=prefix + "live index: append-only delta-segment "
+                         "rows; a full delta forces a background reindex "
+                         "(0 = frozen index)")
+    ap.add_argument("--refresh-every", type=int, default=0,
+                    help=prefix + "live index: reindex + epoch swap after "
+                         "this many mutations (0 = only when the delta "
+                         "fills)")
+
+
+def live_session(db0, args, nq: int, dev):
+    """The live index of the flags (None without ``--delta-cap``), after
+    the reference CLIs' refusal of shard-local routed legs."""
+    if args.delta_cap <= 0:
+        return None
+    if 0 < args.topr < args.shards:
+        raise SystemExit("live index needs --topr >= --shards "
+                         "(shard-local legs cannot mask the delta)")
+    return build_live_session(
+        db0, shards=args.shards, page_size=args.page_size, r=args.degree,
+        insert_rate=args.insert_rate, delete_rate=args.delete_rate,
+        delta_cap=args.delta_cap, refresh_every=args.refresh_every,
+        arrival_rate=args.arrival_rate, nq=nq, arrivals_seed=args.seed + 2,
+        pref_width=args.spec, seed=args.seed, with_router=args.topr > 0,
+        kernel_mode=args.kernel_mode, device=dev)
 
 
 def tiered_report_args(args) -> dict:
@@ -318,6 +399,7 @@ def main(argv=None):
                          "(0 = no deadline)")
     add_routing_args(ap)
     add_tiered_args(ap)
+    add_live_args(ap)
     add_fault_args(ap)
     ap.add_argument("--kernel-mode", default="auto",
                     choices=["auto", "cuda", "ref", "torch"],
@@ -329,14 +411,7 @@ def main(argv=None):
                     help="torch device for the search (cuda or cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
-    for flag, _, kw in UNPORTED_FLAGS:
-        ap.add_argument(flag, help=argparse.SUPPRESS, **kw)
     args = ap.parse_args(argv)
-    for flag, item, _ in UNPORTED_FLAGS:
-        dest = flag[2:].replace("-", "_")
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.error(f"{flag} belongs to a serving layer the port does "
-                     f"not have yet (ROADMAP.md queue A item {item})")
 
     dev = resolve_device(args.device)
     if args.dataset == "tiny":
@@ -348,7 +423,10 @@ def main(argv=None):
     db0 = ds.materialize()
     queries = ds.queries(args.queries, seed=args.seed + 1)
     routed = None
-    if args.topr > 0:
+    live = live_session(db0, args, queries.shape[0], dev)
+    if live is not None:
+        db, packed = db0, live.ep.packed
+    elif args.topr > 0:
         routed = routed_index(db0, args, dev)
         db, packed = routed.db, routed.packed
     else:
@@ -363,7 +441,8 @@ def main(argv=None):
         SearchParams(L=args.L, W=args.W, k=args.k), args.slots,
         packed.max_degree, spec_width=args.spec,
         kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
-        deadline_rounds=args.deadline_rounds, **fault_params(args))
+        deadline_rounds=args.deadline_rounds, delta_cap=args.delta_cap,
+        **fault_params(args))
 
     res = {
         "dataset": ds.name, "n": int(db.shape[0]),
@@ -380,7 +459,8 @@ def main(argv=None):
                                      "off": False}[args.injit_admit],
                         spec_page_w=args.spec_page_w,
                         **routing_report_args(args, routed),
-                        **tiered_report_args(args), device=dev),
+                        **tiered_report_args(args), live=live,
+                        device=dev),
     }
     print(json.dumps(res, indent=1))
     if args.out:

@@ -65,6 +65,39 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+class HostStaging:
+    """Host staging buffers for copies to the device, reused across
+    boundaries: pinned on a card (plain on the CPU), grown to the next
+    power of two of the rows asked for. A pinned buffer must not be
+    rewritten while a copy from it is in flight, so :meth:`take` waits
+    on the event :meth:`sent` recorded after the last such copy."""
+
+    def __init__(self, templates, pinned: bool):
+        self.templates = templates           # [(row shape, dtype)]
+        self.pinned = pinned
+        self.bufs: list = []
+        self.rows = 0
+        self.event = None
+
+    def take(self, n: int) -> list:
+        """Views of ``n`` rows of each buffer, safe to overwrite."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+        if n > self.rows:
+            self.rows = next_pow2(n)
+            self.bufs = [torch.empty((self.rows,) + tuple(shape), dtype=dt,
+                                     pin_memory=self.pinned)
+                         for shape, dt in self.templates]
+        return [b[:n] for b in self.bufs]
+
+    def sent(self, stream) -> None:
+        """A copy from the buffers was queued on ``stream``."""
+        if self.pinned:
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+
+
 # ---------------------------------------------------------------------------
 # Visited-set bloom filter (the "query property table" visited bits).
 # Two multiplicative hashes; false positives only *skip* re-expansion of a

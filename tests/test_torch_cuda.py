@@ -5,6 +5,8 @@ first use): they carry the ``cuda`` marker and skip without a card. Run
 them on a GPU machine with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``. This file imports only the port.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -760,6 +762,58 @@ def test_frame_installs_equal_cold_tier_on_card(dev, tiered_index):
             assert torch.equal(ps.frames[s, f].cpu(), ps.cold_db[s, page])
             assert torch.equal(ps.vnf[s, f].cpu(), ps.cold_vn[s, page])
     np.testing.assert_array_equal(ps.ttab_dev.cpu().numpy(), ps.ttab)
+
+
+@pytest.mark.parametrize("tiered", [False, True])
+def test_live_session_cuda_matches_cpu_ref(dev, tiered):
+    """A live session through >= 2 epoch swaps (integer vectors, queries
+    and insert payloads) on the card, captured and uncaptured, equals the
+    same session in ref mode on the CPU: every per-query record, the live
+    counters and the final epoch; the captured one captures its chunk
+    once (the live retire's stable sorts run inside the graph)."""
+    from repro_torch.core.live import (MutationSchedule, build_live_index,
+                                       mutation_schedule)
+    from repro_torch.core.pagestore import PageStore
+    rng = np.random.default_rng(0)
+    db = rng.integers(-8, 9, (256, 16)).astype(np.float32)
+    queries = rng.integers(-8, 9, (12, 16)).astype(np.float32)
+    s = mutation_schedule(0.3, 0.1, 60, 16, seed=7)
+    vec = np.zeros_like(s.vec)
+    near = queries[rng.integers(0, 12, s.num_inserts)]
+    vec[s.is_ins] = near + rng.integers(-1, 2, near.shape)
+    arrivals = np.sort(rng.integers(0, 60, 12))
+    out = {}
+    for name, where, mode, capture in (("captured", dev, "cuda", True),
+                                       ("uncaptured", dev, "cuda", False),
+                                       ("ref", "cpu", "ref", True)):
+        live = build_live_index(db, shards=2, page_size=8, r=8, delta_cap=4,
+                                seed=3, schedule=MutationSchedule(
+                                    t=s.t, is_ins=s.is_ins, vec=vec))
+        consts, geom, entry = pack_for_engine(live.ep.packed, device=where,
+                                              host_pages=tiered)
+        params = EngineParams.lossless(SearchParams(L=16, W=1, k=8), 2, 8,
+                                       kernel_mode=mode, delta_cap=4)
+        ps = None
+        if tiered:
+            NP = consts["db"].shape[1]
+            ps = PageStore(consts, geom, NP // 2, w_select=1)
+            params = dataclasses.replace(params, store_pages=NP)
+        CACHE.reset_stats()
+        ids, dists, st = stream_search(
+            consts, geom, params, entry, queries, num_slots=2,
+            arrivals=arrivals, round_chunk=4, live=live, pagestore=ps,
+            device=where, capture=capture)
+        if name == "captured":
+            assert CACHE.stats.captures == 1
+        assert st.epoch_swaps >= 2 and st.host_syncs == st.host_dispatches
+        out[name] = (ids.tolist(), dists.view(np.int32).tolist(), {
+            r.qid: (r.admit_round, r.retire_round, r.service_rounds,
+                    r.n_dist, r.stall_rounds) for r in st.results},
+            st.epoch_swaps, st.delta_hits, st.tombstoned,
+            st.swap_stall_rounds, live.ep.ext_ids.tolist(),
+            live.ep.tombs.tolist())
+    assert out["captured"] == out["ref"]
+    assert out["uncaptured"] == out["ref"]
 
 
 def test_failed_capture_raises(dev):

@@ -145,7 +145,13 @@ STREAM_CLOCKS = {"kernel_mode", "wall_latency_ms", "sustained_qps", "wall_s",
     ["--device-pages", "4"], ["--device-pages", "4", "--no-prefetch"],
     ["--device-pages", "2", "--prefetch-page-w", "0.5"],
     ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
-     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"]])
+     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"],
+    # the live index: swaps at a full delta, and every 6 mutations
+    # routed at topr = S
+    ["--arrival-rate", "2", "--insert-rate", "0.35", "--delete-rate",
+     "0.1", "--delta-cap", "8"],
+    ["--arrival-rate", "1", "--insert-rate", "0.4", "--delete-rate",
+     "0.2", "--delta-cap", "8", "--refresh-every", "6", "--topr", "8"]])
 def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
     """``--stream`` serves the queries through the streaming scheduler:
     the JSON equals the reference's ``--stream --kernel-mode jnp`` JSON
@@ -192,8 +198,14 @@ def test_cli_stream_refuses_routed_tiered_store(capsys):
 
 @pytest.mark.parametrize("flag,item", [(["--delta-cap", "16"], 12)])
 def test_cli_stream_refuses_unported_flags(capsys, flag, item):
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--dataset", "tiny", "--n", "512",
-              "--stream"] + flag)
-    err = capsys.readouterr().err
-    assert flag[0] in err and f"item {item}" in err
+    """The live index (ROADMAP.md queue A item ``item``, once refused
+    here) is a serving-path feature: without ``--stream``, and with
+    routed legs on shard-local subgraphs, both CLIs exit."""
+    argv = ["--dataset", "tiny", "--n", "512"] + flag
+    for extra, match in (([], "requires --stream"),
+                         (["--stream", "--topr", "2"], "--topr >= --shards")):
+        with pytest.raises(SystemExit, match=match):
+            main(argv + extra + ["--device", "cpu"])
+        with pytest.raises(SystemExit, match=match):
+            j_main(argv + extra + ["--kernel-mode", "jnp"])
+    capsys.readouterr()

@@ -1,7 +1,7 @@
 """The port's streaming serving CLI and streaming RAG retrieval vs the
 reference's: the same JSON counts from ``serve_stream`` on the same
-flags (the tiered page store's among them), the live index's flags
-refused, streaming soft-prompt
+flags (the tiered page store's and the live index's among them), the
+live index's refusals the reference's, streaming soft-prompt
 retrieval returning the reference's ids and greedy tokens with carried
 weights, and the entry points refusing to run without a card unless the
 caller asks for the CPU."""
@@ -29,8 +29,7 @@ from repro.models import init_params as j_init_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.luncsr import PackedIndex
 from repro_torch.launch import serve
-from repro_torch.launch.serve_stream import (UNPORTED_FLAGS,
-                                             StreamingRetriever, main)
+from repro_torch.launch.serve_stream import StreamingRetriever, main
 from repro_torch.models import ModelOpts, params_from_jax
 
 D, B, K = 32, 4, 4
@@ -95,7 +94,18 @@ def index():
     ["--device-pages", "4"], ["--device-pages", "4", "--no-prefetch"],
     ["--device-pages", "2", "--prefetch-page-w", "0.5"],
     ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
-     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"]])
+     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"],
+    # the live index: Poisson inserts and deletes with swaps at a full
+    # delta and every 8 mutations, at rest, routed at topr = S, tiered
+    ["--insert-rate", "0.35", "--delete-rate", "0.1", "--delta-cap", "8"],
+    ["--insert-rate", "0.5", "--delete-rate", "0.2", "--delta-cap", "16",
+     "--refresh-every", "8", "--injit-admit", "off"],
+    ["--delta-cap", "8"],
+    ["--insert-rate", "0.35", "--delete-rate", "0.1", "--delta-cap", "8",
+     "--topr", "4"],
+    ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
+     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5",
+     "--insert-rate", "0.35", "--delete-rate", "0.1", "--delta-cap", "8"]])
 def test_cli_json_matches_reference(tmp_path, capsys, flags):
     argv = ["--dataset", "tiny", "--n", "512", "--queries", "32"] + flags
     assert main(argv + ["--device", "cpu",
@@ -127,21 +137,34 @@ def test_cli_refuses_routed_tiered_store(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--delta-cap", "16"], 12), (["--insert-rate", "0.5"], 12)])
+    (["--delta-cap", "16", "--topr", "2"], 12),
+    (["--delta-cap", "16", "--topr", "1", "--insert-rate", "0.5"], 12)])
 def test_cli_refuses_unported_flags(capsys, flag, item):
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--dataset", "tiny", "--n", "512"] + flag)
-    err = capsys.readouterr().err
-    assert flag[0].replace("--no-", "--") in err and f"item {item}" in err
+    """The live index's flags (ROADMAP.md queue A item ``item``, once
+    refused here) run; the one configuration the reference CLI refuses,
+    routed legs on shard-local subgraphs (``--topr`` below ``--shards``),
+    exits in both CLIs."""
+    argv = ["--dataset", "tiny", "--n", "512", "--queries", "8"] + flag
+    with pytest.raises(SystemExit, match="--topr >= --shards"):
+        main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="--topr >= --shards"):
+        j_main(argv + ["--kernel-mode", "jnp"])
+    capsys.readouterr()
 
 
 def test_unported_flags_are_the_references(capsys):
-    """Each refused flag is one of the reference CLI's."""
+    """The live index's four flags, ported, are the reference CLI's, with
+    its defaults."""
     with pytest.raises(SystemExit):
         j_main(["--help"])
     ref_help = capsys.readouterr().out
-    for flag, _, _ in UNPORTED_FLAGS:
-        assert f"{flag} " in ref_help or f"{flag}\n" in ref_help, flag
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    port_help = capsys.readouterr().out
+    for flag in ("--insert-rate", "--delete-rate", "--delta-cap",
+                 "--refresh-every"):
+        for text in (ref_help, port_help):
+            assert f"{flag} " in text or f"{flag}\n" in text, flag
 
 
 def test_streaming_retriever_matches_reference(index):
