@@ -2251,8 +2251,7 @@ def live_sift(db, packed, static, dev) -> None:
     static session (ids, dists, rounds, dispatches), then churn at the
     reference bench's rates (one swap: a reindex of the whole live set on
     the host); (c) live sessions on a tiered store at phase tiered's
-    traffic, prefetch on and off, and on with its copy queued before the
-    live consts'."""
+    traffic, prefetch on and off."""
     import dataclasses
     import numpy as np
     import torch
@@ -2360,26 +2359,19 @@ def live_sift(db, packed, static, dev) -> None:
                              f"expected: {st.epoch_swaps}, {cap}")
     check_launches("live sift churn", launches, cap["device_rounds"])
 
-    # (c) live + tiered: the live consts' copy at a boundary goes before
-    # the stage's copy on the copy engine (PageStore.launch_stage); the
-    # "stage first" rows queue the stage first, as a store without a live
-    # index does. The two orders run in turns (A B B A), then demand-only
+    # (c) live + tiered, prefetch on and off in turns (A B B A): the
+    # live consts' copy at a boundary is queued behind the stage's
     t = TIERED
     tq = dataset("sift-1b").queries(t["queries"], seed=1)
     tarr = poisson_arrivals(t["rate"], t["queries"], seed=0)
     rows = {}
-    for turn, (run, prefetch, defer) in enumerate((
-            ("prefetch", True, True), ("prefetch_stage_first", True, False),
-            ("prefetch_stage_first", True, False), ("prefetch", True, True),
-            ("demand", False, True))):
+    for turn, run in enumerate(("prefetch", "demand", "demand", "prefetch")):
+        prefetch = run == "prefetch"
         live = churn_live(t["rate"], t["queries"], LIVE_TIERED["delta_cap"])
         consts, geom, entry = pack_for_engine(live.ep.packed, device=dev,
                                               host_pages=True)
         ps = PageStore(consts, geom, LIVE_TIERED["frames"], w_select=W,
                        prefetch=prefetch)
-        if not defer:
-            boundary = ps.boundary
-            ps.boundary = lambda *a, b=boundary: b(*a[:5])
         times = timed_boundaries(ps)
         params = EngineParams.lossless(
             SearchParams(L=L, W=W, k=K), t["slots"], DEGREE,
@@ -2394,6 +2386,9 @@ def live_sift(db, packed, static, dev) -> None:
         cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
                            st.host_syncs)
         summ = stream_summary(st)
+        if run in rows and not np.array_equal(rows[run], ids):
+            raise AssertionError(f"live sift tiered {run}: the second "
+                                 f"turn's ids differ from the first's")
         rows[run] = ids
         emit({"phase": "live", "index": "sift-1b", "run": "tiered_" + run,
               "turn": turn, "queries": t["queries"],
@@ -2415,11 +2410,6 @@ def live_sift(db, packed, static, dev) -> None:
                                  f"{cap}")
         check_launches(f"live sift tiered {run}", launch_counts(),
                        cap["device_rounds"])
-    # the copy order moves no decision; demand-only fetching stalls
-    # other rounds, so its mutations meet other queries
-    if not np.array_equal(rows["prefetch_stage_first"], rows["prefetch"]):
-        raise AssertionError("live sift tiered: the stage's copy order "
-                             "changed the ids")
 
 
 # ---------------------------------------------------------------------------

@@ -132,7 +132,6 @@ class PageStore:
         self.by_prefetch = np.zeros((self.S, self.P_dev), bool)
         self.reserved = np.zeros((self.S, self.P_dev), bool)
         self._staged = None          # (meta, copy event)
-        self._unsent = None          # a stage whose copy is deferred
         self._no_progress = 0
 
         self.page_hits = 0
@@ -223,7 +222,7 @@ class PageStore:
                 f"epoch swap changed the store shape: "
                 f"{tuple(consts['db'].shape)} != {tuple(self.cold_db.shape)}"
                 " (pack every epoch at the session capacity)")
-        self._staged = self._unsent = None
+        self._staged = None
         self.reserved[:] = False
         self._adopt(consts)
         rows = [(s, int(self.frame_page[s, f]), f)
@@ -233,18 +232,13 @@ class PageStore:
             self._install(rows, *self._fetch(rows))
         return self.device_view()
 
-    def boundary(self, touch, miss, cand_i, cand_e, done,
-                 defer_stage: bool = False):
+    def boundary(self, touch, miss, cand_i, cand_e, done):
         """Process one round-chunk boundary; returns consts overrides.
 
         ``touch`` / ``miss``: (S, NP) bool bitmaps the engine accumulated
         since the last boundary. ``cand_i`` / ``cand_e`` / ``done``: the
         pool state the predictor looks ahead from. Arrays or host
-        tensors. ``defer_stage`` decides the speculative stage but leaves
-        its copy to :meth:`launch_stage`, so that a caller with its own
-        copies to queue before the next chunk (the live index's consts)
-        queues them ahead of the stage's on the copy engine."""
-        self.launch_stage()
+        tensors."""
         touch = np.asarray(touch)
         miss = np.asarray(miss)
         pinned = np.zeros((self.S, self.P_dev), bool)
@@ -272,16 +266,7 @@ class PageStore:
         if self.prefetch:
             self._stage(np.asarray(cand_i), np.asarray(cand_e),
                         np.asarray(done), pinned, demand_s)
-            if not defer_stage:
-                self.launch_stage()
         return self.device_view()
-
-    def launch_stage(self) -> None:
-        """Start the copy of a stage :meth:`boundary` deferred (a no-op
-        when there is none)."""
-        if self._unsent is not None:
-            meta, self._unsent = self._unsent, None
-            self._staged = (meta, self._copy_staged(meta))
 
     # -- device transfers -------------------------------------------------
     def _fetch(self, rows):
@@ -430,7 +415,7 @@ class PageStore:
                 meta.append((s, page, int(f)))
         if not meta:
             return
-        self._unsent = meta
+        self._staged = (meta, self._copy_staged(meta))
         self.prefetch_issued += len(meta)
 
     def _copy_staged(self, meta):

@@ -852,10 +852,6 @@ class StreamScheduler:
                     swap_stall += lost
                 if changed:
                     self._push_live()
-            if live_ix is not None and self.pagestore is not None:
-                # the stage's copy is queued after the live consts', so
-                # the next chunk does not wait for the whole prefetch
-                self.pagestore.launch_stage()
             if not injit and routed:
                 # -- host-paced routed admission: each shard fills its
                 # own free rows from its own arrived queue
@@ -1087,10 +1083,7 @@ class StreamScheduler:
         _LIVELOCK_BOUNDARIES consecutive boundaries is that
         configuration error (a legitimate stall clears at the next
         boundary's demand fetch)."""
-        # with a live index the stage's copy waits for the live consts'
-        # (run's live boundary launches it)
-        self.pagestore.boundary(touch, miss, cand_i, cand_e, done,
-                                self.live is not None)
+        self.pagestore.boundary(touch, miss, cand_i, cand_e, done)
         state.page_touch.zero_()
         state.page_miss.zero_()
         if self._stall_count is None:
