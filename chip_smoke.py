@@ -188,6 +188,26 @@ its seconds:
                topr 8 every query equals the flat stream_search on the
                same index. The phase's seconds and the build's host
                seconds are printed.
+  7d. mesh   — multi-device search (launch/mesh.py, search_distributed,
+               the mesh stepper) on an engine mesh of one rank: a NCCL
+               process group in this process (a loopback rendezvous, a
+               timeout on every collective), destroyed after each part.
+               (a) Phase int's integer index: search_distributed
+               captured on the card (the all-to-alls and all-reduces
+               inside the graph) equals the same search uncaptured,
+               search_sim on the card and CPU ref mode, bit for bit; a
+               mesh stream (refill, chunk 8, in-device admission, spec
+               4) and a routed mesh session at topr 2 (phase routed's
+               integer build) equal their sim sessions on the card and
+               CPU ref mode in every record; one capture each, one
+               distance and one fused merge per device round. (b) Phase
+               main's sift-1b build: search_distributed returns phase
+               main's ids and dists, the mesh stream session phase
+               stream's refill static ids and dists; beside the sim
+               driver, in turns: QPS, syncs, captures, launches per
+               device round, a profiled window's device idle share and
+               the share of device time in NCCL's kernels. At world 1
+               the collectives are pure overhead.
   8. serve   — gemma3-1b at full width (26 layers, d_model 1152, vocab
                262144; random weights from a seed) through
                launch/serve.py's functions in auto mode: RAG retrieval
@@ -2449,10 +2469,11 @@ def routed_launches(what: str, launches: dict, device_rounds: int,
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
 
-def routed_integer(db, queries, dev) -> None:
+def routed_integer(db, queries, dev):
     """(a) Phase int's integer data as a routed build: routed sessions
     captured on the card against CPU ref mode, and the flat stream with
-    a ring of 4 under block and shed."""
+    a ring of 4 under block and shed. Returns the routed build (host
+    tensors), for phase mesh."""
     import numpy as np
     from repro_torch.core.capture import CACHE
     from repro_torch.core.engine import EngineParams, pack_for_engine
@@ -2558,6 +2579,7 @@ def routed_integer(db, queries, dev) -> None:
             raise AssertionError(f"ring {overload}: shed "
                                  f"{out['ref'][1]['shed']}")
     emit({"phase": "routed", "index": "integer", "host_build_s": build_s})
+    return ri
 
 
 def build_routed_sift():
@@ -2721,6 +2743,329 @@ def routed_sift(dev, built) -> dict:
         raise AssertionError(f"routed topr {SHARDS}: rows {rows.tolist()} "
                              f"differ from the flat stream")
     return keep[2][2]
+
+
+# ---------------------------------------------------------------------------
+# Phase 7d: multi-device search on an engine mesh of one rank over NCCL
+# ---------------------------------------------------------------------------
+# seconds a collective may wait before the group raises: a hang fails the
+# run instead of stalling it
+MESH_TIMEOUT_S = 120
+
+
+@contextlib.contextmanager
+def mesh_group(dev):
+    """A one-rank NCCL process group in this process (a loopback
+    rendezvous on a free port, bound to ``dev``), as an engine mesh;
+    destroyed on leaving."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_engine_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S),
+        device_id=dev)
+    try:
+        yield make_engine_mesh(num=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_split(prof) -> dict:
+    """The card's device time in a torch.profiler run, the share of it
+    in NCCL's kernels (the mesh's collectives), and the time in copies
+    and fills (where a one-rank NCCL collective may go instead of a
+    kernel: the mesh's count less the sim's)."""
+    kern = device_kernel_us(prof)
+    busy = sum(us for us, _ in kern.values())
+    nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
+    nccl_us = sum(us for us, _ in nccl.values())
+    copies = [v for k, v in kern.items() if k.startswith(("Memcpy",
+                                                          "Memset"))]
+    return {"device_busy_ms": busy / 1e3, "nccl_ms": nccl_us / 1e3,
+            "nccl_share_of_device_time": nccl_us / busy if busy else None,
+            "nccl_kernels": sorted(nccl),
+            "nccl_launches": sum(c for _, c in nccl.values()),
+            "copy_ms": sum(us for us, _ in copies) / 1e3,
+            "copies": sum(c for _, c in copies)}
+
+
+def mesh_integer(packed, queries, ri, dev) -> None:
+    """(a) Phase int's integer index (and phase routed's integer routed
+    build) on a one-rank NCCL mesh: search_distributed captured on the
+    card equals the same run uncaptured, search_sim on the card and CPU
+    ref mode; the mesh stream (refill, chunk 8, in-device admission,
+    spec 4) and a routed mesh session at topr 2 equal their sim sessions
+    on the card and CPU ref mode; one capture each, one distance and one
+    fused merge per device round."""
+    import numpy as np
+    import torch
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import (EngineParams, pack_for_engine,
+                                         search_distributed, search_sim,
+                                         shard_consts)
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.scheduler import routed_stream_search, stream_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    nq, slots = len(queries), 8
+    qsh = queries.reshape(SHARDS, nq // SHARDS, -1)
+    sp = SearchParams(L=32, W=1, k=10)
+    arrivals = np.random.default_rng(3).integers(0, 64, nq)
+    engines = {"cuda": pack_for_engine(packed, device=dev),
+               "ref": pack_for_engine(packed, device="cpu")}
+    where = {"cuda": dev, "ref": "cpu"}
+    with mesh_group(dev) as mesh:
+        out = {}
+        for name, mode, on_mesh, capture in (
+                ("mesh_captured", "cuda", True, True),
+                ("mesh_uncaptured", "cuda", True, False),
+                ("sim_captured", "cuda", False, True),
+                ("cpu_ref", "ref", False, True)):
+            consts, geom, entry = engines[mode]
+            params = EngineParams.lossless(sp, nq // SHARDS, DEGREE,
+                                           kernel_mode=mode)
+            CACHE.reset_stats()
+            reset_launch_counts()
+            if on_mesh:
+                res = search_distributed(shard_consts(consts, mesh), qsh,
+                                         *entry, params, geom, mesh,
+                                         device=where[mode], capture=capture)
+            else:
+                res = search_sim(consts, qsh, *entry, params, geom,
+                                 device=where[mode], capture=capture)
+            ids, dists, st = res
+            out[name] = {"ids": ids.cpu(), "dists": dists.cpu().view(
+                torch.int32), **{k: v.cpu() for k, v in st.items()
+                                 if k != "host_syncs"}}
+            if name == "mesh_captured":
+                rounds = int(res[2]["total_rounds"].max())
+                cap = capture_line(CACHE.stats, rounds, res[2]["host_syncs"])
+                launches = launch_counts()
+                entries = CACHE.count("search_distributed")
+        differ = {name: [k for k in out["cpu_ref"]
+                         if not torch.equal(out[name][k], out["cpu_ref"][k])]
+                  for name in out}
+        emit({"phase": "mesh", "index": "integer", "run": "search",
+              "world": mesh.world, "backend": "nccl", "queries": nq,
+              "rounds": rounds, **cap, "cache_entries": entries,
+              "launches": {k: v for k, v in launches.items() if v},
+              "bit_identical_to_cpu_ref": {
+                  name: sorted(set(out["cpu_ref"]) - set(d))
+                  for name, d in differ.items()}})
+        if any(differ.values()):
+            raise AssertionError(f"mesh search: differs from CPU ref mode: "
+                                 f"{differ}")
+        if cap["captures"] != 1 or entries != 1:
+            raise AssertionError(f"mesh search: one capture expected: {cap}")
+        check_launches("mesh search", launches, cap["device_rounds"])
+
+        for run in ("stream", "routed_topr2"):
+            out = {}
+            for name, mode, on_mesh in (("mesh", "cuda", True),
+                                        ("sim", "cuda", False),
+                                        ("cpu_ref", "ref", False)):
+                CACHE.reset_stats()
+                reset_launch_counts()
+                kw = dict(arrivals=arrivals, round_chunk=8, injit_admit=True,
+                          mesh=mesh if on_mesh else None, device=where[mode])
+                # a mesh rank passes its own shards' consts (at world 1
+                # shard_consts gives back every shard's)
+                mine = (lambda c: shard_consts(c, mesh)) if on_mesh \
+                    else (lambda c: c)
+                if run == "stream":
+                    consts, geom, entry = engines[mode]
+                    consts = mine(consts)
+                    params = EngineParams.lossless(sp, slots, DEGREE,
+                                                   spec_width=4,
+                                                   kernel_mode=mode)
+                    _, _, st = stream_search(consts, geom, params, entry,
+                                             queries, num_slots=slots, **kw)
+                else:
+                    r = routed_on(ri, dev) if mode == "cuda" else ri
+                    consts, geom, entry = pack_for_engine(r.packed,
+                                                          device=where[mode])
+                    consts = mine(consts)
+                    params = EngineParams.lossless(sp, slots, DEGREE,
+                                                   kernel_mode=mode)
+                    _, _, st = routed_stream_search(
+                        consts, geom, params, entry, queries, router=r.router,
+                        topr=2, num_slots=slots,
+                        shard_entries=r.shard_entries, **kw)
+                out[name] = (stream_records(st, nq) | {
+                    f: per_query(st, nq, f) for f in ("legs_fused",
+                                                      "stall_rounds")},
+                    {f: getattr(st, f) for f in (
+                        "total_rounds", "host_dispatches", "legs",
+                        "items_by_shard", "occupancy_trace")})
+                if on_mesh:
+                    launches, mesh_st = launch_counts(), st
+                    cap = capture_line(CACHE.stats,
+                                       st.total_rounds + st.warmup_rounds,
+                                       st.host_syncs)
+            differ = {name: first_difference(out[name][0], out["cpu_ref"][0])
+                      or (None if out[name][1] == out["cpu_ref"][1]
+                          else "counters") for name in ("mesh", "sim")}
+            emit({"phase": "mesh", "index": "integer", "run": run,
+                  "world": mesh.world, "queries": nq, "slots_per_shard": slots,
+                  "round_chunk": 8, "injit_admit": True,
+                  "total_rounds": out["cpu_ref"][1]["total_rounds"],
+                  "host_dispatches": out["cpu_ref"][1]["host_dispatches"],
+                  **cap, "launches": {k: v for k, v in launches.items() if v},
+                  "first_difference_from_cpu_ref": differ})
+            if any(differ.values()):
+                raise AssertionError(f"mesh {run}: differs from CPU ref "
+                                     f"mode: {differ}")
+            if cap["captures"] != 1 or \
+                    mesh_st.host_syncs != mesh_st.host_dispatches:
+                raise AssertionError(f"mesh {run}: one capture and one read "
+                                     f"per chunk expected: {cap}")
+            if run == "stream":
+                check_launches(f"mesh {run}", launches, cap["device_rounds"])
+            else:
+                routed_launches(f"mesh {run}", launches,
+                                cap["device_rounds"], 2)
+
+
+def mesh_sift(main: dict, static, dev) -> None:
+    """(b) Phase main's sift-1b build on the one-rank NCCL mesh:
+    search_distributed returns phase main's ids and dists, and the mesh
+    stream session phase stream's refill static ids and dists. Printed
+    beside the sim driver's, in turns on this card: QPS, syncs,
+    captures, launches per device round, and a profiled window's device
+    idle share and its NCCL share. At world 1 the collectives are pure
+    overhead: no speed-up is claimed."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.capture import CACHE
+    from repro_torch.core.engine import (EngineParams, search_distributed,
+                                         search_sim, shard_consts)
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.core.scheduler import poisson_arrivals, stream_search
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.search import dataset
+
+    consts, geom, entry = main["engine"]
+    params = EngineParams.lossless(SearchParams(L=L, W=W, k=K), NQ // SHARDS,
+                                   DEGREE, coalesce_qb=QB)
+    qsh = torch.as_tensor(main["queries"].reshape(SHARDS, NQ // SHARDS, -1),
+                          device=dev)
+    with mesh_group(dev) as mesh:
+        mine = shard_consts(consts, mesh)
+        drivers = {
+            "mesh": lambda: search_distributed(mine, qsh, *entry, params,
+                                               geom, mesh, device=dev),
+            "sim": lambda: search_sim(consts, qsh, *entry, params, geom,
+                                      device=dev)}
+        for fn in drivers.values():
+            fn()                                  # captures
+        reset_launch_counts()
+        CACHE.reset_stats()
+        i, d, st = drivers["mesh"]()
+        launches = launch_counts()
+        rounds = int(st["total_rounds"].max())
+        cap = capture_line(CACHE.stats, rounds, st["host_syncs"])
+        same = torch.equal(i.cpu(), main["ids"]) and torch.equal(
+            d.cpu().view(torch.int32), main["dists"].view(torch.int32))
+        walls = {name: [] for name in drivers}
+        for name in ("sim", "mesh", "mesh", "sim") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drivers[name]()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        # busy time from a profiled call, idle against the unprofiled
+        # calls' mean wall time (as phase main's profile)
+        prof_lines = {}
+        for name, fn in drivers.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            split = nccl_split(prof)
+            wall_ms = 1e3 * sum(walls[name]) / len(walls[name])
+            prof_lines[name] = {**split, "wall_ms_unprofiled": wall_ms,
+                                "device_idle_share":
+                                    1.0 - split["device_busy_ms"] / wall_ms}
+            del prof
+            drop_traces()
+        emit({"phase": "mesh", "index": "sift-1b", "run": "search",
+              "world": mesh.world, "queries": NQ, "rounds": rounds,
+              **cap, "launches": launches,
+              "launches_per_device_round": {
+                  k: v / cap["device_rounds"] for k, v in launches.items()},
+              "qps": {name: [NQ / w for w in ws]
+                      for name, ws in walls.items()},
+              "profiled": prof_lines, "equals_phase_main": same})
+        if not same:
+            raise AssertionError("mesh sift-1b search: ids or dists differ "
+                                 "from phase main's")
+        check_launches("mesh sift-1b search", launches, cap["device_rounds"])
+
+        nq, slots = STREAM["queries"], STREAM["slots"]
+        queries = dataset("sift-1b").queries(nq, seed=1)
+        arrivals = poisson_arrivals(STREAM["rate"], nq, seed=0)
+        sparams = EngineParams.lossless(SearchParams(L=L, W=W, k=K), slots,
+                                        DEGREE, spec_width=STREAM["spec"],
+                                        coalesce_qb=QB)
+
+        def serve(m, n=nq):
+            return stream_search(consts if m is None else mine, geom,
+                                 sparams, entry, queries[:n],
+                                 num_slots=slots, arrivals=arrivals[:n],
+                                 round_chunk=STREAM["chunk"],
+                                 injit_admit=True, mesh=m, device=dev,
+                                 **STREAM_RUNS["refill_static"])
+
+        reset_launch_counts()
+        CACHE.reset_stats()
+        ids, dists, st = serve(mesh)
+        launches = launch_counts()
+        cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
+                           st.host_syncs)
+        same = np.array_equal(ids, static[0]) and np.array_equal(
+            dists.view(np.int32), static[1].view(np.int32))
+        sessions = {"mesh": [], "sim": []}
+        for name in ("sim", "mesh", "mesh", "sim"):
+            sessions[name].append(serve(mesh if name == "mesh" else None)[2])
+        windows = {}
+        for name in ("mesh", "sim"):
+            prof, wst, wall_ms, wcap = profiled_session(
+                lambda n, name=name: serve(mesh if name == "mesh" else None,
+                                           n)[2],
+                STREAM["window"], [ProfilerActivity.CUDA])
+            split = nccl_split(prof)
+            windows[name] = {**wcap, **split, "queries": STREAM["window"],
+                             "wall_ms": wall_ms, "device_idle_share":
+                                 1.0 - split["device_busy_ms"] / wall_ms}
+            del prof
+            drop_traces()
+        emit({"phase": "mesh", "index": "sift-1b", "run": "stream",
+              "world": mesh.world, "queries": nq, "slots_per_shard": slots,
+              "arrival_rate": STREAM["rate"], "round_chunk": STREAM["chunk"],
+              "spec": STREAM["spec"], "total_rounds": st.total_rounds,
+              "host_dispatches": st.host_dispatches, **cap,
+              "launches": launches,
+              "launches_per_device_round": {
+                  k: v / cap["device_rounds"] for k, v in launches.items()},
+              "qps": {name: [nq / s.wall_s for s in ss]
+                      for name, ss in sessions.items()},
+              "host_ms_per_round": {
+                  name: [s.wall_s * 1e3 / s.total_rounds for s in ss]
+                  for name, ss in sessions.items()},
+              "profile_window": windows,
+              "equals_phase_stream_refill_static": same})
+        if not same:
+            raise AssertionError("mesh sift-1b stream: ids or dists differ "
+                                 "from phase stream's refill static session")
+        check_launches("mesh sift-1b stream", launches, cap["device_rounds"])
+        if st.host_syncs != st.host_dispatches or cap["captures"] > 1:
+            raise AssertionError(f"mesh sift-1b stream: one read per chunk "
+                                 f"and at most one capture expected: {cap}")
 
 
 # ---------------------------------------------------------------------------
@@ -3394,8 +3739,10 @@ def run_phases(dev, name: str, main_build, routed_build) -> int:
                               queries_int, dev)
     timed_part("live", "integer", live_integer, tiered_build, queries_int,
                dev)
-    timed_part("routed", "integer", routed_integer, db_int, queries_int,
-               dev)
+    routed_int = timed_part("routed", "integer", routed_integer, db_int,
+                            queries_int, dev)
+    timed_part("mesh", "integer", mesh_integer, packed_int, queries_int,
+               routed_int, dev)
     launches, (db, packed), main_run = real_main_path(dev, main_build)
     variants = timed_part("engine_variants", "sift-1b", engine_variants_sift,
                           dict(main_run, db=db), dev)
@@ -3413,6 +3760,8 @@ def run_phases(dev, name: str, main_build, routed_build) -> int:
     routed = timed_part("routed", "sift-1b", routed_sift, dev, routed_build)
     launches["bitonic_sort"] = routed["bitonic_sort"]
     launches["bitonic_merge"] = routed["bitonic_merge"]
+    timed_part("mesh", "sift-1b", mesh_sift, main_run, static, dev)
+    torch.cuda.empty_cache()
     launches["flash_attention"] = serve_path(dev)["flash_attention"]
     kernels = report_timing(timing_in_child(), launches, errs,
                             tiered["paged_distance"])

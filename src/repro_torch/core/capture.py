@@ -37,6 +37,16 @@ fallback on a CUDA tensor. ``capture=False`` runs the program eagerly
 on the card, outside any cache: the proof path that captured and
 uncaptured runs agree.
 
+Collectives: a mesh chunk (core/engine.py on an engine mesh) holds
+``torch.distributed`` all-to-alls, all-reduces and all-gathers, which
+the graph captures once NCCL's communicator exists (at world 1 NCCL
+runs them as device copies): the mesh runs one collective eagerly
+before any capture (``EngineMesh.warm``), and the
+chunk's key holds the rank, the world size and the mesh's generation,
+so a graph is never replayed under another process group than the one
+it was captured with. On the CPU (``gloo``) the entry runs them
+eagerly, in the same order on every rank.
+
 Launch accounting: a kernel wrapper called while its stream captures
 records its launch (``Kernel.recorded``) instead of counting it, since
 nothing ran. The entry keeps the launches of one replay per kernel,
@@ -58,17 +68,24 @@ import torch
 MAX_ENTRIES = 8
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
+    """``fn`` over the tensors of a tree of tuples, named tuples, lists
+    and dicts."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
-    vals = [_tree_map(fn, x) for x in tree]
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    vals = [tree_map(fn, x) for x in tree]
     return tree._make(vals) if hasattr(tree, "_make") else type(tree)(vals)
 
 
-def _leaves(tree) -> list:
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, in :func:`tree_map`'s order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
-    return [leaf for x in tree for leaf in _leaves(x)]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    return [leaf for x in tree for leaf in tree_leaves(x)]
 
 
 def tensor_ptrs(*tensors) -> tuple:
@@ -179,9 +196,10 @@ class CaptureCache:
         if entry.graph is None:                   # the CPU: run eagerly
             out = fn(*entry.inputs)
             if entry.outputs is None:
-                entry.outputs = _tree_map(torch.clone, out)
+                entry.outputs = tree_map(torch.clone, out)
             else:
-                for buf, new in zip(_leaves(entry.outputs), _leaves(out)):
+                for buf, new in zip(tree_leaves(entry.outputs),
+                                    tree_leaves(out)):
                     buf.copy_(new)
             return
         entry.graph.replay()

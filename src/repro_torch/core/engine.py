@@ -34,6 +34,16 @@ and the round-stepper API of the streaming scheduler
 engine_run_chunk / engine_run_chunk_admit``, bundled by
 ``make_stepper``).
 
+Multi-device (the twin of the reference's ``shard_map`` leg): on an
+engine mesh (launch/mesh.py; one process per rank of a
+``torch.distributed`` group) rank r of w owns the S / w consecutive
+shards from r * S / w, and holds only their consts
+(:func:`shard_consts`). ``search_distributed`` and
+``make_stepper(mesh=...)`` run the same stages on a rank's own rows: the
+exchanges are ``all_to_all_single`` calls, the loop conditions
+all-reduced counts, so every rank steps in lockstep, and the stepper's
+stages take and return the sim's global state on every rank.
+
 The round loops run on the device, as the reference's
 ``lax.while_loop``s do: a chunk is K *predicated* rounds
 (:func:`_predicated`). Each round computes the loop condition ``go`` as
@@ -54,6 +64,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import capture as cap
 from repro_torch.core.backend import KernelBackend
@@ -303,7 +314,7 @@ def _fb_adjacency(recv, adj, pref, params: EngineParams, geom: EngineGeom):
 
 
 def _fc_propose(state: EngineState, keep_a, recv_b, queries, qq, spec_w,
-                params: EngineParams, geom: EngineGeom):
+                params: EngineParams, geom: EngineGeom, shard0: int = 0):
     """Build proposals, dedup + bloom-filter, bucket phase-B assignments.
 
     ``spec_w`` (S, Qs) is the per-query speculation width in
@@ -314,7 +325,9 @@ def _fc_propose(state: EngineState, keep_a, recv_b, queries, qq, spec_w,
     another shard than the row's own is dropped before ranking and
     bucketing, so a leg's traversal, and all of its phase-B distance
     work, stays on its home shard and an idle shard receives nothing.
-    Without it no mask is built: the fan-out stage as it was.
+    Without it no mask is built: the fan-out stage as it was. The rows
+    are shards ``shard0, shard0 + 1, ...`` (a mesh rank's own rows);
+    proposals are bucketed over all ``geom.num_shards`` owners.
     """
     S, Qs = state.done.shape
     W, R = params.search.W, geom.max_degree
@@ -341,33 +354,35 @@ def _fc_propose(state: EngineState, keep_a, recv_b, queries, qq, spec_w,
     flat_valid = valid.reshape(S, Qs * M)
     own = geom.owner(flat_vid.clamp(0, geom.n - 1))
     if params.local_only:
-        my_shard = torch.arange(S, device=own.device)[:, None]
+        my_shard = torch.arange(shard0, shard0 + S,
+                                device=own.device)[:, None]
         flat_valid = flat_valid & (own == my_shard)
     dest = torch.where(flat_valid, own, 0)
     rank, _ = compute_ranks(dest, flat_valid, geom.num_shards)
     ok = flat_valid & (rank < params.capacity_b)
     drops = (flat_valid & ~ok).sum(-1).to(torch.int32)
 
-    C = params.capacity_b
+    C, S_all = params.capacity_b, geom.num_shards
     send = {
-        "vid": scatter_to_buckets(dest, rank, ok, flat_vid, S, C,
+        "vid": scatter_to_buckets(dest, rank, ok, flat_vid, S_all, C,
                                   fill=INVALID),
-        "mask": bucket_mask(dest, rank, ok, S, C),
+        "mask": bucket_mask(dest, rank, ok, S_all, C),
     }
     if not params.gather_vectors:
         qidx = torch.arange(Qs, device=props.device).repeat_interleave(M)
         qpay = queries[:, qidx]
         if params.payload_bf16:
             qpay = qpay.bfloat16()
-        send["qvec"] = scatter_to_buckets(dest, rank, ok, qpay, S, C)
-        send["qq"] = scatter_to_buckets(dest, rank, ok, qq[:, qidx], S, C)
+        send["qvec"] = scatter_to_buckets(dest, rank, ok, qpay, S_all, C)
+        send["qq"] = scatter_to_buckets(dest, rank, ok, qq[:, qidx], S_all,
+                                        C)
     keep = {"dest": dest, "rank": rank, "ok": ok, "props": props,
             "drops": drops}
     return send, keep
 
 
 def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
-                 geom: EngineGeom, ttab=None):
+                 geom: EngineGeom, ttab=None, shard0: int = 0):
     """Owner SiN: translate id -> physical page/slot, compute distances.
 
     In gather_vectors mode returns the raw vectors instead (the
@@ -376,7 +391,8 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
     raw items. A fault plan with page corruption rewrites the distances
     of its bad (logical) pages (salted by each owner shard) to garbage,
     exactly as damaged media would, on every visit; the baseline is
-    exempt.
+    exempt. The owner rows are shards ``shard0, shard0 + 1, ...`` (the
+    salt), each receiving from all ``S_src`` source shards.
 
     With the tiered page store (``params.store_pages > 0``) ``db`` /
     ``vnorm`` are the device frame buffers (S, P_dev, ...) and ``ttab``
@@ -388,7 +404,7 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
     miss bitmaps (S, store_pages).
     """
     vid, mask = recv["vid"], recv["mask"]              # (S, S_src, C_B)
-    S, _, C = vid.shape
+    S, S_src, C = vid.shape
     flat_vid = vid.reshape(S, -1).clamp(0, geom.n - 1)
     flat_mask = mask.reshape(S, -1)
     npages = params.store_pages or db.shape[1]
@@ -411,10 +427,10 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
         v = db[srow, ppage, slot].float()                  # (S, S*C, d)
         vn = vnorm[srow, ppage, slot]
         return {"vec": torch.where(flat_mask[..., None], v, 0.0
-                                   ).reshape(S, S, C, -1),
-                "vn": torch.where(flat_mask, vn, 0.0).reshape(S, S, C)
+                                   ).reshape(S, S_src, C, -1),
+                "vn": torch.where(flat_mask, vn, 0.0).reshape(S, S_src, C)
                 }, items, uniq
-    args = (ppage, slot, flat_mask, recv["qvec"].reshape(S, S * C, -1),
+    args = (ppage, slot, flat_mask, recv["qvec"].reshape(S, S_src * C, -1),
             recv["qq"].reshape(S, -1), db, vnorm)
     if params.store_pages:
         dist, resident = params.backend.translated_item_distances(ttab,
@@ -422,12 +438,12 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
     else:
         dist = params.backend.item_distances(*args)
     if params.faults is not None and params.faults.any_corrupt:
-        shard = torch.arange(S, device=vid.device)[:, None]
+        shard = torch.arange(shard0, shard0 + S, device=vid.device)[:, None]
         bad = ftinject.bad_page_mask(params.faults, ppage, shard)
         dist = torch.where(bad & flat_mask,
                            ftinject.corrupt_value(params.faults), dist)
     if not params.store_pages:
-        return {"dist": dist.reshape(S, S, C)}, items, uniq
+        return {"dist": dist.reshape(S, S_src, C)}, items, uniq
     missed = flat_mask & ~resident
 
     def bitmap(hit):
@@ -437,7 +453,8 @@ def _fd_distance(recv, db, vnorm, blk_perm, params: EngineParams,
         return ext.scatter_(-1, torch.where(hit, ppage, npages),
                             True)[:, :npages]
 
-    return ({"dist": dist.reshape(S, S, C), "miss": missed.reshape(S, S, C)},
+    return ({"dist": dist.reshape(S, S_src, C),
+             "miss": missed.reshape(S, S_src, C)},
             items, uniq, bitmap(flat_mask & resident), bitmap(missed))
 
 
@@ -614,17 +631,20 @@ def pack_for_engine(packed: PackedIndex, device="cuda", *,
 
 def _sim_round(state: EngineState, consts, queries, qq, spec_w,
                params: EngineParams, geom: EngineGeom,
-               exchange=_exchange) -> EngineState:
-    """One engine round over all shards; exchanges swap the bucket axes."""
+               exchange=_exchange, shard0: int = 0) -> EngineState:
+    """One engine round over the state's shard rows (shards ``shard0``
+    on): the sim driver's are all of them, and its exchanges swap the
+    bucket axes; a mesh rank's are its own, and its exchanges are
+    all-to-alls (:func:`_mesh_exchange`)."""
     send_a, keep_a = _fa_select(state, params, geom)
     send_b = _fb_adjacency(exchange(send_a), consts["adj"], consts["pref"],
                            params, geom)
     send_c, keep_c = _fc_propose(state, keep_a, exchange(send_b), queries,
-                                 qq, spec_w, params, geom)
+                                 qq, spec_w, params, geom, shard0)
     # tiered store: stage D also returns the round's page bitmaps
     send_d, items, uniq, *bitmaps = _fd_distance(
         exchange(send_c), consts["db"], consts["vnorm"], consts["blk_perm"],
-        params, geom, consts.get("ttab"))
+        params, geom, consts.get("ttab"), shard0)
     return _fe_merge(state, keep_a, keep_c, exchange(send_d), items, uniq,
                      queries, qq, params, *bitmaps)
 
@@ -652,6 +672,167 @@ def exchange_buckets(consts, queries, entry_vec, entry_norm, entry_id: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Multi-device: one process per rank of a torch.distributed group
+# ---------------------------------------------------------------------------
+def _all_sum(mesh, x) -> torch.Tensor:
+    """``x`` summed over every rank (a new tensor)."""
+    x = x.clone()
+    dist.all_reduce(x, group=mesh.group)
+    return x
+
+
+def _all_gather(mesh, tree, dim: int = 0):
+    """Every rank's tensors of ``tree`` concatenated along ``dim`` in
+    rank order. The tensors share their extent along ``dim`` (this
+    rank's rows): they travel packed, one all-gather per dtype."""
+    rows = [x.movedim(dim, 0) for x in cap.tree_leaves(tree)]
+    by_dtype: dict = {}
+    for i, x in enumerate(rows):
+        by_dtype.setdefault(x.dtype, []).append(i)
+    out = [None] * len(rows)
+    for idx in by_dtype.values():
+        n = rows[idx[0]].shape[0]
+        flat = [rows[i].reshape(n, -1) for i in idx]
+        width = [f.shape[1] for f in flat]
+        send = torch.cat(flat, 1)
+        recv = send.new_empty((mesh.world * n, send.shape[1]))
+        if send.numel():
+            dist.all_gather_into_tensor(recv, send, group=mesh.group)
+        for i, part in zip(idx, recv.split(width, -1)):
+            x = part.reshape((mesh.world * n,) + tuple(rows[i].shape[1:]))
+            out[i] = x if dim == 0 else x.movedim(0, dim).contiguous()
+    it = iter(out)
+    return cap.tree_map(lambda _: next(it), tree)
+
+
+def _all_to_all(mesh, x) -> torch.Tensor:
+    """Source-major buckets ``(S_loc, S, ...)`` (this rank's source
+    shards, every destination) -> destination-major ``(S_loc, S, ...)``
+    (this rank's destination shards, every source): the twin of
+    ``lax.all_to_all(x, axis, 0, 0)``, one ``all_to_all_single``."""
+    Sl, S = x.shape[:2]
+    w, rest = S // Sl, tuple(x.shape[2:])
+    # (src local, dst rank, dst local, ...) -> (dst rank, dst local,
+    # src local, ...): rank i's chunk holds its destination rows
+    send = x.reshape((Sl, w, Sl) + rest).movedim(0, 2).contiguous()
+    recv = torch.empty_like(send)
+    if send.numel():
+        dist.all_to_all_single(recv, send, group=mesh.group)
+    # (src rank, dst local, src local, ...) -> (dst local, S, ...)
+    return recv.transpose(0, 1).reshape((Sl, S) + rest)
+
+
+def _mesh_exchange(mesh):
+    """The exchange of a mesh round: one all-to-all per bucket tensor."""
+    def exchange(tree: dict) -> dict:
+        return {k: _all_to_all(mesh, v) for k, v in tree.items()}
+    return exchange
+
+
+class _Part:
+    """The shard rows a stage works on. On the sim driver (``mesh``
+    None) every row, and every method is the identity or the plain
+    reduction, so the sim's ops are unchanged. On a mesh, this rank's
+    ``S / world`` consecutive rows from ``lo``: a stage takes the global
+    ``(S, ...)`` tensors, slices its rows (:meth:`local`), works on
+    them, and all-gathers the results (:meth:`gather`); the loop
+    conditions and traces are all-reduced, so every rank steps in
+    lockstep."""
+
+    def __init__(self, num_shards: int, mesh=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.lo, self.n = 0, num_shards
+            self.exchange = _exchange
+        else:
+            self.lo = mesh.shard0(num_shards)
+            self.n = mesh.shards_per_rank(num_shards)
+            self.exchange = _mesh_exchange(mesh)
+
+    def key(self) -> tuple:
+        """The capture-key part: a mesh program is one rank's of one
+        process group (a graph holds that group's collectives)."""
+        if self.mesh is None:
+            return ()
+        return (self.mesh.world, self.mesh.rank, self.mesh.generation)
+
+    def check(self, consts):
+        """``consts``, which on a mesh must hold this rank's shards
+        only (:func:`shard_consts`)."""
+        if self.mesh is not None and consts["db"].shape[0] != self.n:
+            raise ValueError(
+                f"consts hold {consts['db'].shape[0]} shards, rank "
+                f"{self.mesh.rank} of {self.mesh.world} owns {self.n}: "
+                f"pass shard_consts(consts, mesh)")
+        return consts
+
+    def warm(self, device) -> None:
+        if self.mesh is not None:
+            self.mesh.warm(device)
+
+    def local(self, tree, dim: int = 0):
+        if self.mesh is None:
+            return tree
+        return cap.tree_map(lambda x: x.narrow(dim, self.lo, self.n), tree)
+
+    def local_entry(self, entry):
+        """Per-shard entries ((S, d) vectors) sliced; a global one kept."""
+        if self.mesh is None or entry[0].dim() == 1:
+            return entry
+        return self.local(tuple(entry))
+
+    def gather(self, tree, dim: int = 0):
+        return tree if self.mesh is None else _all_gather(self.mesh, tree,
+                                                          dim)
+
+    def total(self, x):
+        """``x`` summed over the ranks (the traces of the rows' counts)."""
+        return x if self.mesh is None else _all_sum(self.mesh, x)
+
+    def any(self, *masks) -> tuple:
+        """``m.any()`` over every rank's rows, per mask: one all-reduce
+        of their counts on a mesh."""
+        if self.mesh is None:
+            return tuple(m.any() for m in masks)
+        counts = torch.stack([m.sum() for m in masks]).to(torch.int64)
+        return tuple(_all_sum(self.mesh, counts) > 0)
+
+    def free_below(self, free):
+        """(free rows on lower ranks, free rows on every rank): the flat
+        admission's global row-major free ranks start at the first."""
+        counts = _all_gather(self.mesh, free.sum().reshape(1))
+        lower = torch.arange(self.mesh.world, device=free.device) < \
+            self.mesh.rank
+        return torch.where(lower, counts, 0).sum(), counts.sum()
+
+
+def shard_consts(consts, mesh):
+    """This rank's shards of ``pack_for_engine``'s consts (every shard's):
+    rows ``[shard0, shard0 + S / world)`` of ``db``, ``vnorm``, ``adj``,
+    ``pref`` and ``blk_perm``, copied once; at world 1 the consts
+    themselves. Every mesh entry point takes consts in this form, and
+    their addresses key the captured chunks: slice once, keep the
+    result."""
+    S = consts["db"].shape[0]
+    lo, n = mesh.shard0(S), mesh.shards_per_rank(S)
+    if n == S:
+        return consts
+    return {k: v[lo:lo + n].clone() if k in MAIN_CONST_KEYS else v
+            for k, v in consts.items()}
+
+
+def _mesh_refusals(params: EngineParams) -> None:
+    """What the mesh leg does not carry, as the reference's refuses it."""
+    if params.store_pages:
+        raise NotImplementedError(
+            "tiered page store (store_pages > 0) runs on the sim driver "
+            "only")
+    if params.delta_cap:
+        raise NotImplementedError(
+            "the live index (delta_cap > 0) runs on the sim driver only")
+
+
 def _keep(go, new, old):
     """``new`` where the round's condition ``go`` (a 0-d bool) holds,
     ``old`` elsewhere, over a tree of tensors."""
@@ -668,7 +849,8 @@ def _predicated(carry, cond, body, K: int):
     round reads the device. The condition never turns true again once
     false (a dead round changes nothing it reads), so on the CPU, where
     reading it costs nothing, the chunk stops after its first dead
-    round."""
+    round. On a mesh ``cond`` is all-reduced, so every rank stops at the
+    same round and their collectives stay paired."""
     for _ in range(K):
         go = cond(carry)
         carry = _keep(go, body(carry), carry)
@@ -682,23 +864,69 @@ def _consts_key(consts) -> tuple:
 
 
 def _search_chunk(consts, state: EngineState, t, queries,
-                  params: EngineParams, geom: EngineGeom, K: int):
+                  params: EngineParams, geom: EngineGeom, K: int,
+                  part: _Part):
     """K predicated rounds of the one-shot search under the reference's
-    loop condition ``(~done).any() & (t < rounds_cap)``. Returns
+    loop condition ``(~done).any() & (t < rounds_cap)`` (on a mesh the
+    active rows are all-reduced, the reference's ``psum``). Returns
     (state, t, the condition after the chunk)."""
     qq = _qq(queries)
     spec_w = torch.full(queries.shape[:2], params.spec_width,
                         dtype=torch.int32, device=queries.device)
 
     def cond(c):
-        return (~c[0].done).any() & (c[1] < params.search.rounds_cap)
+        return part.any(~c[0].done)[0] & (c[1] < params.search.rounds_cap)
 
     def body(c):
-        return (_sim_round(c[0], consts, queries, qq, spec_w, params, geom),
-                c[1] + 1)
+        return (_sim_round(c[0], consts, queries, qq, spec_w, params, geom,
+                           part.exchange, part.lo), c[1] + 1)
 
     state, t = _predicated((state, t), cond, body, K)
     return state, t, cond((state, t))
+
+
+def _search(consts, queries, entry_vec, entry_norm, entry_id,
+            params: EngineParams, geom: EngineGeom, part: _Part, device,
+            capture: bool):
+    """The one-shot driver of :func:`search_sim` and
+    :func:`search_distributed` over ``part``'s rows (their docs)."""
+    dev = resolve_device(device)
+    consts = part.check(consts)
+    if consts["db"].device.type != dev.type:
+        raise ValueError(f"consts live on {consts['db'].device}, the search "
+                         f"runs on {dev}: pack_for_engine(packed, device)")
+    queries = torch.as_tensor(queries, device=consts["db"].device).float()
+    S = geom.num_shards
+    if queries.shape[0] != S:
+        raise ValueError(f"queries lead with {queries.shape[0]} shards, "
+                         f"the index has {S}")
+    part.warm(queries.device)
+    queries = part.local(queries)
+    state = _init_state(queries, _qq(queries), entry_vec, entry_norm,
+                        entry_id, params)
+    t = torch.zeros((), dtype=torch.int32, device=queries.device)
+    K = SEARCH_CHUNK
+    name = "search_sim" if part.mesh is None else "search_distributed"
+    key = (params, geom, K, _consts_key(consts), *part.key())
+
+    def chunk(*a):
+        return _search_chunk(consts, EngineState(*a[:-2]), a[-2], a[-1],
+                             params, geom, K, part)
+
+    syncs = 0
+    while True:
+        state, t, go = cap.CACHE.run(name, chunk, key, (*state, t, queries),
+                                     K, capture)
+        go, rounds = to_host(go, t)
+        syncs += 1
+        if not go:
+            break
+    # the chunk's outputs are the cache entry's buffers: copy them out
+    out_i, out_d, stats = cap.tree_map(
+        torch.clone, part.gather(_finalize(state, params.search.k)))
+    stats["total_rounds"] = torch.full((S,), int(rounds), dtype=torch.int32)
+    stats["host_syncs"] = syncs
+    return out_i, out_d, stats
 
 
 def search_sim(consts, queries, entry_vec, entry_norm, entry_id: int,
@@ -718,36 +946,25 @@ def search_sim(consts, queries, entry_vec, entry_norm, entry_id: int,
     round count per shard (all shards step in lockstep) and
     stats["host_syncs"] the number of chunks (one read each).
     """
-    dev = resolve_device(device)
-    if consts["db"].device.type != dev.type:
-        raise ValueError(f"consts live on {consts['db'].device}, the search "
-                         f"runs on {dev}: pack_for_engine(packed, device)")
-    queries = torch.as_tensor(queries, device=consts["db"].device).float()
-    state = _init_state(queries, _qq(queries), entry_vec, entry_norm,
-                        entry_id, params)
-    t = torch.zeros((), dtype=torch.int32, device=queries.device)
-    K = SEARCH_CHUNK
-    key = (params, geom, K, _consts_key(consts))
+    return _search(consts, queries, entry_vec, entry_norm, entry_id, params,
+                   geom, _Part(geom.num_shards), device, capture)
 
-    def chunk(*a):
-        return _search_chunk(consts, EngineState(*a[:-2]), a[-2], a[-1],
-                             params, geom, K)
 
-    syncs = 0
-    while True:
-        state, t, go = cap.CACHE.run("search_sim", chunk, key,
-                                     (*state, t, queries), K, capture)
-        go, rounds = to_host(go, t)
-        syncs += 1
-        if not go:
-            break
-    # the chunk's outputs are the cache entry's buffers: copy them out
-    out_i, out_d, stats = _finalize(state, params.search.k)
-    stats = {name: v.clone() for name, v in stats.items()}
-    stats["total_rounds"] = torch.full((queries.shape[0],), int(rounds),
-                                       dtype=torch.int32)
-    stats["host_syncs"] = syncs
-    return out_i.clone(), out_d.clone(), stats
+def search_distributed(consts, queries, entry_vec, entry_norm, entry_id,
+                       params: EngineParams, geom: EngineGeom, mesh,
+                       device="cuda", capture: bool = True):
+    """:func:`search_sim` over an engine mesh (launch/mesh.py), the twin
+    of the reference's ``shard_map`` driver: every rank of the group
+    calls it with the same global ``queries`` (S, Qs, d) and its own
+    shards' ``consts`` (:func:`shard_consts`); each runs its own rows,
+    and the four exchanges of a round are all-to-alls. Chunks as in
+    :func:`search_sim` (captured once per key on a card, the collectives
+    inside the graph); the loop condition is the all-reduced active
+    count, so every rank steps in lockstep. Returns global (ids (S, Qs,
+    k), dists, stats) on every rank, as :func:`search_sim` does."""
+    _mesh_refusals(params)
+    return _search(consts, queries, entry_vec, entry_norm, entry_id, params,
+                   geom, _Part(geom.num_shards, mesh), device, capture)
 
 
 # ---------------------------------------------------------------------------
@@ -984,20 +1201,23 @@ def _scalar(x, dtype, device) -> torch.Tensor:
 
 def _run_chunk(consts, state: EngineState, queries, spec_state, budget,
                stop, spec_cfg, params: EngineParams, geom: EngineGeom,
-               K: int, dynamic: bool):
-    """The program of :func:`engine_run_chunk` (device tensors only)."""
+               K: int, dynamic: bool, part: _Part):
+    """The program of :func:`engine_run_chunk` (device tensors only): on
+    a mesh, this rank's rows, gathered at the end."""
+    state, queries, spec_state = part.local((state, queries, spec_state))
     spec_w, hit, peak, phit, ppeak = spec_state
     qq = _qq(queries)
     live0 = ~state.done
     zeros_k = torch.zeros((K,), dtype=torch.int32, device=queries.device)
 
     def round_fn(st, sw):
-        return _sim_round(st, consts, queries, qq, sw, params, geom)
+        return _sim_round(st, consts, queries, qq, sw, params, geom,
+                          part.exchange, part.lo)
 
     def cond(c):
         st, j = c[0], c[8]
-        return (j < budget) & (~st.done).any() & \
-            ~(stop & (st.done & live0).any())
+        active, fin = part.any(~st.done, st.done & live0)
+        return (j < budget) & active & ~(stop & fin)
 
     def body(c):
         return _chunk_round(c, round_fn, params.search.rounds_cap, dynamic,
@@ -1008,13 +1228,16 @@ def _run_chunk(consts, state: EngineState, queries, spec_state, budget,
              zeros_k.clone())
     state, spec_w, hit, peak, phit, ppeak, _, _, steps, lc, ws = \
         _predicated(carry, cond, body, K)
-    return state, (spec_w, hit, peak, phit, ppeak), steps, lc, ws
+    state, spec_state = part.gather((state, (spec_w, hit, peak, phit,
+                                             ppeak)))
+    return state, spec_state, steps, part.total(lc), part.total(ws)
 
 
 def engine_run_chunk(consts, state: EngineState, queries, spec_state,
                      spec_cfg, budget, stop_on_finish,
                      params: EngineParams, geom: EngineGeom, K: int,
-                     dynamic: bool = False, capture: bool = True):
+                     dynamic: bool = False, capture: bool = True,
+                     mesh=None):
     """Run up to ``K`` engine rounds in one call, with the per-round
     semantics of K :func:`engine_round` calls and the host controller in
     between: rows reaching ``rounds_cap`` park at the exact boundary the
@@ -1040,36 +1263,46 @@ def engine_run_chunk(consts, state: EngineState, queries, spec_state,
     rows per round (entries past ``steps`` are 0). The outputs are the
     capture cache's buffers, overwritten by the next call of the same
     program.
+
+    On an engine ``mesh`` (launch/mesh.py) every rank calls it with the
+    same global tensors and its own shards' ``consts``
+    (:func:`shard_consts`): the program runs this rank's rows, its
+    exchanges are all-to-alls and its exit tests all-reduced, and the
+    outputs come back global (the traces summed over the ranks).
     """
     dev = queries.device
+    part = _Part(state.done.shape[0], mesh)
     spec_state = (_widths(spec_state[0], queries.shape[:2], dev),
                   *spec_state[1:])
     budget = _scalar(budget, torch.int32, dev).clamp(max=K)
     stop = _scalar(stop_on_finish, torch.bool, dev)
-    key = (params, geom, K, dynamic, tuple(spec_cfg), _consts_key(consts))
+    key = (params, geom, K, dynamic, tuple(spec_cfg),
+           _consts_key(part.check(consts)), *part.key())
+    part.warm(dev)
 
     def chunk(*a):
         n = len(EngineState._fields)
         return _run_chunk(consts, EngineState(*a[:n]), a[n], a[n + 1:n + 6],
                           a[n + 6], a[n + 7], spec_cfg, params, geom, K,
-                          dynamic)
+                          dynamic, part)
 
     return cap.CACHE.run("engine_run_chunk", chunk, key,
                          (*state, queries, *spec_state, budget, stop), K,
                          capture)
 
 
-def _seat_pending(free, cursor, avail, pend_q, queries_rows):
+def _seat_pending(free, cursor, avail, pend_q, queries_rows, offset=0):
     """Seat arrived pending queries into free rows, in the host staging
     order (rows in order, pending entries in arrival order): the free
     row of exclusive free-rank r < ``avail`` takes pending entry
-    ``cursor + r``. One queue: ``free`` (R,) is the flattened pool,
+    ``cursor + r`` (a mesh rank's ranks start at ``offset``, the free
+    rows of the lower ranks). One queue: ``free`` (R,) is the flattened pool,
     ``cursor``/``avail`` 0-d, ``pend_q`` (N, d). Per-shard queues (routed
     serving): ``free`` (S, Qs), ``cursor``/``avail`` (S,), ``pend_q``
     (S, N, d); each shard seats its own queue from rank 0, with no
     coupling of free ranks across shards. Returns (seat mask, seated
     pending indices with -1 elsewhere, updated query rows)."""
-    rank = torch.cumsum(free.int(), -1) - 1
+    rank = torch.cumsum(free.int(), -1) - 1 + offset
     seat = free & (rank < avail[..., None])
     pidx = torch.where(seat, cursor[..., None] + rank, -1)
     safe = pidx.clamp(0, pend_q.shape[-2] - 1)
@@ -1092,9 +1325,15 @@ def _pending_avail(pend_arr, cursor, tnow):
 def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
                      budget, cursor, t0, pend_q, pend_arr, entry, spec_cfg,
                      params: EngineParams, geom: EngineGeom, K: int,
-                     dynamic: bool):
+                     dynamic: bool, part: _Part):
     """The program of :func:`engine_run_chunk_admit` (device tensors
-    only)."""
+    only): on a mesh, this rank's rows (and, per-shard, its queues),
+    gathered at the end."""
+    per_shard = pend_arr.dim() == 2
+    state, queries, spec_state = part.local((state, queries, spec_state))
+    entry = part.local_entry(entry)
+    if per_shard:
+        pend_q, pend_arr, cursor = part.local((pend_q, pend_arr, cursor))
     k = params.search.k
     S, Qs = state.done.shape
     dev = queries.device
@@ -1107,7 +1346,6 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
     def put(trace, at, val):
         return trace.index_copy(0, at, val[None])
 
-    per_shard = pend_arr.dim() == 2
     # evicted rows' results are captured before admission; with a live
     # index (delta_cap > 0) the capture masks tombstones and merges the
     # delta, so a mid-chunk eviction honours deletes exactly as a
@@ -1124,7 +1362,8 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
     def cond(c):
         st, cur, j = c[0], c[7], c[8]
         avail = _pending_avail(pend_arr, cur, t0 + j)
-        return (j < budget) & ((~st.done).any() | (avail > 0).any())
+        active, arrived = part.any(~st.done, avail > 0)
+        return (j < budget) & (active | arrived)
 
     def body(c):
         (st, q, sw, hi, pk, phi, ppk, cur, j, lc, ws, aq, ri, rd, rr, rn,
@@ -1140,14 +1379,25 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
         if per_shard:
             seat, pidx, new_q = _seat_pending(st.done, cur, avail, pend_q,
                                               q)
-        else:
+            cur_next = cur + seat.sum(-1)
+        elif part.mesh is None:
             seat, pidx, new_q = _seat_pending(st.done.reshape(-1), cur,
                                               avail, pend_q,
                                               q.reshape(S * Qs, -1))
+            cur_next = cur + seat.sum(-1)
+        else:
+            # the global row-major seating: this rank's free ranks follow
+            # the lower ranks' free rows, and the replicated cursor moves
+            # by the global seat count, min(free rows, arrived)
+            free = st.done.reshape(-1)
+            below, total = part.free_below(free)
+            seat, pidx, new_q = _seat_pending(free, cur, avail, pend_q,
+                                              q.reshape(S * Qs, -1), below)
+            cur_next = cur + torch.minimum(total, avail)
         mask = seat.reshape(S, Qs)
         st, q = _admit_rows(st, q, mask, new_q.reshape(S, Qs, -1), *entry,
                             params)
-        cur = cur + seat.sum(-1)
+        cur = cur_next
         aq = put(aq, at, pidx.reshape(S, Qs))
         if dynamic:   # fresh rows restart the controller at full width
             sw = torch.where(mask, spec_max, sw)
@@ -1162,10 +1412,11 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
         st, sw, hi, pk, phi, ppk, _, _, j, lc, ws = _chunk_round(
             (st, sw, hi, pk, phi, ppk, st.n_dist, st.pages_unique, j, lc,
              ws),
-            lambda s, w: _sim_round(s, consts, q, qq, w, params, geom),
+            lambda s, w: _sim_round(s, consts, q, qq, w, params, geom,
+                                    part.exchange, part.lo),
             params.search.rounds_cap, dynamic, spec_cfg,
-            stall=ftinject.stall_at(faults, t0 + j)[:, None] if stalls
-            else None)
+            stall=part.local(ftinject.stall_at(faults, t0 + j))[:, None]
+            if stalls else None)
         return (st, q, sw, hi, pk, phi, ppk, cur, j, lc, ws, aq, ri, rd,
                 rr, rn, ra, rt)
 
@@ -1179,15 +1430,20 @@ def _run_chunk_admit(consts, state: EngineState, queries, spec_state,
              torch.zeros((K, S, Qs), dtype=torch.bool, device=dev))
     (st, q, sw, hi, pk, phi, ppk, cur, steps, lc, ws, aq, ri, rd, rr, rn,
      ra, rt) = _predicated(carry, cond, body, K)
-    return (st, q, (sw, hi, pk, phi, ppk), steps, lc, ws, aq, ri, rd, rr,
-            rn, ra, rt, cur)
+    st, q, spec_state = part.gather((st, q, (sw, hi, pk, phi, ppk)))
+    traces = part.gather((aq, ri, rd, rr, rn, ra, rt), dim=1)
+    if per_shard:
+        cur = part.gather(cur)
+    return (st, q, spec_state, steps, part.total(lc), part.total(ws),
+            *traces, cur)
 
 
 def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
                            spec_cfg, budget, pend_q, pend_arr, cursor, t0,
                            entry_vec, entry_norm, entry_id,
                            params: EngineParams, geom: EngineGeom, K: int,
-                           dynamic: bool = False, capture: bool = True):
+                           dynamic: bool = False, capture: bool = True,
+                           mesh=None):
     """:func:`engine_run_chunk` with an admission stage: the pending
     queue lives on the device (``pend_q`` (N, d) vectors and ``pend_arr``
     (N,) int32 arrival rounds, sorted by arrival; ``cursor`` the first
@@ -1229,9 +1485,17 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
     cursor')`` without reading the device; the traces lead with K,
     ``steps`` is a 0-d device tensor and ``cursor'`` has the cursor's
     shape, and all are the capture cache's buffers.
+
+    On an engine ``mesh`` as :func:`engine_run_chunk`: the flat queue is
+    replicated, and each rank seats its rows of the global row-major
+    seating (its free ranks offset by the lower ranks' free rows, an
+    all-gather per boundary, the reference's); per-shard queues, cursors
+    and entries are sliced to this rank's shards. Stall windows are read
+    at this rank's rows.
     """
     dev = queries.device
     S, Qs = state.done.shape
+    part = _Part(S, mesh)
     if params.faults is not None and params.faults.any_stall and \
             params.faults.num_shards != S:
         raise ValueError(f"fault plan covers {params.faults.num_shards} "
@@ -1246,17 +1510,20 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
         cursor = _scalar(cursor, torch.int64, dev)
     t0 = _scalar(t0, torch.int32, dev)
     entry = (entry_vec, entry_norm, entry_id)
-    key = (params, geom, K, dynamic, tuple(spec_cfg), _consts_key(consts),
+    key = (params, geom, K, dynamic, tuple(spec_cfg),
+           _consts_key(part.check(consts)),
            cap.tensor_ptrs(pend_q, pend_arr, *(
                x for x in entry if isinstance(x, torch.Tensor))),
-           None if isinstance(entry_id, torch.Tensor) else int(entry_id))
+           None if isinstance(entry_id, torch.Tensor) else int(entry_id),
+           *part.key())
+    part.warm(dev)
 
     def chunk(*a):
         n = len(EngineState._fields)
         return _run_chunk_admit(
             consts, EngineState(*a[:n]), a[n], a[n + 1:n + 6], a[n + 6],
             a[n + 7], a[n + 8], pend_q, pend_arr, entry, spec_cfg, params,
-            geom, K, dynamic)
+            geom, K, dynamic, part)
 
     return cap.CACHE.run("engine_run_chunk_admit", chunk, key,
                          (*state, queries, *spec_state, budget, cursor, t0),
@@ -1266,44 +1533,56 @@ def engine_run_chunk_admit(consts, state: EngineState, queries, spec_state,
 def make_stepper(params: EngineParams, geom: EngineGeom, mesh=None,
                  round_chunk: int = 1, routed: bool = False,
                  capture: bool = True) -> EngineStepper:
-    """Bundle the stepper stages for the single-device sim driver.
+    """Bundle the stepper stages, for the single-device sim driver or,
+    with an engine ``mesh`` (launch/mesh.py), for one rank of it.
     ``round_chunk`` is the K of the chunk stages: the most rounds one
     ``run_chunk`` call runs before the host is consulted. ``capture``
     (default on) runs the chunks as captured graphs on a card.
     ``routed=True`` (the two-tier layout, core/router.py) needs nothing
-    more on the sim driver: the stages take per-shard pending queues,
-    cursors and entries by their shapes, as the reference's sim leg
-    does."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device stepper is ROADMAP.md queue A item 13, "
-            "not ported yet")
+    more: the stages take per-shard pending queues, cursors and entries
+    by their shapes, as the reference's sim leg does.
+
+    On a mesh the stages take and return the sim stepper's global
+    ``(S, Qs, ...)`` tensors on every rank, so the host scheduler runs
+    unchanged and identically on each: ``init``, ``admit``, ``retire``
+    and ``round`` run this rank's rows and all-gather them; the chunks
+    are :func:`engine_run_chunk` and :func:`engine_run_chunk_admit` on
+    the mesh. ``consts`` are this rank's (:func:`shard_consts`)."""
     K = max(1, int(round_chunk))
+    if mesh is not None:
+        _mesh_refusals(params)
+    part = _Part(geom.num_shards, mesh)
 
     def init(consts, queries, evec, enorm, eid):
-        return engine_init(consts, queries, evec, enorm, eid, params, geom)
+        return part.gather(engine_init(consts, part.local(queries),
+                                       *part.local_entry((evec, enorm, eid)),
+                                       params, geom))
 
     def rnd(consts, state, queries, spec_w):
-        return engine_round(consts, state, queries, spec_w, params, geom)
+        st, q = part.local((state, queries))
+        sw = part.local(_widths(spec_w, queries.shape[:2], queries.device))
+        return part.gather(_sim_round(st, part.check(consts), q, _qq(q), sw,
+                                      params, geom, part.exchange, part.lo))
 
     def admit(state, queries, admit_mask, new_q, evec, enorm, eid):
-        return engine_admit(state, queries, admit_mask, new_q, evec, enorm,
-                            eid, params, geom)
+        return part.gather(engine_admit(
+            *part.local((state, queries, admit_mask, new_q)),
+            *part.local_entry((evec, enorm, eid)), params, geom))
 
     def retire(state):
-        return engine_retire(state, params.search.k)
+        return part.gather(engine_retire(part.local(state), params.search.k))
 
     def run_chunk(consts, state, queries, spec_state, spec_cfg, budget,
                   stop_on_finish, dynamic=False):
         return engine_run_chunk(consts, state, queries, spec_state,
                                 spec_cfg, budget, stop_on_finish, params,
-                                geom, K, dynamic, capture)
+                                geom, K, dynamic, capture, mesh)
 
     def run_chunk_admit(consts, state, queries, spec_state, spec_cfg,
                         budget, pend, cursor, t0, entry, dynamic=False):
         return engine_run_chunk_admit(
             consts, state, queries, spec_state, spec_cfg, budget, *pend,
-            cursor, t0, *entry, params, geom, K, dynamic, capture)
+            cursor, t0, *entry, params, geom, K, dynamic, capture, mesh)
 
     return EngineStepper(init, rnd, admit, retire, run_chunk, K,
                          run_chunk_admit)

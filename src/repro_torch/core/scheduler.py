@@ -110,8 +110,13 @@ and merges the delta (``_finalize_live``), and results carry external
 ids. Every device tensor keeps its address, so a session captures its
 chunk once however many swaps it sees.
 
-Not ported here: the multi-device stepper (ROADMAP.md queue A item
-13; it raises ``NotImplementedError``).
+**Multi-device** (``mesh=``, an engine mesh from launch/mesh.py; flat
+or routed, both admission paths): each rank passes its own shards'
+consts (:func:`repro_torch.core.engine.shard_consts`, sliced once);
+the stepper runs its rows against them and hands back global tensors,
+so every rank runs this host loop identically on replicated state and
+returns the same records. The tiered page store and the live index
+refuse a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -125,7 +130,7 @@ import torch
 
 from repro_torch.core.dispatch import compute_ranks, scatter_to_buckets
 from repro_torch.core.engine import (LIVE_CONST_KEYS, EngineGeom,
-                                     EngineParams, _finalize,
+                                     EngineParams, _finalize, _Part,
                                      engine_retire_live, make_stepper,
                                      spec_update)
 from repro_torch.core.metrics import slot_occupancy
@@ -140,11 +145,6 @@ from repro_torch.utils import (BIG_DIST, ID_SENTINEL, INVALID, HostStaging,
 # working set cannot fit the device cache, so demand fetches thrash
 # forever). A legitimate page stall clears at the next boundary.
 _LIVELOCK_BOUNDARIES = 256
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is ROADMAP.md queue A item {item}, not ported yet")
 
 
 @dataclasses.dataclass
@@ -371,7 +371,10 @@ class StreamScheduler:
     ``target_shards`` in :meth:`run` (the entry may then be per-shard);
     ``ring_capacity``/``overload`` bound the flat in-device queue (module
     doc). ``capture=False`` runs the chunks eagerly on a card instead of
-    as captured graphs (the proof that the two agree).
+    as captured graphs (the proof that the two agree). With ``mesh`` (an
+    engine mesh, launch/mesh.py) every rank of its group builds the same
+    scheduler over its own shards' consts (``shard_consts``) and runs
+    the same ``run``: the stepper is the mesh stepper.
 
     With ``live`` (a :class:`repro_torch.core.live.LiveIndex` whose
     current epoch ``consts`` describe, packed at its capacity, with
@@ -434,7 +437,12 @@ class StreamScheduler:
         self.live = live
         if live is not None:
             # the live index: its consts are content updates of a fixed
-            # shape, so the chunk's capture outlives every swap
+            # shape, so the chunk's capture outlives every swap. The mesh
+            # round has no delta stage, and swaps rewrite host-owned
+            # consts: the sim driver only, as in the reference
+            if mesh is not None:
+                raise ValueError("the live index runs on the sim driver "
+                                 "only (mesh must be None)")
             if params.delta_cap <= 0:
                 raise ValueError(
                     "a live index needs params.delta_cap > 0 (the static "
@@ -450,9 +458,9 @@ class StreamScheduler:
         elif params.delta_cap > 0:
             raise ValueError(
                 "params.delta_cap > 0 needs a LiveIndex (pass live=...)")
-        if mesh is not None:
-            raise _not_ported("multi-device serving", 13)
         self.device = resolve_device(device)
+        if mesh is not None:
+            _Part(geom.num_shards, mesh).check(consts)
         if consts["db"].device.type != self.device.type:
             raise ValueError(
                 f"consts live on {consts['db'].device}, the scheduler "
@@ -466,8 +474,9 @@ class StreamScheduler:
         self.refill = refill
         self.routed = routed
         self.round_chunk = round_chunk
-        self.stepper = make_stepper(params, geom, round_chunk=round_chunk,
-                                    routed=routed, capture=capture)
+        self.stepper = make_stepper(params, geom, mesh=mesh,
+                                    round_chunk=round_chunk, routed=routed,
+                                    capture=capture)
         self.injit_admit = refill if injit_admit is None \
             else bool(injit_admit) and refill
         self.S = geom.num_shards
@@ -1137,7 +1146,8 @@ def stream_search(consts, geom, params, entry, queries,
                   device="cuda", capture: bool = True):
     """Run the streaming scheduler on ``device`` and return (ids (N, k),
     dists (N, k), StreamStats) in query order. ``capture=False`` runs
-    the chunks eagerly on a card (see :class:`StreamScheduler`)."""
+    the chunks eagerly on a card; with ``mesh``, ``consts`` are this
+    rank's shards (see :class:`StreamScheduler`)."""
     ctrl = _make_controller(params, geom, dynamic_spec, spec_page_w)
     sched = StreamScheduler(consts, geom, params, entry,
                             num_slots=num_slots, mesh=mesh,
@@ -1199,7 +1209,8 @@ def routed_stream_search(consts, geom, params, entry, queries, *,
     Returns (ids (N, k), dists (N, k), StreamStats) in query order;
     ``stats.results`` holds fused per-query records (``n_dist`` summed
     over legs, latency the slowest leg's: a query retires when all its
-    legs have) and ``stats.legs`` the slot rows served.
+    legs have) and ``stats.legs`` the slot rows served. With ``mesh``,
+    ``consts`` are this rank's shards (``shard_consts``).
 
     **Degraded fusion** (``down_shards``): legs routed to a shard in
     ``down_shards`` are dropped on the host before scheduling; the

@@ -816,6 +816,82 @@ def test_live_session_cuda_matches_cpu_ref(dev, tiered):
     assert out["uncaptured"] == out["ref"]
 
 
+@pytest.fixture(scope="module")
+def nccl_mesh(dev):
+    """A one-rank NCCL process group in this process (a loopback
+    rendezvous on a free port), as an engine mesh; destroyed after the
+    module."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_engine_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield make_engine_mesh(num=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_world1_nccl_matches_cpu_ref(dev, int_index, nccl_mesh):
+    """World 1 over NCCL: search_distributed captured on the card (its
+    all-to-alls and all-reduces inside the graph) and a mesh stream
+    session (in-device admission, chunk 8, spec 4) == CPU ref mode on
+    the sim driver, ids, dists and every record; one capture each."""
+    from repro_torch.core.engine import search_distributed, shard_consts
+    packed, queries = int_index
+    S, nq = 4, len(queries)
+    qsh = queries.reshape(S, nq // S, -1)
+    arrivals = np.random.default_rng(3).integers(0, 20, nq)
+    out = {}
+    for name, mode, where in (("mesh", "cuda", dev), ("ref", "ref", "cpu")):
+        consts, geom, entry = pack_for_engine(packed, device=where)
+        if name == "mesh":
+            consts = shard_consts(consts, nccl_mesh)
+        sp = SearchParams(L=16, W=1, k=10)
+        p = EngineParams.lossless(sp, nq // S, 12, kernel_mode=mode)
+        CACHE.reset_stats()
+        if name == "mesh":
+            i, d, st = search_distributed(consts, qsh, *entry, p, geom,
+                                          nccl_mesh, device=dev)
+            assert CACHE.stats.captures == 1
+            assert CACHE.count("search_distributed") == 1
+        else:
+            i, d, st = search_sim(consts, qsh, *entry, p, geom, device="cpu")
+        search = (i.cpu().numpy(), d.cpu().numpy().view(np.int32),
+                  {k: v.cpu().numpy() for k, v in st.items()
+                   if k != "host_syncs"}, st["host_syncs"])
+        p = EngineParams.lossless(sp, 3, 12, spec_width=4, kernel_mode=mode)
+        CACHE.reset_stats()
+        ids, dists, sst = stream_search(
+            consts, geom, p, entry, queries, num_slots=3,
+            arrivals=arrivals, round_chunk=8, injit_admit=True, device=where,
+            mesh=nccl_mesh if name == "mesh" else None)
+        if name == "mesh":
+            assert CACHE.stats.captures == 1
+            assert sst.host_syncs == sst.host_dispatches
+        out[name] = search, (ids, dists.view(np.int32), {
+            r.qid: (tuple(r.ids), tuple(r.dists.view(np.int32)),
+                    r.admit_round, r.retire_round, r.service_rounds,
+                    r.n_dist, r.truncated) for r in sst.results},
+            sst.total_rounds, sst.occupancy_trace, sst.host_dispatches)
+    (ms, mst), (rs, rst) = out["mesh"], out["ref"]
+    np.testing.assert_array_equal(ms[0], rs[0])
+    np.testing.assert_array_equal(ms[1], rs[1])
+    for k in rs[2]:
+        np.testing.assert_array_equal(ms[2][k], rs[2][k], err_msg=k)
+    assert ms[3] == rs[3]
+    np.testing.assert_array_equal(mst[0], rst[0])
+    np.testing.assert_array_equal(mst[1], rst[1])
+    assert mst[2:] == rst[2:]
+
+
 def test_failed_capture_raises(dev):
     """A chunk program that reads the device inside the capture is
     refused: the capture raises, nothing falls back to an eager run."""

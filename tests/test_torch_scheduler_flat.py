@@ -697,19 +697,14 @@ def test_full_residency_store_equals_untiered(ds, injit):
     assert st.host_syncs == st.host_dispatches == want.host_dispatches
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(live=object()), 12), (dict(mesh=object()), 13)])
+@pytest.mark.parametrize("kw,item", [(dict(live=object()), 12)])
 def test_unported_options_raise(ds, kw, item):
-    """Multi-device serving (ROADMAP.md queue A item 13) is not ported;
-    the live index (item 12) is, and refuses a pool built without a
-    delta segment, as the reference does."""
+    """The live index (item 12) refuses a pool built without a delta
+    segment, as the reference does (multi-device serving, item 13, is
+    ported: tests/test_torch_mesh.py)."""
     _, queries, (consts, geom, entry) = ds
     params = _lossless(SearchParams(L=16, W=1, k=10), 2, geom)
-    if item == 12:
-        with pytest.raises(ValueError, match="delta_cap > 0"):
-            StreamScheduler(consts, geom, params, entry, 2, **kw, **CPU)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError, match="delta_cap > 0"):
         StreamScheduler(consts, geom, params, entry, 2, **kw, **CPU)
 
 

@@ -240,13 +240,6 @@ def test_run_chunk_admit_matches_reference(ds, spec, dynamic, deadline):
     assert int(pcur) == len(queries) and bool(ps.done.all())
 
 
-def test_unported_stepper_variants_raise(ds):
-    _, (pc, pg, pe), _ = ds
-    pp, _ = _params()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        P.make_stepper(pp, pg, mesh=object())
-
-
 def _shard_entries(pc, jc):
     """Per-shard entries: vertex s * 32 (shard s's first slot on the
     striped index) seeds shard s's rows, as build_routed_index's shard
