@@ -44,7 +44,13 @@ its seconds:
                version: gemma3-1b's geometry with its 512 window and
                full, a gemma2-like softcap, bf16, a non-aligned S through
                the op, S not a multiple of the 64-row q block with a
-               window below it, and non-causal; each within its stated
+               window below it, and non-causal; the other families'
+               prefill shapes: mixtral (GQA 32/8, dh 128, window 4096),
+               zamba2's shared block (dh 64, window 4096), seamless's
+               encoder (non-causal), decoder self-attention and
+               cross-attention through attention_op over Skv 1024 and
+               over a padded Skv 1088 with kv_valid 1000 (the plain
+               version over the valid rows only); each within its stated
                tolerance.
   5. int     — search_sim on an integer-valued index: cuda mode on the
                card, captured as CUDA graphs of SEARCH_CHUNK predicated
@@ -212,17 +218,37 @@ its seconds:
                262144; random weights from a seed) through
                launch/serve.py's functions in auto mode: RAG retrieval
                (a 2048-vector index, the search kernels), then batch 4 x
-               prompt 1024 greedy generation of 32 tokens. Counts are
-               zeroed before each stage and read after it: the
-               retrieval must launch the search kernels, the prefill one
-               flash kernel per layer. The same prefill with plain
-               attention on the card gives the reference logits and
-               tokens.
+               prompt 1024 greedy generation of 32 tokens.
+  8b. serve_families — the other model families the same way, 16
+               greedy tokens: mixtral-8x7b at full width with 8 of its
+               32 layers (f32; 32 layers need ~180 GiB) and RAG k=4,
+               mamba2-780m, zamba2-1.2b (RAG k=4) and seamless-m4t-
+               medium (the audio stub's frames as the encoder input) at
+               full size. One body serves 8 and 8b (SERVE_CASES); per
+               config: counts are zeroed before each stage and read
+               after it: the retrieval launches the search kernels and
+               its ids and distances agree with the CPU's plain
+               versions; a generation launches one flash kernel per
+               prefill attention (gemma 26, mixtral 8, mamba2 0, zamba2
+               6, seamless 36) and none in decode; the prefill's logits
+               within LOGIT_RTOL x max |logit| of plain attention's on
+               the card, greedy tokens equal but at a near-tie;
+               prefill + 3 decode steps equal logits_fn over the longer
+               sequence within 5e-3 (tests/test_models_decode.py's
+               tolerance; mixtral at capacity factor E) and within
+               LOGIT_RTOL x max |logit|. One line each: tok/s, prefill
+               ms, decode ms per token, peak GiB, idle shares, the
+               prefill's top device ops, one decode step's host ops
+               (mixtral also drop_frac and lb_loss at the serving
+               capacity factor).
   9. timing  — each kernel at its path's shapes: its time, its bound,
                the plain version's time and one library call's (the
                distance kernel's bf16 instantiations on the same tiles,
                their bound counting bf16 operands' halved bytes); flash
-               attention also at gemma3-1b's global layer (window 0) and
+               attention also at gemma3-1b's global layer (window 0)
+               and at the other families' prefill shapes (mixtral,
+               zamba2's shared block, seamless's encoder, decoder self-
+               and cross-attention),
                the fused Gather merge also at spec 4's proposals (LB 20),
                the distance at the router's shape and at the tiered
                sessions' (a frame buffer of 24 pages per shard), the
@@ -3077,12 +3103,23 @@ G3 = dict(B=4, H=4, Hkv=1, S=1024, dh=256)
 GLOBAL_LAYERS = 4
 
 
-def qkv(B, H, Hkv, S, dh, dtype, dev, seed: int):
+# the other families' prefill attentions (full width): mixtral's layers
+# (GQA 32/8, dh 128, window 4096), zamba2's shared block (dh 64, window
+# 4096), seamless's encoder (non-causal), decoder self-attention and
+# cross-attention (non-causal over the encoder's frames)
+MIXTRAL_ATTN = dict(B=4, H=32, Hkv=8, S=1024, dh=128)
+ZAMBA2_ATTN = dict(B=4, H=32, Hkv=32, S=1024, dh=64)
+SEAMLESS_ATTN = dict(B=4, H=16, Hkv=16, S=1024, dh=64)
+
+
+def qkv(B, H, Hkv, S, dh, dtype, dev, seed: int, Skv: int = 0):
+    """Random q (B,H,S,dh) and k, v (B,Hkv,Skv,dh) (Skv 0 -> S)."""
     import torch
     g = torch.Generator(device=dev).manual_seed(seed)
+    Skv = Skv or S
     return tuple((0.5 * torch.randn(shape, generator=g, device=dev)).to(dtype)
-                 for shape in ((B, H, S, dh), (B, Hkv, S, dh),
-                               (B, Hkv, S, dh)))
+                 for shape in ((B, H, S, dh), (B, Hkv, Skv, dh),
+                               (B, Hkv, Skv, dh)))
 
 
 def check_attention(dev) -> float:
@@ -3105,6 +3142,20 @@ def check_attention(dev) -> float:
         ("gemma3 S=992 (a half q block), window 40", dict(G3, S=992), f32,
          dict(window=40), False),
         ("gemma3 non-causal", G3, f32, dict(causal=False), False),
+        ("mixtral prefill (GQA 32/8, dh 128), window 4096", MIXTRAL_ATTN,
+         f32, dict(window=4096), False),
+        ("zamba2 shared block (dh 64), window 4096", ZAMBA2_ATTN, f32,
+         dict(window=4096), False),
+        ("seamless encoder (dh 64), non-causal", SEAMLESS_ATTN, f32,
+         dict(causal=False), False),
+        ("seamless decoder self-attention (dh 64), causal", SEAMLESS_ATTN,
+         f32, dict(window=0), False),
+        ("seamless cross-attention through attention_op, Skv 1024",
+         dict(SEAMLESS_ATTN, Skv=1024), f32,
+         dict(causal=False, kv_valid=1024), True),
+        ("seamless cross-attention through attention_op, Skv 1088 padded, "
+         "kv_valid 1000", dict(SEAMLESS_ATTN, Skv=1088), f32,
+         dict(causal=False, kv_valid=1000), True),
     )
     worst = 0.0
     for i, (label, shp, dtype, kw, through_op) in enumerate(cases):
@@ -3115,7 +3166,12 @@ def check_attention(dev) -> float:
             out = attention_op(q, k, v, scale=scale, mode="cuda", **kw)
         else:
             out = flash_attention(q, k, v, scale=scale, **kw)
-        ref = attention_ref(q, k, v, scale=scale, **kw).float()
+        # the plain version over the valid kv rows only: an independent
+        # check of the kernel's valid-length mask
+        ref_kw = {n: x for n, x in kw.items() if n != "kv_valid"}
+        valid = kw.get("kv_valid") or k.shape[2]
+        ref = attention_ref(q, k[:, :, :valid], v[:, :, :valid],
+                            scale=scale, **ref_kw).float()
         torch.cuda.synchronize()
         if KERNEL.launches != before + 1 or out.dtype != dtype:
             raise AssertionError(f"flash_attention {label}: the kernel did "
@@ -3140,149 +3196,246 @@ def check_attention(dev) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: gemma3-1b served with RAG soft prompts
+# Phases 8 and 8b: every model family served through launch/serve.py
 # ---------------------------------------------------------------------------
-SERVE = dict(batch=4, prompt_len=1024, gen=32, rag_dim=32)
+SERVE = dict(batch=4, prompt_len=1024, rag_dim=32, check_gen=4)
+# (phase, arch, its published (layers, d_model, vocab), layers kept (None:
+# all), --rag, flash launches per prefill, tokens generated)
+SERVE_CASES = (
+    ("serve", "gemma3-1b", (26, 1152, 262144), None, True, 26, 32),
+    # 8 of 32 layers: one layer's experts are 8 x 3 x 4096 x 14336 f32
+    # (5.6 GiB); 32 layers (~180 GiB) do not fit one 80 GB card
+    ("serve_families", "mixtral-8x7b", (32, 4096, 32000), 8, True, 8, 16),
+    ("serve_families", "mamba2-780m", (48, 1536, 50280), None, False, 0,
+     16),
+    # 6 shared-block applications
+    ("serve_families", "zamba2-1.2b", (38, 2048, 32000), None, True, 6, 16),
+    # 12 encoder + 12 decoder self + 12 cross
+    ("serve_families", "seamless-m4t-medium", (12, 1024, 256206), None,
+     False, 36, 16),
+)
+# prefill + decode against the full forward (tests/test_models_decode.py)
+DECODE_TOL = 5e-3
 
 
-def serve_path(dev) -> dict:
-    """Returns the kernels' launch counts of the timed generation."""
+def near_tie_divergence(out, ref_out, stats, ref_stats, tol):
+    """None if the greedy tokens are equal, else the first differing
+    (row, step) with both runs' top-2 logit gap there; raises unless the
+    gap is within ``tol`` (only a near-tie may flip a greedy pick)."""
+    differ = (out != ref_out).cpu().numpy()
+    if not differ.any():
+        return None
+    step = int(differ.any(0).argmax())
+    row = int(differ[:, step].argmax())
+    gap = min(float(stats["top2_gap"][row, step]),
+              float(ref_stats["top2_gap"][row, step]))
+    divergence = {"row": row, "step": step, "top2_gap": gap}
+    if gap > tol:
+        raise AssertionError(f"greedy tokens diverge at {divergence}, not "
+                             f"a near-tie (tolerance {tol})")
+    return divergence
+
+
+def retrieval_vs_cpu(cfg, rag, k: int, index) -> dict:
+    """The card's retrieval against the same retrieval with the plain
+    versions on the CPU: ids agree except inside a real-valued near-tie
+    of distances (the kernel and the CPU sum in different orders)."""
+    from repro_torch.launch.serve import soft_prompt_from_retrieval
+    _, cpu_ids, cpu_dists = soft_prompt_from_retrieval(
+        cfg, rag["queries"], k=k, kernel_mode="ref", device="cpu",
+        index=index)
+    dist_err = abs(rag["dists"] - cpu_dists)
+    if not (dist_err <= 1e-5 * abs(cpu_dists) + 1e-5).all():
+        raise AssertionError(f"{cfg.name} retrieval: card and CPU disagree "
+                             f"(ids {rag['ids']} vs {cpu_ids})")
+    return {"retrieved_ids": rag["ids"].tolist(),
+            "retrieval_dist_err_vs_cpu": float(dist_err.max()),
+            "retrieval_ids_differ_vs_cpu": int((rag["ids"] != cpu_ids).sum())}
+
+
+def decode_vs_forward(params, cfg, tokens, out, fe, enc_len: int, dev):
+    """Prefill + decode against logits_fn over the longer sequence (moe
+    at capacity factor E: decode buckets B tokens, prefill B x Sp), held
+    to the reference test's 5e-3 and to LOGIT_RTOL x max |logit|.
+    Returns the line's fields."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    B, Sp = tokens.shape
+    check_gen = SERVE["check_gen"]
+    e_opts = T.ModelOpts(cap_factor=float(max(cfg.num_experts, 1)))
+    seq = torch.cat([tokens, out[:, :check_gen].long()], dim=1)
+    full, _ = T.logits_fn(params, cfg, seq, opts=e_opts, frontend_embeds=fe)
+    cache = T.init_cache(cfg, B, Sp + check_gen, enc_len=max(enc_len, 1),
+                         dtype=torch.float32, device=dev)
+    lg, cache = T.prefill(params, cfg, tokens, cache, opts=e_opts,
+                          frontend_embeds=fe)
+    steps = [lg]
+    for t in range(check_gen - 1):
+        lg, cache = T.decode_step(params, cfg, cache,
+                                  seq[:, Sp + t:Sp + t + 1], opts=e_opts)
+        steps.append(lg)
+    want = full[:, Sp - 1:Sp - 1 + check_gen].transpose(0, 1)
+    gap = (torch.stack(steps) - want).abs()
+    err = float(gap.max())
+    scale_tol = LOGIT_RTOL * float(want.abs().max())
+    if not (bool((gap <= DECODE_TOL + DECODE_TOL * want.abs()).all())
+            and err <= scale_tol):
+        raise AssertionError(f"{cfg.name}: prefill + decode differ from "
+                             f"the full forward by {err} (scale bound "
+                             f"{scale_tol})")
+    return {"decode_vs_forward_err": err,
+            "decode_vs_forward_tol": f"atol {DECODE_TOL} + rtol "
+                                     f"{DECODE_TOL}, and {scale_tol}",
+            "decode_check_cap_factor": e_opts.cap_factor}
+
+
+def serve_case(dev, case, index, index_s: float) -> dict:
+    """One SERVE_CASES entry at its published widths (``layers`` cuts the
+    depth) through launch/serve.py's functions: checks and one line (see
+    the module docstring, phases 8 and 8b). Returns the kernels' launch
+    counts of the timed generation."""
+    import dataclasses
+
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import (greedy_generate, make_step_fns,
-                                          retrieval_index, serve_inputs,
-                                          soft_prompt_from_retrieval)
+                                          serve_inputs)
     from repro_torch.models import transformer as T
 
-    cfg = get_config("gemma3-1b")
-    if (cfg.num_layers, cfg.d_model, cfg.vocab_size) != (26, 1152, 262144):
-        raise AssertionError(f"gemma3-1b is not at full width: {cfg}")
-    B, Sp, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
-    t0 = time.perf_counter()
-    index = retrieval_index(SERVE["rag_dim"])
-    index_s = time.perf_counter() - t0
+    phase, arch, widths, layers, rag, flash, gen = case
+    t_start = time.perf_counter()
+    cfg = get_config(arch)
+    if (cfg.num_layers, cfg.d_model, cfg.vocab_size) != widths:
+        raise AssertionError(f"{arch} is not at its published widths "
+                             f"{widths}: {cfg}")
+    reduced = []
+    if layers is not None and layers < cfg.num_layers:
+        reduced.append(f"num_layers {cfg.num_layers} -> {layers}")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    B, Sp = SERVE["batch"], SERVE["prompt_len"]
 
-    # retrieval stage (and the random weights): the search kernels
+    # the random weights and (rag) the retrieval stage: the search kernels
     reset_launch_counts()
     t0 = time.perf_counter()
-    params, tokens, fe, rag = serve_inputs(
-        cfg, batch=B, prompt_len=Sp, rag=True, rag_dim=SERVE["rag_dim"],
+    params, tokens, fe, rag_out = serve_inputs(
+        cfg, batch=B, prompt_len=Sp, rag=rag, rag_dim=SERVE["rag_dim"],
         seed=0, device=dev, index=index)
     torch.cuda.synchronize()
     inputs_s = time.perf_counter() - t0
-    retrieval = launch_counts()
-    if not all(retrieval[k] > 0 for k in SEARCH_KERNELS):
-        raise AssertionError(f"a search kernel did not launch in the "
-                             f"retrieval stage: {retrieval}")
-    # the same retrieval with the plain versions on the CPU
-    _, cpu_ids, cpu_dists = soft_prompt_from_retrieval(
-        cfg, rag["queries"], k=fe.shape[1], kernel_mode="ref",
-        device="cpu", index=index)
-    # ids agree except inside a real-valued near-tie of distances (the
-    # kernel and the CPU's plain version sum in different orders)
-    dist_err = abs(rag["dists"] - cpu_dists)
-    ids_differ = int((rag["ids"] != cpu_ids).sum())
-    if not (dist_err <= 1e-5 * abs(cpu_dists) + 1e-5).all():
-        raise AssertionError(f"retrieval: card and CPU disagree "
-                             f"(ids {rag['ids']} vs {cpu_ids})")
-    dist_err = float(dist_err.max())
-
+    inputs = launch_counts()
+    retrieval = {}
+    if rag:
+        if not all(inputs[k] > 0 for k in SEARCH_KERNELS):
+            raise AssertionError(f"{arch}: a search kernel did not launch "
+                                 f"in the retrieval stage: {inputs}")
+        retrieval = {"index_build_s": index_s,
+                     **retrieval_vs_cpu(cfg, rag_out, fe.shape[1], index)}
+    enc_len = Sp if cfg.frontend == "audio" else 0
     opts = T.ModelOpts()
     step_fns = make_step_fns(cfg, opts)
-    greedy_generate(params, cfg, tokens, gen=2, opts=opts, frontend_embeds=fe,
-                    step_fns=step_fns, cache_len=Sp + gen)      # warm-up
+    greedy_generate(params, cfg, tokens, gen=2, opts=opts,
+                    frontend_embeds=fe, enc_len=enc_len, step_fns=step_fns,
+                    cache_len=Sp + gen)                         # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     stats = {}
     t0 = time.perf_counter()
     out = greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
-                          frontend_embeds=fe, step_fns=step_fns, stats=stats)
+                          frontend_embeds=fe, enc_len=enc_len,
+                          step_fns=step_fns, stats=stats)
     wall_s = time.perf_counter() - t0
     generate = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    if generate["flash_attention"] != cfg.num_layers or \
+    # one prefill launches `flash` kernels; the gen - 1 decode steps none
+    if generate["flash_attention"] != flash or \
             any(generate[k] for k in SEARCH_KERNELS):
-        raise AssertionError(f"generation launched {generate}, expected "
-                             f"{cfg.num_layers} flash_attention (one per "
-                             f"prefill layer) and nothing else")
+        raise AssertionError(f"{arch}: generation launched {generate}, "
+                             f"expected {flash} flash_attention (the "
+                             f"prefill's) and nothing else")
     if not stats["logits_finite"]:
-        raise AssertionError("non-finite logits")
+        raise AssertionError(f"{arch}: non-finite logits")
 
-    # reference: the same prefill and generation with plain attention
+    # the prefill's logits through the kernel against plain attention's
     ref_opts = T.ModelOpts(attn_mode="ref")
     logits = {}
     for mode, o in (("kernel", opts), ("plain", ref_opts)):
-        cache = T.init_cache(cfg, B, Sp, dtype=torch.float32, device=dev)
+        cache = T.init_cache(cfg, B, Sp, enc_len=max(enc_len, 1),
+                             dtype=torch.float32, device=dev)
         logits[mode], _ = T.prefill(params, cfg, tokens, cache, opts=o,
                                     frontend_embeds=fe)
+    del cache
     logit_err = float((logits["kernel"] - logits["plain"]).abs().max())
     logit_scale = float(logits["plain"].abs().max())
     logit_tol = LOGIT_RTOL * logit_scale
+    del logits
     if not logit_err <= logit_tol:
-        raise AssertionError(f"prefill logits differ by {logit_err} > "
-                             f"{logit_tol}")
+        raise AssertionError(f"{arch}: prefill logits differ by "
+                             f"{logit_err} > {logit_tol}")
     ref_stats = {}
     ref_out = greedy_generate(params, cfg, tokens, gen=gen, opts=ref_opts,
-                              frontend_embeds=fe, stats=ref_stats)
-    differ = (out != ref_out).cpu().numpy()
-    divergence = None
-    if differ.any():
-        step = int(differ.any(0).argmax())
-        row = int(differ[:, step].argmax())
-        gap = min(float(stats["top2_gap"][row, step]),
-                  float(ref_stats["top2_gap"][row, step]))
-        divergence = {"row": row, "step": step, "top2_gap": gap}
-        if gap > logit_tol:       # only a near-tie may flip a greedy pick
-            raise AssertionError(f"greedy tokens diverge at {divergence}, "
-                                 f"not a near-tie (tolerance {logit_tol})")
+                              frontend_embeds=fe, enc_len=enc_len,
+                              stats=ref_stats)
+    divergence = near_tie_divergence(out, ref_out, stats, ref_stats,
+                                     logit_tol)
+    decode_check = decode_vs_forward(params, cfg, tokens, out, fe, enc_len,
+                                     dev)
+    aux = {}
+    if cfg.family == "moe":      # the serving capacity factor's routing
+        _, aux = T.forward_hidden(params, cfg, tokens, opts=opts,
+                                  frontend_embeds=fe)
+        aux = {k: float(v) for k, v in aux.items()}
 
     # the card's busy time: one prefill, then one whole generation
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cache = T.init_cache(cfg, B, Sp + gen, dtype=torch.float32,
-                             device=dev)
+        cache = T.init_cache(cfg, B, Sp + gen, enc_len=max(enc_len, 1),
+                             dtype=torch.float32, device=dev)
         _, cache = T.prefill(params, cfg, tokens, cache, opts=opts,
                              frontend_embeds=fe)
         torch.cuda.synchronize()
     pre = device_kernel_us(prof)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
-                        frontend_embeds=fe, step_fns=step_fns)
+                        frontend_embeds=fe, enc_len=enc_len,
+                        step_fns=step_fns)
         torch.cuda.synchronize()
     whole = device_kernel_us(prof)
-    pre_ms = sum(us for us, _ in pre.values()) / 1e3
-    whole_ms = sum(us for us, _ in whole.values()) / 1e3
     # one decode step with host activity: what Python issues per token
-    tok = out[:, -1:]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        T.decode_step(params, cfg, cache, tok, opts=opts)
+        T.decode_step(params, cfg, cache, out[:, -1:], opts=opts)
         torch.cuda.synchronize()
     step = prof.key_averages()
     host_top = sorted(step, key=lambda e: -e.self_cpu_time_total)[:5]
+    drop_traces()
+    pre_ms = sum(us for us, _ in pre.values()) / 1e3
+    whole_ms = sum(us for us, _ in whole.values()) / 1e3
     prefill_ms, decode_ms = stats["prefill_s"] * 1e3, stats["decode_s"] * 1e3
     top = sorted(pre.items(), key=lambda kv: -kv[1][0])[:6]
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+    emit({"phase": phase, "arch": cfg.name, "family": cfg.family,
+          "layers": cfg.num_layers, "reduced": reduced,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": B,
-          "prompt_len": Sp, "gen": gen, "rag_k": int(fe.shape[1]),
-          "index_build_s": index_s, "inputs_s": inputs_s,
-          "retrieved_ids": rag["ids"].tolist(),
-          "retrieval_dist_err_vs_cpu": dist_err,
-          "retrieval_ids_differ_vs_cpu": ids_differ,
+          "prompt_len": Sp, "gen": gen,
+          "rag_k": int(fe.shape[1]) if rag else 0,
+          "frontend": cfg.frontend, **retrieval, "inputs_s": inputs_s,
+          "params_gib": sum(x.numel() * x.element_size()
+                            for x in params.parameters()) / 2**30,
           "tok_s": B * gen / wall_s, "wall_s": wall_s,
           "prefill_ms": prefill_ms,
           "decode_ms_per_token": decode_ms / (gen - 1),
           "peak_mem_gib": peak_gib,
-          "launches": {"retrieval": retrieval, "generate": generate},
+          "launches": {"inputs": inputs, "generate": generate},
           "flash_launches_per_prefill": generate["flash_attention"],
           "prefill_logit_err": logit_err, "logit_scale": logit_scale,
           "logit_tolerance": logit_tol,
-          "tokens_equal_plain_attention": not differ.any(),
+          "tokens_equal_plain_attention": divergence is None,
           "divergence": divergence,
           "min_top2_gap": float(stats["top2_gap"].min()),
+          **decode_check,
           "prefill_device_busy_ms": pre_ms,
           "prefill_idle_share": 1.0 - pre_ms / prefill_ms,
           "prefill_flash_ms": sum(us for n, (us, _) in pre.items()
@@ -3298,10 +3451,25 @@ def serve_path(dev) -> dict:
                "count": e.count} for e in host_top],
           "prefill_top": [{"name": n[:80], "ms": us / 1e3, "count": c}
                           for n, (us, c) in top],
-          "sample": out[0, :16].tolist()})
-    del params, logits, cache
+          "sample": out[0, :16].tolist(), **aux,   # moe: drop_frac, lb_loss
+          "seconds": round(time.perf_counter() - t_start, 2)})
+    del params, tokens, fe, cache, out, ref_out
+    gc.collect()
     torch.cuda.empty_cache()
     return generate
+
+
+def serve_phases(dev) -> dict:
+    """Phases 8 and 8b: every SERVE_CASES entry in turn over one
+    retrieval index (each frees its weights before the next). Returns
+    gemma3-1b's generation launch counts."""
+    from repro_torch.launch.serve import retrieval_index
+    t0 = time.perf_counter()
+    index = retrieval_index(SERVE["rag_dim"])
+    index_s = time.perf_counter() - t0
+    counts = {case[1]: serve_case(dev, case, index, index_s)
+              for case in SERVE_CASES}
+    return counts["gemma3-1b"]
 
 
 def attn_pairs(S: int, causal: bool, window: int) -> int:
@@ -3483,6 +3651,40 @@ def gather_row(R, la, lb, dev, **shape):
             dict(R=R, LA=la, LB=lb, out_w=out_w, **shape))
 
 
+def flash_row(shape: dict, kw: dict, dev):
+    """A timing row of flash attention at ``shape`` (S = Skv, f32): the
+    kernel (``kv_valid`` as its ``s_orig``, as attention_op passes it),
+    its plain version, and the library call, SDPA on repeated kv with an
+    explicit boolean mask (none when non-causal); the bound counts 4 dh
+    operations per unmasked (row, col) pair."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    fq, fk, fv = qkv(**shape, dtype=torch.float32, dev=dev, seed=5)
+    group = shape["H"] // shape["Hkv"]
+    fkr, fvr = (x.repeat_interleave(group, dim=1) for x in (fk, fv))
+    S, causal = shape["S"], kw.get("causal", True)
+    window = kw.get("window", 0)
+    kw = dict(scale=shape["dh"] ** -0.5, causal=causal, window=window,
+              s_orig=kw.get("kv_valid", 0))
+    ar = torch.arange(S, device=dev)
+    mask = None
+    if causal:
+        mask = ar[None, :] <= ar[:, None]
+        if window:
+            mask = mask & (ar[:, None] - ar[None, :] < window)
+    pairs = attn_pairs(S, causal, window) * shape["B"] * shape["H"]
+    b, by = bound_ms(4 * (2 * fq.numel() + fk.numel() + fv.numel()),
+                     4.0 * shape["dh"] * pairs)
+    return ("flash_attention", (fq, fk, fv),
+            lambda *a: flash_attention(*a, **kw),
+            lambda *a: attention_ref(*a, **kw),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                fq, fkr, fvr, attn_mask=mask, scale=kw["scale"]),
+            b, by, dict(shape, causal=causal, window=window,
+                        unmasked_pairs=pairs))
+
+
 def time_kernels(dev) -> list:
     """Time every kernel row; returns [(kernel entry without its launch
     count and error, the timing line's other fields)]."""
@@ -3490,8 +3692,6 @@ def time_kernels(dev) -> list:
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
     from repro_torch.launch.search import dataset
 
     T, qb, P, d, npages = main_path_tiles()
@@ -3545,34 +3745,31 @@ def time_kernels(dev) -> list:
     search_bitonic = bitonic_rows(dev)
     rows += routed_bitonic_rows(dev) + search_bitonic[2:]
     # flash attention at gemma3-1b's prefill shape (a local layer, and on a
-    # line of its own a global one); the library call is SDPA on repeated
-    # kv with an explicit boolean mask
-    fq, fk, fv = qkv(**G3, dtype=torch.float32, dev=dev, seed=5)
-    group = G3["H"] // G3["Hkv"]
-    fkr, fvr = (x.repeat_interleave(group, dim=1) for x in (fk, fv))
-    ar = torch.arange(G3["S"], device=dev)
-    flash_rows = []
-    for window in (512, 0):
-        kw = dict(scale=G3["dh"] ** -0.5, causal=True, window=window)
-        mask = ar[None, :] <= ar[:, None]
-        if window:
-            mask = mask & (ar[:, None] - ar[None, :] < window)
-        pairs = attn_pairs(G3["S"], True, window) * G3["B"] * G3["H"]
-        b, by = bound_ms(4 * (2 * fq.numel() + fk.numel() + fv.numel()),
-                         4.0 * G3["dh"] * pairs)
-        flash_rows.append((
-            "flash_attention", (fq, fk, fv),
-            lambda *a, kw=kw: flash_attention(*a, **kw),
-            lambda *a, kw=kw: attention_ref(*a, **kw),
-            lambda mask=mask, kw=kw:
-                torch.nn.functional.scaled_dot_product_attention(
-                    fq, fkr, fvr, attn_mask=mask, scale=kw["scale"]),
-            b, by, dict(G3, window=window, unmasked_pairs=pairs)))
-    rows.append(flash_rows[0])
-    # rows on a line of their own: flash at a global layer, the Gather
-    # merge at spec 4's proposals (the streaming phase)
-    extra = [(flash_rows[1], dict(case="global layer (window 0)",
-                                  layers_per_prefill=GLOBAL_LAYERS)),
+    # line of its own a global one)
+    rows.append(flash_row(G3, dict(window=512), dev))
+    # rows on a line of their own: flash at a global layer and at the
+    # other families' prefill shapes, the Gather merge at spec 4's
+    # proposals (the streaming phase)
+    extra = [(flash_row(G3, dict(window=0), dev),
+              dict(case="global layer (window 0)",
+                   layers_per_prefill=GLOBAL_LAYERS)),
+             (flash_row(MIXTRAL_ATTN, dict(window=4096), dev),
+              dict(case="mixtral-8x7b prefill (GQA 32/8, window 4096)",
+                   layers_per_prefill=8)),
+             (flash_row(ZAMBA2_ATTN, dict(window=4096), dev),
+              dict(case="zamba2-1.2b shared block (window 4096)",
+                   layers_per_prefill=6)),
+             (flash_row(SEAMLESS_ATTN, dict(causal=False), dev),
+              dict(case="seamless-m4t-medium encoder (non-causal)",
+                   layers_per_prefill=12)),
+             (flash_row(SEAMLESS_ATTN, dict(window=0), dev),
+              dict(case="seamless-m4t-medium decoder self-attention",
+                   layers_per_prefill=12)),
+             (flash_row(SEAMLESS_ATTN, dict(causal=False, kv_valid=1024),
+                        dev),
+              dict(case="seamless-m4t-medium cross-attention "
+                        "(kv_valid = Se = 1024)",
+                   layers_per_prefill=12)),
              (gather_row(GATHER["R"], GATHER["LA"], GATHER["LB_SPEC"], dev),
               dict(case="spec 4 proposals (W * (R + spec) = 20)")),
              (router_distance_row(dev), dict(case=ROUTER_CASE)),
@@ -3762,7 +3959,8 @@ def run_phases(dev, name: str, main_build, routed_build) -> int:
     launches["bitonic_merge"] = routed["bitonic_merge"]
     timed_part("mesh", "sift-1b", mesh_sift, main_run, static, dev)
     torch.cuda.empty_cache()
-    launches["flash_attention"] = serve_path(dev)["flash_attention"]
+    launches["flash_attention"] = timed_part(
+        "serve", "all", serve_phases, dev)["flash_attention"]
     kernels = report_timing(timing_in_child(), launches, errs,
                             tiered["paged_distance"])
     print(json.dumps({"kernels": kernels}), flush=True)

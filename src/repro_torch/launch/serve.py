@@ -9,13 +9,24 @@ embeddings), on the port.
       --reduced --rag --device cpu --batch 2 --prompt-len 16 --gen 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --reduced --rag --stream-retrieval --batch 2 --prompt-len 16 --gen 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --reduced --rag --device cpu --batch 2 --prompt-len 16 --gen 4
 
-Weights, prompts and the soft-prompt projection are random, drawn from
-``--seed`` with a ``torch.Generator`` on the target device. Prefill
-attention runs the flash-attention kernel, the retrieval stage the paged
-SiN distance and bitonic kernels (on a card; their plain versions on the
-CPU). Prints the reference CLI's lines plus one JSON line with tok/s,
-prefill ms, decode ms per token and the kernels' launch counts.
+Every family of the reference serves: dense (gemma3-1b, gemma2-27b,
+yi-34b, llama3-405b), vlm (llava-next-mistral-7b, the vision stub's
+patches over the prompt prefix), moe (mixtral-8x7b, dbrx-132b), ssm
+(mamba2-780m), hybrid (zamba2-1.2b) and encdec (seamless-m4t-medium,
+the audio stub's frames as the encoder input, one per prompt position).
+``--rag`` prepends retrieved soft prompts for the decoder-only families
+without a frontend, as the reference's ``elif`` does.
+
+Weights, prompts, frontend inputs and the soft-prompt projection are
+random, drawn from ``--seed`` with a ``torch.Generator`` on the target
+device. Prefill attention runs the flash-attention kernel, the retrieval
+stage the paged SiN distance and bitonic kernels (on a card; their plain
+versions on the CPU). Prints the reference CLI's lines plus one JSON
+line with tok/s, prefill ms, decode ms per token and the kernels' launch
+counts.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from repro_torch.data.vectors import VectorDataset
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.launch.serve_stream import StreamingRetriever
 from repro_torch.models import transformer as T
+from repro_torch.models.frontend import frontend_shape
 from repro_torch.utils import resolve_device
 
 RAG_N = 2048                  # vectors in the retrieval stage's index
@@ -57,11 +69,13 @@ def _sync(dev: torch.device) -> None:
 
 
 def greedy_generate(params, cfg, tokens, *, gen: int, opts,
-                    frontend_embeds=None, step_fns=None, cache_len: int = 0,
-                    stats: dict | None = None):
+                    frontend_embeds=None, enc_len: int = 0, step_fns=None,
+                    cache_len: int = 0, stats: dict | None = None):
     """Greedy prefill + ``gen - 1`` decode steps -> (B, gen) int32 tokens.
 
-    ``cache_len`` pins the KV-cache length (default Sp + gen). With
+    ``cache_len`` pins the KV-cache length (default Sp + gen);
+    ``enc_len`` the encoder cache's (encdec; at least 1, as the
+    reference sizes it). With
     ``stats`` (a dict) the device is synchronised after prefill and at
     the end, and ``prefill_s``, ``decode_s``, ``logits_finite`` (every
     step's logits finite) and ``top2_gap`` ((B, gen) numpy: each greedy
@@ -69,7 +83,8 @@ def greedy_generate(params, cfg, tokens, *, gen: int, opts,
     B, Sp = tokens.shape
     dev = tokens.device
     cache = T.init_cache(cfg, B, cache_len or (Sp + gen),
-                         dtype=torch.float32, device=dev)
+                         enc_len=max(enc_len, 1), dtype=torch.float32,
+                         device=dev)
     prefill, decode = step_fns or make_step_fns(cfg, opts)
     out, gaps = [], []
 
@@ -153,11 +168,14 @@ def serve_inputs(cfg, *, batch: int, prompt_len: int, rag: bool,
                  rag_dim: int, seed: int, device, kernel_mode: str = "auto",
                  coalesce_qb: int = 8, index=None, streaming: bool = False):
     """Random weights and prompts from ``seed`` on ``device``, plus the
-    frontend embeddings: the vision stub's, or (``rag``) the projected
-    retrieved neighbours over the first k prompt positions (retrieved
-    through the streaming scheduler with ``streaming``). Returns
-    (params, tokens, frontend_embeds or None, retrieval or None), the
-    retrieval a dict of the numpy ``queries``, ``ids`` and ``dists``."""
+    frontend embeddings: the vision stub's patches, the audio stub's
+    frames (the encoder input, one per prompt position: the encoder
+    length is ``prompt_len``), or (``rag``, the other families) the
+    projected retrieved neighbours over the first k prompt positions
+    (retrieved through the streaming scheduler with ``streaming``).
+    Returns (params, tokens, frontend_embeds or None, retrieval or
+    None), the retrieval a dict of the numpy ``queries``, ``ids`` and
+    ``dists``."""
     T.check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -165,9 +183,9 @@ def serve_inputs(cfg, *, batch: int, prompt_len: int, rag: bool,
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=dev)
     fe = retrieval = None
-    if cfg.frontend == "vision":
-        fe = 0.05 * torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
-                                generator=gen, device=dev)
+    shape = frontend_shape(cfg, batch, prompt_len)
+    if shape is not None:
+        fe = 0.05 * torch.randn(shape, generator=gen, device=dev)
     elif rag:
         q = torch.randn((batch, rag_dim), generator=gen,
                         device=dev).cpu().numpy()
@@ -224,6 +242,7 @@ def main(argv=None):
         kernel_mode=args.kernel_mode, coalesce_qb=args.coalesce_qb,
         streaming=args.stream_retrieval)
     retrieval_launches = launch_counts()
+    enc_len = args.prompt_len if cfg.frontend == "audio" else 0
     if retrieval is not None:
         print("retrieved neighbor ids:", retrieval["ids"][:, :4].tolist())
 
@@ -232,7 +251,7 @@ def main(argv=None):
     step_fns = make_step_fns(cfg, opts)
     t0 = time.perf_counter()
     greedy_generate(params, cfg, tokens, gen=min(2, args.gen), opts=opts,
-                    frontend_embeds=fe, step_fns=step_fns,
+                    frontend_embeds=fe, enc_len=enc_len, step_fns=step_fns,
                     cache_len=args.prompt_len + args.gen)
     _sync(dev)
     warm_s = time.perf_counter() - t0
@@ -240,7 +259,8 @@ def main(argv=None):
     stats = {}
     t0 = time.perf_counter()
     out = greedy_generate(params, cfg, tokens, gen=args.gen, opts=opts,
-                          frontend_embeds=fe, step_fns=step_fns, stats=stats)
+                          frontend_embeds=fe, enc_len=enc_len,
+                          step_fns=step_fns, stats=stats)
     dt = time.perf_counter() - t0
     out = out.cpu().numpy()
     print(f"generated {out.shape} tokens in {dt:.2f}s "

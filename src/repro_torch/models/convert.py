@@ -1,10 +1,12 @@
 """Carry weights between the reference's parameter tree and the port's.
 
 The reference keeps its parameters as a nested dict whose ``"blocks"``
-leaves carry a leading ``("layers", ...)`` axis (stacked for its layer
-scan). The port keeps one module per layer. :func:`params_from_jax`
-unstacks a reference tree given as numpy arrays; :func:`params_to_numpy`
-stacks the port's module tree back into that form.
+(and encdec's ``"enc_blocks"``) leaves carry a leading ``("layers",
+...)`` axis (stacked for its layer scan); every other subtree (the
+embedding, the norms, zamba2's one ``"shared"`` block) is unstacked.
+The port keeps one module per layer. :func:`params_from_jax` unstacks a
+reference tree given as numpy arrays; :func:`params_to_numpy` stacks the
+port's module tree back into that form.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ from repro_torch.models.params import module_tree
 from repro_torch.models.transformer import model_spec
 from repro_torch.utils import resolve_device
 
+# the subtrees whose leaves the reference stacks along a layer axis
+STACKED = ("blocks", "enc_blocks")
+
 
 def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> nn.Module:
     """Reference parameter tree (numpy arrays, stacked "blocks") -> the
@@ -24,13 +29,12 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> nn.Module:
     device = resolve_device(device)
 
     def to_tensor(path, s):
-        sub, keys = tree, path
-        if path[0] == "blocks":      # ("blocks", layer, ...): stacked leaf
-            sub, keys = tree["blocks"], path[2:]
-        for key in keys:
+        stacked = path[0] in STACKED   # (group, layer, ...): stacked leaf
+        sub = tree[path[0]]
+        for key in path[2:] if stacked else path[1:]:
             sub = sub[key]
         a = np.asarray(sub)
-        if path[0] == "blocks":
+        if stacked:
             a = a[path[1]]
         if tuple(a.shape) != s.shape:
             raise ValueError(f"{'/'.join(map(str, path))}: shape "
@@ -43,14 +47,15 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> nn.Module:
 def params_to_numpy(params: nn.Module) -> dict:
     """The port's module tree -> the reference's tree layout as numpy
     arrays, with the per-layer leaves stacked along a leading axis."""
-    def leaf(t):
-        return t.detach().cpu().numpy()
+    def tree(m):
+        if isinstance(m, torch.Tensor):
+            return m.detach().cpu().numpy()
+        return {k: tree(v) for k, v in m.items()}
 
-    out = {k: {n: leaf(t) for n, t in params[k].items()}
-           for k in ("tok", "fln")}
-    blocks = params["blocks"]
-    out["blocks"] = {
-        g: {n: np.stack([leaf(b[g][n]) for b in blocks])
-            for n in blocks[0][g].keys()}
-        for g in blocks[0].keys()}
-    return out
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    return {k: stack([tree(b) for b in m]) if k in STACKED else tree(m)
+            for k, m in params.items()}

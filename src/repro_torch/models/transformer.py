@@ -1,13 +1,18 @@
-"""Model assembly for the dense and vlm families (the reference's
+"""Model assembly for every family (the reference's
 ``models/transformer.py`` in torch).
 
   dense   llama3/yi/gemma2/gemma3 (GQA, RoPE, sliding-window patterns,
           logit softcaps)
   vlm     the llava backbone (vision-stub embeddings over the prompt
           prefix)
+  moe     mixtral/dbrx — dense attention + capacity-bounded MoE FFN
+  ssm     mamba2 — attention-free SSD blocks
+  hybrid  zamba2 — SSD backbone + one shared attention+MLP block applied
+          every k-th layer (weight-tied, per-application KV cache)
+  encdec  seamless — full-attention encoder (audio-stub input) + causal
+          decoder with cross-attention
 
-The other families raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them. Three entry points, as in the reference:
+Three entry points, as in the reference:
 
   forward_hidden   full-sequence (scoring)               -> final hidden
   prefill          full-sequence + cache population      -> (last logits, cache)
@@ -16,7 +21,9 @@ item that ports them. Three entry points, as in the reference:
 The parameters are one ``nn.Module`` tree (``models/params.py``): the
 layers are an ``nn.ModuleList`` of blocks run in a Python loop — PyTorch
 runs eagerly, so the reference's layer scan and remat have no
-counterpart here.
+counterpart here. One loop serves the three entry points: each passes
+the sequence operations (self-attention, cross-attention, the SSD block)
+of its own kind.
 """
 from __future__ import annotations
 
@@ -27,28 +34,20 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import (embed, embed_spec, mlp, mlp_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
+from repro_torch.models.moe import moe_ffn, moe_spec
 from repro_torch.models.params import materialize
 from repro_torch.utils import resolve_device
 
-FAMILIES = ("dense", "vlm")
-_NOT_PORTED = {
-    "moe": "ROADMAP.md queue A item 14b (models/moe.py)",
-    "ssm": "ROADMAP.md queue A item 14c (models/ssm.py)",
-    "hybrid": "ROADMAP.md queue A item 14c (models/ssm.py)",
-    "encdec": "ROADMAP.md queue A item 14d (cross_attention)",
-}
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    if cfg.family in FAMILIES:
-        return
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; see "
-            f"{_NOT_PORTED[cfg.family]}")
-    raise ValueError(cfg.family)
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown model family "
+                         f"{cfg.family!r}; known: {FAMILIES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +56,7 @@ class ModelOpts:
 
     act_dtype: torch.dtype = torch.float32  # residual-stream compute dtype
     attn_mode: str = "auto"      # prefill flash op: auto | cuda | ref
+    cap_factor: float = 1.25     # MoE dispatch capacity factor
 
 
 # ---------------------------------------------------------------------------
@@ -69,14 +69,48 @@ def attn_mlp_block_spec(cfg: ArchConfig):
             "mlp": mlp_spec(cfg.d_model, cfg.d_ff)}
 
 
+def moe_block_spec(cfg: ArchConfig):
+    return {"ln1": rmsnorm_spec(cfg.d_model),
+            "attn": A.attention_spec(cfg),
+            "ln2": rmsnorm_spec(cfg.d_model),
+            "moe": moe_spec(cfg)}
+
+
+def ssm_block_spec(cfg: ArchConfig):
+    return {"ln1": rmsnorm_spec(cfg.d_model), "ssm": S.ssm_spec(cfg)}
+
+
+def decoder_block_spec(cfg: ArchConfig):
+    return {"ln1": rmsnorm_spec(cfg.d_model),
+            "attn": A.attention_spec(cfg),
+            "lnx": rmsnorm_spec(cfg.d_model),
+            "xattn": A.cross_attention_spec(cfg),
+            "ln2": rmsnorm_spec(cfg.d_model),
+            "mlp": mlp_spec(cfg.d_model, cfg.d_ff)}
+
+
+_BLOCK_SPECS = {"dense": attn_mlp_block_spec, "vlm": attn_mlp_block_spec,
+                "moe": moe_block_spec, "ssm": ssm_block_spec,
+                "hybrid": ssm_block_spec, "encdec": decoder_block_spec}
+
+
 def model_spec(cfg: ArchConfig):
     """The reference's spec tree with the layer axis unstacked: "blocks"
-    is a list of per-layer block specs (the same per-layer init scales)."""
+    (and the encoder's "enc_blocks") is a list of per-layer block specs
+    (the same per-layer init scales); zamba2's "shared" block is one
+    block, as in the reference."""
     check_family(cfg)
     d, L = cfg.d_model, cfg.num_layers
-    return {"tok": embed_spec(cfg.vocab_padded(), d, cfg.tie_embeddings),
-            "fln": rmsnorm_spec(d),
-            "blocks": [attn_mlp_block_spec(cfg) for _ in range(L)]}
+    out = {"tok": embed_spec(cfg.vocab_padded(), d, cfg.tie_embeddings),
+           "fln": rmsnorm_spec(d),
+           "blocks": [_BLOCK_SPECS[cfg.family](cfg) for _ in range(L)]}
+    if cfg.family == "hybrid":
+        out["shared"] = attn_mlp_block_spec(cfg)
+    if cfg.family == "encdec":
+        out["enc_blocks"] = [attn_mlp_block_spec(cfg)
+                             for _ in range(cfg.enc_layers)]
+        out["eln"] = rmsnorm_spec(d)
+    return out
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -85,49 +119,161 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     return materialize(model_spec(cfg), gen, dtype=dtype)
 
 
+def hybrid_layout(cfg: ArchConfig):
+    """(n_groups, group_len, tail_len): the zamba2 topology — the shared
+    attention+MLP block runs after every ``hybrid_attn_every``-th SSM
+    layer (application g after layer g·e + e − 1, with its own KV-cache
+    row); trailing layers (L mod every) are pure SSM."""
+    L, e = cfg.num_layers, cfg.hybrid_attn_every
+    return L // e, e, L % e
+
+
 # ---------------------------------------------------------------------------
 # Shared pieces
 # ---------------------------------------------------------------------------
 def _embed_inputs(params, cfg, tokens, opts, frontend_embeds):
-    """Token embeddings; ``frontend_embeds`` (B,F,d) — patch embeddings
-    or retrieved soft prompts — overwrite the first F prompt positions."""
+    """Token embeddings; for decoder-only families ``frontend_embeds``
+    (B,F,d) — patch embeddings or retrieved soft prompts — overwrite the
+    first F prompt positions. For encdec they are the encoder's input
+    and leave the token embeddings as they are."""
     x = embed(params["tok"], tokens).to(opts.act_dtype)
-    if frontend_embeds is not None:
+    if frontend_embeds is not None and cfg.family != "encdec":
         x = x.clone()
         F = frontend_embeds.shape[1]
         x[:, :F] = frontend_embeds.to(x.dtype)
     return x
 
 
-def _positions(tokens):
+def _positions(B: int, Sq: int, device):
+    return torch.arange(Sq, dtype=torch.int32, device=device)[None].expand(
+        B, Sq)
+
+
+def _mlp(p, x, cfg):
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), act=cfg.act)
+
+
+def _layers(params, cfg, x, opts, self_attn, cross, ssm):
+    """The decoder stack of every family over x -> (x, aux). The three
+    sequence operations each return x plus the layer's output:
+    ``self_attn(p, x, j, window)`` (j: the layer's KV-cache slot),
+    ``cross(p, x, i)`` (encdec) and ``ssm(p, x, i)``. aux holds the moe
+    family's mean ``lb_loss`` and ``drop_frac`` over the layers."""
+    fam, eps = cfg.family, cfg.norm_eps
+    if fam in ("ssm", "hybrid"):
+        G, e, _ = hybrid_layout(cfg) if fam == "hybrid" else (0, 1, 0)
+        for i, p in enumerate(params["blocks"]):
+            x = ssm(p, x, i)
+            if i < G * e and i % e == e - 1:
+                shared = params["shared"]
+                x = _mlp(shared, self_attn(shared, x, i // e, cfg.window),
+                         cfg)
+        return x, {}
+    lb = dr = 0.0
+    for i, (p, win) in enumerate(zip(params["blocks"],
+                                     cfg.layer_windows())):
+        x = self_attn(p, x, i, win)
+        if fam == "encdec":
+            x = cross(p, x, i)
+        if fam == "moe":
+            h, mx = moe_ffn(p["moe"], rmsnorm(p["ln2"], x, eps), cfg,
+                            capacity_factor=opts.cap_factor, act=cfg.act)
+            x = x + h
+            lb, dr = lb + mx["lb_loss"], dr + mx["drop_frac"]
+        else:
+            x = _mlp(p, x, cfg)
+    if fam != "moe":
+        return x, {}
+    return x, {"lb_loss": lb / cfg.num_layers,
+               "drop_frac": dr / cfg.num_layers}
+
+
+def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None):
+    """The stack over the whole sequence (forward_hidden, prefill) ->
+    (x, aux). With ``cache``, every layer's K/V, SSM and conv state and
+    (encdec) cross K/V are written into it in place."""
+    check_family(cfg)
     B, Sq = tokens.shape
-    return torch.arange(Sq, dtype=torch.int32,
-                        device=tokens.device)[None].expand(B, Sq)
+    eps = cfg.norm_eps
+    x = _embed_inputs(params, cfg, tokens, opts, frontend_embeds)
+    positions = _positions(B, Sq, tokens.device)
+    enc = None
+    if cfg.family == "encdec":
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name}: encdec needs the encoder input "
+                             f"(frontend_embeds)")
+        enc = encode(params, cfg, frontend_embeds, opts=opts)
 
+    def put(name, j, t):
+        if t.shape[1] > cache[name][j].shape[1]:
+            raise ValueError(f"{name}: {t.shape[1]} rows do not fit the "
+                             f"cache's {cache[name][j].shape[1]}")
+        cache[name][j][:, :t.shape[1]] = t.to(cache[name][j].dtype)
 
-def _block(p, x, cfg, win, positions, opts, return_kv=False):
-    h = A.attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                    window=win, positions=positions, return_kv=return_kv,
-                    mode=opts.attn_mode)
-    if return_kv:
-        h, kv = h
-    x = x + h
-    x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), act=cfg.act)
-    return (x, kv) if return_kv else x
+    def self_attn(p, x, j, win):
+        h = A.attention(p["attn"], rmsnorm(p["ln1"], x, eps), cfg,
+                        window=win, positions=positions,
+                        return_kv=cache is not None, mode=opts.attn_mode)
+        if cache is not None:
+            h, (k, v) = h
+            put("k", j, k)
+            put("v", j, v)
+        return x + h
+
+    def cross(p, x, i):
+        k, v = A.encode_cross_kv(p["xattn"], enc)
+        if cache is not None:
+            # attend over what the cache holds, as the reference does
+            put("xk", i, k)
+            put("xv", i, v)
+            Se = k.shape[1]
+            k = cache["xk"][i][:, :Se].to(x.dtype)
+            v = cache["xv"][i][:, :Se].to(x.dtype)
+        return x + A.cross_attention(p["xattn"], rmsnorm(p["lnx"], x, eps),
+                                     (k, v), cfg, mode=opts.attn_mode)
+
+    def ssm(p, x, i):
+        h = S.ssm_chunked(p["ssm"], rmsnorm(p["ln1"], x, eps), cfg,
+                          return_state=cache is not None)
+        if cache is not None:
+            h, (st, cst) = h
+            cache["ssm"][i] = st.to(cache["ssm"].dtype)
+            cache["conv"][i] = cst.to(cache["conv"].dtype)
+        return x + h
+
+    x, aux = _layers(params, cfg, x, opts, self_attn, cross, ssm)
+    if cache is not None and enc is not None:
+        cache["enc_len"] = enc.shape[1]
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
-# forward_hidden / logits
+# forward_hidden / encode / logits
 # ---------------------------------------------------------------------------
 def forward_hidden(params, cfg: ArchConfig, tokens, *,
                    opts: ModelOpts = ModelOpts(), frontend_embeds=None):
-    """tokens (B,S) -> (hidden (B,S,d) final-normed, aux dict)."""
-    check_family(cfg)
-    x = _embed_inputs(params, cfg, tokens, opts, frontend_embeds)
-    positions = _positions(tokens)
-    for p, win in zip(params["blocks"], cfg.layer_windows()):
-        x = _block(p, x, cfg, win, positions, opts)
-    return rmsnorm(params["fln"], x, cfg.norm_eps), {}
+    """tokens (B,S) -> (hidden (B,S,d) final-normed, aux dict).
+
+    frontend_embeds: decoder-only/vlm -> (B,F,d) embeddings (patch
+    embeddings or retrieved soft prompts) overwriting the first F prompt
+    positions; encdec -> (B,Se,d) encoder input (audio frames)."""
+    x, aux = _full_sequence(params, cfg, tokens, opts, frontend_embeds)
+    return rmsnorm(params["fln"], x, cfg.norm_eps), aux
+
+
+def encode(params, cfg: ArchConfig, enc_input, *,
+           opts: ModelOpts = ModelOpts()):
+    """Encoder stack (encdec family). enc_input (B,Se,d) -> (B,Se,d):
+    non-causal self-attention through the flash op, then the MLP."""
+    B, Se, _ = enc_input.shape
+    x = enc_input.to(opts.act_dtype)
+    positions = _positions(B, Se, x.device)
+    for p in params["enc_blocks"]:
+        x = x + A.attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            cfg, window=0, positions=positions, causal=False,
+                            mode=opts.attn_mode)
+        x = _mlp(p, x, cfg)
+    return rmsnorm(params["eln"], x, cfg.norm_eps)
 
 
 def logits_fn(params, cfg: ArchConfig, tokens, *,
@@ -140,30 +286,55 @@ def logits_fn(params, cfg: ArchConfig, tokens, *,
 
 
 # ---------------------------------------------------------------------------
-# KV cache
+# Decode caches
 # ---------------------------------------------------------------------------
-def cache_spec(cfg: ArchConfig, batch: int, cache_len: int):
-    """Shapes of the decode cache: per-layer (B, cache_len, K, hd) k and
-    v, and the next position."""
+def cache_spec(cfg: ArchConfig, batch: int, cache_len: int, *,
+               enc_len: int = 0):
+    """Shapes of the decode cache: the next position; per-layer (B,
+    cache_len, K, hd) k and v (per shared-block application for the
+    hybrid); the stacked (L, ...) SSM and conv states (ssm, hybrid); the
+    per-layer (B, enc_len, K, hd) cross k and v and the encoder length
+    (encdec)."""
     check_family(cfg)
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"pos": (), "k": [shape] * cfg.num_layers,
-            "v": [shape] * cfg.num_layers}
+    fam, L = cfg.family, cfg.num_layers
+
+    def kv(n, length):
+        return [(batch, length, cfg.num_kv_heads, cfg.head_dim)] * n
+
+    out = {"pos": ()}
+    if fam in ("dense", "vlm", "moe", "encdec"):
+        out["k"] = out["v"] = kv(L, cache_len)
+    if fam in ("ssm", "hybrid"):
+        ssm, conv = S.state_shapes(cfg, batch)
+        out["ssm"], out["conv"] = (L, *ssm), (L, *conv)
+    if fam == "hybrid":
+        out["k"] = out["v"] = kv(hybrid_layout(cfg)[0], cache_len)
+    if fam == "encdec":
+        out["xk"] = out["xv"] = kv(L, enc_len)
+        out["enc_len"] = ()
+    return out
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
-               dtype=torch.bfloat16, device="cuda"):
-    """Zeroed cache on ``device``. The k/v caches are LISTS of per-layer
-    tensors that prefill and decode_step update in place (the reference
-    keeps a list of per-layer leaves for the same reason: one buffer per
-    layer is written where it lies, never copied)."""
+               enc_len: int = 0, dtype=torch.bfloat16, device="cuda"):
+    """Zeroed cache on ``device``. The k/v (and cross xk/xv) caches are
+    LISTS of per-layer tensors that prefill and decode_step update in
+    place (the reference keeps a list of per-layer leaves for the same
+    reason: one buffer per layer is written where it lies, never
+    copied). The SSM and conv states are f32 whatever ``dtype``, as the
+    reference's; ``pos`` and ``enc_len`` are Python ints."""
     device = resolve_device(device)
-    cs = cache_spec(cfg, batch, cache_len)
-    return {"pos": 0,
-            "k": [torch.zeros(s, dtype=dtype, device=device)
-                  for s in cs["k"]],
-            "v": [torch.zeros(s, dtype=dtype, device=device)
-                  for s in cs["v"]]}
+    out = {}
+    for name, shape in cache_spec(cfg, batch, cache_len,
+                                  enc_len=enc_len).items():
+        if name in ("pos", "enc_len"):
+            out[name] = 0
+        elif name in ("ssm", "conv"):
+            out[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+        else:
+            out[name] = [torch.zeros(s, dtype=dtype, device=device)
+                         for s in shape]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -173,19 +344,14 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
 def prefill(params, cfg: ArchConfig, tokens, cache, *,
             opts: ModelOpts = ModelOpts(), frontend_embeds=None):
     """tokens (B,S) with S <= cache_len. Returns (last logits (B,V),
-    cache); the cache's per-layer tensors are written in place.
+    cache); the cache's tensors are written in place (encdec: the cross
+    K/V of the Se encoder frames, Se <= the cache's enc_len).
 
     All prompts in the batch share length S (positions are absolute)."""
-    check_family(cfg)
-    B, Sq = tokens.shape
-    x = _embed_inputs(params, cfg, tokens, opts, frontend_embeds)
-    positions = _positions(tokens)
     cache = dict(cache)
-    for i, (p, win) in enumerate(zip(params["blocks"], cfg.layer_windows())):
-        x, (k, v) = _block(p, x, cfg, win, positions, opts, return_kv=True)
-        cache["k"][i][:, :Sq] = k.to(cache["k"][i].dtype)
-        cache["v"][i][:, :Sq] = v.to(cache["v"][i].dtype)
-    cache["pos"] = Sq
+    x, _ = _full_sequence(params, cfg, tokens, opts, frontend_embeds,
+                          cache=cache)
+    cache["pos"] = tokens.shape[1]
     h = rmsnorm(params["fln"], x[:, -1:], cfg.norm_eps)
     logits = unembed(params["tok"], h, cfg.tie_embeddings, cfg.softcap_final)
     return logits[:, 0, :cfg.vocab_size], cache
@@ -198,22 +364,37 @@ def prefill(params, cfg: ArchConfig, tokens, cache, *,
 def decode_step(params, cfg: ArchConfig, cache, tokens, *,
                 opts: ModelOpts = ModelOpts()):
     """tokens (B,1) -> (logits (B,V), cache). pos = cache['pos']; each
-    layer writes only its new (B,1,K,hd) slot, in place, and attends over
-    the same tensor."""
+    attention layer writes only its new (B,1,K,hd) slot, in place, and
+    attends over the same tensor; each SSD layer steps its state in
+    place; cross-attention reads the encoder cache's first enc_len rows.
+    Every attention here is the plain one-row path."""
     check_family(cfg)
-    pos = cache["pos"]
+    pos, eps = cache["pos"], cfg.norm_eps
     x = embed(params["tok"], tokens).to(opts.act_dtype)
     cache = dict(cache)
-    for i, (p, win) in enumerate(zip(params["blocks"], cfg.layer_windows())):
-        q, k, v = A.decode_qkv(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               pos, cfg)
-        ck, cv = cache["k"][i], cache["v"][i]
+
+    def self_attn(p, x, j, win):
+        q, k, v = A.decode_qkv(p["attn"], rmsnorm(p["ln1"], x, eps), pos,
+                               cfg)
+        ck, cv = cache["k"][j], cache["v"][j]
         ck[:, pos:pos + 1] = k.to(ck.dtype)
         cv[:, pos:pos + 1] = v.to(cv.dtype)
-        x = x + A.decode_attend(p["attn"], q, ck, cv, cfg, window=win,
-                                pos=pos)
-        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                    act=cfg.act)
+        return x + A.decode_attend(p["attn"], q, ck, cv, cfg, window=win,
+                                   pos=pos)
+
+    def cross(p, x, i):
+        return x + A.cross_attention(p["xattn"], rmsnorm(p["lnx"], x, eps),
+                                     (cache["xk"][i], cache["xv"][i]), cfg,
+                                     enc_valid=cache["enc_len"], decode=True)
+
+    def ssm(p, x, i):
+        h, (st, cst) = S.ssm_step(p["ssm"], rmsnorm(p["ln1"], x, eps),
+                                  (cache["ssm"][i], cache["conv"][i]), cfg)
+        cache["ssm"][i] = st
+        cache["conv"][i] = cst
+        return x + h
+
+    x, _ = _layers(params, cfg, x, opts, self_attn, cross, ssm)
     cache["pos"] = pos + 1
     h = rmsnorm(params["fln"], x, cfg.norm_eps)
     logits = unembed(params["tok"], h, cfg.tie_embeddings, cfg.softcap_final)

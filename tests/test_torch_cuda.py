@@ -992,6 +992,81 @@ def test_prefill_through_the_kernel_matches_ref_mode(dev):
     torch.testing.assert_close(out["auto"], out["ref"], rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("kv_valid,pad", [(1024, 0), (1000, 64),
+                                           (700, 32), (33, 0)])
+def test_attention_op_cross_with_kv_valid_on_card(dev, kv_valid, pad):
+    """Cross-attention's shape through attention_op: non-causal, S 1024
+    queries over a kv cache padded by ``pad`` rows, the first
+    ``kv_valid`` rows valid; equal to the plain version's within 2e-5."""
+    g = torch.Generator(device=dev).manual_seed(kv_valid + pad)
+    q = 0.5 * torch.randn((1, 4, 1024, 64), generator=g, device=dev)
+    k, v = (0.5 * torch.randn((1, 4, 1024 + pad, 64), generator=g,
+                              device=dev) for _ in range(2))
+    before = FLASH.launches
+    out = attention_op(q, k, v, scale=0.125, causal=False, kv_valid=kv_valid,
+                       mode="cuda")
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    want = attention_ref(q, k[:, :, :kv_valid], v[:, :, :kv_valid],
+                         scale=0.125, causal=False)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(
+        attention_op(q, k, v, scale=0.125, causal=False, kv_valid=kv_valid,
+                     mode="ref"), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch,flash", [("mixtral-8x7b", 4),
+                                        ("zamba2-1.2b", 2),
+                                        ("seamless-m4t-medium", 10),
+                                        ("mamba2-780m", 0)])
+def test_family_prefill_on_card_matches_cpu_ref(dev, arch, flash):
+    """Reduced moe, hybrid, encdec (and ssm) prefills on the card through
+    the kernel (one flash launch per attention: moe per layer, hybrid
+    per shared-block application, encdec 2 encoder + 4 self + 4 cross)
+    equal the same weights' prefill in ref mode on the CPU within 1e-4,
+    the cache too; decode launches no kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import (ModelOpts, decode_step, init_cache,
+                                    init_params, prefill)
+    import copy
+    cfg = reduced(get_config(arch))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                         device=dev)
+    fe = (0.05 * torch.randn((2, 40, cfg.d_model), generator=gen,
+                             device=dev) if cfg.frontend == "audio" else None)
+    runs = {"card": (params, toks, fe, dev, "auto"),
+            "cpu": (copy.deepcopy(params).cpu(), toks.cpu(),
+                    None if fe is None else fe.cpu(), "cpu", "ref")}
+    out = {}
+    for where, (p, t, f, device, mode) in runs.items():
+        reset_launch_counts()
+        cache = init_cache(cfg, 2, 41, enc_len=40, dtype=torch.float32,
+                           device=device)
+        out[where] = prefill(p, cfg, t, cache,
+                             opts=ModelOpts(attn_mode=mode),
+                             frontend_embeds=f)
+        torch.cuda.synchronize()
+        assert launch_counts()["flash_attention"] == \
+            (flash if where == "card" else 0)
+    torch.testing.assert_close(out["card"][0].cpu(), out["cpu"][0],
+                               rtol=1e-4, atol=1e-4)
+    for name, got in out["card"][1].items():
+        want = out["cpu"][1][name]
+        if isinstance(got, torch.Tensor):
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        elif isinstance(got, list):
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+        else:
+            assert got == want, name
+    reset_launch_counts()
+    decode_step(params, cfg, out["card"][1], toks[:, -1:])
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 0
+
+
 def test_serve_cli_on_card(dev, capsys):
     """The serve CLI end to end on the card (reduced gemma3-1b, RAG):
     the retrieval stage launches the search kernels, the prefill one

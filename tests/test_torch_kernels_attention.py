@@ -113,6 +113,33 @@ def test_kv_padding_s_orig():
                               scale=0.125, causal=False), tol=2e-5)
 
 
+@pytest.mark.parametrize("kv_valid,Skv", [(100, 128), (57, 96),
+                                           (128, 128), (500, 128)])
+def test_op_kv_valid_is_the_cross_attention_bound(kv_valid, Skv):
+    """attention_op's valid-length bound (cross-attention over a padded
+    encoder cache): rows from min(kv_valid, Skv) on do not count, as the
+    Pallas kernel's s_orig and the reference's cross-attention mask
+    (``attn_direct(..., kv_valid=enc_valid)``) leave them out."""
+    from repro.models.attention import attn_direct as j_attn_direct
+    rng = np.random.default_rng(kv_valid)
+    q = (rng.standard_normal((2, 4, 96, 64)) * 0.5).astype(np.float32)
+    k, v = ((rng.standard_normal((2, 2, Skv, 64)) * 0.5).astype(np.float32)
+            for _ in range(2))
+    valid = min(kv_valid, Skv)
+    k[:, :, valid:] = 7.0                   # padding junk that must not count
+    v[:, :, valid:] = -7.0
+    pallas = j_fa(q, k, v, scale=0.125, causal=False, s_orig=valid,
+                  block_q=32, block_k=32, interpret=True)
+    direct = j_attn_direct(jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2),
+                           jnp.swapaxes(v, 1, 2), scale=0.125, causal=False,
+                           kv_valid=kv_valid)
+    got = attention_op(_t(q), _t(k), _t(v), scale=0.125, causal=False,
+                       kv_valid=kv_valid)
+    _close(got, pallas, jnp.swapaxes(direct, 1, 2), tol=2e-5)
+    with pytest.raises(ValueError, match="kv_valid"):
+        attention_op(_t(q), _t(k), _t(v), scale=0.125, kv_valid=0)
+
+
 def test_modes_and_shape_checks_on_cpu():
     q, k, v = (_t(x) for x in _mk(1, 2, 2, 64, 16, np.float32))
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,11 +1,15 @@
-"""The port's dense/vlm models vs the reference's, with the reference's
-weights carried across (``params_from_jax``) and the same numpy inputs:
-full logits, prefill logits and cache contents, and several decode
-steps, on every dense and vlm arch at ``reduced`` size (gemma3-1b at 6
-layers, so its 6th — global — layer is included beside 5 windowed ones).
-Tolerance 1e-4 (abs and rel) in f32: torch and XLA sum each product in
-another order, over a few layers; logits are O(10). Plus the port's own
-twin of tests/test_models_decode.py and the weight round trip."""
+"""The port's models vs the reference's, with the reference's weights
+carried across (``params_from_jax``) and the same numpy inputs: full
+logits (and the moe family's lb_loss and drop_frac), prefill logits and
+every cache (KV, SSM and conv states, cross K/V and the encoder length),
+and several decode steps, on an arch of every family at ``reduced`` size
+(gemma3-1b at 6 layers, so its 6th — global — layer is included beside 5
+windowed ones; seamless with 16 audio frames in a 20-row encoder cache,
+so decode's cross-attention masks the padding). Tolerance 1e-4 (abs and
+rel) in f32: torch and XLA sum each product in another order, over a few
+layers; logits are O(10). Plus the port's own twin of
+tests/test_models_decode.py, the weight round trip and the frontend
+stubs."""
 import dataclasses
 
 import jax
@@ -23,16 +27,20 @@ from repro.models import init_cache as j_init_cache
 from repro.models import init_params as j_init_params
 from repro.models import logits_fn as j_logits_fn
 from repro.models import prefill as j_prefill
+from repro.models.frontend import frontend_shape as j_frontend_shape
 from repro.models.params import count_params as j_count_params
 from repro.models.transformer import model_spec as j_model_spec
 from repro_torch.configs import get_config, list_archs, reduced
-from repro_torch.models import (ModelOpts, decode_step, forward_hidden,
-                                init_cache, init_params, logits_fn,
-                                params_from_jax, params_to_numpy, prefill)
+from repro_torch.models import (ModelOpts, audio_stub, decode_step, encode,
+                                frontend_shape, init_cache, init_params,
+                                logits_fn, params_from_jax, params_to_numpy,
+                                prefill, vision_stub)
 
 ARCHS = ["gemma3-1b", "gemma2-27b", "yi-34b", "llama3-405b",
-         "llava-next-mistral-7b"]
+         "llava-next-mistral-7b", "mixtral-8x7b", "dbrx-132b", "mamba2-780m",
+         "zamba2-1.2b", "seamless-m4t-medium"]
 B, SP, T = 2, 40, 5          # SP > the reduced window (16): masking bites
+SE, ENC_LEN = 16, 20         # audio frames; the encoder cache's rows
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -55,6 +63,9 @@ def carried(request):
     if cfg.frontend == "vision":
         fe = (0.1 * rng.standard_normal((B, cfg.frontend_tokens,
                                          cfg.d_model))).astype(np.float32)
+    elif cfg.frontend == "audio":
+        fe = (0.1 * rng.standard_normal((B, SE, cfg.d_model))
+              ).astype(np.float32)
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, tree=tree,
                 params=params_from_jax(cfg, tree, device="cpu"), toks=toks,
                 fe=fe)
@@ -99,33 +110,48 @@ def test_params_round_trip(carried):
 
 def test_logits_match_reference(carried):
     c = carried
-    want, _ = j_logits_fn(c["jparams"], c["jcfg"], jnp.asarray(c["toks"]),
+    want, jaux = j_logits_fn(c["jparams"], c["jcfg"], jnp.asarray(c["toks"]),
                           opts=JOpts(remat="none"),
                           frontend_embeds=_fe(c, False))
-    got, _ = logits_fn(c["params"], c["cfg"],
-                       torch.from_numpy(c["toks"]).long(),
-                       frontend_embeds=_fe(c, True))
+    got, aux = logits_fn(c["params"], c["cfg"],
+                         torch.from_numpy(c["toks"]).long(),
+                         frontend_embeds=_fe(c, True))
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert sorted(aux) == sorted(jaux) == (
+        ["drop_frac", "lb_loss"] if c["cfg"].family == "moe" else [])
+    for name in jaux:      # moe: the same drops, the same balance loss
+        assert float(aux[name]) == pytest.approx(float(jaux[name]),
+                                                 rel=1e-5, abs=1e-7)
 
 
 def test_prefill_cache_and_decode_match_reference(carried):
     c = carried
     cfg, jcfg = c["cfg"], c["jcfg"]
     jopts = JOpts(remat="none")
-    jcache = j_init_cache(jcfg, B, SP + T, dtype=jnp.float32)
+    jcache = j_init_cache(jcfg, B, SP + T, enc_len=ENC_LEN,
+                          dtype=jnp.float32)
     jl, jcache = j_prefill(c["jparams"], jcfg, jnp.asarray(c["toks"][:, :SP]),
                            jcache, opts=jopts, frontend_embeds=_fe(c, False))
-    cache = init_cache(cfg, B, SP + T, dtype=torch.float32, device="cpu")
+    cache = init_cache(cfg, B, SP + T, enc_len=ENC_LEN, dtype=torch.float32,
+                       device="cpu")
     toks = torch.from_numpy(c["toks"]).long()
     lg, cache = prefill(c["params"], cfg, toks[:, :SP], cache,
                         frontend_embeds=_fe(c, True))
     np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
+    assert sorted(cache) == sorted(jcache)
     assert cache["pos"] == int(jcache["pos"]) == SP
-    for name in ("k", "v"):
-        assert len(cache[name]) == len(jcache[name]) == cfg.num_layers
-        for got, want in zip(cache[name], jcache[name]):
-            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if cfg.family == "encdec":
+        assert cache["enc_len"] == int(jcache["enc_len"]) == SE
+    for name in set(cache) - {"pos", "enc_len"}:
+        got, want = cache[name], jcache[name]
+        if name in ("ssm", "conv"):          # stacked (L, ...) states
+            got, want = list(got), list(want)
+            assert len(got) == cfg.num_layers
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                       err_msg=name)
     for t in range(T - 1):
         jl, jcache = j_decode_step(c["jparams"], jcfg, jcache,
                                    jnp.asarray(c["toks"][:, SP + t:SP + t + 1]),
@@ -140,21 +166,28 @@ def test_prefill_cache_and_decode_match_reference(carried):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_matches_forward(arch):
     """The port's own twin of tests/test_models_decode.py (5e-3, as
-    there): prefill + decode over a cache equals the full forward."""
+    there): prefill + decode over a cache equals the full forward. The
+    moe archs run at capacity factor E, as there: decode buckets one
+    token's items, prefill the whole prompt's, so drops would differ."""
     _, cfg = _cfgs(arch)
+    opts = ModelOpts(cap_factor=float(max(cfg.num_experts, 1)))
     gen = torch.Generator().manual_seed(2)
     params = init_params(cfg, gen)
     toks = torch.randint(0, cfg.vocab_size, (B, SP + T), generator=gen)
     fe = None
     if cfg.frontend == "vision":
-        fe = 0.1 * torch.randn((B, cfg.frontend_tokens, cfg.d_model),
-                               generator=gen)
-    full, _ = logits_fn(params, cfg, toks, frontend_embeds=fe)
-    cache = init_cache(cfg, B, SP + T, dtype=torch.float32, device="cpu")
-    lg, cache = prefill(params, cfg, toks[:, :SP], cache, frontend_embeds=fe)
+        fe = vision_stub(cfg, B, gen)
+    elif cfg.frontend == "audio":
+        fe = audio_stub(cfg, B, SE, gen)
+    full, _ = logits_fn(params, cfg, toks, opts=opts, frontend_embeds=fe)
+    cache = init_cache(cfg, B, SP + T, enc_len=ENC_LEN, dtype=torch.float32,
+                       device="cpu")
+    lg, cache = prefill(params, cfg, toks[:, :SP], cache, opts=opts,
+                        frontend_embeds=fe)
     torch.testing.assert_close(lg, full[:, SP - 1], rtol=5e-3, atol=5e-3)
     for t in range(T - 1):
-        lg, cache = decode_step(params, cfg, cache, toks[:, SP + t:SP + t + 1])
+        lg, cache = decode_step(params, cfg, cache, toks[:, SP + t:SP + t + 1],
+                                opts=opts)
         torch.testing.assert_close(lg, full[:, SP + t], rtol=5e-3, atol=5e-3)
     assert cache["pos"] == SP + T - 1
 
@@ -175,14 +208,77 @@ def test_materialize_is_seeded_and_scaled():
     assert abs(float(emb.std()) - 1.0) < 0.05
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-780m",
-                                  "zamba2-1.2b", "seamless-m4t-medium"])
-def test_unported_families_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("seq_len", [7, 40])
+def test_frontend_shape_matches_reference(arch, seq_len):
+    _, cfg = _cfgs(arch)
+    jcfg = j_reduced(j_get_config(arch))
+    assert frontend_shape(cfg, B, seq_len) == \
+        j_frontend_shape(jcfg, B, seq_len)
+
+
+def test_frontend_stubs_are_seeded_and_shaped():
+    """The stubs draw from the generator they are given: the same seed,
+    the same embeddings; the vision stub's patches carry their anyres
+    tile offset, the audio stub's frames the smoothing over time."""
+    cfgs = {f: reduced(get_config(a)) for f, a in (
+        ("vision", "llava-next-mistral-7b"),
+        ("audio", "seamless-m4t-medium"))}
+    for f, cfg in cfgs.items():
+        make = ((lambda g: vision_stub(cfg, B, g)) if f == "vision" else
+                (lambda g: audio_stub(cfg, B, SE, g)))
+        a, b = (make(torch.Generator().manual_seed(3)) for _ in range(2))
+        assert a.shape == frontend_shape(cfg, B, SE)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        x = torch.randn(a.shape, generator=torch.Generator().manual_seed(3))
+        if f == "audio":
+            want = 0.5 * (x + torch.roll(x, 1, dims=1))
+        else:                  # 8 patches: one tile, offset 0.1 * tile id
+            tile = torch.arange(a.shape[1]) // a.shape[1]
+            want = x + 0.1 * tile[None, :, None]
+        torch.testing.assert_close(a, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="audio"):
+        audio_stub(cfgs["vision"], B, SE, torch.Generator())
+    with pytest.raises(ValueError, match="vision"):
+        vision_stub(cfgs["audio"], B, torch.Generator())
+
+
+def test_encdec_prefill_keeps_token_embeddings():
+    """The audio frames are the encoder's input only: the decoder's token
+    embeddings stay as they are (the vision stub's patches overwrite the
+    first F positions); the encoder maps the frames to (B, Se, d)."""
+    from repro_torch.models.transformer import _embed_inputs
+    for arch in ("seamless-m4t-medium", "llava-next-mistral-7b"):
+        cfg = reduced(get_config(arch))
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        toks = torch.randint(0, cfg.vocab_size, (B, SE),
+                             generator=torch.Generator().manual_seed(1))
+        fe = 0.1 * torch.ones((B, 4, cfg.d_model))
+        x = _embed_inputs(params, cfg, toks, ModelOpts(), fe)
+        want = params["tok"]["embedding"][toks]
+        if cfg.family != "encdec":
+            want = want.clone()
+            want[:, :4] = fe
+        torch.testing.assert_close(x, want, rtol=0, atol=0)
+    cfg = reduced(get_config("seamless-m4t-medium"))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    fe = audio_stub(cfg, B, SE, torch.Generator().manual_seed(2))
+    assert encode(params, cfg, fe).shape == (B, SE, cfg.d_model)
+    with pytest.raises(ValueError, match="encoder input"):
+        logits_fn(params, cfg, toks)
+    with pytest.raises(ValueError, match="fit"):        # Se > enc_len
+        prefill(params, cfg, toks, init_cache(
+            cfg, B, SE, enc_len=SE - 1, dtype=torch.float32, device="cpu"),
+            frontend_embeds=fe)
+
+
+def test_unknown_family_raises():
+    cfg = dataclasses.replace(reduced(get_config("gemma3-1b")),
+                              family="convnet")
+    with pytest.raises(ValueError, match="unknown model family"):
         init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        forward_hidden(None, cfg, torch.zeros((1, 4), dtype=torch.long))
+    with pytest.raises(ValueError, match="unknown model family"):
+        init_cache(cfg, 1, 4, device="cpu")
 
 
 def test_attention_modes_agree_on_cpu():

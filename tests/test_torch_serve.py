@@ -1,7 +1,7 @@
 """The port's serving driver vs the reference's: the retrieval index and
 the retrieved soft-prompt ids, greedy generation with carried weights
-and the same soft prompt (token ids equal), and the CLI end to end on
-the CPU."""
+and the same soft prompt or audio frames (token ids equal, for an arch
+of every family), and the CLI end to end on the CPU."""
 import dataclasses
 import json
 
@@ -28,7 +28,7 @@ from repro.models import init_params as j_init_params
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.luncsr import PackedIndex
 from repro_torch.launch.serve import (greedy_generate, main,
-                                      retrieval_index,
+                                      retrieval_index, serve_inputs,
                                       soft_prompt_from_retrieval)
 from repro_torch.models import ModelOpts, params_from_jax
 
@@ -168,13 +168,69 @@ def test_cli_runs_on_cpu(capsys):
     assert not any(res["launches"]["retrieval"].values())
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-780m",
+                                  "zamba2-1.2b", "seamless-m4t-medium"])
+def test_greedy_generate_new_families_match_reference(arch):
+    """Reduced moe, ssm, hybrid and encdec archs, the reference's weights
+    carried across: greedy tokens equal the reference's greedy_generate
+    (seamless with audio frames of the prompt's length, the encoder
+    cache sized to them as the reference's main does)."""
+    sp, gen = 24, 6
+    jcfg, cfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
+    params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray, jparams),
+                             device="cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (B, sp)).astype(np.int32)
+    fe, enc_len = None, 0
+    if cfg.frontend == "audio":
+        fe = (0.05 * rng.standard_normal((B, sp, cfg.d_model))
+              ).astype(np.float32)
+        enc_len = sp
+    want = j_greedy(jparams, jcfg, jnp.asarray(toks), gen=gen,
+                    opts=JOpts(remat="none"), enc_len=enc_len,
+                    frontend_embeds=None if fe is None else jnp.asarray(fe))
+    got = greedy_generate(params, cfg, torch.from_numpy(toks).long(),
+                          gen=gen, opts=ModelOpts(), enc_len=enc_len,
+                          frontend_embeds=None if fe is None
+                          else torch.from_numpy(fe))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch,rag", [("mixtral-8x7b", True),
+                                      ("dbrx-132b", False),
+                                      ("mamba2-780m", True),
+                                      ("zamba2-1.2b", True),
+                                      ("seamless-m4t-medium", True)])
+def test_cli_serves_every_family_on_cpu(capsys, arch, rag):
+    """``--reduced --device cpu`` for the moe, ssm, hybrid and encdec
+    archs. --rag retrieves soft prompts for the decoder-only families;
+    seamless takes the audio stub's frames instead, as the reference's
+    ``elif`` does."""
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "16", "--gen", "4"] + ["--rag"] * rag
+    assert main(argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    retrieved = rag and arch != "seamless-m4t-medium"
+    assert lines[0].startswith("retrieved neighbor ids:") == retrieved
+    res = json.loads(lines[-1])
+    assert res["arch"] == arch + "-reduced" and res["device"] == "cpu"
+    for key in ("tok_s", "prefill_ms", "decode_ms_per_token"):
+        assert np.isfinite(res[key]) and res[key] > 0
+    assert not any(res["launches"]["generate"].values())
+
+
 def test_cli_rejects_stream_retrieval_and_unported_families(capsys):
     """--stream-retrieval is served since the streaming scheduler was
     ported; without a card the CLI refuses it unless --device cpu is
-    given. The unported model families raise."""
+    given. Every family is ported now: a config of a family the port
+    does not know raises ValueError."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(["--arch", "gemma3-1b", "--reduced", "--rag",
                   "--stream-retrieval"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--arch", "mamba2-780m", "--reduced", "--device", "cpu"])
+    cfg = dataclasses.replace(reduced(get_config("mamba2-780m")),
+                              family="convnet")
+    with pytest.raises(ValueError, match="unknown model family"):
+        serve_inputs(cfg, batch=1, prompt_len=8, rag=False, rag_dim=8,
+                     seed=0, device="cpu")

@@ -78,6 +78,7 @@ def test_cuda_device_without_a_card_raises():
     without a card, before any work is done."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: 'cuda' resolves")
+    from repro_torch import models
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -91,6 +92,11 @@ def test_cuda_device_without_a_card_raises():
                            seed=0, device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.soft_prompt_from_retrieval(cfg, np.zeros((1, 8), np.float32))
+    hybrid = reduced(get_config("zamba2-1.2b"))      # kv, ssm and conv state
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        models.init_cache(hybrid, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        models.init_ssm_state(hybrid, 1)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
