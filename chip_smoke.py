@@ -51,7 +51,15 @@ its seconds:
                cross-attention through attention_op over Skv 1024 and
                over a padded Skv 1088 with kv_valid 1000 (the plain
                version over the valid rows only); each within its stated
-               tolerance.
+               tolerance. Then the training path's pair (the forward
+               with its row log-sum-exp, the backward kernel): gemma3-1b
+               local and global, softcap 50 at dh 128, bf16, S 992 with
+               window 40 and the padded cross shape through attention_op
+               under autograd, non-causal, dh 64 and dh 16: out and lse
+               against attention_fwd_ref, dq, dk, dv against
+               attention_bwd_ref on the kernel's own out and lse; the
+               backward twice bit for bit, and the serving launch (no
+               lse) bit for bit the lse launch's output.
   5. int     — search_sim on an integer-valued index: cuda mode on the
                card, captured as CUDA graphs of SEARCH_CHUNK predicated
                rounds, equals the same search uncaptured (capture=False)
@@ -241,11 +249,35 @@ its seconds:
                prefill's top device ops, one decode step's host ops
                (mixtral also drop_frac and lb_loss at the serving
                capacity factor).
+  8c. train — gemma3-1b at full width (f32 weights from the seed, TF32
+               off) trained through launch/train.py at batch 4 x
+               sequence 1024, remat full, loss chunk 512, AdamW lr 3e-4,
+               warmup 5. (a) One step's loss and gradients through the
+               kernels against the same step with plain attention on the
+               card (attn_mode "ref"): loss within 1e-5, global grad
+               norm within 1e-4 (relative), the worst per-leaf relative
+               error printed. (b) 10 steps through train(): every loss
+               finite, none skipped, the loss of step 0's batch lower
+               after the run than at step 0, and every step launching
+               exactly 52 flash forwards (26 layers, twice with remat),
+               26 flash backwards and no search kernel. (c) The run's
+               line: ms per step (median of steps 3-10), tokens/s, peak
+               GiB, model-FLOP share of 67 TFLOP/s, and one more step
+               profiled (device idle share, top device ops). (d) The
+               restart drill in a fresh process (chip_smoke.py
+               --restart-drill, CUBLAS_WORKSPACE_CONFIG=:4096:8,
+               deterministic algorithms on): reduced gemma3-1b, 12
+               steps, a failure injected at step 7, checkpoints every 5
+               steps; the resumed run's parameters and optimizer state
+               equal an uninterrupted run's bit for bit.
   9. timing  — each kernel at its path's shapes: its time, its bound,
                the plain version's time and one library call's (the
                distance kernel's bf16 instantiations on the same tiles,
                their bound counting bf16 operands' halved bytes); flash
                attention also at gemma3-1b's global layer (window 0)
+               and with its lse (the training launch), its backward at
+               gemma3-1b's local and global layers (the library call:
+               autograd's backward of SDPA on repeated kv),
                and at the other families' prefill shapes (mixtral,
                zamba2's shared block, seamless's encoder, decoder self-
                and cross-attention),
@@ -3195,6 +3227,110 @@ def check_attention(dev) -> float:
     return worst
 
 
+def check_attention_bwd(dev) -> float:
+    """The training path's pair on the card: the forward with its lse and
+    the backward kernel, per case, against the plain versions on the
+    same inputs: out and lse against attention_fwd_ref (|err| <= tol +
+    tol |ref|), dq, dk, dv against attention_bwd_ref on the kernel's own
+    out and lse (|err| <= tol x max |ref| of that gradient); tol is
+    ATTN_TOL of the dtype. Cases marked "op" run attention_op under
+    autograd (FlashAttentionFn). Also: the backward twice gives the same
+    bits (no atomics), and the serving launch (no lse) gives the lse
+    launch's output bit for bit. Returns the worst f32 gradient max abs
+    error."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_op
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_KERNEL, KERNEL, flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = (
+        ("gemma3 local, window 512", G3, f32, dict(window=512), False),
+        ("gemma3 global, full", G3, f32, dict(window=0), False),
+        ("gemma2-like softcap 50 (dh 128)",
+         dict(B=1, H=32, Hkv=16, S=1024, dh=128), f32, dict(softcap=50.0),
+         False),
+        ("gemma3 bf16, window 512", G3, bf16, dict(window=512), False),
+        ("gemma3 S=992, window 40, through attention_op", dict(G3, S=992),
+         f32, dict(window=40), True),
+        ("gemma3 non-causal", G3, f32, dict(causal=False), False),
+        ("seamless cross through attention_op, Skv 1088 padded, kv_valid "
+         "1000", dict(SEAMLESS_ATTN, Skv=1088), f32,
+         dict(causal=False, kv_valid=1000), True),
+        ("dh 64 (GQA 8/2), window 100", dict(B=2, H=8, Hkv=2, S=512, dh=64),
+         f32, dict(window=100), False),
+        ("dh 16 (GQA 8/2), causal", dict(B=2, H=8, Hkv=2, S=512, dh=16), f32,
+         dict(window=0), False),
+    )
+    worst = 0.0
+    for i, (label, shp, dtype, kw, through_op) in enumerate(cases):
+        q, k, v = qkv(**shp, dtype=dtype, dev=dev, seed=41 + i)
+        g = torch.Generator(device=dev).manual_seed(61 + i)
+        dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+        scale = shp["dh"] ** -0.5
+        kern_kw = dict(scale=scale, causal=kw.get("causal", True),
+                       window=kw.get("window", 0),
+                       softcap=kw.get("softcap", 0.0),
+                       s_orig=kw.get("kv_valid", 0))
+        before = (KERNEL.launches, BWD_KERNEL.launches)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kern_kw)
+        if through_op:
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            y = attention_op(*leaves, scale=scale, mode="cuda", **kw)
+            y.backward(dout)
+            grads = [x.grad for x in leaves]
+            same_out = torch.equal(y.detach(), out)
+        else:
+            grads = flash_attention_bwd(q, k, v, out, lse, dout, **kern_kw)
+            same_out = True
+        ref_out, ref_lse = attention_fwd_ref(q, k, v, **kern_kw)
+        ref = attention_bwd_ref(q, k, v, out, lse, dout, **kern_kw)
+        torch.cuda.synchronize()
+        want = (before[0] + 1 + through_op, before[1] + 1)
+        if (KERNEL.launches, BWD_KERNEL.launches) != want or \
+                any(x.dtype != dtype for x in grads):
+            raise AssertionError(f"flash_attention_bwd {label}: the kernels "
+                                 f"did not run as expected in {dtype}")
+        tol = ATTN_TOL[str(dtype).split(".")[-1]]
+        out_err = float((out.float() - ref_out.float()).abs().max())
+        lse_err = (lse - ref_lse).abs()
+        line = {"phase": "attn_kernels", "kernel": "flash_attention_bwd",
+                "case": label, **shp, "dtype": str(dtype), **kw,
+                "through_attention_op": through_op,
+                "out_err": out_err, "lse_max_abs_err": float(lse_err.max()),
+                "tolerance": f"out, lse: atol {tol} + rtol {tol}; grads: "
+                             f"{tol} x max |ref|"}
+        ok = bool((lse_err <= tol + tol * ref_lse.abs()).all()) and \
+            bool(((out.float() - ref_out.float()).abs()
+                  <= tol + tol * ref_out.float().abs()).all()) and same_out
+        for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+            err = float((a.float() - b.float()).abs().max())
+            scale_ref = float(b.float().abs().max())
+            line[f"{name}_max_abs_err"] = err
+            line[f"{name}_max_abs"] = scale_ref
+            ok = ok and err <= tol * scale_ref and \
+                bool(torch.isfinite(a).all())
+            if dtype == f32:
+                worst = max(worst, err)
+        if i == 0:
+            # no atomics: a second run gives the same bits; the serving
+            # launch (no lse) the same output
+            again = flash_attention_bwd(q, k, v, out, lse, dout, **kern_kw)
+            line["repeat_bit_equal"] = all(torch.equal(a, b)
+                                           for a, b in zip(grads, again))
+            line["serving_launch_bit_equal"] = torch.equal(
+                flash_attention(q, k, v, **kern_kw), out)
+            ok = ok and line["repeat_bit_equal"] and \
+                line["serving_launch_bit_equal"]
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd {label}: {line}")
+        del q, k, v, out, lse, grads, ref, ref_out, ref_lse, dout
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phases 8 and 8b: every model family served through launch/serve.py
 # ---------------------------------------------------------------------------
@@ -3472,6 +3608,291 @@ def serve_phases(dev) -> dict:
     return counts["gemma3-1b"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 8c: training gemma3-1b at full width through launch/train.py
+# ---------------------------------------------------------------------------
+# the training cell: gemma3-1b (hf google/gemma-3-1b-pt) at full width,
+# f32 weights from the seed, batch 4 x sequence 1024 (the flash rows'
+# attention shape), remat full, loss chunk 512, AdamW lr 3e-4, warmup 5
+TRAIN = dict(arch="gemma3-1b", batch=4, seq=1024, steps=10, lr=3e-4,
+             warmup=5, loss_chunk=512)
+# one step through the kernels against the same step with plain
+# attention on the card: the loss and the global gradient norm
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GNORM_RTOL = 1e-4
+# the restart drill: reduced gemma3-1b, 12 steps, a failure at step 7,
+# checkpoints every 5 steps
+DRILL = dict(steps=12, fail_at=7, ckpt_every=5, batch=4, seq=128)
+# the backward's CUDA kernels, as the profiler names them
+BWD_KERNEL_NAMES = ("rowdot_kernel", "bwd_kv_kernel", "bwd_q_kernel")
+
+
+def train_args(**over):
+    """launch/train.py's flags for the training cell."""
+    from repro_torch.launch.train import parse_args
+    t = dict(TRAIN, **over)
+    argv = ["--arch", t["arch"], "--steps", str(t["steps"]),
+            "--batch", str(t["batch"]), "--seq", str(t["seq"]),
+            "--lr", str(t["lr"]), "--warmup", str(t["warmup"]),
+            "--remat", "full", "--loss-chunk", str(t["loss_chunk"]),
+            "--log-every", "1", "--seed", "0"]
+    if t.get("reduced"):
+        argv.append("--reduced")
+    if t.get("ckpt_dir"):
+        argv += ["--ckpt-dir", t["ckpt_dir"], "--ckpt-every",
+                 str(t["ckpt_every"])]
+    return parse_args(argv)
+
+
+def model_flops(cfg, params: int, batch: int, seq: int) -> float:
+    """A training step's model operations: 6 per parameter per token (the
+    tied embedding once, as the unembedding's product), plus attention's
+    4 dh per unmasked (row, col) pair and head, forward and backward
+    (x 3); remat's recomputed forward not counted."""
+    pairs = sum(attn_pairs(seq, True, w) for w in cfg.layer_windows())
+    attn = 3 * 4 * cfg.head_dim * pairs * batch * cfg.num_heads
+    return 6.0 * params * batch * seq + attn
+
+
+def train_step_vs_plain(dev) -> dict:
+    """(a) One step's loss and gradients of gemma3-1b at the training
+    shape through the kernels against the same step with attn_mode
+    "ref" (plain attention, differentiated by autograd) on the card:
+    same parameters, same batch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import ModelOpts
+    from repro_torch.optim import OptConfig, global_norm
+    from repro_torch.train.trainer import (TrainConfig, compute_grads,
+                                           init_train_state)
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(TRAIN["arch"])
+    params, _ = init_train_state(cfg, OptConfig(),
+                                 torch.Generator(device=dev).manual_seed(0))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN["batch"], TRAIN["seq"], 0)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch_at(0).items()}
+    out = {}
+    for mode in ("auto", "ref"):
+        reset_launch_counts()
+        loss, _, grads = compute_grads(
+            params, cfg, batch, TrainConfig(),
+            ModelOpts(attn_mode=mode, loss_chunk=TRAIN["loss_chunk"]))
+        out[mode] = (float(loss), float(global_norm(grads)),
+                     tree_leaves(grads), launch_counts())
+    (loss_k, gn_k, g_k, launches), (loss_r, gn_r, g_r, _) = \
+        out["auto"], out["ref"]
+    leaf_rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(g_k, g_r)]
+    line = {"phase": "train", "part": "kernel step vs plain attention",
+            "arch": cfg.name, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+            "loss_kernel": loss_k, "loss_plain": loss_r,
+            "loss_rel_err": abs(loss_k - loss_r) / abs(loss_r),
+            "grad_norm_kernel": gn_k, "grad_norm_plain": gn_r,
+            "grad_norm_rel_err": abs(gn_k - gn_r) / gn_r,
+            "worst_leaf_rel_err": max(leaf_rel),
+            "tolerance": f"loss {TRAIN_LOSS_RTOL}, grad norm "
+                         f"{TRAIN_GNORM_RTOL} (relative)",
+            "launches": {k: v for k, v in launches.items() if v}}
+    emit(line)
+    if not (line["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and line["grad_norm_rel_err"] <= TRAIN_GNORM_RTOL):
+        raise AssertionError(f"train: the kernel step differs from plain "
+                             f"attention's: {line}")
+    return line
+
+
+def train_run(dev) -> dict:
+    """(b) and (c): TRAIN["steps"] steps of gemma3-1b through
+    launch/train.py's loop (train()), the launches of every step
+    checked, then one more step profiled. Returns the launch counts of
+    the run."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import build, train
+    from repro_torch.models.transformer import ModelOpts, loss_fn
+
+    layers = 26
+    per_step, times, losses = [], [], []
+    total = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        counts = launch_counts()
+        per_step.append(counts)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        reset_launch_counts()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    times.append(t0)
+    run = train(train_args(), on_step=on_step)
+    hist = run["history"]
+    losses = [h["loss"] for h in hist]
+    for i, counts in enumerate(per_step):
+        want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+        got = {k: n for k, n in counts.items() if n}
+        if got != want:
+            raise AssertionError(f"train step {i} launched {got}, expected "
+                                 f"{want} (26 forwards, 26 remat "
+                                 f"recomputes, 26 backwards, no search "
+                                 f"kernel)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = [b - a for a, b in zip(times, times[1:])]
+    median_s = statistics.median(step_s[2:])      # steps 3..10
+    # learning, without the batches' spread: step 0's batch again, through
+    # the trained parameters
+    cfg, _, step_fn, pipe, _ = build(train_args())
+    params, opt = run["params"], run["opt"]
+    with torch.no_grad():
+        batch0 = {k: torch.as_tensor(v, device=dev)
+                  for k, v in pipe.batch_at(0).items()}
+        loss0_after = float(loss_fn(params, cfg, batch0, opts=ModelOpts(
+            loss_chunk=TRAIN["loss_chunk"]))[0])
+    reset_launch_counts()
+    if not all(math.isfinite(x) for x in losses) or \
+            any(h["skipped"] for h in hist) or not loss0_after < losses[0]:
+        raise AssertionError(f"train: losses {losses}, skipped "
+                             f"{[h['skipped'] for h in hist]}, step 0's "
+                             f"batch after the run {loss0_after}")
+
+    # (c) one more step, profiled: the device's busy time and top ops
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch_at(TRAIN["steps"]).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kern = device_kernel_us(prof)
+    drop_traces()
+    reset_launch_counts()
+    busy_ms = sum(us for us, _ in kern.values()) / 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    nparams = sum(p.numel() for p in params.parameters())
+    flops = model_flops(cfg, nparams, TRAIN["batch"], TRAIN["seq"])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    emit({"phase": "train", "part": "run", "arch": cfg.name,
+          "params": nparams, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+          "steps": TRAIN["steps"], "lr": TRAIN["lr"],
+          "warmup": TRAIN["warmup"], "loss_chunk": TRAIN["loss_chunk"],
+          "remat": "full", "losses": losses,
+          "last_below_first": losses[-1] < losses[0],
+          "step0_batch_loss_before": losses[0],
+          "step0_batch_loss_after": loss0_after,
+          "grad_norms": [h["grad_norm"] for h in hist],
+          "step_s": step_s, "ms_per_step_median_3_10": median_s * 1e3,
+          "tokens_per_s": tokens / median_s, "peak_mem_gib": peak,
+          "launches_per_step": per_step[-1],
+          "model_tflop_per_step": flops / 1e12,
+          "mfu_vs_67_tflops_f32": flops / median_s / F32_FLOPS,
+          "profiled_step_wall_ms": wall_ms,
+          "profiled_step_device_busy_ms": busy_ms,
+          "profiled_step_idle_share": 1.0 - busy_ms / wall_ms,
+          "profiled_step_flash_fwd_ms": sum(
+              us for n, (us, _) in kern.items()
+              if "flash_attention_kernel" in n) / 1e3,
+          "profiled_step_flash_bwd_ms": sum(
+              us for n, (us, _) in kern.items()
+              if any(k in n for k in BWD_KERNEL_NAMES)) / 1e3,
+          "profiled_step_top": [{"name": n[:80], "ms": us / 1e3, "count": c}
+                                for n, (us, c) in top]})
+    del run, params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def restart_drill() -> dict:
+    """(d), in a fresh process (``chip_smoke.py --restart-drill``, with
+    CUBLAS_WORKSPACE_CONFIG set and deterministic algorithms on): reduced
+    gemma3-1b trained DRILL["steps"] steps on the card without a break,
+    then again under run_with_restarts with checkpoints every
+    DRILL["ckpt_every"] steps and a failure injected at step
+    DRILL["fail_at"]; the resumed run's parameters and optimizer state
+    must equal the uninterrupted run's bit for bit."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.utils import as_tree, tree_leaves
+
+    over = dict(reduced=True, steps=DRILL["steps"], batch=DRILL["batch"],
+                seq=DRILL["seq"])
+    reset_launch_counts()
+    plain = train(train_args(**over))
+    launches = {k: n for k, n in launch_counts().items() if n}
+    failed = []
+
+    def fail_injector(step):
+        if step == DRILL["fail_at"] and not failed:
+            failed.append(step)
+            raise RuntimeError("injected node failure")
+
+    with tempfile.TemporaryDirectory() as d:
+        resumed = train(train_args(ckpt_dir=d, ckpt_every=DRILL["ckpt_every"],
+                                   **over), fail_injector=fail_injector)
+    pairs = list(zip(tree_leaves(as_tree(resumed["params"])),
+                     tree_leaves(as_tree(plain["params"]))))
+    opt_pairs = list(zip(tree_leaves(resumed["opt"]),
+                         tree_leaves(plain["opt"])))
+    return {"phase": "train", "part": "restart drill",
+            "arch": "gemma3-1b reduced", **DRILL,
+            "deterministic_algorithms":
+                torch.are_deterministic_algorithms_enabled(),
+            "restarts": resumed["restarts"], "failed_at": failed,
+            "params_bit_equal": all(torch.equal(a, b) for a, b in pairs),
+            "opt_bit_equal": all(torch.equal(a, b) for a, b in opt_pairs),
+            "max_param_diff": max(float((a - b).detach().abs().max())
+                                  for a, b in pairs),
+            "final_loss": plain["history"][-1]["loss"],
+            "launches_uninterrupted": launches}
+
+
+def drill_in_child() -> dict:
+    """Run :func:`restart_drill` in a fresh process: the cuBLAS workspace
+    setting must be in place before the process's first CUDA call."""
+    import os
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--restart-drill"], capture_output=True, text=True,
+                         timeout=300, env=env)
+    if out.returncode != 0:
+        raise RuntimeError(f"restart drill failed ({out.returncode}):\n"
+                           f"{out.stderr[-4000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    emit(line)
+    if not (line["params_bit_equal"] and line["opt_bit_equal"]
+            and line["restarts"] == 1 and line["deterministic_algorithms"]):
+        raise AssertionError(f"train: the resumed run differs from the "
+                             f"uninterrupted one: {line}")
+    return line
+
+
+def train_phase(dev) -> dict:
+    """Phase 8c: (a) the kernel step against plain attention, (b)-(c) the
+    10-step run and a profiled step, (d) the restart drill in a child.
+    Returns the run's launch counts."""
+    import torch
+    timed_part("train", "kernel vs plain", train_step_vs_plain, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = timed_part("train", "run", train_run, dev)
+    timed_part("train", "restart drill", drill_in_child)
+    return total
+
+
 def attn_pairs(S: int, causal: bool, window: int) -> int:
     """Unmasked (row, col) pairs of one (batch, head) at S = Skv."""
     total = 0
@@ -3685,6 +4106,66 @@ def flash_row(shape: dict, kw: dict, dev):
                         unmasked_pairs=pairs))
 
 
+def flash_bwd_row(shape: dict, kw: dict, dev):
+    """A timing row of the flash backward at ``shape`` (f32) from the
+    forward's out and lse: the kernel, its plain version, and the
+    library call, torch.autograd's backward of SDPA on repeated kv
+    (explicit boolean mask; the forward taken once, outside the timing,
+    its graph kept). The bound counts the backward's five products (s and
+    dP recomputed, dq, dk, dv), 2 dh operations each, per unmasked (row,
+    col) pair and head; its bytes read q, k, v, out, dout and lse once
+    and write dq, dk, dv once."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    fq, fk, fv = qkv(**shape, dtype=torch.float32, dev=dev, seed=5)
+    g = torch.Generator(device=dev).manual_seed(6)
+    fdo = torch.randn(fq.shape, generator=g, device=dev)
+    S, window = shape["S"], kw.get("window", 0)
+    kw = dict(scale=shape["dh"] ** -0.5, causal=True, window=window)
+    out, lse = flash_attention(fq, fk, fv, return_lse=True, **kw)
+    group = shape["H"] // shape["Hkv"]
+    lq, lk, lv = (x.clone().requires_grad_() for x in (fq, fk, fv))
+    lkr, lvr = (x.repeat_interleave(group, dim=1) for x in (lk, lv))
+    ar = torch.arange(S, device=dev)
+    mask = ar[None, :] <= ar[:, None]
+    if window:
+        mask = mask & (ar[:, None] - ar[None, :] < window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        lq, lkr, lvr, attn_mask=mask, scale=kw["scale"])
+    pairs = attn_pairs(S, True, window) * shape["B"] * shape["H"]
+    nbytes = 4 * (3 * fq.numel() + 2 * fk.numel() + 2 * fv.numel()
+                  + lse.numel() + fq.numel() + fk.numel() + fv.numel())
+    b, by = bound_ms(nbytes, 5 * 2.0 * shape["dh"] * pairs)
+    return ("flash_attention_bwd", (fq, fk, fv, out, lse, fdo),
+            lambda *a: flash_attention_bwd(*a, **kw),
+            lambda *a: attention_bwd_ref(*a, **kw),
+            lambda: torch.autograd.grad(sdpa, (lq, lk, lv), fdo,
+                                        retain_graph=True),
+            b, by, dict(shape, causal=True, window=window,
+                        unmasked_pairs=pairs))
+
+
+def flash_lse_row(shape: dict, kw: dict, dev):
+    """flash_row's timing of the forward with its lse (the training
+    path's launch): the plain version attention_fwd_ref, the library
+    call SDPA's forward as in flash_row; the bound adds the lse's
+    bytes."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+    name, args, _, _, lib, _, _, info = flash_row(shape, kw, dev)
+    fq = args[0]
+    kw = dict(scale=shape["dh"] ** -0.5, causal=True,
+              window=kw.get("window", 0))
+    lse_bytes = 4 * fq.numel() // shape["dh"]
+    b, by = bound_ms(4 * (2 * fq.numel() + args[1].numel() + args[2].numel())
+                     + lse_bytes, 4.0 * shape["dh"] * info["unmasked_pairs"])
+    return (name, args, lambda *a: flash_attention(*a, return_lse=True, **kw),
+            lambda *a: attention_fwd_ref(*a, **kw), lib, b, by, info)
+
+
 def time_kernels(dev) -> list:
     """Time every kernel row; returns [(kernel entry without its launch
     count and error, the timing line's other fields)]."""
@@ -3745,14 +4226,25 @@ def time_kernels(dev) -> list:
     search_bitonic = bitonic_rows(dev)
     rows += routed_bitonic_rows(dev) + search_bitonic[2:]
     # flash attention at gemma3-1b's prefill shape (a local layer, and on a
-    # line of its own a global one)
+    # line of its own a global one); its backward at the training shape
+    # (the same attention shape)
     rows.append(flash_row(G3, dict(window=512), dev))
+    rows.append(flash_bwd_row(G3, dict(window=512), dev))
     # rows on a line of their own: flash at a global layer and at the
     # other families' prefill shapes, the Gather merge at spec 4's
     # proposals (the streaming phase)
     extra = [(flash_row(G3, dict(window=0), dev),
               dict(case="global layer (window 0)",
                    layers_per_prefill=GLOBAL_LAYERS)),
+             (flash_bwd_row(G3, dict(window=0), dev),
+              dict(case="backward, global layer (window 0)",
+                   launches_per_train_step=GLOBAL_LAYERS)),
+             (flash_lse_row(G3, dict(window=512), dev),
+              dict(case="forward with lse (training path), local layer",
+                   launches_per_train_step=2 * 22)),
+             (flash_lse_row(G3, dict(window=0), dev),
+              dict(case="forward with lse (training path), global layer",
+                   launches_per_train_step=2 * GLOBAL_LAYERS)),
              (flash_row(MIXTRAL_ATTN, dict(window=4096), dev),
               dict(case="mixtral-8x7b prefill (GQA 32/8, window 4096)",
                    layers_per_prefill=8)),
@@ -3866,6 +4358,11 @@ def main() -> int:
         build_all()
         print(json.dumps({"timed": time_kernels(dev)}), flush=True)
         return 0
+    if sys.argv[1:] == ["--restart-drill"]:   # phase 8c (d), drill_in_child
+        torch.use_deterministic_algorithms(True)
+        build_all()
+        print(json.dumps(restart_drill()), flush=True)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3922,6 +4419,7 @@ def run_phases(dev, name: str, main_build, routed_build) -> int:
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 2)})
     t0 = time.perf_counter()
     errs["flash_attention"] = check_attention(dev)
+    errs["flash_attention_bwd"] = check_attention_bwd(dev)
     torch.cuda.empty_cache()
     emit({"phase": "attn_kernels",
           "seconds": round(time.perf_counter() - t0, 2)})
@@ -3961,6 +4459,8 @@ def run_phases(dev, name: str, main_build, routed_build) -> int:
     torch.cuda.empty_cache()
     launches["flash_attention"] = timed_part(
         "serve", "all", serve_phases, dev)["flash_attention"]
+    # the backward's launches: the training run's (26 per step)
+    launches["flash_attention_bwd"] = train_phase(dev)["flash_attention_bwd"]
     kernels = report_timing(timing_in_child(), launches, errs,
                             tiered["paged_distance"])
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.checkpoint import (all_steps, latest_step,
+                                               restore, save)
+
+__all__ = ["all_steps", "latest_step", "restore", "save"]

@@ -4,13 +4,14 @@
 plain integer count of its launches.
 """
 from repro_torch.kernels.distance.kernel import KERNELS as _DISTANCE
+from repro_torch.kernels.flash_attention.kernel import BWD_KERNEL as _BWD
 from repro_torch.kernels.flash_attention.kernel import KERNEL as _FLASH
 from repro_torch.kernels.topk.kernel import (MERGE_KERNEL,
                                              MERGE_UNSORTED_KERNEL,
                                              SORT_KERNEL)
 
 KERNELS = (*_DISTANCE.values(), SORT_KERNEL, MERGE_KERNEL,
-           MERGE_UNSORTED_KERNEL, _FLASH)
+           MERGE_UNSORTED_KERNEL, _FLASH, _BWD)
 
 
 def launch_counts() -> dict[str, int]:

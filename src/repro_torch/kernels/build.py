@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("paged_distance.cu", "bitonic.cu", "flash_attention.cu")
+SOURCES = ("paged_distance.cu", "bitonic.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,8 +45,11 @@ SIGNATURES = {
     "bitonic_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "merge_unsorted_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P),
-    "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _I, _F, _I, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _F, _I, _P),
+    "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                   _F, _I, _P),
 }
 
 # the bf16 instantiations of the distance kernel take the same arguments

@@ -12,6 +12,11 @@
 // denominator l, accumulator acc), NEG_INF = -1e30 and a final
 // l = max(l, 1e-30), exactly as `_fa_kernel` does. Inputs are f32 or
 // bf16; everything is computed in f32 and the output has the input type.
+// Given an `lse` pointer (the training path), it also writes each row's
+// log-sum-exp, lse = m + log(l) where l > 0 else 0 (B, H, S) f32, the
+// convention of the reference's `_fa_fwd_impl`; the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from it. A null
+// pointer (the serving path) writes nothing more.
 //
 // What bounds it on this card: f32 operations. At gemma3-1b's prefill
 // shape (B 4, H 4, Hkv 1, S 1024, dh 256, window 512) a layer does about
@@ -160,9 +165,10 @@ __device__ __forceinline__ void stage_block(float* dst, const T* src,
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int B,
-                       int H, int Hkv, int S, int Skv, int s_orig,
-                       float scale, int causal, int window, float softcap) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int B, int H, int Hkv, int S,
+                       int Skv, int s_orig, float scale, int causal,
+                       int window, float softcap) {
   constexpr int kPitch = DH + 4;
   constexpr bool kVecV = DH >= 128;     // P.V columns as float4
   constexpr int kNC = DH >= 32 ? DH / 32 : 1;  // P.V columns per lane
@@ -352,9 +358,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const float lr =
-        fmaxf(__shfl_sync(0xffffffffu, l[i & 1], (i / 2) * 8), 1e-30f);
+    const float lraw = __shfl_sync(0xffffffffu, l[i & 1], (i / 2) * 8);
+    const float mr = __shfl_sync(0xffffffffu, m[i & 1], (i / 2) * 8);
+    const float lr = fmaxf(lraw, 1e-30f);
     if (q0 + w0 + i >= S) continue;
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long>(b) * H + h) * S + q0 + w0 + i] =
+          lraw > 0.0f ? mr + logf(lr) : 0.0f;
     T* o = out + ((static_cast<long>(b) * H + h) * S + q0 + w0 + i) * DH;
     if constexpr (kVecV) {
 #pragma unroll
@@ -371,9 +381,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int S, int Skv, int s_orig, float scale,
-           int causal, int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int H, int Hkv, int S, int Skv, int s_orig,
+           float scale, int causal, int window, float softcap,
+           cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(kBQ + 2 * kBK) * (DH + 4) + kBQ * kPPitch) *
       sizeof(float);
@@ -386,28 +397,28 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const int grid = ((S + kBQ - 1) / kBQ) * H * B;
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), B, H, Hkv, S, Skv,
-      s_orig, scale, causal, window, softcap);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, B, H, Hkv, S,
+      Skv, s_orig, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_dh(int dh, const void* q, const void* k, const void* v, void* out,
-              int B, int H, int Hkv, int S, int Skv, int s_orig, float scale,
-              int causal, int window, float softcap, cudaStream_t stream) {
+              float* lse, int B, int H, int Hkv, int S, int Skv, int s_orig,
+              float scale, int causal, int window, float softcap,
+              cudaStream_t stream) {
+#define FLASH_LAUNCH(D)                                                     \
+  return launch<T, D>(q, k, v, out, lse, B, H, Hkv, S, Skv, s_orig, scale, \
+                      causal, window, softcap, stream)
   switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, out, B, H, Hkv, S, Skv, s_orig,
-                                  scale, causal, window, softcap, stream);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, Hkv, S, Skv, s_orig,
-                                  scale, causal, window, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, Hkv, S, Skv, s_orig,
-                                  scale, causal, window, softcap, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, Hkv, S, Skv, s_orig,
-                                    scale, causal, window, softcap, stream);
-    case 256: return launch<T, 256>(q, k, v, out, B, H, Hkv, S, Skv, s_orig,
-                                    scale, causal, window, softcap, stream);
+    case 16: FLASH_LAUNCH(16);
+    case 32: FLASH_LAUNCH(32);
+    case 64: FLASH_LAUNCH(64);
+    case 128: FLASH_LAUNCH(128);
+    case 256: FLASH_LAUNCH(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_LAUNCH
 }
 
 }  // namespace
@@ -417,18 +428,20 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* out,
 // (setting the shared-memory attribute, or cudaGetLastError() right
 // after the launch) so that a refused launch is reported. S and Skv
 // must be multiples of 32 (the wrapper pads); dh one of 16, 32, 64, 128,
-// 256; `bf16` selects bf16 inputs and output, else f32.
+// 256; `bf16` selects bf16 inputs and output, else f32; `lse` (B, H, S)
+// f32, or null to write none.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
-                                      int Hkv, int S, int Skv, int dh,
-                                      int s_orig, float scale, int causal,
-                                      int window, float softcap, int bf16,
-                                      void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int B, int H, int Hkv, int S, int Skv,
+                                      int dh, int s_orig, float scale,
+                                      int causal, int window, float softcap,
+                                      int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (bf16)
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, out, B, H, Hkv, S, Skv,
+    return launch_dh<__nv_bfloat16>(dh, q, k, v, out, l, B, H, Hkv, S, Skv,
                                     s_orig, scale, causal, window, softcap,
                                     st);
-  return launch_dh<float>(dh, q, k, v, out, B, H, Hkv, S, Skv, s_orig, scale,
-                          causal, window, softcap, st);
+  return launch_dh<float>(dh, q, k, v, out, l, B, H, Hkv, S, Skv, s_orig,
+                          scale, causal, window, softcap, st);
 }

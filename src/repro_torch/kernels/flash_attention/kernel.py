@@ -1,5 +1,6 @@
 """Chunked online-softmax attention (flash attention) — the hand-written
-CUDA kernel's wrapper.
+CUDA kernels' wrappers: the forward, and the backward that the training
+path takes through ``ops.FlashAttentionFn``.
 
 Beyond-paper kernel for the LM serving side (the prefill hot spot): one
 thread block per (q block, head, batch) carries the online softmax over
@@ -7,70 +8,141 @@ the kv blocks in registers, and query-head groups read their shared kv
 head in place (``csrc/flash_attention.cu`` has the design and what
 bounds it). The public layout is the reference kernel's: q (B,H,S,dh),
 k/v (B,Hkv,Skv,dh).
+
+The backward (``csrc/flash_attention_bwd.cu``) has no Pallas
+counterpart: the reference differentiates its jnp twin through the
+block-recomputing ``_fa_bwd_impl`` (``src/repro/models/attention.py:253``),
+which it ports. It recomputes the probabilities from the forward's row
+log-sum-exp, so the forward writes that when asked (``return_lse``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import Kernel, check_cuda_operands
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_ref)
 
 KERNEL = Kernel(name="flash_attention", source="flash_attention.cu",
                 entry="flash_attention_launch",
                 replaces="src/repro/kernels/flash_attention/kernel.py:83")
+BWD_KERNEL = Kernel(name="flash_attention_bwd",
+                    source="flash_attention_bwd.cu",
+                    entry="flash_attention_bwd_launch",
+                    replaces="src/repro/models/attention.py:253")
 
-# S and Skv must be multiples of these (the op pads). The kernel's q
-# blocks are 64 rows, the rows of the last one beyond S masked; its kv
-# blocks are 32 rows.
+# S and Skv must be multiples of these (the op pads). The forward's q
+# blocks are 64 rows, the rows of the last one beyond S masked, its kv
+# blocks 64 rows with the rows beyond Skv zeroed; the backward's blocks
+# are 32 rows.
 BLOCK_Q = 32
 BLOCK_K = 32
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _check(name: str, q, k, v) -> None:
+    """Raise unless q, k, v fit the kernels (on CUDA tensors)."""
+    B, H, S, dh = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not in {DTYPES}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dh} not in {HEAD_DIMS}")
+    check_cuda_operands(name, {
+        "q": (q, q.dtype, (B, H, S, dh)),
+        "k": (k, q.dtype, (B, Hkv, Skv, dh)),
+        "v": (v, q.dtype, (B, Hkv, Skv, dh)),
+    })
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned")
+
+
+def _shapes(name: str, q, k, s_orig: int) -> int:
+    """Check the block multiples and GQA; return s_orig (0 -> Skv)."""
+    H, S = q.shape[1], q.shape[2]
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"{name}: H={H} is not a multiple of Hkv={Hkv}")
+    if S % BLOCK_Q or Skv % BLOCK_K:
+        raise ValueError(f"{name}: S={S} and Skv={Skv} must be multiples "
+                         f"of {BLOCK_Q} and {BLOCK_K}")
+    return min(s_orig or Skv, Skv)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, s_orig: int = 0) -> torch.Tensor:
+                    softcap: float = 0.0, s_orig: int = 0,
+                    return_lse: bool = False):
     """q (B,H,S,dh); k,v (B,Hkv,Skv,dh); H % Hkv == 0. Returns (B,H,S,dh)
-    in q's dtype.
+    in q's dtype; with ``return_lse`` also the rows' log-sum-exp (B,H,S)
+    f32 (m + log l of the online softmax, the backward's input).
 
     S and Skv must be multiples of ``BLOCK_Q`` / ``BLOCK_K`` (the op pads).
     ``s_orig``: true kv length before padding (0 -> Skv). ``window``: 0
     for full attention, else sliding-window size. ``softcap``: 0
     disables. CPU tensors take the plain version; CUDA tensors (f32 or
-    bf16, dh in ``HEAD_DIMS``) launch the kernel or raise.
+    bf16, dh in ``HEAD_DIMS``) launch the kernel or raise. Without
+    ``return_lse`` the kernel writes no lse (the serving launch).
     """
     B, H, S, dh = q.shape
     _, Hkv, Skv, _ = k.shape
-    if H % Hkv:
-        raise ValueError(f"flash_attention: H={H} is not a multiple of "
-                         f"Hkv={Hkv}")
-    if S % BLOCK_Q or Skv % BLOCK_K:
-        raise ValueError(f"flash_attention: S={S} and Skv={Skv} must be "
-                         f"multiples of {BLOCK_Q} and {BLOCK_K}")
-    s_orig = s_orig or Skv
+    s_orig = _shapes("flash_attention", q, k, s_orig)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              s_orig=s_orig)
     if not q.is_cuda:
-        return attention_ref(q, k, v, scale=scale, causal=causal,
-                             window=window, softcap=softcap, s_orig=s_orig)
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
-    check_cuda_operands("flash_attention", {
-        "q": (q, q.dtype, (B, H, S, dh)),
-        "k": (k, q.dtype, (B, Hkv, Skv, dh)),
-        "v": (v, q.dtype, (B, Hkv, Skv, dh)),
-    })
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             f"aligned")
+        if return_lse:
+            return attention_fwd_ref(q, k, v, **kw)
+        return attention_ref(q, k, v, **kw)
+    _check("flash_attention", q, k, v)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, H, Hkv, S, Skv, dh, min(s_orig, Skv), float(scale),
-                  int(causal), int(window), float(softcap),
-                  int(q.dtype == torch.bfloat16))
-    return out
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel():
+        KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), lse.data_ptr() if return_lse else None,
+                      B, H, Hkv, S, Skv, dh, s_orig, float(scale),
+                      int(causal), int(window), float(softcap),
+                      int(q.dtype == torch.bfloat16))
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, s_orig: int = 0):
+    """The backward of :func:`flash_attention` from its output and lse:
+    (dq (B,H,S,dh), dk, dv (B,Hkv,Skv,dh)) in q's dtype, each written
+    once by one thread block (no atomics: the same inputs give the same
+    bits on every run). dout must be zero on rows that do not count
+    (the op's padding rows). CPU tensors take ``attention_bwd_ref``; CUDA
+    tensors launch the kernel or raise."""
+    B, H, S, dh = q.shape
+    _, Hkv, Skv, _ = k.shape
+    s_orig = _shapes("flash_attention_bwd", q, k, s_orig)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              s_orig=s_orig)
+    if not q.is_cuda:
+        return attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    _check("flash_attention_bwd", q, k, v)
+    check_cuda_operands("flash_attention_bwd", {
+        "out": (out, q.dtype, (B, H, S, dh)),
+        "dout": (dout, q.dtype, (B, H, S, dh)),
+        "lse": (lse, torch.float32, (B, H, S)),
+    })
+    for arg, x in (("out", out), ("dout", dout)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {arg} is not 16-byte "
+                             f"aligned")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    # D = rowsum(dout . out), written by the kernel's first pass
+    rowdot = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if q.numel() and k.numel():
+        BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                          rowdot.data_ptr(), B, H, Hkv, S, Skv, dh, s_orig,
+                          float(scale), int(causal), int(window),
+                          float(softcap), int(q.dtype == torch.bfloat16))
+    return dq, dk, dv

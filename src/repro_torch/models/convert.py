@@ -6,7 +6,10 @@ The reference keeps its parameters as a nested dict whose ``"blocks"``
 embedding, the norms, zamba2's one ``"shared"`` block) is unstacked.
 The port keeps one module per layer. :func:`params_from_jax` unstacks a
 reference tree given as numpy arrays; :func:`params_to_numpy` stacks the
-port's module tree back into that form.
+port's module tree back into that form; :func:`stacked` and
+:func:`unstack_into` carry any tree shaped like the parameters (the
+optimizer's moments) between the two layouts, as the checkpoints of the
+training path need.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import module_tree
 from repro_torch.models.transformer import model_spec
-from repro_torch.utils import resolve_device
+from repro_torch.utils import as_tree, resolve_device, tree_map
 
 # the subtrees whose leaves the reference stacks along a layer axis
 STACKED = ("blocks", "enc_blocks")
@@ -44,18 +47,36 @@ def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> nn.Module:
     return module_tree(model_spec(cfg), to_tensor)
 
 
+def stacked(tree, leaf=lambda t: t.detach().cpu().numpy(),
+            stack=np.stack) -> dict:
+    """A port tree (a parameter module tree, or a dict tree shaped like
+    one: an optimizer moment) -> the reference's layout: ``leaf`` of
+    every leaf, the per-layer leaves of "blocks" and "enc_blocks" joined
+    by ``stack`` along a leading axis."""
+    def join(trees):
+        if isinstance(trees[0], dict):
+            return {k: join([t[k] for t in trees]) for k in trees[0]}
+        return stack(trees)
+
+    tree = as_tree(tree)
+    return {k: join([tree_map(leaf, b) for b in v]) if k in STACKED
+            else tree_map(leaf, v) for k, v in tree.items()}
+
+
+def unstack_into(tree, ref) -> None:
+    """Copy a tree in the reference's layout (arrays or tensors, stacked
+    "blocks") into the port tree ``tree`` in place (each leaf keeps its
+    device and dtype)."""
+    tree = as_tree(tree)
+    for k, v in tree.items():
+        parts = ([(b, tree_map(lambda a, i=i: a[i], ref[k]))
+                  for i, b in enumerate(v)] if k in STACKED
+                 else [(v, ref[k])])
+        for dst, src in parts:
+            tree_map(lambda d, s: d.data.copy_(torch.as_tensor(s)), dst, src)
+
+
 def params_to_numpy(params: nn.Module) -> dict:
     """The port's module tree -> the reference's tree layout as numpy
     arrays, with the per-layer leaves stacked along a leading axis."""
-    def tree(m):
-        if isinstance(m, torch.Tensor):
-            return m.detach().cpu().numpy()
-        return {k: tree(v) for k, v in m.items()}
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
-
-    return {k: stack([tree(b) for b in m]) if k in STACKED else tree(m)
-            for k, m in params.items()}
+    return stacked(params)

@@ -55,8 +55,11 @@ def module_tree(tree, leaf, path=()) -> nn.Module:
     """Map a spec tree to a module tree, ``leaf(path, spec) -> tensor``
     (``path`` the keys and list positions down to the leaf), in the
     reference's flatten order (so one generator draws the leaves in the
-    same sequence on every run). Parameters do not require grad: the
-    serving path needs no autograd graph."""
+    same sequence on every run). Parameters are made with
+    ``requires_grad=False``: the trainer (``train/trainer.py``) turns
+    grad on for the tree it trains, and serving keeps it off
+    (``prefill`` and ``decode_step`` also run under ``torch.no_grad``),
+    so serving builds no autograd graph."""
     if isinstance(tree, dict):
         if all(is_spec(v) for v in tree.values()):
             return nn.ParameterDict({

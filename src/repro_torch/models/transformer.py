@@ -14,16 +14,21 @@
 
 Three entry points, as in the reference:
 
-  forward_hidden   full-sequence (scoring)               -> final hidden
+  forward_hidden   full-sequence (training / scoring)    -> final hidden
   prefill          full-sequence + cache population      -> (last logits, cache)
   decode_step      one token against the cache           -> (logits, cache)
 
+and the training loss, ``loss_fn`` (``chunked_xent`` over the final
+hidden, never the whole (B,S,V) logits at once).
+
 The parameters are one ``nn.Module`` tree (``models/params.py``): the
 layers are an ``nn.ModuleList`` of blocks run in a Python loop — PyTorch
-runs eagerly, so the reference's layer scan and remat have no
-counterpart here. One loop serves the three entry points: each passes
-the sequence operations (self-attention, cross-attention, the SSD block)
-of its own kind.
+runs eagerly, so the reference's layer scan has no counterpart here. One
+loop serves the three entry points: each passes the sequence operations
+(self-attention, cross-attention, the SSD block) of its own kind. Under
+grad, ``ModelOpts.remat="full"`` (the default, as the reference's) runs
+each block under ``torch.utils.checkpoint``: its activations are
+recomputed in the backward, only its input is kept.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -50,13 +56,29 @@ def check_family(cfg: ArchConfig) -> None:
                          f"{cfg.family!r}; known: {FAMILIES}")
 
 
+REMAT = ("none", "full")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelOpts:
-    """Static per-run model options."""
+    """Static per-run model options. The reference's remat "dots" policy
+    and its two-level grouped scan (``scan_groups`` > 1) have no
+    counterpart yet (ROADMAP.md item 15): they raise."""
 
+    remat: str = "full"          # none | full: per-block checkpoint (grad)
+    scan_groups: int = 1
+    loss_chunk: int = 2048       # vocab-chunked xent sequence chunk
     act_dtype: torch.dtype = torch.float32  # residual-stream compute dtype
-    attn_mode: str = "auto"      # prefill flash op: auto | cuda | ref
+    attn_mode: str = "auto"      # flash op: auto | cuda | ref
     cap_factor: float = 1.25     # MoE dispatch capacity factor
+
+    def __post_init__(self):
+        if self.remat not in REMAT:
+            raise ValueError(f"remat {self.remat!r} not in {REMAT} (the "
+                             f"reference's 'dots' policy is not ported)")
+        if self.scan_groups != 1:
+            raise ValueError(f"scan_groups={self.scan_groups}: the grouped "
+                             f"layer scan is not ported (1 only)")
 
 
 # ---------------------------------------------------------------------------
@@ -153,35 +175,51 @@ def _mlp(p, x, cfg):
     return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), act=cfg.act)
 
 
+def _remat(opts):
+    """``run(fn, *xs)``: fn(*xs), under a non-reentrant checkpoint when
+    grad is on and ``opts.remat`` is "full"."""
+    if opts.remat == "full" and torch.is_grad_enabled():
+        return lambda fn, *xs: checkpoint(fn, *xs, use_reentrant=False)
+    return lambda fn, *xs: fn(*xs)
+
+
 def _layers(params, cfg, x, opts, self_attn, cross, ssm):
     """The decoder stack of every family over x -> (x, aux). The three
     sequence operations each return x plus the layer's output:
     ``self_attn(p, x, j, window)`` (j: the layer's KV-cache slot),
     ``cross(p, x, i)`` (encdec) and ``ssm(p, x, i)``. aux holds the moe
-    family's mean ``lb_loss`` and ``drop_frac`` over the layers."""
+    family's mean ``lb_loss`` and ``drop_frac`` over the layers. Each
+    block (an SSD layer, a shared-block application, a decoder layer) is
+    one remat unit."""
     fam, eps = cfg.family, cfg.norm_eps
+    run = _remat(opts)
     if fam in ("ssm", "hybrid"):
         G, e, _ = hybrid_layout(cfg) if fam == "hybrid" else (0, 1, 0)
         for i, p in enumerate(params["blocks"]):
-            x = ssm(p, x, i)
+            x = run(lambda x, p=p, i=i: ssm(p, x, i), x)
             if i < G * e and i % e == e - 1:
                 shared = params["shared"]
-                x = _mlp(shared, self_attn(shared, x, i // e, cfg.window),
-                         cfg)
+                x = run(lambda x, i=i: _mlp(
+                    shared, self_attn(shared, x, i // e, cfg.window), cfg), x)
         return x, {}
-    lb = dr = 0.0
-    for i, (p, win) in enumerate(zip(params["blocks"],
-                                     cfg.layer_windows())):
+
+    def block(x, p, i, win):
         x = self_attn(p, x, i, win)
         if fam == "encdec":
             x = cross(p, x, i)
+        if fam != "moe":
+            return _mlp(p, x, cfg), None, None
+        h, mx = moe_ffn(p["moe"], rmsnorm(p["ln2"], x, eps), cfg,
+                        capacity_factor=opts.cap_factor, act=cfg.act)
+        return x + h, mx["lb_loss"], mx["drop_frac"]
+
+    lb = dr = 0.0
+    for i, (p, win) in enumerate(zip(params["blocks"],
+                                     cfg.layer_windows())):
+        x, lb_i, dr_i = run(lambda x, p=p, i=i, win=win: block(x, p, i, win),
+                            x)
         if fam == "moe":
-            h, mx = moe_ffn(p["moe"], rmsnorm(p["ln2"], x, eps), cfg,
-                            capacity_factor=opts.cap_factor, act=cfg.act)
-            x = x + h
-            lb, dr = lb + mx["lb_loss"], dr + mx["drop_frac"]
-        else:
-            x = _mlp(p, x, cfg)
+            lb, dr = lb + lb_i, dr + dr_i
     if fam != "moe":
         return x, {}
     return x, {"lb_loss": lb / cfg.num_layers,
@@ -268,11 +306,16 @@ def encode(params, cfg: ArchConfig, enc_input, *,
     B, Se, _ = enc_input.shape
     x = enc_input.to(opts.act_dtype)
     positions = _positions(B, Se, x.device)
-    for p in params["enc_blocks"]:
+    run = _remat(opts)
+
+    def block(x, p):
         x = x + A.attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                             cfg, window=0, positions=positions, causal=False,
                             mode=opts.attn_mode)
-        x = _mlp(p, x, cfg)
+        return _mlp(p, x, cfg)
+
+    for p in params["enc_blocks"]:
+        x = run(lambda x, p=p: block(x, p), x)
     return rmsnorm(params["eln"], x, cfg.norm_eps)
 
 
@@ -283,6 +326,59 @@ def logits_fn(params, cfg: ArchConfig, tokens, *,
                             frontend_embeds=frontend_embeds)
     logits = unembed(params["tok"], h, cfg.tie_embeddings, cfg.softcap_final)
     return logits[..., :cfg.vocab_size], aux
+
+
+# ---------------------------------------------------------------------------
+# Loss — vocab-chunked cross entropy (never materializes (B,S,V) at once)
+# ---------------------------------------------------------------------------
+def chunked_xent(tok_params, hidden, labels, *, tie: bool, softcap: float,
+                 chunk: int):
+    """hidden (B,S,d) final-normed, labels (B,S) int (-1 = ignore) ->
+    (mean loss, {"tokens", "accuracy"}). Each chunk of ``chunk``
+    positions runs under a checkpoint, so no chunk's (B,C,V) logits are
+    kept for the backward: it recomputes them."""
+    B, Sq, d = hidden.shape
+    C = min(chunk, Sq)
+    pad = (-Sq) % C
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+
+    def body(h_c, y_c, tok):
+        logits = unembed(tok, h_c, tie, softcap)           # (B,C,V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, y_c.clamp_min(0)[..., None].long())[..., 0]
+        mask = (y_c >= 0).float()
+        correct = (logits.argmax(-1) == y_c).float() * mask
+        return ((lse - ll) * mask).sum(), mask.sum(), correct.sum()
+
+    tot = cnt = ncorrect = 0.0
+    for c in range((Sq + pad) // C):
+        sl = slice(c * C, (c + 1) * C)
+        t, n, k = checkpoint(body, hidden[:, sl], labels[:, sl], tok_params,
+                             use_reentrant=False)
+        tot, cnt, ncorrect = tot + t, cnt + n, ncorrect + k
+    cnt = torch.clamp(torch.as_tensor(cnt, device=hidden.device), min=1.0)
+    return tot / cnt, {"tokens": cnt, "accuracy": ncorrect / cnt}
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, opts: ModelOpts = ModelOpts(),
+            lb_coef: float = 0.01):
+    """batch: tokens (B,S), labels (B,S), optional frontend (B,F,d) ->
+    (loss, metrics): the chunked cross entropy ("xent"), plus lb_coef x
+    the moe family's load-balance loss."""
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"], opts=opts,
+                                 frontend_embeds=batch.get("frontend"))
+    loss, metrics = chunked_xent(
+        params["tok"], hidden, batch["labels"], tie=cfg.tie_embeddings,
+        softcap=cfg.softcap_final, chunk=opts.loss_chunk)
+    metrics["xent"] = loss
+    if "lb_loss" in aux:
+        loss = loss + lb_coef * aux["lb_loss"]
+        metrics["lb_loss"] = aux["lb_loss"]
+        metrics["drop_frac"] = aux["drop_frac"]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

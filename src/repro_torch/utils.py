@@ -99,6 +99,45 @@ class HostStaging:
 
 
 # ---------------------------------------------------------------------------
+# Trees of tensors: nested dicts and lists (the training path's
+# parameters, gradients and optimizer moments)
+# ---------------------------------------------------------------------------
+def as_tree(x):
+    """A module tree of parameters (``nn.ParameterDict``,
+    ``nn.ModuleDict``, ``nn.ModuleList``) -> the same nesting of dicts
+    and lists over its parameters; a dict or list tree is mapped the
+    same way, a leaf returned as it is."""
+    if isinstance(x, (dict, torch.nn.ParameterDict, torch.nn.ModuleDict)):
+        return {k: as_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple, torch.nn.ModuleList)):
+        return [as_tree(v) for v in x]
+    return x
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a dict / list tree, depth first in key order (a
+    tuple is a leaf)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching subtrees of the
+    trees in ``rest`` (only ``tree``'s structure is walked, so a subtree
+    of ``rest`` where ``tree`` has a leaf is passed whole)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+# ---------------------------------------------------------------------------
 # Visited-set bloom filter (the "query property table" visited bits).
 # Two multiplicative hashes; false positives only *skip* re-expansion of a
 # vertex, never corrupt returned distances.

@@ -950,12 +950,21 @@ def test_flash_attention_refused_launch_raises(dev):
     q, k, v = _qkv(1, 2, 2, 64, 64, torch.float32, dev)
     out = torch.empty_like(q)
     before = FLASH.launches
+    from repro_torch.kernels.flash_attention.kernel import BWD_KERNEL
+    lse = torch.empty((1, 2, 64), device=dev)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    before_bwd = BWD_KERNEL.launches
     for dh, S in ((48, 64), (64, 0)):     # no such head dim; an empty grid
         with pytest.raises(RuntimeError, match="cudaError"):
             FLASH.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), 1, 2, 2, S, 64, dh, 64, 0.125, 1,
-                         0, 0.0, 0)
-    assert FLASH.launches == before
+                         out.data_ptr(), None, 1, 2, 2, S, 64, dh, 64, 0.125,
+                         1, 0, 0.0, 0)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                              *(x.data_ptr() for x in grads), lse.data_ptr(),
+                              1, 2, 2, S, 64, dh, 64, 0.125, 1, 0, 0.0, 0)
+    assert FLASH.launches == before and BWD_KERNEL.launches == before_bwd
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                         v[..., :48].contiguous(), scale=0.125)
@@ -1102,3 +1111,88 @@ def test_serve_cli_stream_retrieval_on_card(dev, capsys):
     assert res["stream_retrieval"] is True
     assert all(res["launches"]["retrieval"][k] > 0 for k in (
         "paged_distance", "bitonic_merge_unsorted"))
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,Skv,dh,dtype,kw", [
+    (2, 4, 1, 256, 256, 256, torch.float32, dict(window=64)),
+    (1, 8, 4, 192, 192, 128, torch.float32, dict(softcap=50.0)),
+    (2, 4, 2, 160, 224, 64, torch.float32,
+     dict(causal=False, s_orig=200)),
+    (1, 4, 1, 128, 128, 16, torch.bfloat16, dict(window=40)),
+    (1, 2, 2, 96, 96, 32, torch.float32, dict(window=0)),
+])
+def test_flash_attention_bwd_matches_plain(dev, B, H, Hkv, S, Skv, dh, dtype,
+                                           kw):
+    """The backward kernel from the forward kernel's out and lse against
+    attention_bwd_ref on the same inputs (gradients within 2e-5 x max
+    |ref|, bf16 3e-2; the forward's lse within 2e-5), and a second run
+    bit for bit (no atomics)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_KERNEL, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, dout = (torch.randn((B, H, S, dh), generator=g, device=dev).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn((B, Hkv, Skv, dh), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(scale=dh ** -0.5, **kw)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    before = BWD_KERNEL.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert BWD_KERNEL.launches == before + 2
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(lse, attention_fwd_ref(q, k, v, **kw)[1],
+                               rtol=2e-5, atol=2e-5)
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == dtype and torch.equal(a, c)
+        assert float((a.float() - b.float()).abs().max()) <= \
+            tol * float(b.float().abs().max())
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """Two steps of reduced gemma3-1b through the kernels on the card
+    against the same steps on the CPU (plain versions): loss and grad
+    norm within 1e-4 relative, parameters within 1e-4, and the launches
+    per step (4 layers: 8 forwards with remat, 4 backwards)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import params_from_jax, params_to_numpy
+    from repro_torch.optim import OptConfig, init_opt
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.trainer import init_train_state
+    cfg = reduced(get_config("gemma3-1b"))
+    oc = OptConfig(lr_max=1e-3, warmup=2, decay_steps=10)
+    init = params_to_numpy(init_train_state(
+        cfg, oc, torch.Generator().manual_seed(0))[0])
+    step = make_train_step(cfg, oc, TrainConfig())
+    pipe = TokenPipeline(cfg.vocab_size, 4, 64, seed=0)
+    out = {}
+    for device in ("cpu", dev):
+        params = params_from_jax(cfg, init, device=device)
+        opt = init_opt(params, oc)
+        rows = []
+        for s in range(2):
+            reset_launch_counts()
+            params, opt, m = step(params, opt, {
+                k: torch.as_tensor(v, device=device)
+                for k, v in pipe.batch_at(s).items()})
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         launch_counts()))
+        out[str(device)] = (rows, params_to_numpy(params))
+    (cpu_rows, cpu_p), (card_rows, card_p) = out["cpu"], out[str(dev)]
+    for (cl, cg, _), (gl, gg, launches) in zip(cpu_rows, card_rows):
+        assert abs(gl - cl) <= 1e-4 * abs(cl) and abs(gg - cg) <= 1e-4 * cg
+        assert {k: n for k, n in launches.items() if n} == {
+            "flash_attention": 8, "flash_attention_bwd": 4}
+    for a, b in zip(_np_leaves(card_p), _np_leaves(cpu_p)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _np_leaves(tree[k])]
+    return [tree]

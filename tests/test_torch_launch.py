@@ -209,3 +209,53 @@ def test_cli_stream_refuses_unported_flags(capsys, flag, item):
         with pytest.raises(SystemExit, match=match):
             j_main(argv + extra + ["--kernel-mode", "jnp"])
     capsys.readouterr()
+
+
+TRAIN_ARGV = ["--device", "cpu", "--reduced", "--arch", "gemma3-1b",
+              "--steps", "3"]
+
+
+def test_train_cli_runs_on_cpu(tmp_path):
+    """``python -m repro_torch.launch.train --device cpu --reduced --arch
+    gemma3-1b --steps 3``: the reference's log lines, finite losses."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV,
+         "--log-every", "1", "--metrics-out", str(tmp_path / "m.json")],
+        cwd=repo, capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(repo / "src"), "PATH": "/usr/bin:/bin",
+             "HOME": str(tmp_path), "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert [x.split()[:2] for x in lines[:3]] == \
+        [["step", str(s)] for s in range(3)]
+    assert lines[-1].startswith("done: 3 steps in ")
+    hist = json.loads((tmp_path / "m.json").read_text())
+    assert [h["step"] for h in hist] == [0, 1, 2]
+    assert all(np.isfinite(h["loss"]) and h["skipped"] == 0 for h in hist)
+
+
+def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
+    """With ``--ckpt-dir`` the supervised loop saves (every
+    ``--ckpt-every`` steps and at the end, in the reference's layout); a
+    second run with more steps resumes from the latest checkpoint."""
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch.train import main as train_main
+    d = str(tmp_path / "ckpt")
+    argv = TRAIN_ARGV + ["--ckpt-dir", d, "--ckpt-every", "2",
+                         "--log-every", "1"]
+    assert train_main(argv) == 0
+    assert ckpt.all_steps(d) == [2, 3]
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1] == "done at step 3; restarts=0"
+    with np.load(f"{d}/step_00000003/shard-0.npz") as z:
+        assert z["opt::step"] == 3
+        assert z["params::blocks::attn::wq"].shape[0] == 4   # stacked
+    argv5 = [a if a != "3" else "5" for a in argv]
+    assert train_main(argv5) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert [x.split()[1] for x in out[:-1]] == ["3", "4"]   # resumed at 3
+    assert ckpt.all_steps(d) == [3, 4, 5]

@@ -164,7 +164,7 @@ def test_cli_runs_on_cpu(capsys):
     assert set(res["launches"]["generate"]) == {
         "paged_distance", "paged_distance_bf16q", "paged_distance_bf16db",
         "paged_distance_bf16q_bf16db", "bitonic_sort", "bitonic_merge",
-        "bitonic_merge_unsorted", "flash_attention"}
+        "bitonic_merge_unsorted", "flash_attention", "flash_attention_bwd"}
     assert not any(res["launches"]["retrieval"].values())
 
 

@@ -97,6 +97,9 @@ def test_cuda_device_without_a_card_raises():
         models.init_cache(hybrid, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         models.init_ssm_state(hybrid, 1)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "gemma3-1b", "--reduced", "--steps", "1"])
 
 
 def test_port_imports_neither_jax_nor_the_reference():
