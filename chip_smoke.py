@@ -277,7 +277,8 @@ its seconds:
                attention also at gemma3-1b's global layer (window 0)
                and with its lse (the training launch), its backward at
                gemma3-1b's local and global layers (the library call:
-               autograd's backward of SDPA on repeated kv),
+               autograd's backward of SDPA on repeated kv; beside it
+               the first design's time as earlier_ms),
                and at the other families' prefill shapes (mixtral,
                zamba2's shared block, seamless's encoder, decoder self-
                and cross-attention),
@@ -3624,7 +3625,7 @@ TRAIN_GNORM_RTOL = 1e-4
 # checkpoints every 5 steps
 DRILL = dict(steps=12, fail_at=7, ckpt_every=5, batch=4, seq=128)
 # the backward's CUDA kernels, as the profiler names them
-BWD_KERNEL_NAMES = ("rowdot_kernel", "bwd_kv_kernel", "bwd_q_kernel")
+BWD_KERNEL_NAMES = ("bwd_dq_kernel", "bwd_dkdv_kernel")
 
 
 def train_args(**over):
@@ -4106,15 +4107,17 @@ def flash_row(shape: dict, kw: dict, dev):
                         unmasked_pairs=pairs))
 
 
-def flash_bwd_row(shape: dict, kw: dict, dev):
+def flash_bwd_row(shape: dict, kw: dict, dev, earlier_ms: float):
     """A timing row of the flash backward at ``shape`` (f32) from the
-    forward's out and lse: the kernel, its plain version, and the
-    library call, torch.autograd's backward of SDPA on repeated kv
-    (explicit boolean mask; the forward taken once, outside the timing,
-    its graph kept). The bound counts the backward's five products (s and
-    dP recomputed, dq, dk, dv), 2 dh operations each, per unmasked (row,
-    col) pair and head; its bytes read q, k, v, out, dout and lse once
-    and write dq, dk, dv once."""
+    forward's out and lse: the kernels (both, per call), their plain
+    version, and the library call, torch.autograd's backward of SDPA on
+    repeated kv (explicit boolean mask; the forward taken once, outside
+    the timing, its graph kept). The bound counts the backward's five
+    products (s, dP, dq, dk, dv), 2 dh operations each, per unmasked
+    (row, col) pair and head; its bytes read q, k, v, out, dout and lse
+    once and write dq, dk, dv once. ``earlier_ms``: the first design's
+    time at this shape (three kernels, s and dP computed twice, on an
+    H100 80GB HBM3 at 700 W), printed beside the row."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention, flash_attention_bwd)
@@ -4144,7 +4147,7 @@ def flash_bwd_row(shape: dict, kw: dict, dev):
             lambda: torch.autograd.grad(sdpa, (lq, lk, lv), fdo,
                                         retain_graph=True),
             b, by, dict(shape, causal=True, window=window,
-                        unmasked_pairs=pairs))
+                        unmasked_pairs=pairs, earlier_ms=earlier_ms))
 
 
 def flash_lse_row(shape: dict, kw: dict, dev):
@@ -4229,14 +4232,14 @@ def time_kernels(dev) -> list:
     # line of its own a global one); its backward at the training shape
     # (the same attention shape)
     rows.append(flash_row(G3, dict(window=512), dev))
-    rows.append(flash_bwd_row(G3, dict(window=512), dev))
+    rows.append(flash_bwd_row(G3, dict(window=512), dev, 1.472))
     # rows on a line of their own: flash at a global layer and at the
     # other families' prefill shapes, the Gather merge at spec 4's
     # proposals (the streaming phase)
     extra = [(flash_row(G3, dict(window=0), dev),
               dict(case="global layer (window 0)",
                    layers_per_prefill=GLOBAL_LAYERS)),
-             (flash_bwd_row(G3, dict(window=0), dev),
+             (flash_bwd_row(G3, dict(window=0), dev, 2.430),
               dict(case="backward, global layer (window 0)",
                    launches_per_train_step=GLOBAL_LAYERS)),
              (flash_lse_row(G3, dict(window=512), dev),
@@ -4287,6 +4290,8 @@ def time_kernels(dev) -> list:
                 lambda: kern(*floor_args))
         line = {"shape": shape, "timed_by": method,
                 "event_ms_per_call": host_ms}
+        if "earlier_ms" in shape:     # an earlier design's time, this shape
+            line["earlier_ms"] = shape.pop("earlier_ms")
         if name.startswith("bitonic"):   # the shared-memory body, same rows
             line["shared_body_ms"], _ = device_ms(
                 lambda: kern(*args, shared=True))

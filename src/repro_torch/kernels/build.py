@@ -48,8 +48,8 @@ SIGNATURES = {
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _F, _I, _P),
     "flash_attention_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-                                   _F, _I, _P),
+                                   _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                   _I, _F, _I, _I, _I, _P),
 }
 
 # the bf16 instantiations of the distance kernel take the same arguments

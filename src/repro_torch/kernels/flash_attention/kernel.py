@@ -13,7 +13,9 @@ The backward (``csrc/flash_attention_bwd.cu``) has no Pallas
 counterpart: the reference differentiates its jnp twin through the
 block-recomputing ``_fa_bwd_impl`` (``src/repro/models/attention.py:253``),
 which it ports. It recomputes the probabilities from the forward's row
-log-sum-exp, so the forward writes that when asked (``return_lse``).
+log-sum-exp, so the forward writes that when asked (``return_lse``). Its
+first kernel writes P and dS once into a band scratch that its second
+kernel sums from; :func:`band_plan` sizes that scratch.
 """
 from __future__ import annotations
 
@@ -34,10 +36,18 @@ BWD_KERNEL = Kernel(name="flash_attention_bwd",
 
 # S and Skv must be multiples of these (the op pads). The forward's q
 # blocks are 64 rows, the rows of the last one beyond S masked, its kv
-# blocks 64 rows with the rows beyond Skv zeroed; the backward's blocks
-# are 32 rows.
+# blocks 64 rows with the rows beyond Skv zeroed; the backward's q tiles
+# are 32 rows, its kv tiles 64 (zeroed beyond Skv) in its first kernel
+# and 32 in its second.
 BLOCK_Q = 32
 BLOCK_K = 32
+# the backward's band scratch: P and dS (f32) in tiles of BAND_Q q rows x
+# BAND_K kv columns, the live kv tiles of each q tile side by side; above
+# BAND_BUDGET bytes of scratch the kernels run over slices of the
+# (batch, kv head) grid in turn
+BAND_Q = 32
+BAND_K = 64
+BAND_BUDGET = 1 << 30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,6 +80,42 @@ def _shapes(name: str, q, k, s_orig: int) -> int:
         raise ValueError(f"{name}: S={S} and Skv={Skv} must be multiples "
                          f"of {BLOCK_Q} and {BLOCK_K}")
     return min(s_orig or Skv, Skv)
+
+
+def live_cols(q0: int, s_orig: int, *, causal: bool,
+              window: int) -> tuple[int, int]:
+    """The live kv columns [lo, hi] of the ``BAND_Q`` query rows from
+    ``q0`` (empty when lo > hi): every column in it counts for at least
+    one of those rows. The backward kernels compute the same interval."""
+    lo = max(0, q0 - window + 1) if window > 0 else 0
+    hi = (min(s_orig, q0 + BAND_Q) if causal else s_orig) - 1
+    return lo, hi
+
+
+def band_layout(S: int, *, causal: bool, window: int,
+                s_orig: int) -> list[tuple[int, int]]:
+    """Per q tile of ``BAND_Q`` rows: (its first live kv tile of
+    ``BAND_K`` columns, its number of live kv tiles), the kv tiles that
+    meet :func:`live_cols`."""
+    out = []
+    for i in range(S // BAND_Q):
+        lo, hi = live_cols(i * BAND_Q, s_orig, causal=causal, window=window)
+        out.append((lo // BAND_K, hi // BAND_K - lo // BAND_K + 1)
+                   if lo <= hi else (0, 0))
+    return out
+
+
+def band_plan(B: int, H: int, Hkv: int, S: int, *, causal: bool,
+              window: int, s_orig: int) -> tuple[int, int, int]:
+    """(band width in kv tiles, (batch, kv head) pairs per pass, floats of
+    each of the P and dS scratches): the scratch of a pass holds its pairs'
+    G = H / Hkv heads x S / BAND_Q q tiles x width tiles, and a pass takes
+    as many pairs as fit in ``BAND_BUDGET`` bytes of both, at least one."""
+    width = max(n for _, n in band_layout(S, causal=causal, window=window,
+                                          s_orig=s_orig))
+    per_bh = (H // Hkv) * (S // BAND_Q) * width * BAND_Q * BAND_K
+    per_pass = max(1, min(B * Hkv, BAND_BUDGET // (2 * 4 * per_bh)))
+    return width, per_pass, per_pass * per_bh
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -117,7 +163,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float,
     once by one thread block (no atomics: the same inputs give the same
     bits on every run). dout must be zero on rows that do not count
     (the op's padding rows). CPU tensors take ``attention_bwd_ref``; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernels or raise: one launch of the C entry, which
+    runs both kernels once per pass of :func:`band_plan` over the band
+    scratch allocated here."""
     B, H, S, dh = q.shape
     _, Hkv, Skv, _ = k.shape
     s_orig = _shapes("flash_attention_bwd", q, k, s_orig)
@@ -136,13 +184,16 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float,
             raise ValueError(f"flash_attention_bwd: {arg} is not 16-byte "
                              f"aligned")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    # D = rowsum(dout . out), written by the kernel's first pass
-    rowdot = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if q.numel() and k.numel():
+        width, per_pass, numel = band_plan(B, H, Hkv, S, causal=causal,
+                                           window=window, s_orig=s_orig)
+        p_band, ds_band = (torch.empty(numel, dtype=torch.float32,
+                                       device=q.device) for _ in range(2))
         BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                          rowdot.data_ptr(), B, H, Hkv, S, Skv, dh, s_orig,
-                          float(scale), int(causal), int(window),
-                          float(softcap), int(q.dtype == torch.bfloat16))
+                          p_band.data_ptr(), ds_band.data_ptr(), B, H, Hkv,
+                          S, Skv, dh, s_orig, float(scale), int(causal),
+                          int(window), float(softcap),
+                          int(q.dtype == torch.bfloat16), width, per_pass)
     return dq, dk, dv

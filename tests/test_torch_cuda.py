@@ -953,6 +953,7 @@ def test_flash_attention_refused_launch_raises(dev):
     from repro_torch.kernels.flash_attention.kernel import BWD_KERNEL
     lse = torch.empty((1, 2, 64), device=dev)
     grads = [torch.empty_like(q) for _ in range(3)]
+    band = [torch.empty(2 * 2 * 64 * 64, device=dev) for _ in range(2)]
     before_bwd = BWD_KERNEL.launches
     for dh, S in ((48, 64), (64, 0)):     # no such head dim; an empty grid
         with pytest.raises(RuntimeError, match="cudaError"):
@@ -962,8 +963,9 @@ def test_flash_attention_refused_launch_raises(dev):
         with pytest.raises(RuntimeError, match="cudaError"):
             BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               out.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                              *(x.data_ptr() for x in grads), lse.data_ptr(),
-                              1, 2, 2, S, 64, dh, 64, 0.125, 1, 0, 0.0, 0)
+                              *(x.data_ptr() for x in grads),
+                              *(x.data_ptr() for x in band), 1, 2, 2, S, 64,
+                              dh, 64, 0.125, 1, 0, 0.0, 0, 1, 2)
     assert FLASH.launches == before and BWD_KERNEL.launches == before_bwd
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
@@ -1120,17 +1122,26 @@ def test_serve_cli_stream_retrieval_on_card(dev, capsys):
      dict(causal=False, s_orig=200)),
     (1, 4, 1, 128, 128, 16, torch.bfloat16, dict(window=40)),
     (1, 2, 2, 96, 96, 32, torch.float32, dict(window=0)),
+    (2, 4, 1, 512, 512, 256, torch.float32, dict(window=0)),
+    (2, 4, 2, 160, 224, 64, torch.float32,
+     dict(causal=False, s_orig=200, band_budget=1)),
 ])
-def test_flash_attention_bwd_matches_plain(dev, B, H, Hkv, S, Skv, dh, dtype,
-                                           kw):
-    """The backward kernel from the forward kernel's out and lse against
+def test_flash_attention_bwd_matches_plain(dev, monkeypatch, B, H, Hkv, S,
+                                           Skv, dh, dtype, kw):
+    """The backward kernels from the forward kernel's out and lse against
     attention_bwd_ref on the same inputs (gradients within 2e-5 x max
     |ref|, bf16 3e-2; the forward's lse within 2e-5), and a second run
-    bit for bit (no atomics)."""
+    bit for bit (no atomics). Cases: gemma3-like global causal with 4
+    heads per kv head (the causal imbalance), and a case whose band
+    scratch budget is lowered to 1 byte so that the launch runs one
+    (batch, kv head) pair per pass: the same bits as one pass."""
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.kernel import (
         BWD_KERNEL, flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_fwd_ref)
+    kw = dict(kw)
+    budget = kw.pop("band_budget", None)
     g = torch.Generator(device=dev).manual_seed(3)
     q, dout = (torch.randn((B, H, S, dh), generator=g, device=dev).to(dtype)
                for _ in range(2))
@@ -1138,12 +1149,19 @@ def test_flash_attention_bwd_matches_plain(dev, B, H, Hkv, S, Skv, dh, dtype,
             for _ in range(2))
     kw = dict(scale=dh ** -0.5, **kw)
     out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    one_pass = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    if budget is not None:
+        monkeypatch.setattr(fk, "BAND_BUDGET", budget)
+        assert fk.band_plan(B, H, Hkv, S, causal=kw.get("causal", True),
+                            window=kw.get("window", 0),
+                            s_orig=kw["s_orig"])[1] == 1
     before = BWD_KERNEL.launches
     got = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     again = flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     want = attention_bwd_ref(q, k, v, out, lse, dout, **kw)
     torch.cuda.synchronize()
     assert BWD_KERNEL.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, one_pass))
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(lse, attention_fwd_ref(q, k, v, **kw)[1],
                                rtol=2e-5, atol=2e-5)
