@@ -139,9 +139,13 @@ its seconds:
                full residency equals the untiered session; each session
                captures once, keeps its consts' addresses across
                boundaries, reads once per chunk and launches one
-               distance and one fused merge per device round; 2 frames
-               raise the livelock guard. (b) Phase main's sift-1b build,
-               256 queries at Poisson 0.25 into 2 slots per shard, chunk
+               distance and one fused merge per device round; the
+               ring-wrapping session (spaced arrivals, ring 6), run on
+               an empty capture cache under CaptureGuard, builds exactly
+               one engine_run_chunk_admit entry and its ids and dists
+               equal CPU ref mode's untiered session without a ring; 2
+               frames raise the livelock guard. (b) Phase main's sift-1b
+               build, 256 queries at Poisson 0.25 into 2 slots per shard, chunk
                4, spec 2, from 32, 28, 24 and 20 frames of 32 per shard,
                prefetch on and off, beside the untiered session: every
                row's ids equal the untiered ids; per row QPS, latency,
@@ -270,6 +274,18 @@ its seconds:
                steps, a failure injected at step 7, checkpoints every 5
                steps; the resumed run's parameters and optimizer state
                equal an uninterrupted run's bit for bit.
+  8d. analysis — the trace-discipline suite on the card (under 60 s):
+               (a) the op audit (repro_torch.analysis.op_audit) with
+               device "cuda" over every chunk program: no sync op, no
+               float64, the frame install in place, and paged_distance
+               and the fused Gather merge launched once per round; (b)
+               the cost model (repro_torch.launch.opanalysis) over one
+               uncaptured chunk of phase main's search: operations and
+               bytes per round, by kernel and by op, and the share of
+               3.35 TB/s that phase main's device time per round
+               implies; (c) one gemma3-1b train step (phase train's shape) counted by the
+               cost model beside model_flops (the counted step holds
+               remat's second forward and the optimizer).
   9. timing  — each kernel at its path's shapes: its time, its bound,
                the plain version's time and one library call's (the
                distance kernel's bf16 instantiations on the same tiles,
@@ -1619,6 +1635,7 @@ def tiered_integer(db, queries, dev):
     live."""
     import numpy as np
     import torch
+    from repro_torch.analysis.capture_guard import CaptureGuard
     from repro_torch.core.capture import CACHE
     from repro_torch.core.engine import EngineParams, pack_for_engine
     from repro_torch.core.pagestore import PageStore
@@ -1667,13 +1684,15 @@ def tiered_integer(db, queries, dev):
                     else poisson_arrivals(c["rate"], nq, seed=1))
         reset_launch_counts()
         CACHE.reset_stats()
-        _, _, st = stream_search(
-            consts, geom, params, entry, queries, num_slots=c["slots"],
-            arrivals=arrivals, round_chunk=c["chunk"], injit_admit=injit,
-            ring_capacity=ring, pagestore=ps, device=where)
+        with CaptureGuard() as guard:
+            ids, dists, st = stream_search(
+                consts, geom, params, entry, queries, num_slots=c["slots"],
+                arrivals=arrivals, round_chunk=c["chunk"], injit_admit=injit,
+                ring_capacity=ring, pagestore=ps, device=where)
         cap = capture_line(CACHE.stats, st.total_rounds + st.warmup_rounds,
                            st.host_syncs)
         return {"records": tiered_records(st, nq), "st": st, "cap": cap,
+                "ids": ids, "dists": dists, "built": guard.names,
                 "launches": launch_counts(), "addresses_kept": all(seen),
                 "store": None if ps is None else (
                     ps.counters(), ps.ttab.copy(), ps.frame_page.copy())}
@@ -1688,6 +1707,10 @@ def tiered_integer(db, queries, dev):
             f"half_ring{c['ring']}": dict(frames=NP // 2, ring=c["ring"],
                                           spaced=True)}
     for name, kw in runs.items():
+        guarded = bool(kw.get("ring"))
+        if guarded:
+            # an empty cache: the session must build its one entry itself
+            CACHE.entries.clear()
         card = session(dev, **kw)
         st, cap = card["st"], card["cap"]
         want = untiered if name == "full" else session(cpu, **kw)
@@ -1696,6 +1719,15 @@ def tiered_integer(db, queries, dev):
             card["store"][0] == want["store"][0]
             and all(np.array_equal(a, b) for a, b in
                     zip(card["store"][1:], want["store"][1:])))
+        guard_line = {}
+        if guarded:
+            flat = session(cpu, 0, spaced=True)    # untiered, no ring
+            guard_line = {
+                "capture_guard": card["built"],
+                "equals_cpu_untiered_unringed": bool(
+                    np.array_equal(card["ids"], flat["ids"])
+                    and np.array_equal(card["dists"].view(np.int32),
+                                       flat["dists"].view(np.int32)))}
         emit({"phase": "tiered", "index": "integer", "run": name,
               "pages_per_shard": NP, "device_pages": kw["frames"],
               "prefetch": kw.get("prefetch", True),
@@ -1711,7 +1743,8 @@ def tiered_integer(db, queries, dev):
                   k: v / cap["device_rounds"]
                   for k, v in card["launches"].items() if v},
               "equals": "untiered" if name == "full" else "cpu_ref",
-              "first_difference": differ, "store_equal": same_store})
+              "first_difference": differ, "store_equal": same_store,
+              **guard_line})
         if differ is not None or not same_store:
             raise AssertionError(f"tiered integer {name}: the card's "
                                  f"session differs from its reference "
@@ -1729,6 +1762,13 @@ def tiered_integer(db, queries, dev):
                                  f"{card['addresses_kept']}")
         check_launches(f"tiered integer {name}", card["launches"],
                        cap["device_rounds"])
+        if guarded and (
+                guard_line["capture_guard"] != ["engine_run_chunk_admit"]
+                or not guard_line["equals_cpu_untiered_unringed"]):
+            raise AssertionError(f"tiered integer {name}: one "
+                                 f"engine_run_chunk_admit build and the "
+                                 f"untiered, unringed results expected: "
+                                 f"{guard_line}")
     # a cache smaller than one round's working set: the livelock guard
     try:
         session(dev, 2, prefetch=False)
@@ -3896,12 +3936,142 @@ def train_phase(dev) -> dict:
 
 def attn_pairs(S: int, causal: bool, window: int) -> int:
     """Unmasked (row, col) pairs of one (batch, head) at S = Skv."""
-    total = 0
-    for r in range(S):
-        hi = r if causal else S - 1
-        lo = max(0, r - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
+    from repro_torch.kernels.flash_attention.kernel import live_pairs
+    return live_pairs(S, S, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8d: the trace-discipline suite on the card
+# ---------------------------------------------------------------------------
+def analysis_audit(dev) -> dict:
+    """(a) The op audit with device "cuda": every chunk program run once
+    uncaptured under the op recorder; raises on a failed invariant."""
+    import io
+    from repro_torch.analysis.op_audit import (TINY, check_report,
+                                               collect_report)
+    report = collect_report(dev)
+    out = io.StringIO()
+    ok = check_report(report, out)
+    line = {"phase": "analysis", "part": "op audit",
+            "device": report["device"], "torch": report["torch_version"],
+            "rounds_per_program": TINY["K"],
+            "programs": {name: {"ops": s["total"], "syncs": s["syncs"],
+                                "f64": s["f64"], "launches": s["launches"],
+                                "out_dtypes": s["out_dtypes"]}
+                         for name, s in report["programs"].items()},
+            "install": report["invariants"], "ok": ok}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"analysis: the op audit failed on the card:\n"
+                             f"{out.getvalue()}")
+    return line
+
+
+def analysis_main_cost(main_run, dev) -> dict:
+    """(b) The cost model over one uncaptured chunk of phase main's
+    search (its build, queries and parameters, a fresh state): per
+    round, its operations and bytes, by kernel and by op, and the HBM
+    share that phase main's time per device round (its search_s over
+    the rounds the device ran) implies."""
+    import torch
+    from repro_torch.core import engine as E
+    from repro_torch.core.ref_search import SearchParams
+    from repro_torch.launch.opanalysis import analyze
+    consts, geom, entry = main_run["engine"]
+    params = E.EngineParams.lossless(SearchParams(L=L, W=W, k=K),
+                                     NQ // SHARDS, DEGREE, coalesce_qb=QB)
+    qsh = torch.as_tensor(
+        main_run["queries"].reshape(SHARDS, NQ // SHARDS, -1), device=dev)
+    st = E._init_state(qsh, E._qq(qsh), *entry, params)
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    rounds = E.SEARCH_CHUNK
+    rep = analyze(E._search_chunk, consts, st, t, qsh, params, geom, rounds,
+                  E._Part(SHARDS))
+    res = main_run["res"]
+    per_round = {"flops": rep["flops"] / rounds,
+                 "bytes": rep["hbm_bytes"] / rounds}
+    # phase main's captured search: search_s over the rounds the device
+    # ran (dead rounds included, as the cost model counts them)
+    rate = per_round["bytes"] * res["device_rounds"] / res["search_s"]
+    top = sorted(rep["by_op"].items(), key=lambda kv: -kv[1]["bytes"])[:8]
+    line = {"phase": "analysis", "part": "cost model, main search chunk",
+            "rounds": rounds, "flops_per_round": per_round["flops"],
+            "bytes_per_round": per_round["bytes"],
+            "aten_ops_per_round": sum(
+                e["count"] for n, e in rep["by_op"].items()
+                if not n.startswith("kernel::")) / rounds,
+            "kernels_per_round": {
+                k: {"launches": e["launches"] / rounds,
+                    "flops": e["flops"] / rounds,
+                    "bytes": e["bytes"] / rounds}
+                for k, e in rep["kernels"].items()},
+            "top_ops_by_bytes_per_round": {
+                n: e["bytes"] / rounds for n, e in top},
+            "main_host_ms_per_round": res["host_ms_per_round"],
+            "main_ms_per_device_round":
+                1e3 * res["search_s"] / res["device_rounds"],
+            "main_search_s": res["search_s"],
+            "main_device_rounds": res["device_rounds"],
+            "implied_bytes_per_s": rate,
+            "implied_share_of_3.35TB/s": rate / HBM_BYTES_PER_S,
+            "warnings": rep["warnings"]}
+    emit(line)
+    want = {k: rounds for k in SEARCH_KERNELS}
+    got = {k: e["launches"] for k, e in rep["kernels"].items()}
+    if got != want:
+        raise AssertionError(f"analysis: the main chunk launched {got}, "
+                             f"expected {want}")
+    return line
+
+
+def analysis_train_flops(dev) -> dict:
+    """(c) One gemma3-1b train step at phase train's shape (fresh
+    parameters from the seed, step 0's batch) counted by the cost model,
+    beside model_flops: the counted step also runs remat's second
+    forward (and the optimizer's elementwise updates)."""
+    import torch
+    from repro_torch.launch.opanalysis import analyze
+    from repro_torch.launch.train import build
+    from repro_torch.train.trainer import init_train_state
+    cfg, oc, step_fn, pipe, _ = build(train_args())
+    params, opt = init_train_state(
+        cfg, oc, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch_at(0).items()}
+    rep = analyze(step_fn, params, opt, batch)
+    nparams = sum(p.numel() for p in params.parameters())
+    mf = model_flops(cfg, nparams, TRAIN["batch"], TRAIN["seq"])
+    mm = sum(e["flops"] for n, e in rep["by_op"].items()
+             if n.split(".")[0] in ("aten::mm", "aten::addmm", "aten::bmm",
+                                    "aten::baddbmm"))
+    line = {"phase": "analysis", "part": "cost model, train step",
+            "arch": cfg.name, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+            "params": nparams, "counted_flops": rep["flops"],
+            "model_flops": mf, "counted_over_model": rep["flops"] / mf,
+            "matmul_flops": mm, "kernels": rep["kernels"],
+            "other_flops": rep["flops"] - mm - sum(
+                e["flops"] for e in rep["kernels"].values()),
+            "hbm_bytes": rep["hbm_bytes"],
+            "aten_ops": sum(e["count"] for n, e in rep["by_op"].items()
+                            if not n.startswith("kernel::"))}
+    emit(line)
+    del rep, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not math.isfinite(line["counted_flops"]) or \
+            line["counted_over_model"] < 1.0:
+        raise AssertionError(f"analysis: the counted step is below the "
+                             f"model's operations: {line}")
+    return line
+
+
+def analysis_phase(dev, main_run) -> None:
+    """Phase 8d: (a)-(c), each a timed part. (The CaptureGuard check of
+    a ring-wrapping half-resident session runs in phase tiered.)"""
+    timed_part("analysis", "op audit", analysis_audit, dev)
+    timed_part("analysis", "main chunk cost", analysis_main_cost, main_run,
+               dev)
+    timed_part("analysis", "train step cost", analysis_train_flops, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -3958,6 +4128,7 @@ def router_distance_row(dev):
     import torch
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
+    from repro_torch.kernels.distance.kernel import cost as distance_cost
     from repro_torch.launch.search import dataset
     T, qb, P, d, NP, _ = ROUTER_TILES
     ds = dataset("sift-1b")
@@ -3970,9 +4141,8 @@ def router_distance_row(dev):
     qqt = (qt * qt).sum(-1)
     pid = torch.arange(T, dtype=torch.int32, device=dev)
     base = qqt[:, :, None] + cnorm[:, None, :]
-    nbytes = (T * 4 + qt.numel() * 4 + qqt.numel() * 4 + cent.numel() * 4
-              + cnorm.numel() * 4 + T * qb * P * 4)
-    b, by = bound_ms(nbytes, 2.0 * T * qb * P * d + 3.0 * T * qb * P)
+    ops, nbytes = distance_cost(T, qb, P, d, NP, pages=NP)
+    b, by = bound_ms(nbytes, ops)
     return ("paged_distance", (pid, qt, qqt, cent, cnorm), paged_distances,
             paged_distances_ref,
             lambda: torch.baddbmm(base, qt, cent.transpose(1, 2),
@@ -3988,6 +4158,7 @@ def tiered_distance_row(dev):
     import torch
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
+    from repro_torch.kernels.distance.kernel import cost as distance_cost
     from repro_torch.launch.search import dataset
     T, qb, P, d, npages = tiered_tiles()
     g = torch.Generator(device=dev).manual_seed(13)
@@ -4003,9 +4174,8 @@ def tiered_distance_row(dev):
     pages = frames[pid.long()]
     base = qq[:, :, None] + vnorm[pid.long()][:, None, :]
     uniq = int(torch.unique(pid).numel())
-    nbytes = (pid.numel() * 4 + q.numel() * 4 + qq.numel() * 4
-              + uniq * P * (d + 1) * 4 + T * qb * P * 4)
-    b, by = bound_ms(nbytes, 2.0 * T * qb * P * d + 3.0 * T * qb * P)
+    ops, nbytes = distance_cost(T, qb, P, d, npages, pages=uniq)
+    b, by = bound_ms(nbytes, ops)
     return ("paged_distance", (pid, q, qq, frames, vnorm), paged_distances,
             paged_distances_ref,
             lambda: torch.baddbmm(base, q, pages.transpose(1, 2),
@@ -4059,13 +4229,11 @@ def gather_row(R, la, lb, dev, **shape):
     over next_pow2(LA + next_pow2(LB))."""
     import torch
     from repro_torch.kernels.topk import merge_unsorted, merge_unsorted_ref
-    from repro_torch.utils import next_pow2
+    from repro_torch.kernels.topk.kernel import merge_unsorted_cost
     case = gather_case(R, la, lb, dev, seed=5)
     cat_d = torch.cat([case[0], case[3]], 1)
-    out_w, mb = la, next_pow2(lb)
-    s, M = int(math.log2(mb)), next_pow2(la + mb)
-    nbytes = R * (la * 9 + lb * 9 + out_w * 9)
-    cmps = R * ((mb // 2) * s * (s + 1) // 2 + (M // 2) * int(math.log2(M)))
+    out_w = la
+    cmps, nbytes = merge_unsorted_cost(R, la, lb, out_w)
     b, by = bound_ms(nbytes, cmps)
     return ("bitonic_merge_unsorted", case + (out_w,), merge_unsorted,
             merge_unsorted_ref,
@@ -4082,6 +4250,7 @@ def flash_row(shape: dict, kw: dict, dev):
     import torch
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.kernel import cost as flash_cost
     fq, fk, fv = qkv(**shape, dtype=torch.float32, dev=dev, seed=5)
     group = shape["H"] // shape["Hkv"]
     fkr, fvr = (x.repeat_interleave(group, dim=1) for x in (fk, fv))
@@ -4096,8 +4265,9 @@ def flash_row(shape: dict, kw: dict, dev):
         if window:
             mask = mask & (ar[:, None] - ar[None, :] < window)
     pairs = attn_pairs(S, causal, window) * shape["B"] * shape["H"]
-    b, by = bound_ms(4 * (2 * fq.numel() + fk.numel() + fv.numel()),
-                     4.0 * shape["dh"] * pairs)
+    ops, nbytes = flash_cost(fq.shape, fk.numel(), 4, S, causal=causal,
+                             window=window)
+    b, by = bound_ms(nbytes, ops)
     return ("flash_attention", (fq, fk, fv),
             lambda *a: flash_attention(*a, **kw),
             lambda *a: attention_ref(*a, **kw),
@@ -4119,6 +4289,7 @@ def flash_bwd_row(shape: dict, kw: dict, dev, earlier_ms: float):
     time at this shape (three kernels, s and dP computed twice, on an
     H100 80GB HBM3 at 700 W), printed beside the row."""
     import torch
+    from repro_torch.kernels.flash_attention.kernel import cost as flash_cost
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention, flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -4138,9 +4309,9 @@ def flash_bwd_row(shape: dict, kw: dict, dev, earlier_ms: float):
     sdpa = torch.nn.functional.scaled_dot_product_attention(
         lq, lkr, lvr, attn_mask=mask, scale=kw["scale"])
     pairs = attn_pairs(S, True, window) * shape["B"] * shape["H"]
-    nbytes = 4 * (3 * fq.numel() + 2 * fk.numel() + 2 * fv.numel()
-                  + lse.numel() + fq.numel() + fk.numel() + fv.numel())
-    b, by = bound_ms(nbytes, 5 * 2.0 * shape["dh"] * pairs)
+    ops, nbytes = flash_cost(fq.shape, fk.numel(), 4, S, causal=True,
+                             window=window, backward=True)
+    b, by = bound_ms(nbytes, ops)
     return ("flash_attention_bwd", (fq, fk, fv, out, lse, fdo),
             lambda *a: flash_attention_bwd(*a, **kw),
             lambda *a: attention_bwd_ref(*a, **kw),
@@ -4156,15 +4327,16 @@ def flash_lse_row(shape: dict, kw: dict, dev):
     call SDPA's forward as in flash_row; the bound adds the lse's
     bytes."""
     import torch
+    from repro_torch.kernels.flash_attention.kernel import cost as flash_cost
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
     name, args, _, _, lib, _, _, info = flash_row(shape, kw, dev)
     fq = args[0]
     kw = dict(scale=shape["dh"] ** -0.5, causal=True,
               window=kw.get("window", 0))
-    lse_bytes = 4 * fq.numel() // shape["dh"]
-    b, by = bound_ms(4 * (2 * fq.numel() + args[1].numel() + args[2].numel())
-                     + lse_bytes, 4.0 * shape["dh"] * info["unmasked_pairs"])
+    ops, nbytes = flash_cost(fq.shape, args[1].numel(), 4, shape["S"],
+                             causal=True, window=kw["window"], lse=True)
+    b, by = bound_ms(nbytes, ops)
     return (name, args, lambda *a: flash_attention(*a, return_lse=True, **kw),
             lambda *a: attention_fwd_ref(*a, **kw), lib, b, by, info)
 
@@ -4176,6 +4348,7 @@ def time_kernels(dev) -> list:
     from repro_torch.kernels import KERNELS
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
+    from repro_torch.kernels.distance.kernel import cost as distance_cost
     from repro_torch.launch.search import dataset
 
     T, qb, P, d, npages = main_path_tiles()
@@ -4195,10 +4368,8 @@ def time_kernels(dev) -> list:
     pages = store[pid.long()]
     base = qq[:, :, None] + vnorm[pid.long()][:, None, :]
     uniq = int(torch.unique(pid).numel())
-    nbytes = (pid.numel() * 4 + q.numel() * 4 + qq.numel() * 4
-              + uniq * P * (d + 1) * 4 + T * qb * P * 4)
     rows = []
-    ops = 2.0 * T * qb * P * d + 3.0 * T * qb * P
+    ops, nbytes = distance_cost(T, qb, P, d, npages, pages=uniq)
     b, by = bound_ms(nbytes, ops)
     rows.append(("paged_distance", dargs, paged_distances,
                  paged_distances_ref,
@@ -4212,13 +4383,15 @@ def time_kernels(dev) -> list:
         args = as_dtypes(dargs, qt, dt)
         qf, pf = args[1].float(), args[3][pid.long()].float()
         base_b = args[2][:, :, None] + args[4][pid.long()][:, None, :]
-        saved = q.numel() * (4 - qt.itemsize) + \
-            uniq * P * d * (4 - dt.itemsize)
-        # bf16 x bf16 products at the tensor cores' bf16 rate; a product
-        # with an f32 operand, and the qq / vnorm adds, at the f32 rate
+        # bf16 operands move their halved bytes; bf16 x bf16 products at
+        # the tensor cores' bf16 rate; a product with an f32 operand, and
+        # the qq / vnorm adds, at the f32 rate
+        nbytes_b = distance_cost(T, qb, P, d, npages, pages=uniq,
+                                 q_itemsize=qt.itemsize,
+                                 db_itemsize=dt.itemsize)[1]
         dot = 2.0 * T * qb * P * d
         both = qt == dt == torch.bfloat16
-        b, by = bound_ms(nbytes - saved, ops - dot if both else ops,
+        b, by = bound_ms(nbytes_b, ops - dot if both else ops,
                          bf16_ops=dot if both else 0.0)
         rows.append((name, args, paged_distances, paged_distances_ref,
                      lambda qf=qf, pf=pf, base_b=base_b: torch.baddbmm(
@@ -4466,6 +4639,9 @@ def run_phases(dev, name: str, main_build, routed_build) -> int:
         "serve", "all", serve_phases, dev)["flash_attention"]
     # the backward's launches: the training run's (26 per step)
     launches["flash_attention_bwd"] = train_phase(dev)["flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis_phase(dev, main_run)
     kernels = report_timing(timing_in_child(), launches, errs,
                             tiered["paged_distance"])
     print(json.dumps({"kernels": kernels}), flush=True)

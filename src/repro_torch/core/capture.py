@@ -125,6 +125,9 @@ class CaptureCache:
         self.max_entries = max_entries
         self.entries: collections.OrderedDict = collections.OrderedDict()
         self.stats = CaptureStats()
+        # called with the program name of every entry built (a capture
+        # on a card, the eager entry on the CPU): analysis.CaptureGuard
+        self.listeners: list = []
 
     def reset_stats(self) -> None:
         self.stats = CaptureStats()
@@ -152,6 +155,8 @@ class CaptureCache:
             while len(self.entries) > self.max_entries:
                 self.entries.popitem(last=False)
             self.stats.captures += 1
+            for listener in self.listeners:
+                listener(name)
         else:
             self.entries.move_to_end(key)
             for buf, a in zip(entry.inputs, args):

@@ -58,6 +58,7 @@ release the port runs on (2.11) has no conditional graph node
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import NamedTuple
@@ -842,6 +843,24 @@ def _keep(go, new, old):
     return old._make(vals) if hasattr(old, "_make") else type(old)(vals)
 
 
+_EVERY_ROUND = 0
+
+
+@contextlib.contextmanager
+def every_round():
+    """While open, a predicated chunk on the CPU runs all its K rounds,
+    dead ones included, as the card does, instead of stopping at its
+    first dead round. The results are the same; the op recorders
+    (launch/opanalysis.py ``OpStream``) open it so that their counts are
+    the card's."""
+    global _EVERY_ROUND
+    _EVERY_ROUND += 1
+    try:
+        yield
+    finally:
+        _EVERY_ROUND -= 1
+
+
 def _predicated(carry, cond, body, K: int):
     """K rounds of ``body`` under ``cond``: each round computes ``go =
     cond(carry)`` on the device, runs, and keeps its results only where
@@ -849,12 +868,14 @@ def _predicated(carry, cond, body, K: int):
     round reads the device. The condition never turns true again once
     false (a dead round changes nothing it reads), so on the CPU, where
     reading it costs nothing, the chunk stops after its first dead
-    round. On a mesh ``cond`` is all-reduced, so every rank stops at the
-    same round and their collectives stay paired."""
+    round, unless :func:`every_round` is open. On a mesh ``cond`` is
+    all-reduced, so every rank stops at the same round and their
+    collectives stay paired."""
+    early_exit = _EVERY_ROUND == 0
     for _ in range(K):
         go = cond(carry)
         carry = _keep(go, body(carry), carry)
-        if not go.is_cuda and not bool(go):
+        if early_exit and not go.is_cuda and not bool(go):
             break
     return carry
 

@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import EngineGeom
-from repro_torch.utils import ID_SENTINEL, INVALID, HostStaging, to_device
+from repro_torch.utils import (ID_SENTINEL, INVALID, HostStaging, to_device,
+                               to_host)
 
 # A boundary that demanded pages but could not install a single one
 # (every frame pinned or reserved) makes no progress; the owning queries
@@ -165,9 +166,8 @@ class PageStore:
         buffers) and its graph arrays for the predictor."""
         self.cold_db.copy_(consts["db"])
         self.cold_vn.copy_(consts["vnorm"])
-        self.adj = consts["adj"].cpu().numpy()
-        self.pref = consts["pref"].cpu().numpy()
-        self.blk_perm = consts["blk_perm"].cpu().numpy()
+        self.adj, self.pref, self.blk_perm = to_host(
+            consts["adj"], consts["pref"], consts["blk_perm"])
 
     # -- geometry (numpy versions of EngineGeom's tensor arithmetic) -------
     def _owner(self, vid):

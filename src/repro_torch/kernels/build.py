@@ -125,10 +125,14 @@ class Kernel:
     replaces: str      # the Pallas kernel it ports (file:line)
     launches: int = 0
     recorded: int = 0  # launches recorded into CUDA graphs under capture
+    # called as fn(kernel, cost) after each launch, where cost is the
+    # wrapper's () -> (operations, bytes) or None (launch/opanalysis.py)
+    listeners: list = dataclasses.field(default_factory=list, repr=False)
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, cost=None) -> None:
         """Call the C entry point on the current stream; raise if the
-        launch was refused."""
+        launch was refused. ``cost``: the wrapper's () -> (operations,
+        bytes) of this launch, from its shapes, read by listeners."""
         build_all()
         fn = getattr(_libs[self.source], self.entry)
         stream = torch.cuda.current_stream().cuda_stream
@@ -140,6 +144,8 @@ class Kernel:
             self.recorded += 1
         else:
             self.launches += 1
+        for listener in self.listeners:
+            listener(self, cost)
 
     def credit(self, n: int) -> None:
         """Count ``n`` launches a CUDA graph replay made."""

@@ -67,6 +67,20 @@ def _resident_blocks(device: int, p: int, dc: int) -> int:
         .multi_processor_count
 
 
+def cost(T: int, QB: int, P: int, d: int, NP: int, pages: int | None = None,
+         q_itemsize: int = 4, db_itemsize: int = 4) -> tuple:
+    """(operations, bytes) of one launch: the products (2 d per query
+    and row) and the norms' three (q.q - 2 q.v + v.v), and each operand
+    read and the output written once, a page once however many tiles
+    read it. ``pages``: the distinct pages the tiles read (what this
+    run's data needs); from the shapes alone at most min(T, NP)."""
+    pages = min(T, NP) if pages is None else pages
+    ops = 2.0 * T * QB * P * d + 3.0 * T * QB * P
+    nbytes = (T * 4 + T * QB * d * q_itemsize + T * QB * 4
+              + pages * P * (d * db_itemsize + 4) + T * QB * P * 4)
+    return ops, float(nbytes)
+
+
 def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
                     qq: torch.Tensor, db: torch.Tensor,
                     vnorm: torch.Tensor) -> torch.Tensor:
@@ -115,5 +129,8 @@ def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
         queries.data_ptr() % 16 == 0 and db.data_ptr() % 16 == 0
     kernel.launch(page_ids.data_ptr(), queries.data_ptr(), qq.data_ptr(),
                   db.data_ptr(), vnorm.data_ptr(), out.data_ptr(),
-                  T, QB, P, d, NP, dc, group, int(vec))
+                  T, QB, P, d, NP, dc, group, int(vec),
+                  cost=lambda: cost(T, QB, P, d, NP,
+                                    q_itemsize=queries.element_size(),
+                                    db_itemsize=db.element_size()))
     return out

@@ -118,6 +118,36 @@ def band_plan(B: int, H: int, Hkv: int, S: int, *, causal: bool,
     return width, per_pass, per_pass * per_bh
 
 
+def live_pairs(S: int, s_orig: int, *, causal: bool, window: int) -> int:
+    """Unmasked (row, col) pairs of one (batch, head): row r sees the
+    columns below s_orig, up to r when causal, from r - window + 1 when
+    windowed."""
+    total = 0
+    for r in range(S):
+        hi = min(r, s_orig - 1) if causal else s_orig - 1
+        lo = max(0, r - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def cost(q_shape, kv_numel: int, itemsize: int, s_orig: int, *,
+         causal: bool, window: int, lse: bool = False,
+         backward: bool = False) -> tuple:
+    """(operations, bytes) of one forward or backward launch: 2 dh per
+    product and unmasked pair and head, two products forward (s, o) and
+    five backward (s, dP, dq, dk, dv); each operand read and each output
+    written once (forward: q, k, v, out [, lse]; backward: q, k, v, out,
+    dout, lse, dq, dk, dv). ``kv_numel``: elements of k (= of v)."""
+    B, H, S, dh = q_shape
+    pairs = live_pairs(S, s_orig, causal=causal, window=window) * B * H
+    qn, rows = B * H * S * dh, B * H * S
+    if backward:
+        return (10.0 * dh * pairs,
+                float(itemsize * (4 * qn + 4 * kv_numel) + 4 * rows))
+    return (4.0 * dh * pairs,
+            float(itemsize * (2 * qn + 2 * kv_numel) + 4 * rows * lse))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, s_orig: int = 0,
@@ -151,7 +181,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       out.data_ptr(), lse.data_ptr() if return_lse else None,
                       B, H, Hkv, S, Skv, dh, s_orig, float(scale),
                       int(causal), int(window), float(softcap),
-                      int(q.dtype == torch.bfloat16))
+                      int(q.dtype == torch.bfloat16),
+                      cost=lambda: cost(q.shape, k.numel(), q.element_size(),
+                                        s_orig, causal=causal, window=window,
+                                        lse=return_lse))
     return (out, lse) if return_lse else out
 
 
@@ -195,5 +228,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float,
                           p_band.data_ptr(), ds_band.data_ptr(), B, H, Hkv,
                           S, Skv, dh, s_orig, float(scale), int(causal),
                           int(window), float(softcap),
-                          int(q.dtype == torch.bfloat16), width, per_pass)
+                          int(q.dtype == torch.bfloat16), width, per_pass,
+                          cost=lambda: cost(q.shape, k.numel(),
+                                            q.element_size(), s_orig,
+                                            causal=causal, window=window,
+                                            backward=True))
     return dq, dk, dv

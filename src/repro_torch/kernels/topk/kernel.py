@@ -92,6 +92,17 @@ def bitonic_merge(dists: torch.Tensor, ids: torch.Tensor,
                         shared=shared)
 
 
+def merge_unsorted_cost(R: int, la: int, lb: int, out_w: int) -> tuple:
+    """(compare-exchanges, bytes) of one :func:`merge_unsorted` launch:
+    the proposals' sort network over next_pow2(LB) and the merge stages
+    over next_pow2(LA + next_pow2(LB)) per row; each operand read and
+    each output written once (9 bytes per entry: dist, id, flag)."""
+    mb = next_pow2(lb)
+    s, M = int(math.log2(mb)), next_pow2(la + mb)
+    cmps = R * ((mb // 2) * s * (s + 1) // 2 + (M // 2) * int(math.log2(M)))
+    return float(cmps), float(R * (la * 9 + lb * 9 + out_w * 9))
+
+
 def merge_unsorted(cand_d: torch.Tensor, cand_i: torch.Tensor,
                    cand_e: torch.Tensor, new_d: torch.Tensor,
                    new_i: torch.Tensor, new_valid: torch.Tensor, out_w: int,
@@ -133,5 +144,6 @@ def merge_unsorted(cand_d: torch.Tensor, cand_i: torch.Tensor,
         MERGE_UNSORTED_KERNEL.launch(
             *(x.data_ptr() for x in (cand_d, cand_i, cand_e, new_d, new_i,
                                      new_valid, out_d, out_i, out_e)),
-            R, la, lb, out_w, int(shared))
+            R, la, lb, out_w, int(shared),
+            cost=lambda: merge_unsorted_cost(R, la, lb, out_w))
     return out_d, out_i, out_e

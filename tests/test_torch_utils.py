@@ -100,6 +100,12 @@ def test_cuda_device_without_a_card_raises():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "gemma3-1b", "--reduced", "--steps", "1"])
+    from repro_torch.analysis import op_audit
+    from repro_torch.analysis.__main__ import main as analysis_main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        op_audit.build_tiny_problem()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        analysis_main(["audit"])
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -119,7 +125,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "flash_attention.kernel', 'repro_torch.launch.serve', "
         "'repro_torch.core.scheduler', 'repro_torch.core.metrics', "
         "'repro_torch.launch.serve_stream', 'repro_torch.core.capture', "
-        "'repro_torch.core.pagestore'):\n"
+        "'repro_torch.core.pagestore', 'repro_torch.analysis.lint', "
+        "'repro_torch.analysis.op_audit', 'repro_torch.analysis."
+        "capture_guard', 'repro_torch.analysis.__main__', "
+        "'repro_torch.launch.opanalysis'):\n"
         "    assert m in sys.modules, m\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env={"PYTHONPATH": str(REPO / "src"),
