@@ -286,6 +286,22 @@ its seconds:
                implies; (c) one gemma3-1b train step (phase train's shape) counted by the
                cost model beside model_flops (the counted step holds
                remat's second forward and the optimizer).
+  8e. plan  — the planning half on the host (meta tensors, no card):
+               (a) launch/dryrun.py, in a child process from phase 2
+               on: the engine cell on both production meshes (256 and
+               512 ranks), one train_4k cell per family
+               on the 16 x 16 mesh and the five full-attention archs'
+               long_500k skips: every record ok or the reference's skip;
+               (b) phase train's own cell planned at mesh data 1 x model
+               1 beside this run: predicted operations against phase
+               analysis's count of the same step (within 1%), the
+               planned parameter and optimizer bytes against the live
+               state's (equal), the predicted peak against
+               max_memory_allocated over one step (ratio printed), the
+               roofline bound against phase train's ms per step; (c)
+               one factored AdamW step of gemma3-1b at full width: a
+               finite loss, finite moments, and state_tree's v in the
+               reference's r/c structure. Then the phase's seconds.
   9. timing  — each kernel at its path's shapes: its time, its bound,
                the plain version's time and one library call's (the
                distance kernel's bf16 instantiations on the same tiles,
@@ -3657,6 +3673,18 @@ def serve_phases(dev) -> dict:
 # attention shape), remat full, loss chunk 512, AdamW lr 3e-4, warmup 5
 TRAIN = dict(arch="gemma3-1b", batch=4, seq=1024, steps=10, lr=3e-4,
              warmup=5, loss_chunk=512)
+# phase plan: one train_4k cell per family, and the five full-attention
+# archs whose long_500k cell the plan skips
+PLAN_CELLS = ("mamba2-780m", "zamba2-1.2b", "mixtral-8x7b",
+              "llava-next-mistral-7b", "seamless-m4t-medium", "gemma3-1b")
+# one host process beside the sift-1b builds' two: done (about 80 s of
+# work) while the integer phases run, at the least cost to them
+PLAN_WORKERS = 1
+PLAN_SKIPS = ("dbrx-132b", "llama3-405b", "llava-next-mistral-7b",
+              "seamless-m4t-medium", "yi-34b")
+# the planned train step's operations against the cost model's count of
+# the same step on the card (one op stream: only the devices differ)
+PLAN_FLOPS_RTOL = 0.01
 # one step through the kernels against the same step with plain
 # attention on the card: the loss and the global gradient norm
 TRAIN_LOSS_RTOL = 1e-5
@@ -3823,35 +3851,36 @@ def train_run(dev) -> dict:
     nparams = sum(p.numel() for p in params.parameters())
     flops = model_flops(cfg, nparams, TRAIN["batch"], TRAIN["seq"])
     tokens = TRAIN["batch"] * TRAIN["seq"]
-    emit({"phase": "train", "part": "run", "arch": cfg.name,
-          "params": nparams, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
-          "steps": TRAIN["steps"], "lr": TRAIN["lr"],
-          "warmup": TRAIN["warmup"], "loss_chunk": TRAIN["loss_chunk"],
-          "remat": "full", "losses": losses,
-          "last_below_first": losses[-1] < losses[0],
-          "step0_batch_loss_before": losses[0],
-          "step0_batch_loss_after": loss0_after,
-          "grad_norms": [h["grad_norm"] for h in hist],
-          "step_s": step_s, "ms_per_step_median_3_10": median_s * 1e3,
-          "tokens_per_s": tokens / median_s, "peak_mem_gib": peak,
-          "launches_per_step": per_step[-1],
-          "model_tflop_per_step": flops / 1e12,
-          "mfu_vs_67_tflops_f32": flops / median_s / F32_FLOPS,
-          "profiled_step_wall_ms": wall_ms,
-          "profiled_step_device_busy_ms": busy_ms,
-          "profiled_step_idle_share": 1.0 - busy_ms / wall_ms,
-          "profiled_step_flash_fwd_ms": sum(
-              us for n, (us, _) in kern.items()
-              if "flash_attention_kernel" in n) / 1e3,
-          "profiled_step_flash_bwd_ms": sum(
-              us for n, (us, _) in kern.items()
-              if any(k in n for k in BWD_KERNEL_NAMES)) / 1e3,
-          "profiled_step_top": [{"name": n[:80], "ms": us / 1e3, "count": c}
-                                for n, (us, c) in top]})
+    line = {"phase": "train", "part": "run", "arch": cfg.name,
+            "params": nparams, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+            "steps": TRAIN["steps"], "lr": TRAIN["lr"],
+            "warmup": TRAIN["warmup"], "loss_chunk": TRAIN["loss_chunk"],
+            "remat": "full", "losses": losses,
+            "last_below_first": losses[-1] < losses[0],
+            "step0_batch_loss_before": losses[0],
+            "step0_batch_loss_after": loss0_after,
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_s": step_s, "ms_per_step_median_3_10": median_s * 1e3,
+            "tokens_per_s": tokens / median_s, "peak_mem_gib": peak,
+            "launches_per_step": per_step[-1],
+            "model_tflop_per_step": flops / 1e12,
+            "mfu_vs_67_tflops_f32": flops / median_s / F32_FLOPS,
+            "profiled_step_wall_ms": wall_ms,
+            "profiled_step_device_busy_ms": busy_ms,
+            "profiled_step_idle_share": 1.0 - busy_ms / wall_ms,
+            "profiled_step_flash_fwd_ms": sum(
+                us for n, (us, _) in kern.items()
+                if "flash_attention_kernel" in n) / 1e3,
+            "profiled_step_flash_bwd_ms": sum(
+                us for n, (us, _) in kern.items()
+                if any(k in n for k in BWD_KERNEL_NAMES)) / 1e3,
+            "profiled_step_top": [{"name": n[:80], "ms": us / 1e3, "count": c}
+                                  for n, (us, c) in top]}
+    emit(line)
     del run, params, opt, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return total
+    return total, line
 
 
 def restart_drill() -> dict:
@@ -3929,9 +3958,9 @@ def train_phase(dev) -> dict:
     timed_part("train", "kernel vs plain", train_step_vs_plain, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    total = timed_part("train", "run", train_run, dev)
+    total, line = timed_part("train", "run", train_run, dev)
     timed_part("train", "restart drill", drill_in_child)
-    return total
+    return total, line
 
 
 def attn_pairs(S: int, causal: bool, window: int) -> int:
@@ -4071,7 +4100,220 @@ def analysis_phase(dev, main_run) -> None:
     timed_part("analysis", "op audit", analysis_audit, dev)
     timed_part("analysis", "main chunk cost", analysis_main_cost, main_run,
                dev)
-    timed_part("analysis", "train step cost", analysis_train_flops, dev)
+    return timed_part("analysis", "train step cost", analysis_train_flops,
+                      dev)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8e: the planning half (launch/specs.py, launch/dryrun.py)
+# ---------------------------------------------------------------------------
+def start_plan_cells():
+    """Start phase plan's dry-run cells (meta tensors; nothing on the
+    card) in a spawn pool of PLAN_WORKERS processes, from phase 2 on:
+    the engine on both production meshes, one train_4k cell per family
+    on the 16 x 16 mesh, and the five full-attention archs' long_500k
+    skips. Returns (pool, their async results); the caller terminates
+    the pool."""
+    import multiprocessing
+    from repro_torch.launch.dryrun import run_cell, run_engine_cell
+    jobs = [(run_cell, (arch, "train_4k", "single"), {})
+            for arch in PLAN_CELLS]
+    jobs += [(run_engine_cell, (), {"mesh_kind": m})
+             for m in ("single", "multi")]
+    jobs += [(run_cell, (arch, "long_500k", "single"), {})
+             for arch in PLAN_SKIPS]
+    pool = multiprocessing.get_context("spawn").Pool(PLAN_WORKERS)
+    return pool, [pool.apply_async(fn, a, kw) for fn, a, kw in jobs]
+
+
+def plan_cells(pending) -> list:
+    """(a) The dry-run cells' records (:func:`start_plan_cells`): every
+    record is ok, or a skip with the reference's reason; none is an
+    error."""
+    recs = [p.get(timeout=600) for p in pending]
+    for r in recs:
+        line = {"phase": "plan", "part": "dry run", "arch": r["arch"],
+                "shape": r["shape"], "mesh": r["mesh"],
+                "status": r["status"], "trace_s": r.get("trace_s")}
+        if r["status"] == "ok":
+            mem, pd = r["memory"], r["per_device"]
+            line.update(flops=pd["flops"], hbm_bytes=pd["hbm_bytes"],
+                        collective_bytes=pd["collective_bytes"],
+                        collectives=pd["collectives"]["bytes_by_kind"],
+                        peak_bytes=mem["peak_bytes_per_device"],
+                        fits_hbm=mem["fits_hbm"], roofline=r["roofline"],
+                        link_note=r["link_note"])
+        else:
+            line.update(reason=r.get("reason"), error=r.get("error"))
+        emit(line)
+        want = "skip" if r["shape"] == "long_500k" else "ok"
+        reason = (f"{r['arch']} is pure full-attention: long_500k skipped "
+                  f"per assignment (DESIGN.md §6)")
+        if r["status"] != want or (want == "skip"
+                                   and r["reason"] != reason):
+            raise AssertionError(f"plan: {r['arch']} {r['shape']} "
+                                 f"{r['mesh']}: {r['status']} "
+                                 f"{r.get('reason') or r.get('error')}")
+    return recs
+
+
+def plan_train_cell(dev, counted: dict, run_line: dict) -> dict:
+    """(b) Phase train's own cell planned at mesh data 1 x model 1
+    (gemma3-1b, f32, batch 4 x 1024, remat full, loss chunk 512) beside
+    this run's readings: the predicted operations against the cost
+    model's count of the same step (phase analysis; within 1%), the
+    argument bytes of the parameters and optimizer state against the
+    live train state's bytes (equal), the predicted peak against
+    torch.cuda.max_memory_allocated over one step, and the roofline
+    bound against phase train's ms per step."""
+    import torch
+    from repro_torch.launch.dryrun import analyze_plan
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.specs import ArchPolicy, plan_train
+    from repro_torch.launch.train import build
+    from repro_torch.models.transformer import ModelOpts
+    from repro_torch.train.trainer import init_train_state
+    from repro_torch.utils import tree_leaves
+    cfg, oc, step_fn, pipe, _ = build(train_args())
+    mesh = make_mesh_for(1, (1, 1), ("data", "model"))
+    plan = plan_train(cfg, mesh, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                      policy=ArchPolicy(loss_chunk=TRAIN["loss_chunk"],
+                                        param_dtype=torch.float32),
+                      opts=ModelOpts(loss_chunk=TRAIN["loss_chunk"]))
+    t0 = time.perf_counter()
+    rec = analyze_plan(plan)
+    plan_s = time.perf_counter() - t0
+    params, opt = init_train_state(
+        cfg, oc, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch_at(0).items()}
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    state = nbytes(list(params.parameters())) + nbytes(
+        [opt["m"], opt["v"], opt["step"]])
+    inputs = nbytes(list(batch.values()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - before
+    mem, pd = rec["memory"], rec["per_device"]
+    parts = mem["argument_parts"]
+    measured_peak = state + inputs + step_peak
+    bound_ms = rec["roofline"]["step_s_lower_bound"] * 1e3
+    line = {"phase": "plan", "part": "train cell, data 1 x model 1",
+            "arch": cfg.name, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+            "plan_s": plan_s,
+            "predicted_flops": pd["flops"],
+            "cost_model_flops": counted["counted_flops"],
+            "flops_ratio": pd["flops"] / counted["counted_flops"],
+            "predicted_hbm_bytes": pd["hbm_bytes"],
+            "cost_model_hbm_bytes": counted["hbm_bytes"],
+            "predicted_state_bytes": parts["params"] + parts["opt"],
+            "live_state_bytes": state,
+            "predicted_input_bytes": parts["inputs"],
+            "live_input_bytes": inputs,
+            "predicted_peak_bytes": mem["peak_bytes_per_device"],
+            "predicted_temp_bytes": mem["temp_bytes"],
+            "measured_peak_bytes": measured_peak,
+            "measured_step_peak_bytes": step_peak,
+            "peak_ratio_predicted_over_measured":
+                mem["peak_bytes_per_device"] / measured_peak,
+            "roofline": rec["roofline"],
+            "bound_ms": bound_ms,
+            "measured_ms_per_step": run_line["ms_per_step_median_3_10"],
+            "bound_over_measured":
+                bound_ms / run_line["ms_per_step_median_3_10"],
+            "collective_bytes": pd["collective_bytes"]}
+    emit(line)
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if abs(line["flops_ratio"] - 1.0) > PLAN_FLOPS_RTOL:
+        raise AssertionError(f"plan: predicted operations differ from the "
+                             f"cost model's by more than "
+                             f"{PLAN_FLOPS_RTOL}: {line}")
+    if line["predicted_state_bytes"] != state:
+        raise AssertionError(f"plan: planned state bytes "
+                             f"{line['predicted_state_bytes']} != the live "
+                             f"state's {state}")
+    if not (math.isfinite(line["peak_ratio_predicted_over_measured"])
+            and line["collective_bytes"] == 0):
+        raise AssertionError(f"plan: {line}")
+    return line
+
+
+def plan_factored_step(dev) -> dict:
+    """(c) One AdamW step with the factored second moment at phase
+    train's cell (gemma3-1b, full width, f32): the loss is finite, every
+    moment finite, and state_tree's v has the reference's structure: r
+    and c of the stacked view for every leaf of two or more dims there
+    (a per-layer norm scale: r (L,), c (d,)), f for the rest."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models.transformer import ModelOpts
+    from repro_torch.optim import OptConfig
+    from repro_torch.train.trainer import (TrainConfig, init_train_state,
+                                           make_train_step, state_like)
+    from repro_torch.utils import tree_leaves
+    cfg = get_config(TRAIN["arch"])
+    oc = OptConfig(lr_max=TRAIN["lr"], warmup=TRAIN["warmup"],
+                   factored_v=True)
+    params, opt = init_train_state(
+        cfg, oc, torch.Generator(device=dev).manual_seed(0))
+    step = make_train_step(cfg, oc, TrainConfig(),
+                           opts=ModelOpts(loss_chunk=TRAIN["loss_chunk"]))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN["batch"], TRAIN["seq"], 0)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in pipe.batch_at(0).items()}
+    params, opt, m = step(params, opt, batch)
+    loss = float(m["loss"])
+    finite = bool(all(torch.isfinite(t).all()
+                      for t in tree_leaves(opt["v"]) + tree_leaves(opt["m"])))
+    like = state_like(params, opt)
+    bad, kinds = [], {"rc": 0, "f": 0}
+
+    def check(p, v, path=""):
+        if isinstance(p, dict):
+            for k in p:
+                check(p[k], v[k], f"{path}/{k}")
+            return
+        shape = tuple(p.shape)
+        if len(shape) >= 2:
+            want = {"r": shape[:-1], "c": shape[:-2] + shape[-1:]}
+            kinds["rc"] += 1
+        else:
+            want = {"f": shape}
+            kinds["f"] += 1
+        got = {k: tuple(t.shape) for k, t in v.items()}
+        if got != want:
+            bad.append((path, got, want))
+    check(like["params"], like["opt"]["v"])
+    line = {"phase": "plan", "part": "factored AdamW step", "arch": cfg.name,
+            "loss": loss, "moments_finite": finite, "v_leaves": kinds,
+            "v_blocks_ln1_scale": {k: list(t.shape) for k, t in
+                                   like["opt"]["v"]["blocks"]["ln1"]
+                                   ["scale"].items()},
+            "mismatches": bad[:4]}
+    emit(line)
+    del params, opt, batch, like
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (math.isfinite(loss) and finite and not bad):
+        raise AssertionError(f"plan: factored step {line}")
+    return line
+
+
+def plan_phase(dev, counted: dict, run_line: dict, pending) -> None:
+    """Phase 8e: (a)-(c), each a timed part, then the phase's seconds."""
+    t0 = time.perf_counter()
+    timed_part("plan", "dry run cells", plan_cells, pending)
+    timed_part("plan", "train cell", plan_train_cell, dev, counted, run_line)
+    timed_part("plan", "factored step", plan_factored_step, dev)
+    emit({"phase": "plan", "seconds": round(time.perf_counter() - t0, 2)})
 
 
 # ---------------------------------------------------------------------------
@@ -4558,11 +4800,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(build_all(), 2),
           "ptxas": ptxas_report()})
     pool, main_build, routed_build = start_host_builds()
+    plan_pool, plan_pending = start_plan_cells()
     try:
-        return run_phases(dev, name, main_build, routed_build)
+        return run_phases(dev, name, main_build, routed_build, plan_pending)
     finally:
-        pool.terminate()
-        pool.join()
+        for p in (pool, plan_pool):
+            p.terminate()
+            p.join()
 
 
 def timed_part(phase: str, part: str, fn, *args):
@@ -4574,10 +4818,13 @@ def timed_part(phase: str, part: str, fn, *args):
     return out
 
 
-def run_phases(dev, name: str, main_build, routed_build) -> int:
+def run_phases(dev, name: str, main_build, routed_build,
+               plan_pending) -> int:
     """Phases 3 to 9; ``main_build`` and ``routed_build`` are the sift-1b
-    builds (search and routed) running in child processes since phase 2.
-    The phases' integer parts run first, while the builds finish."""
+    builds (search and routed) running in child processes since phase 2,
+    ``plan_pending`` phase plan's dry-run cells, run on the host since
+    then too. The phases' integer parts run first, while the builds
+    finish."""
     import torch
 
     t0 = time.perf_counter()
@@ -4638,10 +4885,12 @@ def run_phases(dev, name: str, main_build, routed_build) -> int:
     launches["flash_attention"] = timed_part(
         "serve", "all", serve_phases, dev)["flash_attention"]
     # the backward's launches: the training run's (26 per step)
-    launches["flash_attention_bwd"] = train_phase(dev)["flash_attention_bwd"]
+    train_total, train_line = train_phase(dev)
+    launches["flash_attention_bwd"] = train_total["flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
-    analysis_phase(dev, main_run)
+    counted = analysis_phase(dev, main_run)
+    plan_phase(dev, counted, train_line, plan_pending)
     kernels = report_timing(timing_in_child(), launches, errs,
                             tiered["paged_distance"])
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -147,6 +147,13 @@ class Kernel:
         for listener in self.listeners:
             listener(self, cost)
 
+    def shape_only(self, cost=None) -> None:
+        """A launch on "meta" tensors (a plan: ``launch/dryrun.py``):
+        nothing runs and ``launches`` does not move; listeners see it
+        with its ``cost``, as they see a card launch."""
+        for listener in self.listeners:
+            listener(self, cost)
+
     def credit(self, n: int) -> None:
         """Count ``n`` launches a CUDA graph replay made."""
         self.launches += n
@@ -174,11 +181,14 @@ KERNEL_MODES = ("auto", "cuda", "ref")
 
 def resolve_kernel_mode(mode: str, x: torch.Tensor) -> str:
     """'auto' -> 'cuda' for a CUDA tensor, 'ref' (the plain version) for a
-    CPU tensor. 'cuda' on a CPU tensor raises: there is no fallback."""
+    CPU tensor, 'meta' for a "meta" tensor (a plan: the kernel wrappers
+    allocate their outputs on meta and report the launch's declared cost
+    to ``Kernel.listeners``; nothing runs). 'cuda' on a CPU or meta
+    tensor raises: there is no fallback."""
     if mode not in KERNEL_MODES:
         raise ValueError(f"kernel mode {mode!r} not in {KERNEL_MODES}")
     if mode == "auto":
-        return "cuda" if x.is_cuda else "ref"
+        return "cuda" if x.is_cuda else "meta" if x.is_meta else "ref"
     if mode == "cuda" and not x.is_cuda:
         raise ValueError(f"kernel mode 'cuda' needs CUDA tensors, got a "
                          f"tensor on {x.device}")

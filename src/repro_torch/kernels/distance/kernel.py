@@ -94,9 +94,10 @@ def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
     returns  : (T, QB, P)  f32
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    instantiation of the (queries, db) dtypes, or raise.
+    instantiation of the (queries, db) dtypes, or raise; "meta" tensors
+    (a plan) get a meta output and report the launch's cost.
     """
-    if not queries.is_cuda:
+    if not (queries.is_cuda or queries.is_meta):
         return paged_distances_ref(page_ids, queries, qq, db, vnorm)
     T, QB, d = queries.shape
     NP, P = db.shape[0], db.shape[1]
@@ -104,6 +105,11 @@ def paged_distances(page_ids: torch.Tensor, queries: torch.Tensor,
     if kernel is None:
         raise TypeError(f"paged_distance: queries and db must be float32 "
                         f"or bfloat16, got {queries.dtype} and {db.dtype}")
+    if queries.is_meta:
+        kernel.shape_only(cost=lambda: cost(
+            T, QB, P, d, NP, q_itemsize=queries.element_size(),
+            db_itemsize=db.element_size()))
+        return torch.empty((T, QB, P), dtype=_F32, device="meta")
     check_cuda_operands("paged_distance", {
         "page_ids": (page_ids, torch.int32, (T,)),
         "queries": (queries, queries.dtype, (T, QB, d)),

@@ -19,6 +19,8 @@ kernel sums from; :func:`band_plan` sizes that scratch.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.build import Kernel, check_cuda_operands
@@ -52,14 +54,20 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _check_kind(name: str, q) -> None:
+    """Raise unless q's dtype and head dim are ones the kernels take."""
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not in {DTYPES}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} not in "
+                         f"{HEAD_DIMS}")
+
+
 def _check(name: str, q, k, v) -> None:
     """Raise unless q, k, v fit the kernels (on CUDA tensors)."""
     B, H, S, dh = q.shape
     _, Hkv, Skv, _ = k.shape
-    if q.dtype not in DTYPES:
-        raise TypeError(f"{name}: dtype {q.dtype} not in {DTYPES}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {dh} not in {HEAD_DIMS}")
+    _check_kind(name, q)
     check_cuda_operands(name, {
         "q": (q, q.dtype, (B, H, S, dh)),
         "k": (k, q.dtype, (B, Hkv, Skv, dh)),
@@ -118,6 +126,7 @@ def band_plan(B: int, H: int, Hkv: int, S: int, *, causal: bool,
     return width, per_pass, per_pass * per_bh
 
 
+@functools.lru_cache(maxsize=256)
 def live_pairs(S: int, s_orig: int, *, causal: bool, window: int) -> int:
     """Unmasked (row, col) pairs of one (batch, head): row r sees the
     columns below s_orig, up to r when causal, from r - window + 1 when
@@ -160,14 +169,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``s_orig``: true kv length before padding (0 -> Skv). ``window``: 0
     for full attention, else sliding-window size. ``softcap``: 0
     disables. CPU tensors take the plain version; CUDA tensors (f32 or
-    bf16, dh in ``HEAD_DIMS``) launch the kernel or raise. Without
-    ``return_lse`` the kernel writes no lse (the serving launch).
+    bf16, dh in ``HEAD_DIMS``) launch the kernel or raise; "meta"
+    tensors (a plan) get meta outputs and report the launch's cost
+    (``Kernel.shape_only``). Without ``return_lse`` the kernel writes no
+    lse (the serving launch).
     """
     B, H, S, dh = q.shape
     _, Hkv, Skv, _ = k.shape
     s_orig = _shapes("flash_attention", q, k, s_orig)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
               s_orig=s_orig)
+    if q.is_meta:
+        _check_kind("flash_attention", q)
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device="meta")
+        KERNEL.shape_only(cost=lambda: cost(
+            q.shape, k.numel(), q.element_size(), s_orig, causal=causal,
+            window=window, lse=return_lse))
+        return (out, lse) if return_lse else out
     if not q.is_cuda:
         if return_lse:
             return attention_fwd_ref(q, k, v, **kw)
@@ -198,12 +217,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, scale: float,
     (the op's padding rows). CPU tensors take ``attention_bwd_ref``; CUDA
     tensors launch the kernels or raise: one launch of the C entry, which
     runs both kernels once per pass of :func:`band_plan` over the band
-    scratch allocated here."""
+    scratch allocated here. "meta" tensors (a plan) get meta outputs and
+    report the launch's cost."""
     B, H, S, dh = q.shape
     _, Hkv, Skv, _ = k.shape
     s_orig = _shapes("flash_attention_bwd", q, k, s_orig)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
               s_orig=s_orig)
+    if q.is_meta:
+        _check_kind("flash_attention_bwd", q)
+        BWD_KERNEL.shape_only(cost=lambda: cost(
+            q.shape, k.numel(), q.element_size(), s_orig, causal=causal,
+            window=window, backward=True))
+        return tuple(torch.empty_like(x) for x in (q, k, v))
     if not q.is_cuda:
         return attention_bwd_ref(q, k, v, out, lse, dout, **kw)
     _check("flash_attention_bwd", q, k, v)

@@ -49,6 +49,9 @@ def _launch_rows(kernel: Kernel, dists, ids, payload, merge_only: bool,
              "ids": (ids, torch.int32, (B, M))}
     if payload:
         specs["payload"] = (payload[0], torch.int32, (B, M))
+    if dists.is_meta:
+        kernel.shape_only()
+        return tuple(torch.empty_like(x) for x in (dists, ids) + payload)
     check_cuda_operands(kernel.name, specs)
     outs = [torch.empty_like(x) for x in (dists, ids) + payload]
     if B == 0:
@@ -67,11 +70,12 @@ def bitonic_sort(dists: torch.Tensor, ids: torch.Tensor,
 
     dists (B, M) f32, ids (B, M) i32, M a power of two <= 2048, at most
     one (B, M) i32 payload lane permuted alongside the keys. CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise.
+    take the plain version; CUDA tensors launch the kernel or raise;
+    "meta" tensors (a plan) get meta outputs and report the launch.
     ``shared`` runs the shared-memory body at any width (the register
     body takes M <= 128 otherwise), to hold the two against each other.
     """
-    if not dists.is_cuda:
+    if not (dists.is_cuda or dists.is_meta):
         return bitonic_sort_ref(dists, ids, *payload)
     return _launch_rows(SORT_KERNEL, dists, ids, payload, merge_only=False,
                         shared=shared)
@@ -86,7 +90,7 @@ def bitonic_merge(dists: torch.Tensor, ids: torch.Tensor,
     log2(M) compare-exchange stages run. The caller (``merge_sorted_op``)
     builds the bitonic row from two sorted lists.
     """
-    if not dists.is_cuda:
+    if not (dists.is_cuda or dists.is_meta):
         return bitonic_merge_ref(dists, ids, *payload)
     return _launch_rows(MERGE_KERNEL, dists, ids, payload, merge_only=True,
                         shared=shared)
@@ -117,7 +121,8 @@ def merge_unsorted(cand_d: torch.Tensor, cand_i: torch.Tensor,
     LB, LA + LB <= 2048. Bit for bit ``sort_op`` of the masked proposals
     then ``merge_sorted_op``, cut to ``out_w``. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise (every operand
-    contiguous, of its dtype, on the current device: nothing is copied).
+    contiguous, of its dtype, on the current device: nothing is copied);
+    "meta" tensors (a plan) get meta outputs and report the launch.
     """
     R, la = cand_d.shape
     lb = new_d.shape[-1]
@@ -127,6 +132,11 @@ def merge_unsorted(cand_d: torch.Tensor, cand_i: torch.Tensor,
                          f"with next_pow2(LA + LB) <= {MAX_M}")
     if not 1 <= out_w <= la + lb:
         raise ValueError(f"{name}: out_w={out_w} not in [1, {la + lb}]")
+    if cand_d.is_meta:
+        MERGE_UNSORTED_KERNEL.shape_only(
+            cost=lambda: merge_unsorted_cost(R, la, lb, out_w))
+        return (cand_d.new_empty((R, out_w)), cand_i.new_empty((R, out_w)),
+                cand_e.new_empty((R, out_w)))
     if not cand_d.is_cuda:
         return merge_unsorted_ref(cand_d, cand_i, cand_e, new_d, new_i,
                                   new_valid, out_w)

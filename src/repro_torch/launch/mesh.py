@@ -1,4 +1,5 @@
-"""The engine's device mesh over ``torch.distributed``.
+"""Device meshes: the engine's mesh over ``torch.distributed``, and the
+planning meshes of the sharding rules and the dry run.
 
 NDSEARCH spreads an index that outgrows one device across LUN groups;
 the engine models each LUN group as one rank of a 1-D ``"lun"`` mesh.
@@ -19,11 +20,17 @@ explicitly (nothing tells a program of a cluster)::
 ``nccl`` carries tensors on a card, ``gloo`` tensors on the CPU
 (``"cuda:nccl,cpu:gloo"`` both). Importing this module touches no
 process-group state.
+
+The planning meshes (:func:`make_production_mesh`, :func:`make_mesh_for`)
+are plain descriptions: axis names and a size per axis, as the sharding
+rules (``models/sharding.py``) and the dry run (``launch/dryrun.py``)
+read them. They open no process group and hold no device.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import Any
 
 import torch
@@ -92,3 +99,57 @@ def make_engine_mesh(axis_name: str = "lun", num: int | None = None,
                          f"has {world}")
     return EngineMesh(group=group, rank=dist.get_rank(group), world=world,
                       axis_name=axis_name, generation=next(_GENERATIONS))
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanMesh:
+    """A mesh as the planner sees it: ``axis_names`` and ``sizes``, one
+    per axis. ``shape`` maps each name to its size, ``size`` is the
+    number of devices."""
+
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> PlanMesh:
+    """The target deployment mesh: 16x16 (data, model) per pod, 2 pods
+    (pod, data, model) multi-pod."""
+    if multi_pod:
+        return PlanMesh(("pod", "data", "model"), (2, 16, 16))
+    return PlanMesh(("data", "model"), (16, 16))
+
+
+def make_mesh_for(num_devices: int, shape, axes) -> PlanMesh:
+    """A planning mesh of ``shape`` over ``axes`` for ``num_devices``
+    devices."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in length")
+    if math.prod(shape) != num_devices:
+        raise ValueError(f"a {shape} mesh has {math.prod(shape)} devices, "
+                         f"not {num_devices}")
+    return PlanMesh(axes, shape)
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a mesh: a :class:`PlanMesh`, a
+    ``torch.distributed`` ``DeviceMesh`` (``mesh_dim_names`` and
+    ``shape``), or anything with ``axis_names`` and either a
+    ``devices.shape`` or a ``shape`` (a tuple, or a mapping of name to
+    size)."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    names = tuple(mesh.axis_names)
+    devices = getattr(mesh, "devices", None)
+    shape = devices.shape if devices is not None else mesh.shape
+    if isinstance(shape, dict):
+        return {a: int(shape[a]) for a in names}
+    return dict(zip(names, (int(s) for s in shape)))

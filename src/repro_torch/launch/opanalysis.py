@@ -29,11 +29,17 @@ count is parsed: a chunk of K predicated rounds counts K rounds, dead
 ones included (an open :class:`OpStream` makes the CPU run them all, as
 the card does: core/engine.py ``every_round``).
 
+With ``track_memory`` the stream also follows the lifetime of every
+storage an op creates (a weak reference on its storage) and keeps the
+peak of their bytes (``peak_bytes``): on "meta" tensors, where nothing
+is allocated, that is what the step would hold at its peak beyond what
+existed before it (the dry run's temp bytes, ``launch/dryrun.py``).
+
 Known limits: a captured CUDA-graph replay dispatches nothing, so
 reports are taken uncaptured (``capture=False``); a report taken while
-the stream captures warns. Collective wire bytes are not modelled (a
-collective counts as its reads and writes); they wait for the dry-run
-planner.
+the stream captures warns. Collective wire bytes are not in the op
+stream (a collective counts as its reads and writes): the dry run
+(``launch/dryrun.py``) derives them from the sharding rules.
 
     report = analyze(fn, *args)      # {"flops", "hbm_bytes", "by_op",
                                      #  "kernels", "warnings"}
@@ -41,6 +47,7 @@ planner.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from collections import defaultdict
 
 import torch
@@ -101,6 +108,8 @@ class OpRecord:
     syncs: bool          # reads the device from the host
     f64: bool            # a float64 tensor among its operands or outputs
     outputs: tuple       # ((data_ptr, nbytes), ...) of its outputs
+    dtype: torch.dtype = None  # its first floating operand's (None: a
+                               # kernel launch, or no floating operand)
 
 
 def _is_view(func) -> bool:
@@ -162,16 +171,27 @@ class OpStream(TorchDispatchMode):
     ``keep_outputs`` also stores each op's output addresses and sizes
     (the op audit's in-place check)."""
 
-    def __init__(self, keep_outputs: bool = False):
+    def __init__(self, keep_outputs: bool = False,
+                 track_memory: bool = False):
         super().__init__()
         self.keep_outputs = keep_outputs
+        self.track_memory = track_memory
         self.records: list = []
         self.captured = False
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._live: dict = {}        # storage key -> weak reference
         self._kernels = ()
         self._rounds = None
 
     def __enter__(self):
         from repro_torch.core.engine import every_round
+        if self.track_memory:
+            probe = torch.empty(1, device="meta")
+            if probe.untyped_storage() is not probe.untyped_storage():
+                raise RuntimeError(
+                    "this torch makes a new Python object per storage "
+                    "access: OpStream cannot follow storage lifetimes")
         from repro_torch.kernels import KERNELS
         self._kernels = KERNELS
         for k in KERNELS:
@@ -191,10 +211,28 @@ class OpStream(TorchDispatchMode):
         self.records.append(OpRecord(f"kernel::{kernel.name}", float(flops),
                                      float(nbytes), False, False, ()))
 
+    def _track(self, outs) -> None:
+        """Count the storages that ``outs`` bring to life."""
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._live:
+                continue
+            n = st.nbytes()
+
+            def freed(_, key=key, n=n):
+                self._live.pop(key, None)
+                self.live_bytes -= n
+            self._live[key] = weakref.ref(st, freed)
+            self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if self.track_memory:
+            self._track(outs)
         base = func.name().split("::")[-1].split(".")[0]
         to_host = any(t.is_cuda for t in ins) and \
             any(not t.is_cuda for t in outs)
@@ -207,7 +245,8 @@ class OpStream(TorchDispatchMode):
             op_bytes(func, args, kwargs, out),
             base in SYNC_OPS or to_host, f64,
             tuple((t.data_ptr(), t.numel() * t.element_size())
-                  for t in outs) if self.keep_outputs else ()))
+                  for t in outs) if self.keep_outputs else (),
+            next((t.dtype for t in ins if t.is_floating_point()), None)))
         return out
 
 
@@ -237,7 +276,9 @@ def analyze(fn, *args, **kwargs) -> dict:
         result = fn(*args, **kwargs)
     report = summarize(stream.records)
     report["warnings"] = [
-        "collective wire bytes are not modelled (reads + writes only)"]
+        "collective wire bytes are not in the op stream (reads + writes "
+        "only): the dry run (launch/dryrun.py) derives them from the "
+        "sharding rules"]
     if stream.captured:
         report["warnings"].append(
             "ops dispatched while the stream captured a CUDA graph: their "

@@ -8,9 +8,11 @@ restored run replays the crashed one's batches. Runs on the card unless
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --reduced --steps 200 --batch 8 --seq 256 --device cpu
 
-The reference's ``--mesh`` (a sharded step over a device mesh) needs the
-sharding rules (``models/sharding.py``), which the port does not have
-yet (ROADMAP.md item 16): it is not a flag here.
+The reference's ``--mesh`` (a sharded step over a device mesh) is not a
+flag here yet. Its sharding rules exist (``models/sharding.py``; the
+planner ``launch/specs.py`` and the dry run ``launch/dryrun.py`` read
+them on one process); the sharded step itself, with the expert-parallel
+MoE, is ROADMAP.md item 16b.
 """
 from __future__ import annotations
 

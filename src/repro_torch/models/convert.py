@@ -9,7 +9,9 @@ reference tree given as numpy arrays; :func:`params_to_numpy` stacks the
 port's module tree back into that form; :func:`stacked` and
 :func:`unstack_into` carry any tree shaped like the parameters (the
 optimizer's moments) between the two layouts, as the checkpoints of the
-training path need.
+training path need. A subtree that is already in the reference's
+layout (the factored second moment of ``optim/adamw.py``, which it
+holds stacked) passes through both as it is.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def stacked(tree, leaf=lambda t: t.detach().cpu().numpy(),
         return stack(trees)
 
     tree = as_tree(tree)
-    return {k: join([tree_map(leaf, b) for b in v]) if k in STACKED
+    return {k: join([tree_map(leaf, b) for b in v])
+            if k in STACKED and isinstance(v, list)
             else tree_map(leaf, v) for k, v in tree.items()}
 
 
@@ -70,8 +73,8 @@ def unstack_into(tree, ref) -> None:
     tree = as_tree(tree)
     for k, v in tree.items():
         parts = ([(b, tree_map(lambda a, i=i: a[i], ref[k]))
-                  for i, b in enumerate(v)] if k in STACKED
-                 else [(v, ref[k])])
+                  for i, b in enumerate(v)]
+                 if k in STACKED and isinstance(v, list) else [(v, ref[k])])
         for dst, src in parts:
             tree_map(lambda d, s: d.data.copy_(torch.as_tensor(s)), dst, src)
 

@@ -8,13 +8,19 @@ subtrees an ``nn.ModuleDict``, a list an ``nn.ModuleList``. So the
 model code indexes parameters as the reference indexes its dict tree
 (``p["attn"]["wq"]``), and the whole tree is one ``nn.Module``.
 
-The axis names are kept for the multi-device slice (sharding rules);
-one device needs none of them.
+The axis names map to mesh axes through :class:`ShardingRules`
+(``models/sharding.py`` builds them): :func:`pspec_of` gives a leaf's
+partition spec as a plain tuple of entries (a mesh axis name, a tuple
+of names, or None), trailing Nones dropped as the reference drops them.
+The port's per-layer leaves carry no ``"layers"`` axis, so each spec is
+the reference's without its leading entry (which the reference maps to
+None everywhere). The planner (``launch/specs.py``) and the dry run
+read these specs; one device applies none of them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -36,6 +42,100 @@ def spec(shape, names, dtype=torch.float32, init="normal", scale=None):
 
 def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
+
+
+def tree_paths_map(fn, tree):
+    """``fn`` over the ParamSpec leaves of a spec tree (nested dicts and
+    lists), the structure kept."""
+    if isinstance(tree, dict):
+        return {k: tree_paths_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_paths_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def spec_leaves(tree) -> list:
+    """The ParamSpec leaves of a spec tree in :func:`module_tree`'s
+    order (dict keys sorted): the order of the parameters of the module
+    it makes."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in spec_leaves(v)]
+    return [tree]
+
+
+def count_params(spec_tree) -> int:
+    total = 0
+    for s in spec_leaves(spec_tree):
+        n = 1
+        for d in s.shape:
+            n *= d
+        total += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules: logical axis name -> mesh axis (or tuple, or None)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    table: tuple  # (logical, physical) pairs; physical: str|tuple|None
+
+    def lookup(self, name) -> Any:
+        for k, v in self.table:
+            if k == name:
+                return v
+        return None
+
+    @staticmethod
+    def of(mapping: Mapping[str, Any]) -> "ShardingRules":
+        return ShardingRules(tuple(mapping.items()))
+
+
+def _trim(axes: tuple) -> tuple:
+    while axes and axes[-1] is None:
+        axes = axes[:-1]
+    return axes
+
+
+def pspec_of(s: ParamSpec, rules: ShardingRules) -> tuple:
+    return _trim(tuple(rules.lookup(n) for n in s.names))
+
+
+def param_pspecs(spec_tree, rules: ShardingRules):
+    return tree_paths_map(lambda s: pspec_of(s, rules), spec_tree)
+
+
+def logical_pspec(names: Sequence, rules: Optional[ShardingRules]) -> tuple:
+    if rules is None:
+        return ()
+    return _trim(tuple(rules.lookup(n) for n in names))
+
+
+def pspec_axes(entry) -> tuple:
+    """The mesh axis names of one pspec entry (None, a name, or a tuple
+    of names)."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(a for e in entry for a in pspec_axes(e))
+
+
+def local_shape(shape, pspec: tuple, sizes: Mapping[str, int]) -> tuple:
+    """A tensor's shape on one device: each dim divided by the product
+    of its entry's mesh axis sizes (which must divide it)."""
+    out = []
+    for i, dim in enumerate(shape):
+        f = 1
+        for a in pspec_axes(pspec[i] if i < len(pspec) else None):
+            f *= sizes[a]
+        if dim % f:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over {pspec} on {dict(sizes)}")
+        out.append(dim // f)
+    return tuple(out)
 
 
 def _draw(s: ParamSpec, gen: torch.Generator, dtype, device) -> torch.Tensor:

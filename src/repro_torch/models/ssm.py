@@ -58,9 +58,12 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _conv_step(conv_state: torch.Tensor, u_t: torch.Tensor,
                w: torch.Tensor):
-    """conv_state (B, W-1, C) holds previous inputs; u_t (B, 1, C)."""
+    """conv_state (B, W-1, C) holds previous inputs; u_t (B, 1, C). The
+    window takes the state's dtype (f32 state, bf16 weights: f32, as
+    the reference's promotion)."""
     full = torch.cat([conv_state, u_t], dim=1)               # (B, W, C)
-    y = torch.einsum("bwc,wc->bc", full, w)[:, None]          # (B, 1, C)
+    y = torch.einsum("bwc,wc->bc", full,
+                     w.to(full.dtype))[:, None]               # (B, 1, C)
     return y, full[:, 1:]
 
 

@@ -28,11 +28,19 @@ loop serves the three entry points: each passes the sequence operations
 (self-attention, cross-attention, the SSD block) of its own kind. Under
 grad, ``ModelOpts.remat="full"`` (the default, as the reference's) runs
 each block under ``torch.utils.checkpoint``: its activations are
-recomputed in the backward, only its input is kept.
+recomputed in the backward, only its input is kept. With
+``scan_groups`` > 1 the remat has the reference's two levels (its
+grouped layer scan): the blocks run in ``pick_groups(L, scan_groups)``
+groups of consecutive blocks, each group under one checkpoint and each
+block inside it under its own, so the backward keeps only the groups'
+inputs and recomputes one group's block inputs at a time. The hybrid's
+groups (``hybrid_layout``: e SSD layers and the shared block) are such
+groups whatever ``scan_groups``, as the reference scans them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch import nn
@@ -62,11 +70,10 @@ REMAT = ("none", "full")
 @dataclasses.dataclass(frozen=True)
 class ModelOpts:
     """Static per-run model options. The reference's remat "dots" policy
-    and its two-level grouped scan (``scan_groups`` > 1) have no
-    counterpart yet (ROADMAP.md item 15): they raise."""
+    has no counterpart: it raises."""
 
     remat: str = "full"          # none | full: per-block checkpoint (grad)
-    scan_groups: int = 1
+    scan_groups: int = 1         # >1: two-level checkpoint (module doc)
     loss_chunk: int = 2048       # vocab-chunked xent sequence chunk
     act_dtype: torch.dtype = torch.float32  # residual-stream compute dtype
     attn_mode: str = "auto"      # flash op: auto | cuda | ref
@@ -76,9 +83,8 @@ class ModelOpts:
         if self.remat not in REMAT:
             raise ValueError(f"remat {self.remat!r} not in {REMAT} (the "
                              f"reference's 'dots' policy is not ported)")
-        if self.scan_groups != 1:
-            raise ValueError(f"scan_groups={self.scan_groups}: the grouped "
-                             f"layer scan is not ported (1 only)")
+        if self.scan_groups < 1:
+            raise ValueError(f"scan_groups={self.scan_groups} must be >= 1")
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +147,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     return materialize(model_spec(cfg), gen, dtype=dtype)
 
 
+def pick_groups(L: int, want: int) -> int:
+    """Largest divisor of L that is <= want (the grouped checkpoint's
+    group count)."""
+    g = max(1, min(want, L))
+    while L % g:
+        g -= 1
+    return g
+
+
 def hybrid_layout(cfg: ArchConfig):
     """(n_groups, group_len, tail_len): the zamba2 topology — the shared
     attention+MLP block runs after every ``hybrid_attn_every``-th SSM
@@ -183,45 +198,76 @@ def _remat(opts):
     return lambda fn, *xs: fn(*xs)
 
 
+def _group(run, steps, tail=None):
+    """One group's body: every step under its own ``run``, then
+    ``tail`` (unwrapped) if given, over the carry tuple."""
+    def body(*carry):
+        for f in steps:
+            carry = run(f, *carry)
+        return tail(*carry) if tail is not None else carry
+    return body
+
+
+def scan_layers(steps, carry: tuple, opts, groups: int = 1) -> tuple:
+    """Run ``steps`` (each ``f(*carry) -> carry``, one block) over the
+    carry tuple: each under its own checkpoint, and with ``groups`` > 1
+    in ``pick_groups(len(steps), groups)`` groups of consecutive steps,
+    each group under one more (the module doc). Without remat (or
+    grad) this is the plain loop."""
+    run = _remat(opts)
+    n = len(steps)
+    g = pick_groups(n, groups) if n else 1
+    if g == 1:
+        return _group(run, steps)(*carry)
+    per = n // g
+    for j in range(g):
+        carry = run(_group(run, steps[j * per:(j + 1) * per]), *carry)
+    return carry
+
+
 def _layers(params, cfg, x, opts, self_attn, cross, ssm):
     """The decoder stack of every family over x -> (x, aux). The three
     sequence operations each return x plus the layer's output:
     ``self_attn(p, x, j, window)`` (j: the layer's KV-cache slot),
     ``cross(p, x, i)`` (encdec) and ``ssm(p, x, i)``. aux holds the moe
     family's mean ``lb_loss`` and ``drop_frac`` over the layers. Each
-    block (an SSD layer, a shared-block application, a decoder layer) is
-    one remat unit."""
+    block (an SSD layer, a decoder layer) is one remat unit; the
+    hybrid's groups and ``opts.scan_groups`` add the outer level."""
     fam, eps = cfg.family, cfg.norm_eps
-    run = _remat(opts)
     if fam in ("ssm", "hybrid"):
-        G, e, _ = hybrid_layout(cfg) if fam == "hybrid" else (0, 1, 0)
-        for i, p in enumerate(params["blocks"]):
-            x = run(lambda x, p=p, i=i: ssm(p, x, i), x)
-            if i < G * e and i % e == e - 1:
-                shared = params["shared"]
-                x = run(lambda x, i=i: _mlp(
-                    shared, self_attn(shared, x, i // e, cfg.window), cfg), x)
-        return x, {}
+        blocks = params["blocks"]
+        steps = [lambda x, p=p, i=i: (ssm(p, x, i),)
+                 for i, p in enumerate(blocks)]
+        if fam == "ssm":
+            return scan_layers(steps, (x,), opts, opts.scan_groups)[0], {}
+        G, e, _ = hybrid_layout(cfg)
+        shared, run = params["shared"], _remat(opts)
+        for j in range(G):
+            # a group: e SSD layers, each its own remat unit, then the
+            # shared block's application j, under one more
+            x, = run(_group(run, steps[j * e:(j + 1) * e],
+                            lambda x, j=j: (_mlp(shared, self_attn(
+                                shared, x, j, cfg.window), cfg),)), x)
+        return scan_layers(steps[G * e:], (x,), opts)[0], {}
 
-    def block(x, p, i, win):
+    def block(p, i, win, x, lb=0.0, dr=0.0):
         x = self_attn(p, x, i, win)
         if fam == "encdec":
             x = cross(p, x, i)
         if fam != "moe":
-            return _mlp(p, x, cfg), None, None
+            return (_mlp(p, x, cfg),)
         h, mx = moe_ffn(p["moe"], rmsnorm(p["ln2"], x, eps), cfg,
                         capacity_factor=opts.cap_factor, act=cfg.act)
-        return x + h, mx["lb_loss"], mx["drop_frac"]
+        return x + h, lb + mx["lb_loss"], dr + mx["drop_frac"]
 
-    lb = dr = 0.0
-    for i, (p, win) in enumerate(zip(params["blocks"],
-                                     cfg.layer_windows())):
-        x, lb_i, dr_i = run(lambda x, p=p, i=i, win=win: block(x, p, i, win),
-                            x)
-        if fam == "moe":
-            lb, dr = lb + lb_i, dr + dr_i
+    carry = (x, 0.0, 0.0) if fam == "moe" else (x,)
+    steps = [functools.partial(block, p, i, win)
+             for i, (p, win) in enumerate(zip(params["blocks"],
+                                              cfg.layer_windows()))]
+    out = scan_layers(steps, carry, opts, opts.scan_groups)
     if fam != "moe":
-        return x, {}
+        return out[0], {}
+    x, lb, dr = out
     return x, {"lb_loss": lb / cfg.num_layers,
                "drop_frac": dr / cfg.num_layers}
 
@@ -306,16 +352,16 @@ def encode(params, cfg: ArchConfig, enc_input, *,
     B, Se, _ = enc_input.shape
     x = enc_input.to(opts.act_dtype)
     positions = _positions(B, Se, x.device)
-    run = _remat(opts)
 
     def block(x, p):
         x = x + A.attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                             cfg, window=0, positions=positions, causal=False,
                             mode=opts.attn_mode)
-        return _mlp(p, x, cfg)
+        return (_mlp(p, x, cfg),)
 
-    for p in params["enc_blocks"]:
-        x = run(lambda x, p=p: block(x, p), x)
+    x, = scan_layers([lambda x, p=p: block(x, p)
+                      for p in params["enc_blocks"]], (x,), opts,
+                     opts.scan_groups)
     return rmsnorm(params["eln"], x, cfg.norm_eps)
 
 

@@ -9,6 +9,16 @@ and returns new tensors, as the reference's. ``torch.optim.AdamW`` is no
 substitute: the reference puts eps outside the bias-corrected square
 root, takes its rate from the schedule at the incremented step, and
 factors v.
+
+The factored second moment is the reference's on the reference's layout:
+a subtree that the reference stacks along a layer axis (``STACKED``:
+"blocks", "enc_blocks"), which the port keeps as a list of per-layer
+trees, holds its factored v stacked, one leaf per leaf of a block. A
+per-layer matrix (a, b) is stacked as (L, a, b) and factors per layer,
+``r: (L, a)``, ``c: (L, b)``; a per-layer vector (d,) is stacked as
+(L, d) and factors across the layers, ``r: (L,)`` and one shared
+``c: (d,)``; a per-layer scalar keeps ``{"f": (L,)}``. So the state
+and its checkpoint equal the reference's leaf for leaf.
 """
 from __future__ import annotations
 
@@ -16,6 +26,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.models.convert import STACKED
 from repro_torch.optim.schedule import SCHEDULES
 from repro_torch.utils import as_tree, tree_leaves, tree_map
 
@@ -42,8 +53,20 @@ class OptConfig:
             decay_steps=self.decay_steps, lr_min_ratio=self.lr_min_ratio)
 
 
-def _factored(p) -> bool:
-    return p.dim() >= 2
+def _factored_init(shape, device) -> dict:
+    """Zero factored statistics of a leaf of the reference's ``shape``:
+    r/c for two or more dims, else a full ``f``."""
+    def zeros(sh):
+        return torch.zeros(sh, dtype=torch.float32, device=device)
+    if len(shape) >= 2:
+        return {"r": zeros(shape[:-1]), "c": zeros(shape[:-2] + shape[-1:])}
+    return {"f": zeros(shape)}
+
+
+def _zip_layers(layers: list):
+    """Per-layer trees -> one tree whose leaves are tuples of the
+    layers' leaves."""
+    return tree_map(lambda *xs: tuple(xs), layers[0], *layers[1:])
 
 
 def init_opt(params, oc: OptConfig) -> dict:
@@ -57,12 +80,14 @@ def init_opt(params, oc: OptConfig) -> dict:
 
     m = tree_map(lambda p: zeros(p, dtype=oc.m_dtype), params)
     if oc.factored_v:
-        def vinit(p):
-            if _factored(p):
-                return {"r": zeros(p, p.shape[:-1]),
-                        "c": zeros(p, p.shape[:-2] + p.shape[-1:])}
-            return {"f": zeros(p)}
-        v = tree_map(vinit, params)
+        v = {}
+        for k, sub in params.items():
+            if k in STACKED and isinstance(sub, list):
+                v[k] = tree_map(lambda p, L=len(sub): _factored_init(
+                    (L,) + tuple(p.shape), p.device), sub[0])
+            else:
+                v[k] = tree_map(lambda p: _factored_init(tuple(p.shape),
+                                                         p.device), sub)
     else:
         v = tree_map(lambda p: zeros(p, dtype=oc.v_dtype), params)
     device = tree_leaves(params)[0].device
@@ -125,7 +150,41 @@ def apply_updates(params, grads, state, oc: OptConfig, lr=None):
             v_new = v_new.to(oc.v_dtype)
         return p_new.to(p.dtype), m_new.to(oc.m_dtype), v_new
 
-    # a factored v leaf is a dict: tree_map hands it to upd whole
-    outs = tree_map(upd, params, grads, state["m"], state["v"])
-    new = [tree_map(lambda o, i=i: o[i], outs) for i in range(3)]
+    def upd_layers(ps, gs, ms, v):
+        """A stacked leaf under factored v: ``ps``, ``gs``, ``ms`` the
+        layers' tensors, ``v`` its stacked statistics (module doc)."""
+        gfs = [g.float() for g in gs]
+        if ps[0].dim() >= 2:
+            outs = [_vhat_factored({k: x[i] for k, x in v.items()},
+                                   gf * gf, b2) for i, gf in enumerate(gfs)]
+            v_new = {k: torch.stack([o[0][k] for o in outs]) for k in v}
+            vhats = [o[1] for o in outs]
+        else:
+            v_new, vhat = _vhat_factored(
+                v, torch.stack([gf * gf for gf in gfs]), b2)
+            vhats = vhat.unbind(0)
+        ps_new, ms_new = [], []
+        for p, gf, m, vhat in zip(ps, gfs, ms, vhats):
+            m_new = b1 * m.float() + (1 - b1) * gf
+            u = (m_new / bc1) / (torch.sqrt(vhat / bc2) + oc.eps)
+            pf = p.detach().float()
+            ps_new.append((pf - lr * (u + oc.weight_decay * pf)).to(p.dtype))
+            ms_new.append(m_new.to(oc.m_dtype))
+        return tuple(ps_new), tuple(ms_new), v_new
+
+    new = [{}, {}, {}]
+    for k, sub in params.items():
+        if oc.factored_v and k in STACKED and isinstance(sub, list):
+            outs = tree_map(upd_layers, _zip_layers(sub),
+                            _zip_layers(grads[k]), _zip_layers(state["m"][k]),
+                            state["v"][k])
+            for j in range(2):
+                new[j][k] = [tree_map(lambda o, i=i, j=j: o[j][i], outs)
+                             for i in range(len(sub))]
+            new[2][k] = tree_map(lambda o: o[2], outs)
+            continue
+        # a factored v leaf is a dict: tree_map hands it to upd whole
+        outs = tree_map(upd, sub, grads[k], state["m"][k], state["v"][k])
+        for j in range(3):
+            new[j][k] = tree_map(lambda o, j=j: o[j], outs)
     return new[0], {"m": new[1], "v": new[2], "step": step}

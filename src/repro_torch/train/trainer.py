@@ -76,6 +76,28 @@ def compute_grads(params, cfg: ArchConfig, batch, tc: TrainConfig,
     return loss, metrics, tree_map(lambda _: next(it), tree)
 
 
+def update_step(params, grads, gnorm, loss, opt_state, oc: OptConfig):
+    """The step's update from its clipped gradients and their norm
+    (``clip_by_global_norm``): AdamW, and the NaN-guard skip-step (an
+    identity update on a non-finite step, whose counter still advances,
+    so the schedule stays aligned with the data). ``params`` is updated
+    in place. Returns (params, opt_state, {"grad_norm", "skipped",
+    "lr"})."""
+    finite = all_finite(grads) & torch.isfinite(loss)
+    new_params, new_opt = apply_updates(params, grads, opt_state, oc)
+    with torch.no_grad():
+        tree_map(lambda p, n: p.copy_(torch.where(finite, n, p)),
+                 as_tree(params), new_params)
+    opt_state = {
+        "m": select_tree(finite, new_opt["m"], opt_state["m"]),
+        "v": select_tree(finite, new_opt["v"], opt_state["v"]),
+        "step": new_opt["step"],
+    }
+    return params, opt_state, {"grad_norm": gnorm,
+                               "skipped": (~finite).to(torch.int32),
+                               "lr": oc.lr_at(new_opt["step"])}
+
+
 def make_train_step(cfg: ArchConfig, oc: OptConfig, tc: TrainConfig, *,
                     opts: ModelOpts = ModelOpts()):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
@@ -84,23 +106,12 @@ def make_train_step(cfg: ArchConfig, oc: OptConfig, tc: TrainConfig, *,
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = compute_grads(params, cfg, batch, tc, opts)
+        # rebinding frees the unclipped grads before the update
         grads, gnorm = clip_by_global_norm(grads, oc.clip_norm)
-        finite = all_finite(grads) & torch.isfinite(loss)
-        new_params, new_opt = apply_updates(params, grads, opt_state, oc)
-        # NaN-guard skip-step: identity update on non-finite steps, but
-        # the step counter still advances (schedule stays aligned with
-        # data)
-        with torch.no_grad():
-            tree_map(lambda p, n: p.copy_(torch.where(finite, n, p)),
-                     as_tree(params), new_params)
-        opt_state = {
-            "m": select_tree(finite, new_opt["m"], opt_state["m"]),
-            "v": select_tree(finite, new_opt["v"], opt_state["v"]),
-            "step": new_opt["step"],
-        }
+        params, opt_state, extra = update_step(params, grads, gnorm, loss,
+                                               opt_state, oc)
         metrics = dict(metrics)
-        metrics.update(grad_norm=gnorm, skipped=(~finite).to(torch.int32),
-                       lr=oc.lr_at(new_opt["step"]))
+        metrics.update(extra)
         return params, opt_state, metrics
 
     return train_step

@@ -20,14 +20,27 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+from repro import checkpoint as j_ckpt
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.data import TokenPipeline as JTokenPipeline
+from repro.models import ModelOpts as JModelOpts
+from repro.models import init_params as j_init_params
 from repro.optim.adamw import OptConfig as JOC
 from repro.optim.adamw import apply_updates as j_apply
 from repro.optim.adamw import init_opt as j_init
 from repro.optim.schedule import warmup_cosine as j_warmup_cosine
+from repro.train import TrainConfig as JTrainConfig
+from repro.train import make_train_step as j_make_train_step
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs import get_config, reduced
+from repro_torch.models.transformer import ModelOpts
 from repro_torch.optim.adamw import OptConfig, apply_updates, init_opt
 from repro_torch.optim.compress import (EFState, dequantize_int8,
                                         ef_compress, ef_init, quantize_int8)
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.train import TrainConfig, init_train_state, make_train_step
+from repro_torch.train.trainer import load_state, state_like, state_tree
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -190,3 +203,80 @@ def test_cross_pod_sync_gloo_world2(tmp_path):
                 p.wait()
     assert all(p.returncode == 0 for p in procs), "\n".join(outs)
     assert all("RANK_OK" in o for o in outs)
+
+
+def _same_state(mine, ref, rtol=1e-4):
+    """Two train states in the reference's layout: the same leaves, each
+    within rtol of the other (scaled by the leaf's largest entry)."""
+    flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+    assert len(flat) == len(jax.tree_util.tree_leaves(mine))
+    for path, want in flat:
+        got = mine
+        for key in path:
+            got = got[key.key]
+        want = np.asarray(want)
+        assert np.shape(got) == want.shape, jax.tree_util.keystr(path)
+        np.testing.assert_allclose(
+            got, want, rtol=rtol,
+            atol=rtol * float(np.abs(want).max(initial=0.0)),
+            err_msg=jax.tree_util.keystr(path))
+
+
+FACTORED = dict(lr_max=1e-3, warmup=2, decay_steps=10, factored_v=True)
+
+
+@pytest.fixture(scope="module")
+def factored_steps():
+    """Both packages' factored train steps for reduced zamba2-1.2b (its
+    per-layer norm scales and SSD vectors factor as r (L,), c (d,))."""
+    arch = "zamba2-1.2b"
+    jcfg, cfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
+    jstep = jax.jit(j_make_train_step(
+        jcfg, JOC(**FACTORED), JTrainConfig(),
+        opts=JModelOpts(remat="full", loss_chunk=32)))
+    step = make_train_step(cfg, OptConfig(**FACTORED), TrainConfig(),
+                           opts=ModelOpts(loss_chunk=32))
+    return jcfg, cfg, jstep, step
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_factored_checkpoint_crosses_packages(tmp_path, writer,
+                                              factored_steps):
+    """A checkpoint with the factored second moment (ROADMAP C1) written
+    by either package's trainer after two steps restores in the other,
+    and both third steps agree: loss and grad norm within 1e-4
+    relative, then the whole state."""
+    jcfg, cfg, jstep, step = factored_steps
+    kw = FACTORED
+    pipe = JTokenPipeline(cfg.vocab_size, 4, 64, seed=0)
+    jp = j_init_params(jcfg, jax.random.PRNGKey(3))
+    jo = j_init(jp, JOC(**kw))
+    params, opt = init_train_state(cfg, OptConfig(**kw),
+                                   torch.Generator().manual_seed(9))
+    for s in range(2):
+        b = pipe.batch_at(s)
+        if writer == "reference":
+            jp, jo, _ = jstep(jp, jo, {k: jnp.asarray(v)
+                                       for k, v in b.items()})
+        else:
+            params, opt, _ = step(params, opt, {
+                k: torch.as_tensor(v) for k, v in b.items()})
+    if writer == "reference":
+        j_ckpt.save(str(tmp_path), 2, {"params": jp, "opt": jo})
+        st, tree, _ = ckpt.restore(str(tmp_path), state_like(params, opt),
+                                   device="cpu")
+        load_state(params, opt, tree)
+    else:
+        ckpt.save(str(tmp_path), 2, state_tree(params, opt))
+        st, tree, _ = j_ckpt.restore(str(tmp_path), {"params": jp,
+                                                     "opt": jo})
+        jp, jo = tree["params"], tree["opt"]
+    assert st == 2 and int(opt["step"]) == int(jo["step"]) == 2
+    b = pipe.batch_at(2)
+    jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v) for k, v in b.items()})
+    params, opt, m = step(params, opt, {k: torch.as_tensor(v)
+                                        for k, v in b.items()})
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m[key]) - float(jm[key])) <= \
+            1e-4 * abs(float(jm[key])), key
+    _same_state(state_tree(params, opt), {"params": jp, "opt": jo})

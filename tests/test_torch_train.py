@@ -31,6 +31,7 @@ from repro_torch.models import params_from_jax, params_to_numpy
 from repro_torch.models.transformer import ModelOpts
 from repro_torch.optim import OptConfig, init_opt
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
+from repro_torch.train.trainer import state_tree
 from repro_torch.utils import as_tree, tree_leaves
 
 CFG = reduced(get_config("gemma3-1b"))
@@ -129,7 +130,8 @@ def test_pipeline_deterministic_sharded_and_the_references():
 
 def test_remat_none_equals_full():
     """remat changes what is kept for the backward, not the numbers; the
-    reference's "dots" policy and grouped scan are refused."""
+    reference's "dots" policy is refused, and so is a group count below
+    one (scan_groups > 1 is ported: tests/test_torch_specs.py)."""
     b = _batch(_pipe(batch=4, seq=32), 0)
     init = params_to_numpy(_init(2))
     out = {}
@@ -142,8 +144,8 @@ def test_remat_none_equals_full():
     assert out["none"] == pytest.approx(out["full"], rel=1e-6)
     with pytest.raises(ValueError, match="dots"):
         ModelOpts(remat="dots")
-    with pytest.raises(ValueError, match="grouped"):
-        ModelOpts(scan_groups=2)
+    with pytest.raises(ValueError, match="scan_groups"):
+        ModelOpts(scan_groups=0)
 
 
 def _family_batch(cfg, step, batch, seq):
@@ -159,8 +161,16 @@ def _parity(arch, steps, batch=4, seq=64):
     """The reference's and the port's train steps from the same numpy
     parameters over the same batches: per step (loss, grad norm) of
     both, and both final parameter trees as numpy (reference layout)."""
+    rows, (jparams, _), (params, _) = _run_parity(arch, steps, batch, seq)
+    return rows, jparams, params
+
+
+def _run_parity(arch, steps, batch=4, seq=64, factored=False):
+    """:func:`_parity`'s run, returning both final (parameters,
+    optimizer state) pairs: the reference's as numpy trees, the port's
+    as its state_tree (the reference's layout)."""
     jcfg, cfg = j_reduced(j_get_config(arch)), reduced(get_config(arch))
-    kw = dict(lr_max=1e-3, warmup=2, decay_steps=10)
+    kw = dict(lr_max=1e-3, warmup=2, decay_steps=10, factored_v=factored)
     jparams = j_init_params(jcfg, jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree_util.tree_map(np.asarray,
                                                           jparams),
@@ -181,8 +191,10 @@ def _parity(arch, steps, batch=4, seq=64):
                               {k: torch.as_tensor(v) for k, v in b.items()})
         rows.append(((float(jm["loss"]), float(jm["grad_norm"])),
                      (float(m["loss"]), float(m["grad_norm"]))))
-    return rows, jax.tree_util.tree_map(np.asarray, jparams), \
-        params_to_numpy(params)
+    mine = state_tree(params, opt)
+    return rows, (jax.tree_util.tree_map(np.asarray, jparams),
+                  jax.tree_util.tree_map(np.asarray, jopt)), \
+        (params_to_numpy(params), mine["opt"])
 
 
 def _check_rows(rows):
@@ -207,3 +219,32 @@ def test_train_steps_match_reference(arch):
         np.testing.assert_allclose(got, want, rtol=PARITY_RTOL,
                                    atol=PARITY_RTOL,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "zamba2-1.2b"])
+def test_factored_steps_match_reference(arch):
+    """The factored second moment (ROADMAP C1): three steps of both
+    packages with factored_v, loss and grad norm per step and every
+    parameter within 1e-4; state_tree's optimizer state has the
+    reference's structure (a per-layer norm scale's v is {"r": (L,),
+    "c": (d,)}) and its values (m and the factored statistics within
+    1e-4 relative, the step equal)."""
+    rows, (jparams, jopt), (params, opt) = _run_parity(arch, 3,
+                                                       factored=True)
+    _check_rows(rows)
+    for ref, mine in ((jparams, params), (jopt, opt)):
+        flat = jax.tree_util.tree_flatten_with_path(ref)[0]
+        assert len(flat) == len(jax.tree_util.tree_leaves(mine))
+        for path, want in flat:
+            got = mine
+            for key in path:
+                got = got[key.key]
+            assert got.shape == want.shape, jax.tree_util.keystr(path)
+            np.testing.assert_allclose(
+                got, want, rtol=PARITY_RTOL,
+                atol=PARITY_RTOL * float(np.abs(want).max(initial=0.0)),
+                err_msg=jax.tree_util.keystr(path))
+    L = reduced(get_config(arch)).num_layers
+    d = reduced(get_config(arch)).d_model
+    assert {k: v.shape for k, v in opt["v"]["blocks"]["ln1"]["scale"]
+            .items()} == {"r": (L,), "c": (d,)}
