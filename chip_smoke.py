@@ -116,15 +116,15 @@ its seconds:
                Poisson arrivals at 8 per round into a 32-slot-per-shard
                pool, round chunk 8, in-device admission, spec 4: refill
                static, refill dynamic and frozen runs, each with QPS
-               (and REPEATS more sessions'), latency percentiles,
-               occupancy, captures, replays, syncs,
+               (and STREAM_REPEATS more sessions'), latency
+               percentiles, occupancy, captures, replays, syncs,
                dead rounds, host ms per round, recall@10, launch counts,
-               the uncaptured session's QPS and a profiled window (the
+               the uncaptured twin's QPS and a profiled window (the
                refill static run also a host+device one). Checks: one
                distance and one fused Gather-merge launch per round the
-               device ran, none of the standalone sort and merge; every
-               run's records equal its uncaptured session's bit for
-               bit; the static run takes 417 rounds and its ids equal
+               device ran, none of the standalone sort and merge; the
+               stream's first TWIN_QUERIES queries, captured, equal the
+               same session uncaptured bit for bit; the static run takes 417 rounds and its ids equal
                one-shot search_sim's (up to a distance near-tie);
                dynamic recall within 0.01 of static; refill occupancy
                above frozen.
@@ -177,7 +177,9 @@ its seconds:
                graph with the stream phase's traffic: zero churn equals
                phase stream's refill static session (ids, dists, rounds,
                dispatches); churn at the reference bench's rates (0.35
-               inserts, 0.1 deletes per round, delta 128): one swap, the
+               inserts, 0.1 deletes per round, CHURN's delta) on a live
+               set of the stand-in's first CHURN vectors (built in the
+               host pool from phase 2 on): at least one swap, the
                reindex's host seconds, the swap's, delta hits, deletes,
                swap stalls, p99 in rounds and wall ms against the static
                session, recall@10 against the final live set, captures,
@@ -274,6 +276,17 @@ its seconds:
                steps, a failure injected at step 7, checkpoints every 5
                steps; the resumed run's parameters and optimizer state
                equal an uninterrupted run's bit for bit.
+  8c'. train_mesh — the sharded step (launch/train.py --mesh 1,1, a
+               one-rank NCCL group on a loopback rendezvous): (a) phase
+               train's cell, 5 steps, each step's loss and grad norm
+               within 1e-6 of phase train's same step (and whether bit
+               for bit), ms per step beside phase train's, 52 flash
+               forwards and 26 backwards per step, the collectives the
+               step counts (an axis of one rank launches none) and the
+               NCCL kernels of one profiled step; (b) mixtral-8x7b at
+               full width cut to 1 of 32 layers, batch 2 x 1024, 3 steps
+               unsharded and through --mesh 1,1: finite losses, equal
+               within 1e-6; ms per step, peak GiB, the flash launches.
   8d. analysis — the trace-discipline suite on the card (under 60 s):
                (a) the op audit (repro_torch.analysis.op_audit) with
                device "cuda" over every chunk program: no sync op, no
@@ -1272,6 +1285,12 @@ STREAM_RUNS = {"refill_static": dict(refill=True, dynamic_spec=False),
 NEAR_TIE = 1e-5
 # the refill static run's standing schedule
 STATIC_ROUNDS = 417
+# the uncaptured twin of each stream session: the stream's first 512
+# queries (cut from all 2048: the eager session of all of them ran
+# 4.7-10.7 s on the card), against the same 512 captured
+TWIN_QUERIES = 512
+# sessions repeated for the QPS spread (5 before the cut)
+STREAM_REPEATS = 3
 
 
 def per_query(st, n: int, field: str):
@@ -1514,11 +1533,14 @@ def stream_path(db, packed, dev):
         cap = capture_line(CACHE.stats, stepped, st.host_syncs)
         summ = stream_summary(st)
         # more sessions of the same stream (QPS spread in this process)
-        repeats = [serve(kw)[2] for _ in range(REPEATS)]
-        # the same session run eagerly on the card, outside the cache
-        _, _, st_eager = serve(kw, capture=False)
-        differ = first_difference(stream_records(st, nq),
-                                  stream_records(st_eager, nq))
+        repeats = [serve(kw)[2] for _ in range(STREAM_REPEATS)]
+        # the stream's first TWIN_QUERIES queries run captured and again
+        # eagerly on the card, outside the cache
+        nt = TWIN_QUERIES
+        _, _, st_twin = serve(kw, nt)
+        _, _, st_eager = serve(kw, nt, capture=False)
+        differ = first_difference(stream_records(st_twin, nt),
+                                  stream_records(st_eager, nt))
         line = {"phase": "stream", "run": name, **kw, "queries": nq,
                 "slots_per_shard": slots, "shards": SHARDS,
                 "arrival_rate": STREAM["rate"],
@@ -1540,9 +1562,11 @@ def stream_path(db, packed, dev):
                 "launches": launches,
                 "launches_per_device_round": {
                     k: v / cap["device_rounds"] for k, v in launches.items()},
-                "uncaptured_qps": nq / st_eager.wall_s,
+                "twin_queries": nt,
+                "uncaptured_qps": nt / st_eager.wall_s,
                 "uncaptured_host_ms_per_round":
                     st_eager.wall_s * 1e3 / st_eager.total_rounds,
+                "twin_captured_qps": nt / st_twin.wall_s,
                 "captured_equals_uncaptured": differ is None}
         if differ is not None:
             raise AssertionError(f"stream {name}: the captured session's "
@@ -2167,6 +2191,12 @@ LIVE_INT = dict(insert=0.15, delete=0.05, horizon=320, delta_cap=16, seed=5)
 # refresh_every 0: about 150 inserts before the last query retires, one
 # swap
 LIVE = dict(insert=0.35, delete=0.1, delta_cap=128, seed=5)
+# the churn session's live set: the stand-in's first 4096 vectors (cut
+# from phase main's 16384: a reindex of that whole set took 129-206
+# host s on the card's host, the longest step of the script), built
+# as phase main's in the host pool; the stream's 392 rounds insert 157
+# vectors into a delta of 128: one swap
+CHURN = dict(n=4096, delta_cap=128)
 # (c)'s tiered live sessions: phase tiered's traffic at 28 frames (of 33
 # pages per shard at the live capacity), the same rates and a delta of
 # 512 rows: no swap, and the live consts copied at nearly every boundary
@@ -2380,12 +2410,13 @@ def live_integer(build, queries, dev) -> None:
     emit({"phase": "live", "index": "integer", "reindex_epochs": builds})
 
 
-def live_sift(db, packed, static, dev) -> None:
+def live_sift(db, packed, static, churn_build, dev) -> None:
     """(b) The sift-1b stand-in (phase main's build) served live with the
     stream phase's traffic: zero churn against phase stream's refill
     static session (ids, dists, rounds, dispatches), then churn at the
-    reference bench's rates (one swap: a reindex of the whole live set on
-    the host); (c) live sessions on a tiered store at phase tiered's
+    reference bench's rates on ``churn_build`` (the async result of
+    :func:`build_churn_sift`: each swap a reindex of the whole live set
+    on the host); (c) live sessions on a tiered store at phase tiered's
     traffic, prefetch on and off."""
     import dataclasses
     import numpy as np
@@ -2410,16 +2441,18 @@ def live_sift(db, packed, static, dev) -> None:
     pref = packed.pref.shape[-1]
     n0 = len(db)
 
-    def churn_live(rate_q, n, delta_cap):
-        """Epoch 0 = phase main's graph packed at n0 + the scheduled
-        inserts, the schedule over build_live_session's horizon."""
+    def churn_live(rate_q, n, delta_cap, base=(db, packed, adj)):
+        """Epoch 0 = ``base``'s graph (phase main's by default) packed at
+        its size + the scheduled inserts, the schedule over
+        build_live_session's horizon."""
+        vecs, pk, ad = base
         arr = poisson_arrivals(rate_q, n, seed=0)
         sched = mutation_schedule(LIVE["insert"], LIVE["delete"],
                                   max(int(arr.max()) + 1, 2 * n), DIM,
-                                  seed=LIVE["seed"], ref=db)
+                                  seed=LIVE["seed"], ref=vecs)
         return live_index_from_graph(
-            db, adj, packed.entry, shards=SHARDS, page_size=PAGE, r=DEGREE,
-            delta_cap=delta_cap, capacity=n0 + sched.num_inserts,
+            vecs, ad, pk.entry, shards=SHARDS, page_size=PAGE, r=DEGREE,
+            delta_cap=delta_cap, capacity=len(vecs) + sched.num_inserts,
             pref_width=pref, schedule=sched)
 
     def serve(live, **kw):
@@ -2477,10 +2510,13 @@ def live_sift(db, packed, static, dev) -> None:
                              f"or {cap['captures']} captures")
     check_launches("live sift zero churn", launches, cap["device_rounds"])
 
-    live = churn_live(STREAM["rate"], nq, LIVE["delta_cap"])
+    c_db, c_packed, c_build_s = churn_build.get()
+    live = churn_live(STREAM["rate"], nq, CHURN["delta_cap"],
+                      base=(c_db, c_packed, flat_adjacency(c_packed)))
     with timed_swaps() as swap_s:
         ids, _, st, launches, cap = serve(live)
     emit(line("churn", st, cap, launches, live, ids,
+              live_set_vectors=len(c_db), churn_build_host_s=c_build_s,
               scheduled_inserts=live.schedule.num_inserts,
               reindex_s_per_swap=live.reindex_s / max(live.swaps, 1),
               swap_s=swap_s,
@@ -2711,11 +2747,24 @@ def build_routed_sift():
     return ri, time.perf_counter() - t0
 
 
+def build_churn_sift():
+    """Phase live's churn build: the sift-1b stand-in's first CHURN["n"]
+    vectors built as phase main's are: (reordered vectors, packed index,
+    host seconds)."""
+    from repro_torch.launch.search import build_index, dataset
+    t0 = time.perf_counter()
+    db, packed = build_index(dataset("sift-1b").materialize()[:CHURN["n"]],
+                             shards=SHARDS, page_size=PAGE, r=DEGREE,
+                             pref_width=8)
+    return db, packed, time.perf_counter() - t0
+
+
 def start_host_builds():
-    """Start :func:`build_main_sift` and :func:`build_routed_sift` in a
-    two-process spawn pool with two BLAS threads each (the host's other
-    cores drive the card meanwhile); returns (pool, main build's async
-    result, routed build's). The caller terminates the pool."""
+    """Start :func:`build_main_sift`, :func:`build_routed_sift` and
+    :func:`build_churn_sift` in a two-process spawn pool with two BLAS
+    threads each (the host's other cores drive the card meanwhile);
+    returns (pool, main build's async result, routed build's, churn
+    build's). The caller terminates the pool."""
     import multiprocessing
     import os
     saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
@@ -2730,7 +2779,8 @@ def start_host_builds():
             else:
                 os.environ[k] = v
     return (pool, pool.apply_async(build_main_sift),
-            pool.apply_async(build_routed_sift))
+            pool.apply_async(build_routed_sift),
+            pool.apply_async(build_churn_sift))
 
 
 def routed_sift(dev, built) -> dict:
@@ -3707,6 +3757,8 @@ def train_args(**over):
             "--log-every", "1", "--seed", "0"]
     if t.get("reduced"):
         argv.append("--reduced")
+    if t.get("mesh"):
+        argv += ["--mesh", t["mesh"], "--init-method", t["init_method"]]
     if t.get("ckpt_dir"):
         argv += ["--ckpt-dir", t["ckpt_dir"], "--ckpt-every",
                  str(t["ckpt_every"])]
@@ -3967,6 +4019,210 @@ def attn_pairs(S: int, causal: bool, window: int) -> int:
     """Unmasked (row, col) pairs of one (batch, head) at S = Skv."""
     from repro_torch.kernels.flash_attention.kernel import live_pairs
     return live_pairs(S, S, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8c': the sharded training step at world 1 over NCCL
+# ---------------------------------------------------------------------------
+# phase train's cell through launch/train.py --mesh 1,1: its first steps
+# (the learning rate's warmup: the same rates as phase train's 10-step
+# run), each step's loss and grad norm held to phase train's
+TRAIN_MESH = dict(steps=5, rtol=1e-6)
+# the first MoE training on the card: mixtral-8x7b (hf
+# mistralai/Mixtral-8x7B-v0.1) at full width, 1 of its 32 layers (1.7 B
+# parameters, ~27 GB with AdamW in f32), batch 2 x 1024, 3 steps, against
+# the unsharded make_train_step on the same seed and batches
+MIXTRAL_TRAIN = dict(arch="mixtral-8x7b", layers=1, batch=2, seq=1024,
+                     steps=3, lr=3e-4, warmup=5, loss_chunk=512)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+@contextlib.contextmanager
+def layers_cut(layers: int):
+    """launch/train.py's configurations cut to ``layers`` layers within
+    the block (depth only: every width stays)."""
+    import dataclasses
+    from repro_torch.launch import train as train_mod
+    real = train_mod.get_config
+
+    def cut(name):
+        cfg = real(name)
+        return dataclasses.replace(cfg, num_layers=min(layers,
+                                                       cfg.num_layers))
+    train_mod.get_config = cut
+    try:
+        yield
+    finally:
+        train_mod.get_config = real
+
+
+def mesh_train_run(args):
+    """``train(args)`` with each step's wall seconds, launch counts and
+    counted collectives, and the run's peak memory."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+    from repro_torch.train.parallel import STATS
+    times, launches, colls = [], [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        launches.append({k: n for k, n in launch_counts().items() if n})
+        colls.append(STATS.rows())
+        reset_launch_counts()
+        STATS.reset()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    STATS.reset()
+    times.append(time.perf_counter())
+    run = train(args, on_step=on_step)
+    hist = run["history"]
+    out = {"losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "skipped": [h["skipped"] for h in hist],
+           "step_ms": [1e3 * (b - a) for a, b in zip(times, times[1:])],
+           "launches": launches, "collectives": colls,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return run, out
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def train_mesh_gemma(dev, train_line: dict) -> dict:
+    """(a) Phase train's gemma3-1b cell through ``--mesh 1,1`` on a
+    one-rank NCCL group: each step's loss and grad norm against phase
+    train's same step (same seed, same batches), whether they are
+    bit-equal, ms per step beside phase train's, the flash launches of
+    every step, and the collectives the step launches: the counted ones
+    (an axis of one rank launches none) and the NCCL kernels of a
+    profiled step."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.train import build
+    n = TRAIN_MESH["steps"]
+    args = train_args(steps=n, mesh="1,1",
+                      init_method=f"tcp://127.0.0.1:{free_port()}")
+    run, out = mesh_train_run(args)
+    # one more step on the same group, profiled: its NCCL kernels
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_train_group, make_train_mesh
+    init_train_group(dev, init_method=f"tcp://127.0.0.1:{free_port()}",
+                     rank=0, world=1)
+    try:
+        mesh = make_train_mesh((1, 1), device=dev)
+        cfg, _, step_fn, pipe, _ = build(args, mesh)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.batch_at(n).items()}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step_fn(run["params"], run["opt"], batch)
+            torch.cuda.synchronize()
+        nccl = nccl_split(prof)
+        drop_traces()
+    finally:
+        dist.destroy_process_group()
+    want_l, want_g = train_line["losses"][:n], train_line["grad_norms"][:n]
+    errs = [max(rel(a, b), rel(c, d)) for a, b, c, d in zip(
+        out["losses"], want_l, out["grad_norms"], want_g)]
+    layers = 26
+    line = {"phase": "train_mesh", "part": "gemma3-1b world 1",
+            "mesh": "1,1 (data, model) over nccl", "steps": n,
+            "losses": out["losses"], "grad_norms": out["grad_norms"],
+            "phase_train_losses": want_l, "phase_train_grad_norms": want_g,
+            "max_rel_err": max(errs), "tolerance": TRAIN_MESH["rtol"],
+            "bit_equal": out["losses"] == want_l
+            and out["grad_norms"] == want_g,
+            "step_ms": out["step_ms"],
+            "ms_per_step_median_2_5": statistics.median(out["step_ms"][1:]),
+            "phase_train_ms_per_step_median_3_10":
+                train_line["ms_per_step_median_3_10"],
+            "peak_gib": out["peak_gib"],
+            "launches_per_step": out["launches"],
+            "collectives_counted_per_step": [len(c) for c in
+                                             out["collectives"]],
+            "profiled_step_nccl": nccl}
+    emit(line)
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    if not line["max_rel_err"] <= TRAIN_MESH["rtol"] or \
+            any(x != want for x in out["launches"]) or any(out["skipped"]):
+        raise AssertionError(f"train_mesh: the world-1 mesh step differs "
+                             f"from phase train's: {line}")
+    del run
+    return line
+
+
+def train_mesh_mixtral(dev) -> dict:
+    """(b) mixtral-8x7b at full width cut to 1 layer, 3 steps unsharded
+    and 3 steps through ``--mesh 1,1``: finite losses, equal within
+    TRAIN_MESH["rtol"]; ms per step, peak GiB and the flash launches."""
+    import torch
+    t = MIXTRAL_TRAIN
+    over = {k: t[k] for k in ("arch", "batch", "seq", "steps", "lr",
+                              "warmup", "loss_chunk")}
+    with layers_cut(t["layers"]):
+        plain_run, plain = mesh_train_run(train_args(**over))
+        nparams = sum(p.numel() for p in plain_run["params"].parameters())
+        del plain_run
+        mesh_run, mesh = mesh_train_run(train_args(
+            **over, mesh="1,1",
+            init_method=f"tcp://127.0.0.1:{free_port()}"))
+        del mesh_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = [max(rel(a, b), rel(c, d)) for a, b, c, d in zip(
+        mesh["losses"], plain["losses"], mesh["grad_norms"],
+        plain["grad_norms"])]
+    line = {"phase": "train_mesh", "part": "mixtral-8x7b world 1",
+            "arch": t["arch"], "reduced": [f"num_layers 32 -> {t['layers']}"],
+            "params": nparams, "batch": t["batch"], "seq": t["seq"],
+            "steps": t["steps"], "mesh": "1,1 (data, model) over nccl",
+            "losses": mesh["losses"], "grad_norms": mesh["grad_norms"],
+            "unsharded_losses": plain["losses"],
+            "unsharded_grad_norms": plain["grad_norms"],
+            "max_rel_err": max(errs), "tolerance": TRAIN_MESH["rtol"],
+            "bit_equal": mesh["losses"] == plain["losses"]
+            and mesh["grad_norms"] == plain["grad_norms"],
+            "step_ms": mesh["step_ms"], "unsharded_step_ms": plain["step_ms"],
+            "peak_gib": mesh["peak_gib"],
+            "unsharded_peak_gib": plain["peak_gib"],
+            "launches_per_step": mesh["launches"],
+            "collectives_counted_per_step": [len(c) for c in
+                                             mesh["collectives"]]}
+    emit(line)
+    if not (all(math.isfinite(x) for x in mesh["losses"])
+            and line["max_rel_err"] <= TRAIN_MESH["rtol"]
+            and all(x.get("flash_attention_bwd", 0) == t["layers"]
+                    for x in mesh["launches"])):
+        raise AssertionError(f"train_mesh: mixtral's mesh run: {line}")
+    return line
+
+
+def train_mesh_phase(dev, train_line: dict) -> dict:
+    """Phase 8c': the sharded training step at world 1. Returns the flash
+    launches of its gemma3-1b run (every step's)."""
+    gemma = timed_part("train_mesh", "gemma3-1b", train_mesh_gemma, dev,
+                       train_line)
+    timed_part("train_mesh", "mixtral-8x7b", train_mesh_mixtral, dev)
+    total = {}
+    for counts in gemma["launches_per_step"]:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4799,10 +5055,11 @@ def main() -> int:
 
     emit({"phase": "build", "seconds": round(build_all(), 2),
           "ptxas": ptxas_report()})
-    pool, main_build, routed_build = start_host_builds()
+    pool, main_build, routed_build, churn_build = start_host_builds()
     plan_pool, plan_pending = start_plan_cells()
     try:
-        return run_phases(dev, name, main_build, routed_build, plan_pending)
+        return run_phases(dev, name, main_build, routed_build, churn_build,
+                          plan_pending)
     finally:
         for p in (pool, plan_pool):
             p.terminate()
@@ -4818,10 +5075,11 @@ def timed_part(phase: str, part: str, fn, *args):
     return out
 
 
-def run_phases(dev, name: str, main_build, routed_build,
+def run_phases(dev, name: str, main_build, routed_build, churn_build,
                plan_pending) -> int:
-    """Phases 3 to 9; ``main_build`` and ``routed_build`` are the sift-1b
-    builds (search and routed) running in child processes since phase 2,
+    """Phases 3 to 9; ``main_build``, ``routed_build`` and
+    ``churn_build`` are the sift-1b builds (search, routed and phase
+    live's churn set) running in child processes since phase 2,
     ``plan_pending`` phase plan's dry-run cells, run on the host since
     then too. The phases' integer parts run first, while the builds
     finish."""
@@ -4873,7 +5131,8 @@ def run_phases(dev, name: str, main_build, routed_build,
     tiered = timed_part("tiered", "sift-1b", tiered_sift, db, packed, dev)
     timed_part("tiered", "capacity", capacity_check, dev)
     torch.cuda.empty_cache()
-    timed_part("live", "sift-1b", live_sift, db, packed, static, dev)
+    timed_part("live", "sift-1b", live_sift, db, packed, static,
+               churn_build, dev)
     torch.cuda.empty_cache()
     # the standalone sort and merge run on the routed path: their
     # launches are the sift topr-2 session's (route sort, fusion merges)
@@ -4887,6 +5146,12 @@ def run_phases(dev, name: str, main_build, routed_build,
     # the backward's launches: the training run's (26 per step)
     train_total, train_line = train_phase(dev)
     launches["flash_attention_bwd"] = train_total["flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_total = train_mesh_phase(dev, train_line)
+    if not all(mesh_total.get(k) for k in ("flash_attention",
+                                           "flash_attention_bwd")):
+        raise AssertionError(f"train_mesh: the path launched {mesh_total}")
     gc.collect()
     torch.cuda.empty_cache()
     counted = analysis_phase(dev, main_run)

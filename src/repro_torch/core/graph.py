@@ -8,10 +8,13 @@ bit-identical graphs in both packages.
   * robust_prune     — Vamana/DiskANN alpha-pruning of a candidate set
   * build_vamana     — DiskANN-style graph: exact kNN candidates + alpha prune
                        + reverse edges + medoid connectivity patch-up
-  * brute_force_topk — exact ground truth for recall@k.
+  * brute_force_topk — exact ground truth for recall@k
+  * build_hnsw_lite  — a sampled-level hierarchy of Vamana graphs
+                       (``HNSWLite``), the reference's HNSW stand-in.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -272,6 +275,49 @@ def medoid_of(vectors: np.ndarray, sample: int = 4096, seed: int = 0) -> int:
     center = probe.mean(axis=0, keepdims=True)
     d = pairwise_sq_dists(center, vectors)[0]
     return int(np.argmin(d))
+
+
+# ---------------------------------------------------------------------------
+# HNSW-lite hierarchy
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class HNSWLite:
+    """Sampled-level hierarchy. levels[0] covers all vertices.
+
+    level_ids[l]  : (N_l,) global ids present at level l (ascending)
+    level_adj[l]  : (N_l, R_l) adjacency in *level-local* indices
+    entry         : global id of the top-level entry point
+    """
+
+    level_ids: list
+    level_adj: list
+    entry: int
+
+
+def build_hnsw_lite(vectors: np.ndarray, r: int = 32, r_upper: int = 16,
+                    scale: int = 16, max_levels: int = 4,
+                    alpha: float = 1.2, seed: int = 0) -> HNSWLite:
+    """Each level keeps a random 1/``scale`` of the level below (at least
+    4) while the level holds more than 4 x scale vertices, up to
+    ``max_levels``; each level is a Vamana graph of its vertices (degree
+    ``r`` at the bottom, ``r_upper`` above, seed + level), and the entry
+    is the top level's medoid."""
+    n = vectors.shape[0]
+    rng = np.random.default_rng(seed)
+    level_ids = [np.arange(n, dtype=np.int64)]
+    while (level_ids[-1].size > 4 * scale and len(level_ids) < max_levels):
+        prev = level_ids[-1]
+        keep = rng.choice(prev, size=max(prev.size // scale, 4),
+                          replace=False)
+        level_ids.append(np.sort(keep))
+    level_adj = []
+    for lv, ids in enumerate(level_ids):
+        adj, _ = build_vamana(vectors[ids], r=r if lv == 0 else r_upper,
+                              alpha=alpha, seed=seed + lv)
+        level_adj.append(adj)
+    top_med = medoid_of(vectors[level_ids[-1]])
+    return HNSWLite(level_ids=level_ids, level_adj=level_adj,
+                    entry=int(level_ids[-1][top_med]))
 
 
 def recall_at_k(found_ids: np.ndarray, true_ids: np.ndarray) -> float:

@@ -173,3 +173,31 @@ def lockstep_search_batch(db, adj, queries, entry, params: SearchParams):
         i, d, r, _ = lockstep_search(db, adj, queries[q], entry, params)
         ids[q], dists[q], rounds[q] = i, d, r
     return ids, dists, rounds
+
+
+def classic_beam_search(db: np.ndarray, adj: np.ndarray, query: np.ndarray,
+                        entry: int, L: int, k: int):
+    """Textbook serial DiskANN GreedySearch with an exact visited set:
+    expand the best unexpanded candidate, add its unvisited neighbours,
+    keep the best L by (distance, id), until every candidate is
+    expanded. Returns (ids (k,) int64, dists (k,) float32)."""
+    dist0 = float(sq_dist_f32(query, db[entry][None])[0])
+    cand: list = [(dist0, entry, False)]
+    visited = {entry}
+    while True:
+        unexp = [(d, i, j) for j, (d, i, e) in enumerate(cand) if not e]
+        if not unexp:
+            break
+        d, v, j = min(unexp)
+        cand[j] = (d, v, True)
+        news = []
+        for u in adj[v]:
+            if u == INVALID or int(u) in visited:
+                continue
+            visited.add(int(u))
+            news.append((float(sq_dist_f32(query, db[int(u)][None])[0]),
+                         int(u), False))
+        cand = sorted(cand + news)[:L]
+    top = sorted(cand)[:k]
+    return (np.asarray([i for _, i, _ in top], dtype=np.int64),
+            np.asarray([d for d, _, _ in top], dtype=np.float32))

@@ -35,33 +35,53 @@ device's shards of the parameters and the optimizer state.
 **Collective wire bytes per device** (received per device, ring
 algorithms; f the FSDP size, m the model size, n = f m the devices;
 |P| a parameter leaf's bytes at one device's compute shape, f_P = f if
-its spec names an FSDP axis, else 1; G the grad-accum microbatches;
-every term counted per microbatch, times G):
+its spec names an FSDP axis, else 1; G the grad-accum microbatches). A
+train step's terms are what the sharded step (``train/trainer.py``
+``make_train_step(mesh=)``) calls, counted by its collective wrapper
+(``train/parallel.py``): per microbatch (times G) unless said. They
+follow from where a block's function runs: once in the forward, and
+under remat again in each recompute (``_block_runs``). torch's
+checkpoint stops a recompute after the last tensor the backward saved,
+so a block's innermost recompute stops before its MLP's (or MoE's)
+output all-reduce; a group's recompute (scan_groups > 1) runs its
+blocks but the last, whose input is all it needs; the hybrid's group
+recompute runs all of its SSD layers (the shared block after them saves
+tensors of its own).
 
-  all-gather      FSDP: |P| (f_P - 1) / f_P per use of P. A train
-                  microbatch uses a leaf 1 + max(r, 1) times (forward;
-                  backward, which the last recompute's gather serves;
-                  r the remat levels: 0 none, 1 per block, 2 with
-                  groups > 1 and in the hybrid's groups); zamba2's
-                  shared block once per application; a serving step
-                  once.
-  reduce-scatter  FSDP grads: |g_P| (f_P - 1) / f_P per leaf (train).
+  all-gather      FSDP: |P| (f_P - 1) / f_P per run of the leaf's block
+                  function (full and stopped runs); a non-block leaf
+                  (embedding, head, final norms, zamba2's shared block)
+                  once, outside every remat; a serving step once.
+  reduce-scatter  FSDP grads: |g_P| (f_P - 1) / f_P per leaf, at the
+                  parameter dtype (the backward's gradient).
   all-reduce      data-parallel grads of leaves with f_P = 1:
-                  2 |g_P| (f - 1) / f (train, f > 1).
-                  TP: 2 N (m - 1) / m per TP-reduced output, N = (micro
-                  batch) x (rows) x d_model in the activation dtype: the
-                  attention output where the heads split (and the
-                  cross-attention's), the MLP or MoE output where d_ff
-                  splits, the SSD output where d_inner splits, the
-                  vocab-parallel embedding (forward only) and the loss's
-                  max and sum over the vocab shards (8 bytes per row);
-                  per forward pass (1 + r in training) and once more in
-                  the backward. Decode with a head-dim-sharded cache
-                  also reduces its scores, (B, H, cache rows) f32, per
+                  2 |g_P| (f - 1) / f once per step, after the
+                  accumulation (f32 under grad-accum).
+                  kv leaves that "model" leaves whole while the heads
+                  split (each rank reads its heads' kv slice): their
+                  grad shards (every kv head) summed over "model",
+                  2 |P_K| / f_P (m - 1) / m each.
+                  TP: 2 N (m - 1) / m per TP-reduced tensor, N = (micro
+                  batch) x (rows) x d_model in the activation dtype:
+                  where the heads split, the attention output per full
+                  or stopped run and its input once in the backward;
+                  where d_ff splits, the MLP or MoE output per full run
+                  and its input once in the backward, and the MoE's gate
+                  weights (rows x k) once in the backward; where
+                  d_inner splits the SSD output as the MLP's (planned:
+                  ROADMAP 16c); where the vocab splits, the embedding
+                  once (forward), and per loss chunk of C rows the row
+                  max (4 bytes per row) and the sums of exp and of the
+                  label's logit (8) in the forward and the chunk's
+                  recompute, and the chunk's hidden once in the
+                  backward. Decode with a head-dim-sharded cache also
+                  reduces its scores, (B, H, cache rows) f32, per
                   attention layer. decode_long (a cache cut along its
                   sequence over all n devices) combines each attention
                   layer's partial output and its softmax max and sum
-                  over n.
+                  over n. Scalar reductions (the loss's three sums over
+                  the data axes, the norm, the NaN guard, the MoE's
+                  statistics) are not counted.
 
 An axis of at most 8 ranks sits inside one HGX H100 node and runs on
 NVLink; a larger axis crosses nodes on InfiniBand (``LINKS``). With the
@@ -87,8 +107,7 @@ can hold).
 
 Not modelled: measured NCCL time (no card cluster here); overlap of
 collectives with compute (the bound takes the largest term); prefill's
-reshard of K/V into a head-dim-sharded cache; the expert-parallel MoE
-(the MoE dispatch is local per data shard, as the rules say).
+reshard of K/V into a head-dim-sharded cache.
 """
 from __future__ import annotations
 
@@ -104,7 +123,8 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.configs.registry import get_config
-from repro_torch.launch.mesh import axis_sizes, make_production_mesh
+from repro_torch.launch.mesh import (FSDP_AXES, axis_sizes,
+                                     make_production_mesh)
 from repro_torch.launch.opanalysis import OpStream, summarize
 from repro_torch.launch.specs import (ENCDEC_DECODE_ENC_LEN, HBM_PER_CHIP,
                                       Skip, all_cells, plan_cell,
@@ -128,7 +148,6 @@ NVLINK_BW = 450e9            # NVLink 4: 900 GB/s per GPU, 450 each way
 IB_BW = 50e9                 # one 400 Gb/s NDR InfiniBand port per GPU
 LINKS = {"nvlink": NVLINK_BW, "infiniband": IB_BW}
 
-FSDP_AXES = ("pod", "data")
 
 
 def link_of(ranks: int) -> tuple:
@@ -253,7 +272,8 @@ def device_config(cfg: ArchConfig, rules, sizes: dict) -> DeviceConfig:
 
 def _param_rows(plan, cfg_d) -> list:
     """Per compute leaf: (path top key, meta-free spec of one device's
-    compute shape, its global spec's FSDP factor over the mesh)."""
+    compute shape, its global spec's FSDP factor over the mesh, its
+    logical axis names)."""
     sizes = axis_sizes(plan.rules.mesh)
     out = []
     for key in T.model_spec(plan.cfg):
@@ -263,7 +283,7 @@ def _param_rows(plan, cfg_d) -> list:
             ps = pspec_of(gs, plan.rules.params)
             f = _prod(sizes[a] for e in ps for a in pspec_axes(e)
                       if a in FSDP_AXES)
-            out.append((key, ds, f))
+            out.append((key, ds, f, gs.names))
     return out
 
 
@@ -323,52 +343,101 @@ class _Wire:
                 "seconds": seconds}
 
 
-def _remat_levels(plan) -> int:
-    if plan.opts.remat != "full":
-        return 0
-    L = plan.cfg.num_layers
-    grouped = T.pick_groups(L, plan.opts.scan_groups) > 1
-    return 2 if grouped or plan.cfg.family == "hybrid" else 1
+def _stack_runs(n: int, remat: str, groups: int) -> list:
+    """(full runs, stopped runs) of each block function of an ``n``-block
+    stack run by ``models/transformer.py`` ``scan_layers`` in training
+    (module doc)."""
+    if remat != "full":
+        return [(1, 0)] * n
+    g = T.pick_groups(n, groups) if n else 1
+    if g == 1:
+        return [(1, 1)] * n
+    per = n // g
+    return [(1 + int(j % per < per - 1), 1) for j in range(n)]
+
+
+def _block_runs(plan) -> dict:
+    """{"blocks": [...], "enc_blocks": [...]}: each block's (full runs,
+    stopped runs) in a train microbatch (module doc)."""
+    cfg, opts = plan.cfg, plan.opts
+    out = {}
+    if cfg.family == "hybrid":
+        G, e, tail = T.hybrid_layout(cfg)
+        grouped = [(2, 1) if opts.remat == "full" else (1, 0)] * (G * e)
+        out["blocks"] = grouped + _stack_runs(tail, opts.remat, 1)
+    else:
+        out["blocks"] = _stack_runs(cfg.num_layers, opts.remat,
+                                    opts.scan_groups)
+    if cfg.family == "encdec":
+        out["enc_blocks"] = _stack_runs(cfg.enc_layers, opts.remat,
+                                        opts.scan_groups)
+    return out
 
 
 def _model_collectives(plan, cfg_d, wire: _Wire, rows_q: int, B_mb: int,
-                       cache_rows: int, act_bytes: int) -> None:
-    """The TP all-reduces (and decode's cache combines) of one
-    microbatch or serving step (module doc)."""
+                       cache_rows: int, act_bytes: int, G: int = 1) -> None:
+    """The TP all-reduces (and decode's cache combines) of a train step's
+    G microbatches, or of a serving step (module doc)."""
     cfg, sizes = plan.cfg, wire.sizes
     m = sizes.get("model", 1)
     n = _prod(sizes.values())
     kind = plan.rules_kind
     train = plan.kind == "train"
-    r = _remat_levels(plan) if train else 0
-    passes = (1 + r + 1) if train else 1       # forward(s) + backward
     N = B_mb * rows_q * cfg.d_model * act_bytes
     heads = cfg_d.num_heads < cfg.num_heads
     ffn = cfg_d.d_ff < cfg.d_ff
-    inner = cfg.ssm_state and cfg_d.d_inner < cfg.d_inner
+    inner = bool(cfg.ssm_state) and cfg_d.d_inner < cfg.d_inner
     L, fam = cfg.num_layers, cfg.family
-    points = 0                                 # TP-reduced outputs per pass
-    attn_layers = 0
-    if fam in ("dense", "vlm", "moe", "encdec"):
-        attn_layers = L
-        points += L * (int(heads) + int(ffn))
+    attn_layers = L if fam in ("dense", "vlm", "moe", "encdec") else 0
+    if fam == "hybrid":
+        attn_layers = T.hybrid_layout(cfg)[0]
+    if not train:
+        points = attn_layers * (int(heads) + int(ffn))
         if fam == "encdec":
             points += L * int(heads)           # cross-attention
-            enc = B_mb * (rows_q if plan.kind != "decode" else 0) \
-                * cfg.d_model * act_bytes
-            wire.ring_reduce("model", m, enc,
-                             cfg.enc_layers * (int(heads) + int(ffn)) * passes)
-    if fam in ("ssm", "hybrid"):
-        points += L * int(bool(inner))
-    if fam == "hybrid":
-        G = T.hybrid_layout(cfg)[0]
-        attn_layers = G
-        points += G * (int(heads) + int(ffn))
-    wire.ring_reduce("model", m, N, points * passes)
-    if cfg_d.vocab_size < cfg.vocab_padded():
-        wire.ring_reduce("model", m, N, 1)     # vocab-parallel embedding
-        if train:                              # the loss's max and sum
-            wire.ring_reduce("model", m, B_mb * rows_q * 8, 1 + 1)
+            wire.ring_reduce("model", m, B_mb * (
+                rows_q if plan.kind != "decode" else 0) * cfg.d_model
+                * act_bytes, cfg.enc_layers * (int(heads) + int(ffn)))
+        if fam in ("ssm", "hybrid"):
+            points += L * int(inner)
+        wire.ring_reduce("model", m, N, points)
+        if cfg_d.vocab_size < cfg.vocab_padded():
+            wire.ring_reduce("model", m, N, 1)  # vocab-parallel embedding
+    else:
+        runs = _block_runs(plan)
+        attn = ffn_n = 0
+        if fam in ("dense", "vlm", "moe", "encdec"):
+            for full, stopped in runs["blocks"]:
+                attn += (full + stopped + 1) * (1 + int(fam == "encdec"))
+                ffn_n += full + 1
+            if fam == "moe" and ffn:
+                wire.ring_reduce("model", m, B_mb * rows_q
+                                 * cfg.num_experts_per_tok * act_bytes,
+                                 L * G)        # the gate weights' grads
+        if fam == "encdec":
+            enc = B_mb * rows_q * cfg.d_model * act_bytes
+            e_attn = sum(f + s + 1 for f, s in runs["enc_blocks"])
+            e_ffn = sum(f + 1 for f, _ in runs["enc_blocks"])
+            wire.ring_reduce("model", m, enc, G * (
+                e_attn * int(heads) + e_ffn * int(ffn)))
+        if fam == "hybrid":
+            # the shared block ends each group: the group's forward and
+            # its recompute run it whole, then its backward
+            Gh = T.hybrid_layout(cfg)[0]
+            attn = ffn_n = Gh * (3 if plan.opts.remat == "full" else 2)
+        if fam in ("ssm", "hybrid"):
+            wire.ring_reduce("model", m, N, G * int(inner) * sum(
+                f + 1 for f, _ in runs["blocks"]))
+        wire.ring_reduce("model", m, N,
+                         G * (attn * int(heads) + ffn_n * int(ffn)))
+        if cfg_d.vocab_size < cfg.vocab_padded():
+            C = min(plan.opts.loss_chunk, rows_q)
+            chunks = -(-rows_q // C)
+            wire.ring_reduce("model", m, N, G)          # the embedding
+            wire.ring_reduce("model", m, B_mb * C * 4, 2 * chunks * G)
+            wire.ring_reduce("model", m, B_mb * C * 8, 2 * chunks * G)
+            wire.ring_reduce("model", m, B_mb * C * cfg.d_model
+                             * act_bytes, chunks * G)
     if kind == "decode" and cfg_d.head_dim < cfg.head_dim and attn_layers:
         wire.ring_reduce("model", m,
                          B_mb * cfg_d.num_heads * cache_rows * 4,
@@ -379,28 +448,40 @@ def _model_collectives(plan, cfg_d, wire: _Wire, rows_q: int, B_mb: int,
         wire.ring_reduce("all", n, per, attn_layers)
 
 
-def _param_collectives(plan, cfg_d, wire: _Wire, grad_bytes: int) -> None:
-    """The FSDP gathers, grad reduce-scatters and data-parallel grad
-    all-reduces of one microbatch or serving step (module doc)."""
+def _param_collectives(plan, cfg_d, wire: _Wire, grad_bytes: int,
+                       G: int = 1) -> None:
+    """The FSDP gathers, grad reduce-scatters, kv grads' model sums and
+    data-parallel grad all-reduces of a train step's G microbatches, or
+    the gathers of a serving step (module doc)."""
     sizes = wire.sizes
     f = _prod(sizes.get(a, 1) for a in FSDP_AXES)
+    m = sizes.get("model", 1)
     train = plan.kind == "train"
-    uses = 1 + max(_remat_levels(plan), 1) if train else 1
-    apps = T.hybrid_layout(plan.cfg)[0] if plan.cfg.family == "hybrid" \
-        else 1
     pbytes = torch.empty((), dtype=plan.policy.param_dtype).element_size()
-    for key, ds, fp in _param_rows(plan, cfg_d):
+    runs = _block_runs(plan) if train else {}
+    kv_whole = (plan.rules.params.lookup("heads") == "model" and m > 1
+                and plan.rules.params.lookup("kv_heads") is None)
+    seen = {}
+    for key, ds, fp, names in _param_rows(plan, cfg_d):
         full = _prod(ds.shape) * pbytes
+        uses = 1
+        if train and key in STACKED:
+            # the leaves of a stacked subtree come block by block
+            i = seen[key] = seen.get(key, -1) + 1
+            per = len(spec_leaves(T.model_spec(plan.cfg)[key][0]))
+            uses = sum(runs[key][i // per])
         if fp > 1:
-            wire.ring_gather("fsdp", fp, full,
-                             uses * (apps if key == "shared" else 1))
+            wire.ring_gather("fsdp", fp, full, uses * G)
         if not train:
             continue
-        g = _prod(ds.shape) * grad_bytes
         if fp > 1:
-            wire.ring_scatter("fsdp", fp, g)
+            wire.ring_scatter("fsdp", fp, full, G)
         else:
-            wire.ring_reduce("fsdp", f, g)
+            wire.ring_reduce("fsdp", f, _prod(ds.shape) * grad_bytes)
+        if kv_whole and "kv_heads" in names:
+            # the sum runs on the whole shard: every kv head, read or not
+            wire.ring_reduce("model", m, full / fp * plan.cfg.num_kv_heads
+                             / cfg_d.num_kv_heads, G)
 
 
 # --------------------------------------------------------------------------
@@ -470,7 +551,7 @@ def analyze_plan(plan) -> dict:
                            lambda _, s: _meta(s.shape, pdt))
     arg_parts = {"params": sum(p.local_bytes(mesh)
                                for p in planned_leaves(plan.args[0]))}
-    fsdp_params = any(fp > 1 for _, _, fp in _param_rows(plan, cfg_d))
+    fsdp_params = any(r[2] > 1 for r in _param_rows(plan, cfg_d))
     gather = _largest_unit(plan, cfg_d) if fsdp_params else 0
 
     if plan.kind == "train":
@@ -479,11 +560,7 @@ def analyze_plan(plan) -> dict:
         arg_parts["inputs"] = sum(p.local_bytes(mesh)
                                   for p in planned_leaves(plan.args[2]))
         records, temp = _train_records(plan, cfg_d, params_c, B_mb, S)
-        grad_bytes = 4 if G > 1 else torch.empty(
-            (), dtype=pdt).element_size()
-        _param_collectives(plan, cfg_d, wire, grad_bytes)
-        _model_collectives(plan, cfg_d, wire, S, B_mb, 0, act_bytes)
-        wire.rows = [(k, a, r, b, c * G) for k, a, r, b, c in wire.rows]
+        train_collectives(plan, wire)
     else:
         arg_parts["inputs"] = sum(
             p.local_bytes(mesh) for a in plan.args[1:]
@@ -523,6 +600,23 @@ def analyze_plan(plan) -> dict:
                        "collectives": coll, "kernels": rep["kernels"]},
         "roofline": _roofline(t_comp, t_mem, t_coll),
     }
+
+
+def train_collectives(plan, wire: _Wire | None = None) -> _Wire:
+    """The collectives of a train cell's step on one device (module doc):
+    ``wire`` (a new one by default) with its rows added."""
+    sizes = axis_sizes(plan.rules.mesh)
+    wire = _Wire(sizes) if wire is None else wire
+    cfg_d = device_config(plan.cfg, plan.rules, sizes)
+    B, S = plan.args[2]["tokens"].shape
+    G = plan.policy.grad_accum
+    B_mb = B // _factor(plan.rules.acts.lookup("batch"), sizes) // G
+    act_bytes = torch.empty((), dtype=plan.opts.act_dtype).element_size()
+    grad_bytes = 4 if G > 1 else torch.empty(
+        (), dtype=plan.policy.param_dtype).element_size()
+    _param_collectives(plan, cfg_d, wire, grad_bytes, G)
+    _model_collectives(plan, cfg_d, wire, S, B_mb, 0, act_bytes, G)
+    return wire
 
 
 def _roofline(t_comp, t_mem, t_coll) -> dict:

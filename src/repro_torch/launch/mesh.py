@@ -25,12 +25,23 @@ The planning meshes (:func:`make_production_mesh`, :func:`make_mesh_for`)
 are plain descriptions: axis names and a size per axis, as the sharding
 rules (``models/sharding.py``) and the dry run (``launch/dryrun.py``)
 read them. They open no process group and hold no device.
+
+The training mesh (:class:`TrainMesh`, :func:`make_train_mesh`) lays a
+``("data", "model")`` or ``("pod", "data", "model")`` grid over an
+initialised world, one process per rank, row-major (the last axis
+fastest, as ``jax.make_mesh`` orders its devices), with one process
+group per axis and one over the FSDP axes together (``"fsdp"``: pod and
+data). :func:`init_train_group` starts the world with an explicit
+address and a timeout on every collective: ``nccl`` on a card, ``gloo``
+on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import itertools
 import math
+import os
 from typing import Any
 
 import torch
@@ -153,3 +164,168 @@ def axis_sizes(mesh) -> dict:
     if isinstance(shape, dict):
         return {a: int(shape[a]) for a in names}
     return dict(zip(names, (int(s) for s in shape)))
+
+
+# ---------------------------------------------------------------------------
+# The training mesh
+# ---------------------------------------------------------------------------
+#: seconds any collective of a training mesh may wait before it fails
+TRAIN_TIMEOUT_S = 600
+#: the axes that carry the FSDP shards and the batch rows
+FSDP_AXES = ("pod", "data")
+
+
+def init_train_group(device, *, init_method: str | None = None,
+                     rank: int | None = None, world: int | None = None,
+                     timeout_s: float = TRAIN_TIMEOUT_S) -> None:
+    """Start the default process group for a training mesh: ``nccl`` when
+    ``device`` is a card (the group bound to it, so its communicator
+    exists before the first collective), ``gloo`` on the CPU. The
+    address is ``init_method`` (``file://...`` or ``tcp://host:port``),
+    else the ``MASTER_ADDR`` / ``MASTER_PORT`` that ``torchrun`` sets;
+    ``rank`` and ``world`` default to ``RANK`` and ``WORLD_SIZE`` (else
+    0 and 1)."""
+    dev = torch.device(device)
+    rank = int(os.environ.get("RANK", 0)) if rank is None else int(rank)
+    world = int(os.environ.get("WORLD_SIZE", 1)) if world is None \
+        else int(world)
+    if init_method is None:
+        if "MASTER_ADDR" not in os.environ:
+            raise ValueError("no rendezvous: pass an init_method "
+                             "(file:// or tcp://) or set MASTER_ADDR and "
+                             "MASTER_PORT")
+        init_method = (f"tcp://{os.environ['MASTER_ADDR']}:"
+                       f"{os.environ.get('MASTER_PORT', '29500')}")
+    kw = {}
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        kw["device_id"] = dev
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=init_method, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """One rank's view of a training mesh: the axis names and sizes, this
+    rank's coordinate on each axis, and the process group of each axis
+    of more than one rank (``groups``; ``"fsdp"`` spans pod x data). The
+    sharding rules read it as a mesh (``axis_names``, ``shape``)."""
+
+    axis_names: tuple
+    sizes: tuple
+    rank: int
+    coords: dict
+    groups: dict
+    device: torch.device
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def size(self, axis) -> int:
+        """Ranks along ``axis``: a name, ``"fsdp"`` or a tuple of names."""
+        return math.prod(self.shape.get(a, 1) for a in self.names(axis))
+
+    def coord(self, axis) -> int:
+        """This rank's place along ``axis`` (row-major over a tuple)."""
+        c = 0
+        for a in self.names(axis):
+            c = c * self.shape.get(a, 1) + self.coords.get(a, 0)
+        return c
+
+    def group(self, axis):
+        """The process group of ``axis`` (None: a single rank)."""
+        return self.groups.get(self.key(axis))
+
+    def names(self, axis) -> tuple:
+        """The axis names ``axis`` spans ("fsdp": pod and data; "world":
+        every axis)."""
+        if axis == "fsdp":
+            return tuple(a for a in FSDP_AXES if a in self.shape)
+        if axis == "world":
+            return self.axis_names
+        if isinstance(axis, str):
+            return (axis,)
+        return tuple(a for e in axis for a in self.names(e))
+
+    def key(self, axis) -> str:
+        """``axis``'s name in ``groups`` (and in the collectives' counts)."""
+        names = self.names(axis)
+        if names == self.names("fsdp"):
+            return "fsdp"
+        if names == self.axis_names:
+            return "world"
+        if len(names) == 1:
+            return names[0]
+        raise ValueError(f"no process group for axes {names}")
+
+
+def _axis_lines(sizes: tuple, axes: tuple) -> list:
+    """Every line of ranks along ``axes`` (indices into ``sizes``) of a
+    row-major grid, in one order on every rank."""
+    others = [i for i in range(len(sizes)) if i not in axes]
+    lines = []
+    for fixed in itertools.product(*(range(sizes[i]) for i in others)):
+        line = []
+        for moving in itertools.product(*(range(sizes[i]) for i in axes)):
+            idx = [0] * len(sizes)
+            for i, v in zip(others, fixed):
+                idx[i] = v
+            for i, v in zip(axes, moving):
+                idx[i] = v
+            r = 0
+            for i, v in enumerate(idx):
+                r = r * sizes[i] + v
+            line.append(r)
+        lines.append(line)
+    return lines
+
+
+def make_train_mesh(shape, axes=None, device="cuda") -> TrainMesh:
+    """The training mesh of ``shape`` over the initialised world
+    (``init_train_group`` first; the world size must equal the product
+    of ``shape``). ``axes`` default: ``("data", "model")`` for two
+    entries, ``("pod", "data", "model")`` for three, as the reference's
+    ``launch/train.py`` names them. Every rank makes every group, in one
+    order (``new_group`` is collective)."""
+    shape = tuple(int(s) for s in shape)
+    if axes is None:
+        axes = ("data", "model")[:len(shape)] if len(shape) <= 2 else \
+            ("pod", "data", "model")
+    axes = tuple(axes)
+    if len(axes) != len(shape):
+        raise ValueError(f"shape {shape} and axes {axes} differ in length")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError("make_train_mesh reads an initialised process "
+                           "group: call init_train_group(...) first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if math.prod(shape) != world:
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
+                         f"the world has {world}")
+    coords, r = {}, rank
+    for a, s in reversed(list(zip(axes, shape))):
+        coords[a] = r % s
+        r //= s
+    wanted = {a: (i,) for i, a in enumerate(axes)}
+    fsdp = tuple(i for i, a in enumerate(axes) if a in FSDP_AXES)
+    if len(fsdp) > 1:
+        wanted["fsdp"] = fsdp
+    wanted["world"] = tuple(range(len(axes)))
+    groups = {}
+    for key, idx in wanted.items():
+        if math.prod(shape[i] for i in idx) == 1:
+            continue
+        if idx == tuple(range(len(axes))):
+            groups[key] = dist.group.WORLD
+            continue
+        for line in _axis_lines(shape, idx):
+            g = dist.new_group(line)
+            if rank in line:
+                groups[key] = g
+    if len(fsdp) == 1 and axes[fsdp[0]] in groups:
+        groups["fsdp"] = groups[axes[fsdp[0]]]
+    return TrainMesh(axes, shape, rank, coords, groups, torch.device(device))

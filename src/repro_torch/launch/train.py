@@ -8,11 +8,25 @@ restored run replays the crashed one's batches. Runs on the card unless
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
       --reduced --steps 200 --batch 8 --seq 256 --device cpu
 
-The reference's ``--mesh`` (a sharded step over a device mesh) is not a
-flag here yet. Its sharding rules exist (``models/sharding.py``; the
-planner ``launch/specs.py`` and the dry run ``launch/dryrun.py`` read
-them on one process); the sharded step itself, with the expert-parallel
-MoE, is ROADMAP.md item 16b.
+``--mesh D,M`` (or ``P,D,M``) runs the sharded step (``train/trainer.py``
+``make_train_step(mesh=)``: FSDP over the data axes, tensor parallelism
+over "model" for the dense, vlm and moe families, the expert-parallel
+MoE) with one process per rank over ``torch.distributed``: ``nccl`` on
+the card, ``gloo`` with ``--device cpu``. The rendezvous is explicit:
+``--init-method`` (``file://...`` or ``tcp://127.0.0.1:PORT``), or
+``MASTER_ADDR`` and ``MASTER_PORT``; each process's ``RANK`` and
+``WORLD_SIZE`` (else 0 and 1), as ``torchrun`` sets them::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch mixtral-8x7b --reduced --mesh 2,2 --device cpu
+
+Every rank builds the same parameters from ``--seed`` and keeps its
+shard; rank 0 prints the per-step lines, writes ``--metrics-out`` and
+the checkpoints (the full arrays, the one-device layout: a checkpoint
+crosses between meshes, one device and the reference); a restore reads
+the file on every rank and keeps each rank's shard. On a card only a
+world of one runs here (one card per machine; NCCL takes one rank per
+GPU).
 """
 from __future__ import annotations
 
@@ -22,15 +36,20 @@ import time
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import checkpoint as ckpt
 from repro_torch.configs.registry import get_config, reduced
 from repro_torch.data.pipeline import FrontendPipeline, TokenPipeline
 from repro_torch.ft.restart import run_with_restarts
+from repro_torch.launch.mesh import init_train_group, make_train_mesh
 from repro_torch.models import transformer as T
+from repro_torch.models.convert import shard_params
 from repro_torch.optim.adamw import OptConfig
-from repro_torch.train.trainer import (TrainConfig, init_train_state,
-                                       load_state, make_train_step,
-                                       state_like, state_tree)
+from repro_torch.train.trainer import (TrainConfig, gather_state,
+                                       init_train_state, load_state,
+                                       make_train_step, shard_opt,
+                                       state_like, state_tree, trainable)
 from repro_torch.utils import resolve_device, to_device
 
 
@@ -53,11 +72,23 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--mesh", default="",
+                    help="D,M (data, model) or P,D,M: the sharded step, "
+                         "one process per rank")
+    ap.add_argument("--init-method", default=None,
+                    help="the ranks' rendezvous (file:// or tcp://; the "
+                         "rank and world from RANK and WORLD_SIZE, else 0 "
+                         "and 1); default MASTER_ADDR and MASTER_PORT")
     return ap.parse_args(argv)
 
 
-def build(args):
-    """(cfg, oc, step_fn, pipe, fpipe) for the parsed flags."""
+def mesh_shape(args) -> tuple:
+    return tuple(int(x) for x in args.mesh.split(",")) if args.mesh else ()
+
+
+def build(args, mesh=None):
+    """(cfg, oc, step_fn, pipe, fpipe) for the parsed flags; ``mesh``: the
+    training mesh of ``--mesh`` (the step is then one rank's)."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -65,7 +96,7 @@ def build(args):
     oc = OptConfig(lr_max=args.lr, warmup=args.warmup,
                    decay_steps=args.steps)
     tc = TrainConfig(grad_accum=args.grad_accum)
-    step_fn = make_train_step(cfg, oc, tc, opts=opts)
+    step_fn = make_train_step(cfg, oc, tc, opts=opts, mesh=mesh)
     pipe = TokenPipeline(cfg.vocab_size, args.batch, args.seq,
                          seed=args.seed)
     fpipe = None
@@ -79,12 +110,31 @@ def build(args):
 
 def train(args, *, on_step=None, fail_injector=None) -> dict:
     """The training loop of :func:`main`: supervised with checkpoints
-    under ``--ckpt-dir``, plain otherwise. ``on_step(step, metrics)``
-    runs after each step (before the log line); ``fail_injector(step)``
-    may raise to simulate a failure (supervised runs only). Returns
-    {"history", "step", "params", "opt", "restarts", "seconds"}."""
+    under ``--ckpt-dir``, plain otherwise; with ``--mesh`` one rank's
+    share (the process group started here if it is not yet, and ended
+    here then). ``on_step(step, metrics)`` runs after each step (before
+    the log line); ``fail_injector(step)`` may raise to simulate a
+    failure (supervised runs only). Returns {"history", "step",
+    "params", "opt", "restarts", "seconds", "rank"} (on a mesh the
+    rank's shards)."""
     device = resolve_device(args.device)
-    cfg, oc, step_fn, pipe, fpipe = build(args)
+    shape, own_group = mesh_shape(args), False
+    mesh = None
+    if shape:
+        if not dist.is_initialized():
+            init_train_group(device, init_method=args.init_method)
+            own_group = True
+        mesh = make_train_mesh(shape, device=device)
+    try:
+        return _train(args, device, mesh, on_step, fail_injector)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, device, mesh, on_step, fail_injector) -> dict:
+    cfg, oc, step_fn, pipe, fpipe = build(args, mesh)
+    lead = mesh is None or mesh.rank == 0
     history = []
 
     def batch_at(step):
@@ -94,16 +144,24 @@ def train(args, *, on_step=None, fail_injector=None) -> dict:
                                       device)
         return b
 
+    def shard(params, opt):
+        """A full state -> this rank's shards (the full one is dropped)."""
+        if mesh is None:
+            return params, opt
+        par = step_fn.par
+        p = trainable(shard_params(params, par.rules, mesh, cfg))
+        return p, shard_opt(par, oc, p, opt)
+
     def init_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        return 0, init_train_state(cfg, oc, gen)
+        return 0, shard(*init_train_state(cfg, oc, gen))
 
     def run_step(step, state):
         params, opt = state
         params, opt, m = step_fn(params, opt, batch_at(step))
         if on_step is not None:
             on_step(step, m)
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             loss = float(m["loss"])
             history.append({"step": step, "loss": loss,
                             "grad_norm": float(m["grad_norm"]),
@@ -116,15 +174,21 @@ def train(args, *, on_step=None, fail_injector=None) -> dict:
     restarts = 0
     if args.ckpt_dir:
         def restore_state(latest):
-            _, (params, opt) = init_state()
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+            params, opt = init_train_state(cfg, oc, gen)
             st, tree, _ = ckpt.restore(args.ckpt_dir,
                                        state_like(params, opt),
                                        step=latest, device=device)
             load_state(params, opt, tree)
-            return st, (params, opt)
+            return st, shard(params, opt)
 
         def save_state(step, state):
-            ckpt.save(args.ckpt_dir, step, state_tree(*state))
+            full = state if mesh is None else gather_state(
+                step_fn.par, oc, *state)
+            if lead:
+                ckpt.save(args.ckpt_dir, step, state_tree(*full))
+            if mesh is not None:
+                dist.barrier()
 
         step, state, stats = run_with_restarts(
             init_state=init_state, restore_state=restore_state,
@@ -132,24 +196,27 @@ def train(args, *, on_step=None, fail_injector=None) -> dict:
             total_steps=args.steps, ckpt_dir=args.ckpt_dir,
             ckpt_every=args.ckpt_every, fail_injector=fail_injector)
         restarts = stats.restarts
-        print(f"done at step {step}; restarts={restarts}")
+        if lead:
+            print(f"done at step {step}; restarts={restarts}")
     else:
         step, state = init_state()
         while step < args.steps:
             state = run_step(step, state)
             step += 1
         dt = time.time() - t0
-        print(f"done: {args.steps} steps in {dt:.1f}s "
-              f"({args.steps * args.batch * args.seq / dt:.0f} tok/s)")
+        if lead:
+            print(f"done: {args.steps} steps in {dt:.1f}s "
+                  f"({args.steps * args.batch * args.seq / dt:.0f} tok/s)")
     return {"history": history, "step": step, "params": state[0],
             "opt": state[1], "restarts": restarts,
-            "seconds": time.time() - t0}
+            "seconds": time.time() - t0,
+            "rank": 0 if mesh is None else mesh.rank}
 
 
 def main(argv=None):
     args = parse_args(argv)
     out = train(args)
-    if args.metrics_out:
+    if args.metrics_out and out["rank"] == 0:
         with open(args.metrics_out, "w") as f:
             json.dump(out["history"], f, indent=1)
     return 0

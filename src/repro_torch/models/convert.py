@@ -12,6 +12,14 @@ optimizer's moments) between the two layouts, as the checkpoints of the
 training path need. A subtree that is already in the reference's
 layout (the factored second moment of ``optim/adamw.py``, which it
 holds stacked) passes through both as it is.
+
+On a training mesh (``launch/mesh.py`` ``TrainMesh``) :func:`shard_params`
+cuts a full parameter tree into one rank's shard, as the rules'
+parameter table cuts each leaf (``leaf_axes``: FSDP on "embed" over the
+data axes, heads, kv heads, ffn, vocab and the SSM widths over "model",
+experts whole), and :func:`gather_params` joins the shards again (an
+all-gather per cut dim). :func:`cut` and :func:`uncut` do the same for
+any tensor given its per-dim axes (the optimizer's moments).
 """
 from __future__ import annotations
 
@@ -20,7 +28,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.params import module_tree
+from repro_torch.models.params import (leaf_axes, local_shape, module_tree,
+                                       pspec_of, tree_paths_map)
 from repro_torch.models.transformer import model_spec
 from repro_torch.utils import as_tree, resolve_device, tree_map
 
@@ -83,3 +92,64 @@ def params_to_numpy(params: nn.Module) -> dict:
     """The port's module tree -> the reference's tree layout as numpy
     arrays, with the per-layer leaves stacked along a leading axis."""
     return stacked(params)
+
+
+# ---------------------------------------------------------------------------
+# Shards on a training mesh
+# ---------------------------------------------------------------------------
+def cut(t: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of the full tensor ``t``: dim i cut into
+    ``mesh.size(axes[i])`` equal slices, the rank's by its coordinate on
+    those axes (a copy; ``t`` itself where nothing cuts it)."""
+    out = t
+    for i, a in enumerate(axes):
+        k = mesh.size(a) if a else 1
+        if k > 1:
+            n = t.shape[i] // k
+            out = out.narrow(i, mesh.coord(a) * n, n)
+    return t if out is t else out.clone()
+
+
+def uncut(t: torch.Tensor, axes: tuple, mesh,
+          tag: str = "checkpoint") -> torch.Tensor:
+    """The full tensor from every rank's :func:`cut` (collective: every
+    rank of the mesh calls it)."""
+    from repro_torch.train.parallel import collective   # lazy: cycle
+    for i, a in enumerate(axes):
+        if a and mesh.size(a) > 1:
+            t = collective("all-gather", t, mesh, a, dim=i, tag=tag)
+    return t
+
+
+def param_axes(cfg: ArchConfig, rules) -> dict:
+    """The per-dim mesh axes of every leaf of ``cfg``'s parameter tree
+    (``rules``: ``make_rules``' MeshRules), shaped as the tree."""
+    return tree_paths_map(lambda s: leaf_axes(s, rules.params),
+                          model_spec(cfg))
+
+
+def shard_params(module, rules, mesh, cfg: ArchConfig) -> nn.Module:
+    """A full parameter module tree -> this rank's shard of it, a new
+    module tree on the same device (``params_from_jax`` then
+    ``shard_params`` carries the reference's weights to every rank)."""
+    full = as_tree(module)
+
+    def leaf(path, s):
+        t = full
+        for k in path:
+            t = t[k]
+        out = cut(t.detach(), leaf_axes(s, rules.params), mesh)
+        want = local_shape(s.shape, pspec_of(s, rules.params), mesh.shape)
+        if tuple(out.shape) != want:
+            raise ValueError(f"{'/'.join(map(str, path))}: shard "
+                             f"{tuple(out.shape)}, the rules give {want}")
+        return out
+
+    return module_tree(model_spec(cfg), leaf)
+
+
+def gather_params(module, rules, mesh, cfg: ArchConfig) -> dict:
+    """The inverse of :func:`shard_params`: the full tree (dicts and
+    lists of tensors) on every rank."""
+    return tree_map(lambda t, a: uncut(t.detach(), a, mesh),
+                    as_tree(module), param_axes(cfg, rules))

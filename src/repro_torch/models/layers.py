@@ -1,5 +1,8 @@
 """Shared layers: RMSNorm, gated MLP, embedding/head (the reference's
-``models/layers.py`` in torch; one device, so no sharding constraints)."""
+``models/layers.py`` in torch). The reference's sharding constraints
+have no twin: on a training mesh the model code adds the collectives
+itself (``train/parallel.py``), and :func:`embed_shard` is one vocab
+shard's part of the lookup."""
 from __future__ import annotations
 
 import torch
@@ -45,6 +48,17 @@ def embed_spec(vocab: int, d: int, tie: bool):
 
 def embed(p, tokens):
     return p["embedding"][tokens]
+
+
+def embed_shard(p, tokens, lo: int):
+    """One shard of a vocab-parallel lookup: the embedding holds rows
+    [lo, lo + rows); each token reads its row where it falls there and
+    zeros elsewhere, so the shards' sum is :func:`embed`."""
+    emb = p["embedding"]
+    rows = emb.shape[0]
+    local = tokens.long() - lo
+    hit = (local >= 0) & (local < rows)
+    return emb[local.clamp(0, rows - 1)] * hit[..., None].to(emb.dtype)
 
 
 def unembed(p, x, tie: bool, softcap: float = 0.0):

@@ -123,6 +123,14 @@ def pspec_axes(entry) -> tuple:
     return tuple(a for e in entry for a in pspec_axes(e))
 
 
+def leaf_axes(s: ParamSpec, rules: ShardingRules) -> tuple:
+    """Per dim of a leaf, the mesh axes that cut it (``()`` where the dim
+    stays whole)."""
+    ps = pspec_of(s, rules)
+    return tuple(pspec_axes(ps[i] if i < len(ps) else None)
+                 for i in range(len(s.shape)))
+
+
 def local_shape(shape, pspec: tuple, sizes: Mapping[str, int]) -> tuple:
     """A tensor's shape on one device: each dim divided by the product
     of its entry's mesh axis sizes (which must divide it)."""

@@ -36,6 +36,19 @@ block inside it under its own, so the backward keeps only the groups'
 inputs and recomputes one group's block inputs at a time. The hybrid's
 groups (``hybrid_layout``: e SSD layers and the shared block) are such
 groups whatever ``scan_groups``, as the reference scans them.
+
+On a training mesh (``par``: ``train/parallel.py`` ``MeshShard``; None
+on one device) the training entry points (``loss_fn``,
+``forward_hidden``, ``encode``) run one rank's share: its rows of the
+batch and its cut of every leaf. Each block gathers its FSDP shards
+inside its block function, so remat's recompute gathers them again;
+the non-block leaves are gathered once (``MeshShard.outer``). The
+collectives stand where the reference's sharding constraints let GSPMD
+put them: the attention's input and output where the heads split
+(Megatron's f and g), the MLP's and the MoE's where d_ff splits, the
+embedding's sum over the vocab shards, and the loss's max and sums over
+them (:func:`chunked_xent`); the loss's sums and the MoE's statistics
+over the data shards.
 """
 from __future__ import annotations
 
@@ -49,9 +62,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import (embed, embed_spec, mlp, mlp_spec,
-                                       rmsnorm, rmsnorm_spec, unembed)
-from repro_torch.models.moe import moe_ffn, moe_spec
+from repro_torch.models.layers import (embed, embed_shard, embed_spec, mlp,
+                                       mlp_spec, rmsnorm, rmsnorm_spec,
+                                       unembed)
+from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.models.params import materialize
 from repro_torch.utils import resolve_device
 
@@ -168,12 +182,16 @@ def hybrid_layout(cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 # Shared pieces
 # ---------------------------------------------------------------------------
-def _embed_inputs(params, cfg, tokens, opts, frontend_embeds):
+def _embed_inputs(params, cfg, tokens, opts, frontend_embeds, par=None):
     """Token embeddings; for decoder-only families ``frontend_embeds``
     (B,F,d) — patch embeddings or retrieved soft prompts — overwrite the
     first F prompt positions. For encdec they are the encoder's input
     and leave the token embeddings as they are."""
-    x = embed(params["tok"], tokens).to(opts.act_dtype)
+    if par is not None and par.vocab_split:
+        x = par.vocab_sum(embed_shard(params["tok"], tokens, par.vocab_lo))
+    else:
+        x = embed(params["tok"], tokens)
+    x = x.to(opts.act_dtype)
     if frontend_embeds is not None and cfg.family != "encdec":
         x = x.clone()
         F = frontend_embeds.shape[1]
@@ -186,8 +204,11 @@ def _positions(B: int, Sq: int, device):
         B, Sq)
 
 
-def _mlp(p, x, cfg):
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), act=cfg.act)
+def _mlp(p, x, cfg, par=None):
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if par is None:
+        return x + mlp(p["mlp"], h, act=cfg.act)
+    return x + par.ffn_out(mlp(p["mlp"], par.ffn_in(h), act=cfg.act))
 
 
 def _remat(opts):
@@ -225,18 +246,23 @@ def scan_layers(steps, carry: tuple, opts, groups: int = 1) -> tuple:
     return carry
 
 
-def _layers(params, cfg, x, opts, self_attn, cross, ssm):
+def _layers(params, cfg, x, opts, self_attn, cross, ssm, par=None):
     """The decoder stack of every family over x -> (x, aux). The three
     sequence operations each return x plus the layer's output:
     ``self_attn(p, x, j, window)`` (j: the layer's KV-cache slot),
     ``cross(p, x, i)`` (encdec) and ``ssm(p, x, i)``. aux holds the moe
     family's mean ``lb_loss`` and ``drop_frac`` over the layers. Each
     block (an SSD layer, a decoder layer) is one remat unit; the
-    hybrid's groups and ``opts.scan_groups`` add the outer level."""
+    hybrid's groups and ``opts.scan_groups`` add the outer level. On a
+    mesh each block gathers its shards first (``par.use``), inside its
+    remat unit."""
     fam, eps = cfg.family, cfg.norm_eps
+
+    def use(p):
+        return p if par is None else par.use(p, "blocks")
     if fam in ("ssm", "hybrid"):
         blocks = params["blocks"]
-        steps = [lambda x, p=p, i=i: (ssm(p, x, i),)
+        steps = [lambda x, p=p, i=i: (ssm(use(p), x, i),)
                  for i, p in enumerate(blocks)]
         if fam == "ssm":
             return scan_layers(steps, (x,), opts, opts.scan_groups)[0], {}
@@ -247,17 +273,19 @@ def _layers(params, cfg, x, opts, self_attn, cross, ssm):
             # shared block's application j, under one more
             x, = run(_group(run, steps[j * e:(j + 1) * e],
                             lambda x, j=j: (_mlp(shared, self_attn(
-                                shared, x, j, cfg.window), cfg),)), x)
+                                shared, x, j, cfg.window), cfg, par),)), x)
         return scan_layers(steps[G * e:], (x,), opts)[0], {}
 
     def block(p, i, win, x, lb=0.0, dr=0.0):
+        p = use(p)
         x = self_attn(p, x, i, win)
         if fam == "encdec":
             x = cross(p, x, i)
         if fam != "moe":
-            return (_mlp(p, x, cfg),)
-        h, mx = moe_ffn(p["moe"], rmsnorm(p["ln2"], x, eps), cfg,
-                        capacity_factor=opts.cap_factor, act=cfg.act)
+            return (_mlp(p, x, cfg, par),)
+        h, mx = moe_apply(p["moe"], rmsnorm(p["ln2"], x, eps), cfg,
+                          capacity_factor=opts.cap_factor, act=cfg.act,
+                          par=par)
         return x + h, lb + mx["lb_loss"], dr + mx["drop_frac"]
 
     carry = (x, 0.0, 0.0) if fam == "moe" else (x,)
@@ -272,21 +300,25 @@ def _layers(params, cfg, x, opts, self_attn, cross, ssm):
                "drop_frac": dr / cfg.num_layers}
 
 
-def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None):
+def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None,
+                   par=None):
     """The stack over the whole sequence (forward_hidden, prefill) ->
     (x, aux). With ``cache``, every layer's K/V, SSM and conv state and
-    (encdec) cross K/V are written into it in place."""
+    (encdec) cross K/V are written into it in place. ``params`` holds
+    gathered non-block subtrees on a mesh (``MeshShard.outer``)."""
     check_family(cfg)
     B, Sq = tokens.shape
     eps = cfg.norm_eps
-    x = _embed_inputs(params, cfg, tokens, opts, frontend_embeds)
+    x = _embed_inputs(params, cfg, tokens, opts, frontend_embeds, par)
     positions = _positions(B, Sq, tokens.device)
+    attn_in = (lambda t: t) if par is None else par.attn_in
+    attn_out = (lambda t: t) if par is None else par.attn_out
     enc = None
     if cfg.family == "encdec":
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name}: encdec needs the encoder input "
                              f"(frontend_embeds)")
-        enc = encode(params, cfg, frontend_embeds, opts=opts)
+        enc = _encode(params, cfg, frontend_embeds, opts, par)
 
     def put(name, j, t):
         if t.shape[1] > cache[name][j].shape[1]:
@@ -295,14 +327,14 @@ def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None):
         cache[name][j][:, :t.shape[1]] = t.to(cache[name][j].dtype)
 
     def self_attn(p, x, j, win):
-        h = A.attention(p["attn"], rmsnorm(p["ln1"], x, eps), cfg,
+        h = A.attention(p["attn"], attn_in(rmsnorm(p["ln1"], x, eps)), cfg,
                         window=win, positions=positions,
                         return_kv=cache is not None, mode=opts.attn_mode)
         if cache is not None:
             h, (k, v) = h
             put("k", j, k)
             put("v", j, v)
-        return x + h
+        return x + attn_out(h)
 
     def cross(p, x, i):
         k, v = A.encode_cross_kv(p["xattn"], enc)
@@ -325,7 +357,7 @@ def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None):
             cache["conv"][i] = cst.to(cache["conv"].dtype)
         return x + h
 
-    x, aux = _layers(params, cfg, x, opts, self_attn, cross, ssm)
+    x, aux = _layers(params, cfg, x, opts, self_attn, cross, ssm, par)
     if cache is not None and enc is not None:
         cache["enc_len"] = enc.shape[1]
     return x, aux
@@ -335,25 +367,42 @@ def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None):
 # forward_hidden / encode / logits
 # ---------------------------------------------------------------------------
 def forward_hidden(params, cfg: ArchConfig, tokens, *,
-                   opts: ModelOpts = ModelOpts(), frontend_embeds=None):
+                   opts: ModelOpts = ModelOpts(), frontend_embeds=None,
+                   par=None):
     """tokens (B,S) -> (hidden (B,S,d) final-normed, aux dict).
 
     frontend_embeds: decoder-only/vlm -> (B,F,d) embeddings (patch
     embeddings or retrieved soft prompts) overwriting the first F prompt
-    positions; encdec -> (B,Se,d) encoder input (audio frames)."""
-    x, aux = _full_sequence(params, cfg, tokens, opts, frontend_embeds)
+    positions; encdec -> (B,Se,d) encoder input (audio frames). ``par``:
+    this rank's share on a training mesh (module doc)."""
+    if par is not None:
+        params = par.outer(params)
+    return _forward_hidden(params, cfg, tokens, opts, frontend_embeds, par)
+
+
+def _forward_hidden(params, cfg, tokens, opts, frontend_embeds, par):
+    x, aux = _full_sequence(params, cfg, tokens, opts, frontend_embeds,
+                            par=par)
     return rmsnorm(params["fln"], x, cfg.norm_eps), aux
 
 
 def encode(params, cfg: ArchConfig, enc_input, *,
-           opts: ModelOpts = ModelOpts()):
+           opts: ModelOpts = ModelOpts(), par=None):
     """Encoder stack (encdec family). enc_input (B,Se,d) -> (B,Se,d):
     non-causal self-attention through the flash op, then the MLP."""
+    if par is not None:
+        params = par.outer(params)
+    return _encode(params, cfg, enc_input, opts, par)
+
+
+def _encode(params, cfg, enc_input, opts, par):
     B, Se, _ = enc_input.shape
     x = enc_input.to(opts.act_dtype)
     positions = _positions(B, Se, x.device)
 
     def block(x, p):
+        if par is not None:
+            p = par.use(p, "enc_blocks")
         x = x + A.attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                             cfg, window=0, positions=positions, causal=False,
                             mode=opts.attn_mode)
@@ -377,12 +426,14 @@ def logits_fn(params, cfg: ArchConfig, tokens, *,
 # ---------------------------------------------------------------------------
 # Loss — vocab-chunked cross entropy (never materializes (B,S,V) at once)
 # ---------------------------------------------------------------------------
-def chunked_xent(tok_params, hidden, labels, *, tie: bool, softcap: float,
-                 chunk: int):
-    """hidden (B,S,d) final-normed, labels (B,S) int (-1 = ignore) ->
-    (mean loss, {"tokens", "accuracy"}). Each chunk of ``chunk``
-    positions runs under a checkpoint, so no chunk's (B,C,V) logits are
-    kept for the backward: it recomputes them."""
+def _xent_sums(tok_params, hidden, labels, *, tie: bool, softcap: float,
+               chunk: int, par=None):
+    """(summed token losses, tokens counted, tokens predicted right) of
+    :func:`chunked_xent`, this rank's rows on a mesh. With the vocab
+    split over "model" a chunk's logits are this rank's (B,C,V/m) slice:
+    the row max and the sums of exp and of the label's logit are
+    all-reduced over "model" (the label's logit counts as right when it
+    is the row's max: argmax but for an exact tie)."""
     B, Sq, d = hidden.shape
     C = min(chunk, Sq)
     pad = (-Sq) % C
@@ -398,31 +449,72 @@ def chunked_xent(tok_params, hidden, labels, *, tie: bool, softcap: float,
         correct = (logits.argmax(-1) == y_c).float() * mask
         return ((lse - ll) * mask).sum(), mask.sum(), correct.sum()
 
+    def body_vocab_split(h_c, y_c, tok):
+        logits = unembed(tok, par.vocab_in(h_c), tie, softcap)
+        rows = logits.shape[-1]
+        m = par.vocab_max(logits.amax(-1))
+        local = y_c.long() - par.vocab_lo
+        hit = ((local >= 0) & (local < rows)).float()
+        ll = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        s, ll = par.vocab_sum(torch.stack(
+            [torch.exp(logits - m[..., None]).sum(-1), ll * hit],
+            -1)).unbind(-1)
+        lse = m + torch.log(s)
+        mask = (y_c >= 0).float()
+        correct = (ll >= m).float() * mask
+        return ((lse - ll) * mask).sum(), mask.sum(), correct.sum()
+
+    fn = body_vocab_split if par is not None and par.vocab_split else body
     tot = cnt = ncorrect = 0.0
     for c in range((Sq + pad) // C):
         sl = slice(c * C, (c + 1) * C)
-        t, n, k = checkpoint(body, hidden[:, sl], labels[:, sl], tok_params,
+        t, n, k = checkpoint(fn, hidden[:, sl], labels[:, sl], tok_params,
                              use_reentrant=False)
         tot, cnt, ncorrect = tot + t, cnt + n, ncorrect + k
-    cnt = torch.clamp(torch.as_tensor(cnt, device=hidden.device), min=1.0)
+    return tot, torch.as_tensor(cnt, device=hidden.device), ncorrect
+
+
+def chunked_xent(tok_params, hidden, labels, *, tie: bool, softcap: float,
+                 chunk: int, par=None):
+    """hidden (B,S,d) final-normed, labels (B,S) int (-1 = ignore) ->
+    (mean loss, {"tokens", "accuracy"}). Each chunk of ``chunk``
+    positions runs under a checkpoint, so no chunk's (B,C,V) logits are
+    kept for the backward: it recomputes them. On a mesh (``par``) the
+    mean is over every data shard's tokens: the three sums are
+    all-reduced over the data axes."""
+    tot, cnt, ncorrect = _xent_sums(tok_params, hidden, labels, tie=tie,
+                                    softcap=softcap, chunk=chunk, par=par)
+    if par is not None and par.mesh.size("fsdp") > 1:
+        tot, cnt, ncorrect = par.reduce_data(torch.stack(
+            [tot, cnt, torch.as_tensor(ncorrect)])).unbind()
+    cnt = torch.clamp(cnt, min=1.0)
     return tot / cnt, {"tokens": cnt, "accuracy": ncorrect / cnt}
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, opts: ModelOpts = ModelOpts(),
-            lb_coef: float = 0.01):
+            lb_coef: float = 0.01, par=None):
     """batch: tokens (B,S), labels (B,S), optional frontend (B,F,d) ->
     (loss, metrics): the chunked cross entropy ("xent"), plus lb_coef x
-    the moe family's load-balance loss."""
-    hidden, aux = forward_hidden(params, cfg, batch["tokens"], opts=opts,
-                                 frontend_embeds=batch.get("frontend"))
+    the moe family's load-balance loss. On a mesh (``par``) the batch is
+    this rank's rows and the loss the whole batch's; a shard-map MoE's
+    ``lb_loss`` and ``drop_frac`` are the data shards' mean."""
+    if par is not None:
+        params = par.outer(params)
+    hidden, aux = _forward_hidden(params, cfg, batch["tokens"], opts,
+                                  batch.get("frontend"), par)
     loss, metrics = chunked_xent(
         params["tok"], hidden, batch["labels"], tie=cfg.tie_embeddings,
-        softcap=cfg.softcap_final, chunk=opts.loss_chunk)
+        softcap=cfg.softcap_final, chunk=opts.loss_chunk, par=par)
     metrics["xent"] = loss
     if "lb_loss" in aux:
-        loss = loss + lb_coef * aux["lb_loss"]
-        metrics["lb_loss"] = aux["lb_loss"]
-        metrics["drop_frac"] = aux["drop_frac"]
+        lb, drop = aux["lb_loss"], aux["drop_frac"]
+        n = 1 if par is None else par.mesh.size("fsdp")
+        if par is not None and par.moe_shard_map and n > 1:
+            lb, drop = (par.reduce_data(torch.stack([lb, drop]))
+                        / n).unbind()
+        loss = loss + lb_coef * lb
+        metrics["lb_loss"] = lb
+        metrics["drop_frac"] = drop
     metrics["loss"] = loss
     return loss, metrics
 

@@ -109,21 +109,32 @@ def clip_by_global_norm(grads, max_norm: float):
                     as_tree(grads)), gn
 
 
-def _vhat_factored(v, g2, b2):
-    """Update factored stats and return the reconstructed second moment."""
+def _mean(x, dim, leaf_dim):
+    return x.mean(dim=dim)
+
+
+def _vhat_factored(v, g2, b2, mean=_mean):
+    """Update factored stats and return the reconstructed second moment.
+    ``mean(x, dim, leaf_dim)`` is x's mean over ``dim``, which is the
+    leaf's (negative) dim ``leaf_dim``: on a mesh it reduces over the
+    ranks that cut that dim of the leaf (``train/trainer.py``)."""
     if "f" in v:
         f = b2 * v["f"] + (1 - b2) * g2
         return {"f": f}, f
-    r = b2 * v["r"] + (1 - b2) * g2.mean(dim=-1)
-    c = b2 * v["c"] + (1 - b2) * g2.mean(dim=-2)
-    denom = torch.clamp(r.mean(dim=-1, keepdim=True), min=1e-30)
+    r = b2 * v["r"] + (1 - b2) * mean(g2, -1, -1)
+    c = b2 * v["c"] + (1 - b2) * mean(g2, -2, -2)
+    denom = torch.clamp(mean(r, -1, -2).unsqueeze(-1), min=1e-30)
     vhat = (r / denom)[..., None] * c[..., None, :]
     return {"r": r, "c": c}, vhat
 
 
-def apply_updates(params, grads, state, oc: OptConfig, lr=None):
+def apply_updates(params, grads, state, oc: OptConfig, lr=None,
+                  means=None):
     """One AdamW step. Returns (new params tree, new state), all new
-    tensors (the caller decides whether to keep them)."""
+    tensors (the caller decides whether to keep them). ``means``: a tree
+    shaped like ``params`` ("blocks" as one block's) of the factored
+    statistics' ``mean`` per leaf (:func:`_vhat_factored`); None, the
+    plain means of one device."""
     params, grads = as_tree(params), as_tree(grads)
     step = state["step"] + 1
     if lr is None:
@@ -135,11 +146,11 @@ def apply_updates(params, grads, state, oc: OptConfig, lr=None):
     bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                      device=stepf.device), stepf)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, mean=_mean):
         gf = g.float()
         m_new = b1 * m.float() + (1 - b1) * gf
         if oc.factored_v:
-            v_new, vhat = _vhat_factored(v, gf * gf, b2)
+            v_new, vhat = _vhat_factored(v, gf * gf, b2, mean)
         else:
             v_new = b2 * v.float() + (1 - b2) * gf * gf
             vhat = v_new
@@ -150,18 +161,19 @@ def apply_updates(params, grads, state, oc: OptConfig, lr=None):
             v_new = v_new.to(oc.v_dtype)
         return p_new.to(p.dtype), m_new.to(oc.m_dtype), v_new
 
-    def upd_layers(ps, gs, ms, v):
+    def upd_layers(ps, gs, ms, v, mean=_mean):
         """A stacked leaf under factored v: ``ps``, ``gs``, ``ms`` the
         layers' tensors, ``v`` its stacked statistics (module doc)."""
         gfs = [g.float() for g in gs]
         if ps[0].dim() >= 2:
             outs = [_vhat_factored({k: x[i] for k, x in v.items()},
-                                   gf * gf, b2) for i, gf in enumerate(gfs)]
+                                   gf * gf, b2, mean)
+                    for i, gf in enumerate(gfs)]
             v_new = {k: torch.stack([o[0][k] for o in outs]) for k in v}
             vhats = [o[1] for o in outs]
         else:
             v_new, vhat = _vhat_factored(
-                v, torch.stack([gf * gf for gf in gfs]), b2)
+                v, torch.stack([gf * gf for gf in gfs]), b2, mean)
             vhats = vhat.unbind(0)
         ps_new, ms_new = [], []
         for p, gf, m, vhat in zip(ps, gfs, ms, vhats):
@@ -174,17 +186,21 @@ def apply_updates(params, grads, state, oc: OptConfig, lr=None):
 
     new = [{}, {}, {}]
     for k, sub in params.items():
+        extra = () if means is None else (means[k],)
         if oc.factored_v and k in STACKED and isinstance(sub, list):
             outs = tree_map(upd_layers, _zip_layers(sub),
                             _zip_layers(grads[k]), _zip_layers(state["m"][k]),
-                            state["v"][k])
+                            state["v"][k], *extra)
             for j in range(2):
                 new[j][k] = [tree_map(lambda o, i=i, j=j: o[j][i], outs)
                              for i in range(len(sub))]
             new[2][k] = tree_map(lambda o: o[2], outs)
             continue
         # a factored v leaf is a dict: tree_map hands it to upd whole
-        outs = tree_map(upd, sub, grads[k], state["m"][k], state["v"][k])
+        if extra and k in STACKED and isinstance(sub, list):
+            extra = ([extra[0]] * len(sub),)
+        outs = tree_map(upd, sub, grads[k], state["m"][k], state["v"][k],
+                        *extra)
         for j in range(3):
             new[j][k] = tree_map(lambda o, j=j: o[j], outs)
     return new[0], {"m": new[1], "v": new[2], "step": step}

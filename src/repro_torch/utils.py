@@ -1,5 +1,5 @@
-"""Small shared utilities: sentinels, shape math, device choice, and the
-visited-set bloom filter.
+"""Small shared utilities: sentinels, shape math, device choice, byte
+counts, and the visited-set bloom filter.
 
 The bloom keeps the reference's two multiplicative hashes bit for bit,
 but stores its bits as a boolean map ``(..., num_bits)`` instead of
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # Large-but-finite sentinel distance (f32). Avoids +inf so (inf - inf)
@@ -31,6 +32,36 @@ def round_up(a: int, b: int) -> int:
 
 def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 2 ** math.ceil(math.log2(n))
+
+
+def pad_axis(x: np.ndarray, size: int, axis: int, fill=0) -> np.ndarray:
+    """Pad a numpy array along ``axis`` up to ``size`` with ``fill``."""
+    cur = x.shape[axis]
+    if cur == size:
+        return x
+    assert cur < size, f"cannot pad {cur} down to {size}"
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, size - cur)
+    return np.pad(x, widths, constant_values=fill)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every leaf with a shape and a dtype (tensors, numpy
+    arrays) of a dict / list tree or a module tree."""
+    def nbytes(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        return int(np.prod(x.shape)) * np.dtype(x.dtype).itemsize
+    return sum(nbytes(x) for x in tree_leaves(as_tree(tree))
+               if hasattr(x, "shape") and hasattr(x, "dtype"))
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024:
+            return f"{n:.2f}{unit}"
+        n /= 1024
+    return f"{n:.2f}PiB"
 
 
 def to_host(*tensors) -> list:

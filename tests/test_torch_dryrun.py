@@ -72,7 +72,8 @@ def test_two_layer_dense_collectives_by_hand():
     """data 2 x model 2, batch 8 x 32, grad-accum 2, bf16 parameters and
     activations, remat per block. Every leaf names "embed", so every
     leaf is FSDP-sharded over 2; heads, kv heads, d_ff and the vocab
-    split over model 2."""
+    split over model 2. The terms are what the sharded step calls
+    (tests/test_torch_train_mesh_counts.py counts them)."""
     mesh = make_mesh_for(4, (2, 2), ("data", "model"))
     rec = dryrun.analyze_plan(_tiny_plan(mesh))
     # one device's compute leaves (full on "embed", cut on "model")
@@ -81,14 +82,19 @@ def test_two_layer_dense_collectives_by_hand():
     other = 256 * 64 + 64 * 256 + 64          # embedding, head, final norm
     numel = 2 * block + other
     G, f, m = 2, 2, 2
-    gather = numel * 2 * (f - 1) / f * 2       # bf16; forward + backward
-    scatter = numel * 4 * (f - 1) / f          # f32 grads under grad-accum
+    # bf16; a block's leaves in its forward and its recompute, the
+    # non-block leaves once (outside remat)
+    gather = (2 * block * 2 + other) * 2 * (f - 1) / f
+    scatter = numel * 2 * (f - 1) / f          # the backward's bf16 grads
     B_mb = 8 // f // G
     N = B_mb * 32 * 64 * 2                     # one bf16 residual stream
     ring = 2 * (m - 1) / m
-    tp = (2 * 2) * 3 * N * ring                # 2 layers x (attn, mlp) x
-                                               # (fwd, recompute, bwd)
-    tp += N * ring + 2 * (B_mb * 32 * 8) * ring  # embedding; loss max/sum
+    # 2 layers x (attention: forward, recompute, backward input; MLP:
+    # forward, backward input: the recompute stops before its output)
+    tp = 2 * (3 + 2) * N * ring
+    # the embedding; the loss's one chunk: max (4 bytes per row) and the
+    # pair of sums (8) in its forward and recompute, its hidden backward
+    tp += N * ring + 2 * (B_mb * 32 * 12) * ring + N * ring
     got = rec["per_device"]["collectives"]["bytes_by_kind"]
     assert got == pytest.approx({"all-gather": G * gather,
                                  "reduce-scatter": G * scatter,
