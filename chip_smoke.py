@@ -236,15 +236,17 @@ its seconds:
   8b. serve_families — the other model families the same way, 16
                greedy tokens: mixtral-8x7b at full width with 8 of its
                32 layers (f32; 32 layers need ~180 GiB) and RAG k=4,
-               mamba2-780m, zamba2-1.2b (RAG k=4) and seamless-m4t-
-               medium (the audio stub's frames as the encoder input) at
-               full size. One body serves 8 and 8b (SERVE_CASES); per
+               mamba2-780m with 24 of its 48 layers, zamba2-1.2b with 20
+               of 38 (3 shared-block groups and a 2-layer SSD tail; RAG
+               k=4) and seamless-m4t-medium (the audio stub's frames as
+               the encoder input) at full size. One body serves 8 and 8b
+               (SERVE_CASES); per
                config: counts are zeroed before each stage and read
                after it: the retrieval launches the search kernels and
                its ids and distances agree with the CPU's plain
                versions; a generation launches one flash kernel per
                prefill attention (gemma 26, mixtral 8, mamba2 0, zamba2
-               6, seamless 36) and none in decode; the prefill's logits
+               3, seamless 36) and none in decode; the prefill's logits
                within LOGIT_RTOL x max |logit| of plain attention's on
                the card, greedy tokens equal but at a near-tie;
                prefill + 3 decode steps equal logits_fn over the longer
@@ -286,7 +288,14 @@ its seconds:
                NCCL kernels of one profiled step; (b) mixtral-8x7b at
                full width cut to 1 of 32 layers, batch 2 x 1024, 3 steps
                unsharded and through --mesh 1,1: finite losses, equal
-               within 1e-6; ms per step, peak GiB, the flash launches.
+               within 1e-6; ms per step, peak GiB, the flash launches;
+               (c) families: mamba2-780m (8 of 48 layers), zamba2-1.2b
+               (one hybrid group: 6 SSD layers and the shared block) and
+               seamless-m4t-medium (2 + 2 of 12 + 12 layers) at full
+               width, batch 2 x 1024, 3 steps unsharded and through
+               --mesh 1,1: finite, bit-equal; ms per step, peak GiB,
+               flash forward and backward launches per step (none for
+               mamba2, some for zamba2 and seamless).
   8d. analysis — the trace-discipline suite on the card (under 60 s):
                (a) the op audit (repro_torch.analysis.op_audit) with
                device "cuda" over every chunk program: no sync op, no
@@ -3369,6 +3378,17 @@ def check_attention_bwd(dev) -> float:
          f32, dict(window=100), False),
         ("dh 16 (GQA 8/2), causal", dict(B=2, H=8, Hkv=2, S=512, dh=16), f32,
          dict(window=0), False),
+        # the shapes phase train_mesh's part families gives the pair
+        # (batch 2 x 1024, full width, f32)
+        ("zamba2 shared block, training, window 4096, through "
+         "attention_op", dict(ZAMBA2_ATTN, B=2), f32, dict(window=4096),
+         True),
+        ("seamless decoder self-attention, training, causal, through "
+         "attention_op", dict(SEAMLESS_ATTN, B=2), f32, dict(window=0),
+         True),
+        ("seamless encoder and cross-attention, training, non-causal, "
+         "through attention_op", dict(SEAMLESS_ATTN, B=2), f32,
+         dict(causal=False), True),
     )
     worst = 0.0
     for i, (label, shp, dtype, kw, through_op) in enumerate(cases):
@@ -3449,10 +3469,12 @@ SERVE_CASES = (
     # 8 of 32 layers: one layer's experts are 8 x 3 x 4096 x 14336 f32
     # (5.6 GiB); 32 layers (~180 GiB) do not fit one 80 GB card
     ("serve_families", "mixtral-8x7b", (32, 4096, 32000), 8, True, 8, 16),
-    ("serve_families", "mamba2-780m", (48, 1536, 50280), None, False, 0,
-     16),
-    # 6 shared-block applications
-    ("serve_families", "zamba2-1.2b", (38, 2048, 32000), None, True, 6, 16),
+    # depth cut to keep the script inside its limit on slow hosts (the
+    # decode of every layer is host-bound): 24 of 48 layers
+    ("serve_families", "mamba2-780m", (48, 1536, 50280), 24, False, 0, 16),
+    # 20 of 38 layers: 3 shared-block applications and a 2-layer SSD tail,
+    # as the full model's 6 and 2
+    ("serve_families", "zamba2-1.2b", (38, 2048, 32000), 20, True, 3, 16),
     # 12 encoder + 12 decoder self + 12 cross
     ("serve_families", "seamless-m4t-medium", (12, 1024, 256206), None,
      False, 36, 16),
@@ -4043,18 +4065,32 @@ def free_port() -> int:
         return sk.getsockname()[1]
 
 
+# the SSD, hybrid and encoder-decoder families' first training on the
+# card, at full width with their depth cut (config field -> depth):
+# mamba2-780m (arXiv:2405.21060) 8 of 48 layers; zamba2-1.2b
+# (arXiv:2411.15242) one hybrid group, 6 SSD layers and the shared
+# block; seamless-m4t-medium (arXiv:2308.11596) 2 of 12 encoder and 2 of
+# 12 decoder layers; batch 2 x 1024, 3 steps, unsharded and through
+# --mesh 1,1, bit for bit
+FAMILY_TRAIN = (("mamba2-780m", {"num_layers": 8}),
+                ("zamba2-1.2b", {"num_layers": 6}),
+                ("seamless-m4t-medium", {"num_layers": 2, "enc_layers": 2}))
+FAMILY_STEPS = dict(batch=2, seq=1024, steps=3, lr=3e-4, warmup=5,
+                    loss_chunk=512)
+
+
 @contextlib.contextmanager
-def layers_cut(layers: int):
-    """launch/train.py's configurations cut to ``layers`` layers within
-    the block (depth only: every width stays)."""
+def depth_cut(**depth):
+    """launch/train.py's configurations cut to at most ``depth``'s
+    values of its fields (depth only: every width stays)."""
     import dataclasses
     from repro_torch.launch import train as train_mod
     real = train_mod.get_config
 
     def cut(name):
         cfg = real(name)
-        return dataclasses.replace(cfg, num_layers=min(layers,
-                                                       cfg.num_layers))
+        return dataclasses.replace(cfg, **{
+            k: min(v, getattr(cfg, k)) for k, v in depth.items()})
     train_mod.get_config = cut
     try:
         yield
@@ -4174,7 +4210,7 @@ def train_mesh_mixtral(dev) -> dict:
     t = MIXTRAL_TRAIN
     over = {k: t[k] for k in ("arch", "batch", "seq", "steps", "lr",
                               "warmup", "loss_chunk")}
-    with layers_cut(t["layers"]):
+    with depth_cut(num_layers=t["layers"]):
         plain_run, plain = mesh_train_run(train_args(**over))
         nparams = sum(p.numel() for p in plain_run["params"].parameters())
         del plain_run
@@ -4212,12 +4248,61 @@ def train_mesh_mixtral(dev) -> dict:
     return line
 
 
+def train_mesh_families(dev) -> None:
+    """(c) mamba2-780m, zamba2-1.2b and seamless-m4t-medium at full width
+    (FAMILY_TRAIN's depths), 3 steps unsharded and 3 through ``--mesh
+    1,1``: finite losses, bit-equal; ms per step, peak GiB and the flash
+    forward and backward launches of every step (none for mamba2, whose
+    SSD is plain torch; some for zamba2's shared block and seamless's
+    encoder, decoder and cross-attention)."""
+    import torch
+    from repro_torch.configs import get_config
+    over = dict(FAMILY_STEPS)
+    for arch, depth in FAMILY_TRAIN:
+        with depth_cut(**depth):
+            plain_run, plain = mesh_train_run(train_args(arch=arch, **over))
+            nparams = sum(p.numel()
+                          for p in plain_run["params"].parameters())
+            del plain_run
+            mesh_run, mesh = mesh_train_run(train_args(
+                arch=arch, **over, mesh="1,1",
+                init_method=f"tcp://127.0.0.1:{free_port()}"))
+            del mesh_run
+        gc.collect()
+        torch.cuda.empty_cache()
+        fwd = [x.get("flash_attention", 0) for x in mesh["launches"]]
+        bwd = [x.get("flash_attention_bwd", 0) for x in mesh["launches"]]
+        line = {"phase": "train_mesh", "part": f"{arch} world 1",
+                "arch": arch, "depth": depth, "params": nparams,
+                "batch": over["batch"], "seq": over["seq"],
+                "steps": over["steps"], "mesh": "1,1 (data, model) over nccl",
+                "losses": mesh["losses"], "grad_norms": mesh["grad_norms"],
+                "unsharded_losses": plain["losses"],
+                "unsharded_grad_norms": plain["grad_norms"],
+                "bit_equal": mesh["losses"] == plain["losses"]
+                and mesh["grad_norms"] == plain["grad_norms"],
+                "step_ms": mesh["step_ms"],
+                "unsharded_step_ms": plain["step_ms"],
+                "peak_gib": mesh["peak_gib"],
+                "unsharded_peak_gib": plain["peak_gib"],
+                "flash_fwd_per_step": fwd, "flash_bwd_per_step": bwd,
+                "launches_per_step": mesh["launches"]}
+        emit(line)
+        attends = get_config(arch).num_heads > 0
+        if not (all(math.isfinite(x) for x in mesh["losses"])
+                and line["bit_equal"] and not any(mesh["skipped"])
+                and all(bool(f) == attends and bool(b) == attends
+                        for f, b in zip(fwd, bwd))):
+            raise AssertionError(f"train_mesh: {arch}'s mesh run: {line}")
+
+
 def train_mesh_phase(dev, train_line: dict) -> dict:
     """Phase 8c': the sharded training step at world 1. Returns the flash
     launches of its gemma3-1b run (every step's)."""
     gemma = timed_part("train_mesh", "gemma3-1b", train_mesh_gemma, dev,
                        train_line)
     timed_part("train_mesh", "mixtral-8x7b", train_mesh_mixtral, dev)
+    timed_part("train_mesh", "families", train_mesh_families, dev)
     total = {}
     for counts in gemma["launches_per_step"]:
         for k, v in counts.items():

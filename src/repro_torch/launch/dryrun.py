@@ -45,8 +45,8 @@ checkpoint stops a recompute after the last tensor the backward saved,
 so a block's innermost recompute stops before its MLP's (or MoE's)
 output all-reduce; a group's recompute (scan_groups > 1) runs its
 blocks but the last, whose input is all it needs; the hybrid's group
-recompute runs all of its SSD layers (the shared block after them saves
-tensors of its own).
+recompute runs all of its SSD layers and the shared block up to its
+MLP's output all-reduce (the shared block saves tensors of its own).
 
   all-gather      FSDP: |P| (f_P - 1) / f_P per run of the leaf's block
                   function (full and stopped runs); a non-block leaf
@@ -60,7 +60,10 @@ tensors of its own).
                   kv leaves that "model" leaves whole while the heads
                   split (each rank reads its heads' kv slice): their
                   grad shards (every kv head) summed over "model",
-                  2 |P_K| / f_P (m - 1) / m each.
+                  2 |P_K| / f_P (m - 1) / m each; so are the SSD's B
+                  and C projections and convolutions where d_inner
+                  splits (every rank uses them whole for its own heads),
+                  2 |P| / f_P (m - 1) / m each.
                   TP: 2 N (m - 1) / m per TP-reduced tensor, N = (micro
                   batch) x (rows) x d_model in the activation dtype:
                   where the heads split, the attention output per full
@@ -68,12 +71,17 @@ tensors of its own).
                   where d_ff splits, the MLP or MoE output per full run
                   and its input once in the backward, and the MoE's gate
                   weights (rows x k) once in the backward; where
-                  d_inner splits the SSD output as the MLP's (planned:
-                  ROADMAP 16c); where the vocab splits, the embedding
-                  once (forward), and per loss chunk of C rows the row
-                  max (4 bytes per row) and the sums of exp and of the
-                  label's logit (8) in the forward and the chunk's
-                  recompute, and the chunk's hidden once in the
+                  d_inner splits the SSD output as the MLP's, and its
+                  gated norm's statistic, (micro batch) x (rows) x 4
+                  bytes, per full or stopped run and once in the
+                  backward; the encoder's blocks as the decoder's, the
+                  cross-attention as the self-attention, and the
+                  encoder's output once in the backward (every rank's
+                  cross-attention reads it); where the vocab splits,
+                  the embedding once (forward), and per loss chunk of C
+                  rows the row max (4 bytes per row) and the sums of exp
+                  and of the label's logit (8) in the forward and the
+                  chunk's recompute, and the chunk's hidden once in the
                   backward. Decode with a head-dim-sharded cache also
                   reduces its scores, (B, H, cache rows) f32, per
                   attention layer. decode_long (a cache cut along its
@@ -132,7 +140,8 @@ from repro_torch.launch.specs import (ENCDEC_DECODE_ENC_LEN, HBM_PER_CHIP,
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import STACKED
 from repro_torch.models.params import (module_tree, pspec_axes, pspec_of,
-                                       spec_leaves)
+                                       spec_leaves, spec_paths)
+from repro_torch.models.ssm import MODEL_SUMMED
 from repro_torch.optim.adamw import OptConfig, clip_by_global_norm
 from repro_torch.train.trainer import TrainConfig, update_step
 from repro_torch.utils import as_tree, tree_leaves, tree_map
@@ -273,17 +282,18 @@ def device_config(cfg: ArchConfig, rules, sizes: dict) -> DeviceConfig:
 def _param_rows(plan, cfg_d) -> list:
     """Per compute leaf: (path top key, meta-free spec of one device's
     compute shape, its global spec's FSDP factor over the mesh, its
-    logical axis names)."""
+    logical axis names, its name in its subtree)."""
     sizes = axis_sizes(plan.rules.mesh)
     out = []
     for key in T.model_spec(plan.cfg):
         g = spec_leaves(T.model_spec(plan.cfg)[key])
         d = spec_leaves(T.model_spec(cfg_d)[key])
-        for gs, ds in zip(g, d):
+        paths = spec_paths(T.model_spec(plan.cfg)[key])
+        for gs, ds, path in zip(g, d, paths):
             ps = pspec_of(gs, plan.rules.params)
             f = _prod(sizes[a] for e in ps for a in pspec_axes(e)
                       if a in FSDP_AXES)
-            out.append((key, ds, f, gs.names))
+            out.append((key, ds, f, gs.names, path[-1]))
     return out
 
 
@@ -418,16 +428,22 @@ def _model_collectives(plan, cfg_d, wire: _Wire, rows_q: int, B_mb: int,
             enc = B_mb * rows_q * cfg.d_model * act_bytes
             e_attn = sum(f + s + 1 for f, s in runs["enc_blocks"])
             e_ffn = sum(f + 1 for f, _ in runs["enc_blocks"])
+            # + the encoder's output, read by every cross-attention
             wire.ring_reduce("model", m, enc, G * (
-                e_attn * int(heads) + e_ffn * int(ffn)))
+                (e_attn + 1) * int(heads) + e_ffn * int(ffn)))
         if fam == "hybrid":
-            # the shared block ends each group: the group's forward and
-            # its recompute run it whole, then its backward
+            # the shared block ends each group: the group's forward runs
+            # it whole, its recompute stops before the MLP's output
+            # all-reduce (nothing after it is saved), then its backward
             Gh = T.hybrid_layout(cfg)[0]
-            attn = ffn_n = Gh * (3 if plan.opts.remat == "full" else 2)
+            attn = Gh * (3 if plan.opts.remat == "full" else 2)
+            ffn_n = 2 * Gh
         if fam in ("ssm", "hybrid"):
             wire.ring_reduce("model", m, N, G * int(inner) * sum(
                 f + 1 for f, _ in runs["blocks"]))
+            wire.ring_reduce("model", m, B_mb * rows_q * 4,
+                             G * int(inner) * sum(
+                                 f + s + 1 for f, s in runs["blocks"]))
         wire.ring_reduce("model", m, N,
                          G * (attn * int(heads) + ffn_n * int(ffn)))
         if cfg_d.vocab_size < cfg.vocab_padded():
@@ -461,8 +477,9 @@ def _param_collectives(plan, cfg_d, wire: _Wire, grad_bytes: int,
     runs = _block_runs(plan) if train else {}
     kv_whole = (plan.rules.params.lookup("heads") == "model" and m > 1
                 and plan.rules.params.lookup("kv_heads") is None)
+    inner = bool(plan.cfg.ssm_state) and cfg_d.d_inner < plan.cfg.d_inner
     seen = {}
-    for key, ds, fp, names in _param_rows(plan, cfg_d):
+    for key, ds, fp, names, leaf in _param_rows(plan, cfg_d):
         full = _prod(ds.shape) * pbytes
         uses = 1
         if train and key in STACKED:
@@ -482,6 +499,8 @@ def _param_collectives(plan, cfg_d, wire: _Wire, grad_bytes: int,
             # the sum runs on the whole shard: every kv head, read or not
             wire.ring_reduce("model", m, full / fp * plan.cfg.num_kv_heads
                              / cfg_d.num_kv_heads, G)
+        if inner and key == "blocks" and leaf in MODEL_SUMMED:
+            wire.ring_reduce("model", m, full / fp, G)
 
 
 # --------------------------------------------------------------------------

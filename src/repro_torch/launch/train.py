@@ -10,8 +10,10 @@ restored run replays the crashed one's batches. Runs on the card unless
 
 ``--mesh D,M`` (or ``P,D,M``) runs the sharded step (``train/trainer.py``
 ``make_train_step(mesh=)``: FSDP over the data axes, tensor parallelism
-over "model" for the dense, vlm and moe families, the expert-parallel
-MoE) with one process per rank over ``torch.distributed``: ``nccl`` on
+over "model" for every family — attention heads, d_ff and the vocab,
+the SSD's d_inner and heads, the encoder and the cross-attention — and
+the expert-parallel MoE) with one process per rank over
+``torch.distributed``: ``nccl`` on
 the card, ``gloo`` with ``--device cpu``. The rendezvous is explicit:
 ``--init-method`` (``file://...`` or ``tcp://127.0.0.1:PORT``), or
 ``MASTER_ADDR`` and ``MASTER_PORT``; each process's ``RANK`` and
@@ -73,8 +75,9 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--mesh", default="",
-                    help="D,M (data, model) or P,D,M: the sharded step, "
-                         "one process per rank")
+                    help="D,M (data, model) or P,D,M: the sharded step "
+                         "(FSDP over the data axes, tensor parallelism "
+                         "over model, every family), one process per rank")
     ap.add_argument("--init-method", default=None,
                     help="the ranks' rendezvous (file:// or tcp://; the "
                          "rank and world from RANK and WORLD_SIZE, else 0 "

@@ -15,9 +15,15 @@ def rmsnorm_spec(d: int):
     return {"scale": spec((d,), ("embed",), init="ones")}
 
 
-def rmsnorm(p, x, eps: float = 1e-6):
+def rmsnorm(p, x, eps: float = 1e-6, *, sum_sq=None, width: int = 0):
+    """RMSnorm over the last dim. Where x is one slice of the normed
+    vector (a cut of it over ranks), ``sum_sq`` maps the slice's sum of
+    squares to the whole vector's and ``width`` is the whole width."""
     xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
+    if sum_sq is None:
+        var = (xf * xf).mean(-1, keepdim=True)
+    else:
+        var = sum_sq((xf * xf).sum(-1, keepdim=True)) / width
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
 

@@ -65,6 +65,18 @@ def spec_leaves(tree) -> list:
     return [tree]
 
 
+def spec_paths(tree, path=()) -> list:
+    """The paths (tuples of keys and indices) of :func:`spec_leaves`'
+    leaves, in the same order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in spec_paths(tree[k],
+                                                             path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in spec_paths(v, path + (i,))]
+    return [path]
+
+
 def count_params(spec_tree) -> int:
     total = 0
     for s in spec_leaves(spec_tree):

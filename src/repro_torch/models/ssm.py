@@ -13,6 +13,14 @@ only the state pass (one multiply-add per chunk) as a loop.
 
 Single B/C group, head-level dt, scalar-per-head A — the standard Mamba2
 parameterization.
+
+On a training mesh (``par``: ``train/parallel.py`` ``MeshShard``) where
+d_inner and the heads split over "model", :func:`ssm_chunked` runs one
+rank's heads: its widths are the shards' (``wx``'s columns, ``wdt``'s
+heads), B and C are computed whole on every rank (their leaves are
+:data:`MODEL_SUMMED`), and the gated norm's statistic over the whole
+d_inner is the sum of the ranks' sums of squares (``par.norm_sum``).
+Decode and prefill stay unsharded, as in the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +32,10 @@ from repro_torch.models.params import spec
 from repro_torch.utils import resolve_device
 
 NEG_INF = -1.0e30
+
+#: leaves replicated over "model" that every rank uses whole but only for
+#: its own heads where d_inner splits: their gradients sum over "model"
+MODEL_SUMMED = ("wB", "wC", "conv_B", "conv_C")
 
 
 def ssm_spec(cfg):
@@ -77,20 +89,26 @@ def _inputs(p, x):
     return z, px, pB, pC, dt
 
 
-def _out(p, y, z, x, cfg):
-    """Gate, norm and output projection: y (B,S,di) f32 -> (B,S,d)."""
+def _out(p, y, z, x, cfg, par=None):
+    """Gate, norm and output projection: y (B,S,di) f32 -> (B,S,d). At a
+    cut of d_inner (``par.inner_split``) y is the rank's slice and the
+    output its partial sum (the caller's ``par.ssm_out`` adds them)."""
     y = y * F.silu(z.float())
-    y = rmsnorm({"scale": p["norm"]}, y, cfg.norm_eps)
+    cut = par is not None and par.inner_split
+    y = rmsnorm({"scale": p["norm"]}, y, cfg.norm_eps,
+                sum_sq=par.norm_sum if cut else None, width=cfg.d_inner)
     return y.to(x.dtype) @ p["wo"]
 
 
 def ssm_chunked(p, x, cfg, *, chunk: int = 128, initial_state=None,
-                return_state: bool = False):
+                return_state: bool = False, par=None):
     """Full-sequence SSD. x (B,S,d) -> (B,S,d); with ``return_state``
     also (ssm state (B,nh,hd,ds), conv state (B,W-1,C)) for decode.
-    S % chunk need not hold."""
+    S % chunk need not hold. ``par``: a training mesh's share (module
+    doc); the widths are the shards' either way."""
     B, S, d = x.shape
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    di, nh = p["wx"].shape[1], p["wdt"].shape[1]
+    ds, hd = cfg.ssm_state, cfg.ssm_headdim
     z, px, pB, pC, dt = _inputs(p, x)
     xc = F.silu(_causal_conv(px, p["conv_x"]))
     Bc = F.silu(_causal_conv(pB, p["conv_B"]))
@@ -143,7 +161,7 @@ def ssm_chunked(p, x, cfg, *, chunk: int = 128, initial_state=None,
 
     y = y.reshape(B, Sp, nh, hd)[:, :S]
     y = y + p["D"].float()[None, None, :, None] * xh[:, :S]
-    out = _out(p, y.reshape(B, S, di), z, x, cfg)
+    out = _out(p, y.reshape(B, S, di), z, x, cfg, par)
     if return_state:
         return out, (state, _tail_conv_state(px, pB, pC, cfg))
     return out

@@ -39,16 +39,21 @@ groups whatever ``scan_groups``, as the reference scans them.
 
 On a training mesh (``par``: ``train/parallel.py`` ``MeshShard``; None
 on one device) the training entry points (``loss_fn``,
-``forward_hidden``, ``encode``) run one rank's share: its rows of the
-batch and its cut of every leaf. Each block gathers its FSDP shards
-inside its block function, so remat's recompute gathers them again;
-the non-block leaves are gathered once (``MeshShard.outer``). The
-collectives stand where the reference's sharding constraints let GSPMD
-put them: the attention's input and output where the heads split
-(Megatron's f and g), the MLP's and the MoE's where d_ff splits, the
-embedding's sum over the vocab shards, and the loss's max and sums over
-them (:func:`chunked_xent`); the loss's sums and the MoE's statistics
-over the data shards.
+``forward_hidden``, ``encode``) run one rank's share, in every family:
+its rows of the batch and its cut of every leaf. Each block gathers its
+FSDP shards inside its block function, so remat's recompute gathers
+them again; the non-block leaves (zamba2's shared block among them) are
+gathered once (``MeshShard.outer``). The collectives stand where the
+reference's sharding constraints let GSPMD put them: the attention's
+input and output where the heads split (Megatron's f and g: the
+decoder's and the encoder's self-attention, the cross-attention's
+queries and output, the shared block), the encoder's output once more
+through f (the cross-attention's k and v read it on every rank, each
+for its own heads), the MLP's and the MoE's where d_ff splits, the SSD
+block's input and output where d_inner splits and its gated norm's
+statistic (``models/ssm.py``), the embedding's sum over the vocab
+shards, and the loss's max and sums over them (:func:`chunked_xent`);
+the loss's sums and the MoE's statistics over the data shards.
 """
 from __future__ import annotations
 
@@ -300,6 +305,14 @@ def _layers(params, cfg, x, opts, self_attn, cross, ssm, par=None):
                "drop_frac": dr / cfg.num_layers}
 
 
+def _tp_points(par):
+    """(attn_in, attn_out, ssm_in, ssm_out) of a mesh's share (identities
+    on one device)."""
+    if par is None:
+        return (lambda t: t,) * 4
+    return par.attn_in, par.attn_out, par.ssm_in, par.ssm_out
+
+
 def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None,
                    par=None):
     """The stack over the whole sequence (forward_hidden, prefill) ->
@@ -311,14 +324,14 @@ def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None,
     eps = cfg.norm_eps
     x = _embed_inputs(params, cfg, tokens, opts, frontend_embeds, par)
     positions = _positions(B, Sq, tokens.device)
-    attn_in = (lambda t: t) if par is None else par.attn_in
-    attn_out = (lambda t: t) if par is None else par.attn_out
+    attn_in, attn_out, ssm_in, ssm_out = _tp_points(par)
     enc = None
     if cfg.family == "encdec":
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name}: encdec needs the encoder input "
                              f"(frontend_embeds)")
-        enc = _encode(params, cfg, frontend_embeds, opts, par)
+        # every rank's cross-attention reads it whole for its own heads
+        enc = attn_in(_encode(params, cfg, frontend_embeds, opts, par))
 
     def put(name, j, t):
         if t.shape[1] > cache[name][j].shape[1]:
@@ -345,17 +358,18 @@ def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None,
             Se = k.shape[1]
             k = cache["xk"][i][:, :Se].to(x.dtype)
             v = cache["xv"][i][:, :Se].to(x.dtype)
-        return x + A.cross_attention(p["xattn"], rmsnorm(p["lnx"], x, eps),
-                                     (k, v), cfg, mode=opts.attn_mode)
+        return x + attn_out(A.cross_attention(
+            p["xattn"], attn_in(rmsnorm(p["lnx"], x, eps)), (k, v), cfg,
+            mode=opts.attn_mode))
 
     def ssm(p, x, i):
-        h = S.ssm_chunked(p["ssm"], rmsnorm(p["ln1"], x, eps), cfg,
-                          return_state=cache is not None)
+        h = S.ssm_chunked(p["ssm"], ssm_in(rmsnorm(p["ln1"], x, eps)), cfg,
+                          return_state=cache is not None, par=par)
         if cache is not None:
             h, (st, cst) = h
             cache["ssm"][i] = st.to(cache["ssm"].dtype)
             cache["conv"][i] = cst.to(cache["conv"].dtype)
-        return x + h
+        return x + ssm_out(h)
 
     x, aux = _layers(params, cfg, x, opts, self_attn, cross, ssm, par)
     if cache is not None and enc is not None:
@@ -399,14 +413,16 @@ def _encode(params, cfg, enc_input, opts, par):
     B, Se, _ = enc_input.shape
     x = enc_input.to(opts.act_dtype)
     positions = _positions(B, Se, x.device)
+    attn_in, attn_out, _, _ = _tp_points(par)
 
     def block(x, p):
         if par is not None:
             p = par.use(p, "enc_blocks")
-        x = x + A.attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                            cfg, window=0, positions=positions, causal=False,
-                            mode=opts.attn_mode)
-        return (_mlp(p, x, cfg),)
+        x = x + attn_out(A.attention(
+            p["attn"], attn_in(rmsnorm(p["ln1"], x, cfg.norm_eps)), cfg,
+            window=0, positions=positions, causal=False,
+            mode=opts.attn_mode))
+        return (_mlp(p, x, cfg, par),)
 
     x, = scan_layers([lambda x, p=p: block(x, p)
                       for p in params["enc_blocks"]], (x,), opts,

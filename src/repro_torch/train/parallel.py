@@ -24,6 +24,12 @@ rank of an axis, and each rank's gradient holds its own shard):
                 loss over the batch's data shards.
   copy_to       forward identity; backward all-reduce (sum): Megatron's
                 f, before a column-parallel product.
+  all_reduce_both
+                forward all-reduce (sum); backward all-reduce (sum): a
+                statistic every rank computes from its own slice and
+                every rank then uses, each through its own slice (the
+                SSD's gated norm over a cut d_inner), so each rank's
+                cotangent is a part of the whole one.
 """
 from __future__ import annotations
 
@@ -140,6 +146,19 @@ class _CopyTo(torch.autograd.Function):
             None, None
 
 
+class _AllReduceBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, tag):
+        ctx.args = (mesh, axis, tag)
+        return collective("all-reduce", x, mesh, axis, tag=tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, tag = ctx.args
+        return collective("all-reduce", g, mesh, axis, tag=tag), None, \
+            None, None
+
+
 def all_gather(x, mesh, axis, dim: int, tag: str = "step"):
     """Differentiable all-gather along ``dim`` (backward: reduce-scatter)."""
     if mesh.size(axis) == 1:
@@ -161,22 +180,29 @@ def copy_to(x, mesh, axis, tag: str = "step"):
     return _CopyTo.apply(x, mesh, axis, tag)
 
 
+def all_reduce_both(x, mesh, axis, tag: str = "step"):
+    """Differentiable all-reduce sum whose backward all-reduces too."""
+    if mesh.size(axis) == 1:
+        return x
+    return _AllReduceBoth.apply(x, mesh, axis, tag)
+
+
 # ---------------------------------------------------------------------------
 # One rank's share of the model
 # ---------------------------------------------------------------------------
-#: ROADMAP item that brings tensor parallelism to these families
-TP_PENDING = ("ssm", "hybrid", "encdec")
-
-
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
     """How a rank uses one parameter leaf: the dim its FSDP shard cuts
-    (gathered at use; a dim "model" cuts stays local), and the kv-head
-    dim it narrows to the heads this rank's query heads read (kv heads
-    replicated over "model" while the heads split)."""
+    (gathered at use; a dim "model" cuts stays local), the kv-head dim
+    it narrows to the heads this rank's query heads read (kv heads
+    replicated over "model" while the heads split), and whether the
+    leaf, replicated over "model" and used whole, gets its gradient
+    from this rank's heads only (``model_sum``: the SSD's B and C
+    projections and convolutions where d_inner splits)."""
 
     fsdp_dim: int | None
     kv_dim: int | None
+    model_sum: bool = False
 
 
 class MeshShard:
@@ -189,31 +215,33 @@ class MeshShard:
     the model size where they split, kv heads split with the heads or
     narrowed to the ones a rank's heads read.
 
-    Tensor parallelism covers the dense, vlm and moe families; the ssm,
-    hybrid and encdec families run at a model axis of one rank (FSDP
-    alone needs nothing of a family) and raise otherwise (ROADMAP item
-    16c)."""
+    Every family splits: attention heads and d_ff (the encoder's, the
+    decoder's self- and cross-attention, zamba2's shared block), the
+    vocab, the MoE's experts' d_ff, and the SSD's d_inner and heads
+    (``ssm_in``/``ssm_out`` around the block, ``norm_sum`` for its
+    gated norm's statistic, ``model_sum`` on the leaves every rank uses
+    whole for its own heads)."""
 
     def __init__(self, cfg, mesh):
         from repro_torch.launch.mesh import FSDP_AXES
         from repro_torch.models.convert import STACKED
         from repro_torch.models.params import leaf_axes, tree_paths_map
         from repro_torch.models.sharding import make_rules
+        from repro_torch.models.ssm import MODEL_SUMMED
         from repro_torch.models.transformer import model_spec
         self.cfg, self.mesh = cfg, mesh
         self.rules = make_rules(cfg, mesh, kind="train")
         m = mesh.size("model")
-        if m > 1 and cfg.family in TP_PENDING:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor parallelism for the {cfg.family} "
-                f"family (a model axis of {m} ranks) is ROADMAP.md item "
-                f"16c; run it at model 1 (FSDP over the data axes)")
         lookup = self.rules.params.lookup
 
         def split(name):
             return m > 1 and lookup(name) == "model"
         self.heads_split, self.ffn_split = split("heads"), split("ffn")
         self.vocab_split = split("vocab")
+        self.inner_split = bool(cfg.ssm_state) and split("ssm_inner")
+        if cfg.ssm_state and self.inner_split != split("ssm_heads"):
+            raise ValueError(f"{cfg.name}: d_inner and the SSM heads split "
+                             f"differently over {m} ranks")
         self.moe_shard_map = cfg.family == "moe" and self.ffn_split
         self.kv = None
         if self.heads_split and not split("kv_heads") and cfg.num_kv_heads:
@@ -242,11 +270,16 @@ class MeshShard:
             v[0] if k in STACKED else v) for k, v in spec.items()}
         self.plans = {k: tree_paths_map(plan, v[0] if k in STACKED else v)
                       for k, v in spec.items()}
+        if self.inner_split:
+            ssm = self.plans["blocks"]["ssm"]
+            for name in MODEL_SUMMED:
+                ssm[name] = dataclasses.replace(ssm[name], model_sum=True)
 
     # -- parameters --------------------------------------------------------
     def _use(self, t, lp: LeafPlan):
-        if lp.kv_dim is not None:
-            # every model rank reads a slice: the grads' sum over "model"
+        if lp.kv_dim is not None or lp.model_sum:
+            # every model rank reads a slice, or reads it whole for its
+            # own heads: the grads' sum over "model"
             t = copy_to(t, self.mesh, "model")
         if lp.fsdp_dim is not None:
             t = all_gather(t, self.mesh, "fsdp", lp.fsdp_dim)
@@ -283,6 +316,18 @@ class MeshShard:
 
     def ffn_out(self, y):
         return all_reduce(y, self.mesh, "model") if self.ffn_split else y
+
+    def ssm_in(self, x):
+        return copy_to(x, self.mesh, "model") if self.inner_split else x
+
+    def ssm_out(self, y):
+        return all_reduce(y, self.mesh, "model") if self.inner_split else y
+
+    def norm_sum(self, x):
+        """The SSD gated norm's sum of squares over the d_inner slices
+        (called only where d_inner splits): summed over "model" in the
+        forward and in the backward (:func:`all_reduce_both`)."""
+        return all_reduce_both(x, self.mesh, "model")
 
     # the vocab's: called only where the vocab splits (``vocab_split``)
     def vocab_in(self, h):

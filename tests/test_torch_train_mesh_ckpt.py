@@ -8,7 +8,10 @@ step within the parity tolerances of the mesh's third step; checkpoints
 the port wrote on one device and the reference wrote restore at (2,
 2), their shards bit for bit, and the mesh's third step agrees with
 the writer's third step. Reduced gemma3-1b, batch 4 x 32, loss chunk
-32, remat full.
+32, remat full. A reduced zamba2-1.2b checkpoint written at (2, 2),
+where the SSD's d_inner and the shared block's heads split, restores
+at (1, 1) and on one device, and both continue for 2 steps within 1e-5
+of the unbroken (2, 2) run.
 
 Factored v (``OptConfig(factored_v=True)``, the reference's
 Adafactor-style second moment): 3 steps at (2, 1) (FSDP cuts every
@@ -41,6 +44,8 @@ from torch_train_mesh_ranks import _leaves, check_params, check_steps
 
 ARCH = "gemma3-1b"
 CASE = dict(arch=ARCH, steps=3, batch=4, seq=32, stats_step=1)
+#: the hybrid checkpoint: written at (2, 2) after 2 of 4 steps
+HYBRID = dict(CASE, arch="zamba2-1.2b", steps=4)
 FACTORED = {"f21": (ARCH, (2, 1)), "f12": (ARCH, (1, 2))}
 
 
@@ -90,7 +95,9 @@ def ckpt_runs(tmp_path_factory):
     j_ckpt.save(str(tmp / "ref_ckpt"), 2, {"params": jp, "opt": jo})
     _, _, jm = jstep(jp, jo, reference_batch(jcfg, 2))
     w4 = tmp / "w4"
-    cases = [dict(CASE, name="ck_a", mesh=[2, 2], init=init, save_at=2),
+    zinit = ranks.reference_init(HYBRID["arch"])
+    cases = [dict(HYBRID, name="zk_a", mesh=[2, 2], init=zinit, save_at=2),
+             dict(CASE, name="ck_a", mesh=[2, 2], init=init, save_at=2),
              dict(CASE, name="ck_b", mesh=[2, 2], init=init,
                   restore=str(w4 / "ck_a_ckpt")),
              dict(CASE, name="ck_c", mesh=[2, 2], init=init,
@@ -99,7 +106,14 @@ def ckpt_runs(tmp_path_factory):
                   restore=str(tmp / "ref_ckpt"))]
     procs = ranks.start_ranks(cases, 4, w4)
     ranks.finish(procs, [str(w4 / f"rank{r}.log") for r in range(4)])
-    return {"tmp": tmp, "got": ranks.rank_results(w4, 4)[0],
+    got = ranks.rank_results(w4, 4)[0]
+    w1 = tmp / "w1"
+    procs = ranks.start_ranks([dict(HYBRID, name="zk_b", mesh=[1, 1],
+                                    init=zinit,
+                                    restore=str(w4 / "zk_a_ckpt"))], 1, w1)
+    ranks.finish(procs, [str(w1 / "rank0.log")])
+    got.update(ranks.rank_results(w1, 1)[0])
+    return {"tmp": tmp, "got": got, "zinit": zinit,
             "one": unbroken_one, "init": init, "jstep": (jcfg, jstep),
             "ref_third": [{k: float(jm[k]) for k in ("loss", "grad_norm")}],
             "ref_state": {"params": jax.tree_util.tree_map(np.asarray, jp),
@@ -185,6 +199,31 @@ def test_reference_checkpoint_restores_on_the_mesh(ckpt_runs):
     for path, x, y in _leaves(got["restored"], ckpt_runs["ref_state"]):
         np.testing.assert_array_equal(x, y, err_msg=path)
     check_steps(got["steps"], ckpt_runs["ref_third"])
+
+
+def test_hybrid_checkpoint_crosses_meshes(ckpt_runs):
+    """zamba2's (2, 2) checkpoint restores at (1, 1) (the shards bit for
+    bit) and on one device; each takes steps 2 and 3 within 1e-5 (loss,
+    grad norm) of the unbroken (2, 2) run's."""
+    got = ckpt_runs["got"]
+    want = got["zk_a"]["steps"][2:]
+    cfg, oc, opts = ranks.setup(HYBRID)
+    params = trainable(params_from_jax(cfg, ckpt_runs["zinit"],
+                                       device="cpu"))
+    opt = init_opt(params, oc)
+    st, tree, _ = ckpt.restore(str(ckpt_runs["tmp"] / "w4" / "zk_a_ckpt"),
+                               state_like(params, opt), device="cpu")
+    assert st == 2
+    for path, x, y in _leaves(got["zk_b"]["restored"], tree):
+        np.testing.assert_array_equal(x, y.numpy(), err_msg=path)
+    load_state(params, opt, tree)
+    step = make_train_step(cfg, oc, TrainConfig(), opts=opts)
+    ms = []
+    for s in (2, 3):
+        params, opt, m = step(params, opt, ranks.batch_at(cfg, 4, 32, s))
+        ms.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    check_steps(got["zk_b"]["steps"], want, 1e-5)
+    check_steps(ms, want, 1e-5)
 
 
 @pytest.fixture(scope="module")

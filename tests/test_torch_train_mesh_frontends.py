@@ -4,60 +4,19 @@ against the reference's sharded step: reduced seamless-m4t-medium
 = (2, 1), FSDP alone, and llava-next-mistral-7b (vlm, its vision-stub
 batch over the prompt's first positions) at (2, 2); batch 4 x 32, loss
 chunk 32, remat full, 3 steps, the reference's ``PRNGKey(0)`` weights.
-The gates of tests/test_torch_train_mesh_families.py.
+The f32 gates of ``torch_train_mesh_ranks.gate_tests``. The encdec
+family's tensor parallelism (a model axis of 2) is
+tests/test_torch_train_mesh_tp_encdec.py's.
 """
 import numpy as np
-import pytest
 
 import torch_train_mesh_ranks as ranks
-from torch_train_mesh_ranks import check_params, check_steps
 
 ENTRIES = {"seamless": ("seamless-m4t-medium", (2, 1)),
            "llava": ("llava-next-mistral-7b", (2, 2))}
-REFUSED = {"seamless_m2": ("seamless-m4t-medium", (1, 2))}
 CASE = dict(steps=3, batch=4, seq=32, stats_step=1)
 
-
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    extra = [dict(name=n, arch=a, mesh=list(m), expect="NotImplementedError")
-             for n, (a, m) in REFUSED.items()]
-    return ranks.run_all(tmp_path_factory.mktemp("train_mesh_frontends"),
-                         ENTRIES, CASE, extra=extra)
-
-
-@pytest.mark.parametrize("name", ENTRIES)
-def test_steps_equal_the_references_sharded_step(runs, name):
-    check_steps(runs["got"][name]["steps"], runs["ref"][name]["steps"])
-
-
-@pytest.mark.parametrize("name", ENTRIES)
-def test_steps_equal_the_ports_one_device_step(runs, name):
-    arch = ENTRIES[name][0]
-    check_steps(runs["got"][name]["steps"],
-                runs["one_device"][arch]["steps"], 1e-5)
-
-
-@pytest.mark.parametrize("name", ENTRIES)
-def test_parameters_after_three_steps(runs, name):
-    arch = ENTRIES[name][0]
-    check_params(runs["got"][name]["final"], runs["ref"][name]["final"],
-                 runs["one_device"][arch]["final"])
-
-
-@pytest.mark.parametrize("name", ENTRIES)
-def test_collectives_equal_the_dry_runs(runs, name):
-    arch, mesh = ENTRIES[name]
-    scalars = ranks.check_collectives(
-        runs["got"][name]["stats"], dict(CASE, arch=arch, mesh=list(mesh)))
-    assert scalars == {("all-reduce", "world"): 2, ("all-reduce", "fsdp"): 1}
-
-
-@pytest.mark.parametrize("name", REFUSED)
-def test_model_axis_waits_for_item_16c(runs, name):
-    got = runs["got"][name]
-    assert got["raised"] == "NotImplementedError"
-    assert "16c" in got["message"]
+globals().update(ranks.gate_tests(ENTRIES, CASE))
 
 
 def test_cli_runs_the_mesh_on_gloo(tmp_path):

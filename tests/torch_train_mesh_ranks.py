@@ -7,19 +7,28 @@ training mesh on the CPU, running the cases its parent wrote.
 (reduced), "mesh" (a shape over ("data", "model")), "steps", "batch",
 "seq", "factored", "init" (the reference's parameter tree as numpy),
 and optionally "scan_groups", "grad_accum", "save_at" (write a
-checkpoint to ``DIR/<name>_ckpt`` after that many steps), "restore" (a checkpoint directory to start
-from), "stats_step" (the step whose collectives are kept) and "expect"
-(an error type the mesh must raise). The rank joins the world through
+checkpoint to ``DIR/<name>_ckpt`` after that many steps), "restore" (a
+checkpoint directory to start from), "stats_step" (the step whose
+collectives are kept) and "grads_step" (the step whose gradients,
+gathered, rank 0 keeps). The rank joins the world through
 ``DIR/rendezvous``, builds each case's mesh from it, and writes
 ``DIR/rank<RANK>.pkl``: per case each step's metrics, and on rank 0 the
 gathered parameters after the last step and the collectives of
-``stats_step`` by tag. The rank body imports torch, numpy and the port
-only; the parent's helpers at the end (spawning the ranks and the
-reference's ``tests/torch_train_mesh_ref.py``, the one-device runs, the
-gates) import the reference where they need it.
+``stats_step`` by tag.
+
+    python tests/torch_train_mesh_ranks.py one DIR
+
+runs the port's one-device step of each case in ``DIR/cases.pkl`` and
+writes ``DIR/one.pkl``. With ``TRAIN_MESH_F64=1`` in the environment
+either runs in float64 (:func:`promote_f64`). The rank body imports
+torch, numpy and the port only; the parent's helpers at the end
+(spawning the ranks and the reference's ``tests/torch_train_mesh_ref.py``,
+the one-device runs, the gates) import the reference where they need
+it.
 """
 from __future__ import annotations
 
+import os
 import pickle
 import sys
 import traceback
@@ -28,18 +37,36 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch import checkpoint as ckpt
+
+def promote_f64() -> None:
+    """Run every float32 computation of the port in float64, for this
+    process: the port names float32 where it computes in it (``.float()``,
+    ``torch.float32``, defaults bound when its modules load), so these
+    names are rebound before the port is imported. The f64 gates use it
+    to tell a fault of a cut from f32 rounding."""
+    torch.float32 = torch.float = torch.float64
+    torch.Tensor.float = lambda self, *a, **k: self.double(*a, **k)
+    torch.set_default_dtype(torch.float64)
+
+
+if os.environ.get("TRAIN_MESH_F64") == "1":
+    promote_f64()
+
+from repro_torch import checkpoint as ckpt  # noqa: E402 - after promote_f64
 from repro_torch.configs import get_config, reduced
 from repro_torch.data.pipeline import FrontendPipeline, TokenPipeline
 from repro_torch.launch.mesh import init_train_group, make_train_mesh
 from repro_torch.models import params_from_jax
-from repro_torch.models.convert import params_to_numpy, shard_params
+from repro_torch.models.convert import (param_axes, params_to_numpy,
+                                        shard_params, stacked, uncut)
 from repro_torch.models.transformer import ModelOpts
 from repro_torch.optim import OptConfig, init_opt
 from repro_torch.train import TrainConfig, make_train_step
 from repro_torch.train.parallel import STATS
-from repro_torch.train.trainer import (gather_state, load_state, shard_opt,
-                                       state_like, state_tree, trainable)
+from repro_torch.train.trainer import (compute_grads, gather_state,
+                                       load_state, shard_opt, state_like,
+                                       state_tree, trainable)
+from repro_torch.utils import tree_map
 
 # the setup of tests/torch_train_mesh_ref.py
 OPT = dict(lr_max=1e-3, warmup=2, decay_steps=10)
@@ -55,7 +82,10 @@ def batch_at(cfg, batch: int, seq: int, step: int) -> dict:
     elif cfg.frontend == "audio":
         out["frontend"] = FrontendPipeline(cfg.d_model, seq,
                                            seed=0).batch_at(step, batch)
-    return {k: torch.as_tensor(v) for k, v in out.items()}
+    # floats in the default dtype: float64 under promote_f64
+    return {k: torch.as_tensor(v).to(torch.get_default_dtype())
+            if v.dtype.kind == "f" else torch.as_tensor(v)
+            for k, v in out.items()}
 
 
 def setup(case):
@@ -69,14 +99,9 @@ def setup(case):
 def run_case(case: dict, out_dir: Path, rank: int) -> dict:
     cfg, oc, opts = setup(case)
     mesh = make_train_mesh(case["mesh"], device="cpu")
-    try:
-        step_fn = make_train_step(
-            cfg, oc, TrainConfig(grad_accum=case.get("grad_accum", 1)),
-            opts=opts, mesh=mesh)
-    except Exception as e:            # noqa: BLE001 - reported to the test
-        if case.get("expect") and type(e).__name__ == case["expect"]:
-            return {"raised": type(e).__name__, "message": str(e)}
-        raise
+    step_fn = make_train_step(
+        cfg, oc, TrainConfig(grad_accum=case.get("grad_accum", 1)),
+        opts=opts, mesh=mesh)
     par = step_fn.par
     full = params_from_jax(cfg, case["init"], device="cpu")
     params = trainable(shard_params(full, par.rules, mesh, cfg))
@@ -90,13 +115,21 @@ def run_case(case: dict, out_dir: Path, rank: int) -> dict:
         opt = shard_opt(par, oc, params, opt_full)
     restored = None
     if case.get("restore"):                  # collective: every rank
-        restored = state_tree(*gather_state(par, oc, params, opt))
+        # copies: at world 1 the gathered state is the live tensors
+        restored = state_tree(*gather_state(par, oc, params, opt),
+                              leaf=lambda t: t.detach().numpy().copy())
         restored = restored if rank == 0 else None
     rows = []
-    stats = None
+    stats = grads = None
     for s in range(start, case["steps"]):
         if s == case.get("save_at"):
             save(case, par, oc, params, opt, out_dir, s, rank)
+        if s == case.get("grads_step"):
+            _, _, g = compute_grads(
+                params, cfg, batch_at(cfg, case["batch"], case["seq"], s),
+                TrainConfig(), opts, par)
+            grads = stacked(tree_map(lambda t, a: uncut(t, a, mesh), g,
+                                     param_axes(cfg, par.rules)))
         STATS.reset()
         params, opt, m = step_fn(params, opt,
                                  batch_at(cfg, case["batch"], case["seq"], s))
@@ -105,7 +138,8 @@ def run_case(case: dict, out_dir: Path, rank: int) -> dict:
                      ("step", "scalar", "factored")}
         rows.append({k: float(m[k]) for k in KEYS if k in m})
     full_p, full_opt = gather_state(par, oc, params, opt)
-    res = {"steps": rows, "stats": stats, "restored": restored}
+    res = {"steps": rows, "stats": stats, "restored": restored,
+           "grads": grads}
     if rank == 0:
         res["final"] = params_to_numpy(full_p)
         res["opt"] = state_tree(full_p, full_opt)["opt"]
@@ -122,6 +156,8 @@ def save(case, par, oc, params, opt, out_dir, step, rank) -> None:
 
 
 def main(argv) -> int:
+    if argv[0] == "one":
+        return main_one(Path(argv[1]))
     rank, world, out = int(argv[0]), int(argv[1]), Path(argv[2])
     torch.manual_seed(0)
     torch.set_num_threads(1)
@@ -143,8 +179,17 @@ def main(argv) -> int:
     return 0
 
 
-if __name__ == "__main__":
-    raise SystemExit(main(sys.argv[1:]))
+def main_one(out: Path) -> int:
+    """The one-device step of every case in ``out/cases.pkl``, by arch,
+    to ``out/one.pkl``."""
+    torch.manual_seed(0)
+    torch.set_num_threads(1)
+    with open(out / "cases.pkl", "rb") as f:
+        cases = pickle.load(f)
+    res = {c["arch"]: one_device(c, c["init"]) for c in cases}
+    with open(out / "one.pkl", "wb") as f:
+        pickle.dump(res, f)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -156,23 +201,24 @@ REPO = Path(__file__).resolve().parent.parent
 TIMEOUT_S = 600
 
 
-def start_ranks(cases: list, world: int, out: Path) -> list:
+def start_ranks(cases: list, world: int, out: Path, f64=False) -> list:
     """Write ``cases`` to ``out`` and start ``world`` rank processes
-    (their logs in ``out/rank<r>.log``)."""
-    import os
+    (their logs in ``out/rank<r>.log``); ``world`` 0: one process of the
+    one-device steps (``out/one.log``). ``f64``: in float64."""
     import subprocess
     out.mkdir(parents=True, exist_ok=True)
     with open(out / "cases.pkl", "wb") as f:
         pickle.dump(cases, f)
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", TRAIN_MESH_F64="1" if f64 else "0")
+    argvs = ([[str(r), str(world)] for r in range(world)] if world
+             else [["one"]])
     procs = []
-    for r in range(world):
-        log = open(out / f"rank{r}.log", "w")
+    for argv in argvs:
+        log = open(out / f"{'rank' if world else ''}{argv[0]}.log", "w")
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__)), str(r), str(world),
-             str(out)], cwd=REPO, env=env, stdout=log,
-            stderr=subprocess.STDOUT))
+            [sys.executable, str(Path(__file__)), *argv, str(out)],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
         log.close()
     return procs
 
@@ -280,27 +326,42 @@ def reference_init(arch):
 
 def one_device(case, init) -> dict:
     """The port's unsharded step on the same weights and batches: each
-    step's metrics and the parameters after the last."""
+    step's metrics, the parameters after the last, and the gradients of
+    ``case["grads_step"]`` where it has one."""
     cfg, oc, opts = setup(case)
     params = trainable(params_from_jax(cfg, init, device="cpu"))
     opt = init_opt(params, oc)
     step = make_train_step(cfg, oc, TrainConfig(), opts=opts)
-    rows = []
+    rows, grads = [], None
     for s in range(case["steps"]):
-        params, opt, m = step(params, opt, batch_at(
-            cfg, case["batch"], case["seq"], s))
+        batch = batch_at(cfg, case["batch"], case["seq"], s)
+        if s == case.get("grads_step"):
+            grads = stacked(compute_grads(params, cfg, batch, TrainConfig(),
+                                          opts)[2])
+        params, opt, m = step(params, opt, batch)
         rows.append({k: float(m[k]) for k in KEYS if k in m})
-    return {"steps": rows, "final": params_to_numpy(params)}
+    return {"steps": rows, "final": params_to_numpy(params), "grads": grads}
 
 
-def run_all(tmp, entries: dict, case: dict, extra=()) -> dict:
+def _f64(init):
+    """The parameter tree with its float32 arrays in float64."""
+    if isinstance(init, dict):
+        return {k: _f64(v) for k, v in init.items()}
+    if isinstance(init, (list, tuple)):
+        return type(init)(_f64(v) for v in init)
+    return init.astype(np.float64) if init.dtype == np.float32 else init
+
+
+def run_all(tmp, entries: dict, case: dict, extra=(), f64=False) -> dict:
     """``entries`` ({name: (arch, mesh)}) on the reference (a process
     per case: their jit compiles dominate) and on gloo worlds of each
     mesh's size, all at once, with ``case``'s other keys; ``extra``:
     rank-only cases (dicts with a name, arch and mesh). Meanwhile the
     port's one-device steps of every arch run here. Returns {"ref":
     {name: reference result}, "got": {name: rank 0's result},
-    "one_device": {arch: one_device(...)}}."""
+    "one_device": {arch: one_device(...)}}; with ``f64`` also "got64"
+    and "one64", the entries' mesh and one-device runs in float64 (their
+    own processes, beside the others)."""
     archs = sorted({a for a, _ in entries.values()}
                    | {e["arch"] for e in extra})
     inits = {a: reference_init(a) for a in archs}
@@ -323,6 +384,18 @@ def run_all(tmp, entries: dict, case: dict, extra=()) -> dict:
         procs += start_ranks(cases, world, tmp / f"w{world}")
         logs += [str(tmp / f"w{world}" / f"rank{r}.log")
                  for r in range(world)]
+    worlds64 = {}
+    if f64:
+        for n, (a, m) in entries.items():
+            worlds64.setdefault(int(np.prod(m)), []).append(
+                dict(case, name=n, arch=a, mesh=list(m),
+                     init=_f64(inits[a])))
+        worlds64[0] = [dict(case, arch=a, init=_f64(inits[a]))
+                       for a in sorted({a for a, _ in entries.values()})]
+        for world, cases in worlds64.items():
+            procs += start_ranks(cases, world, tmp / f"f64w{world}", f64=True)
+            logs += [str(tmp / f"f64w{world}" / f"rank{r}.log")
+                     for r in range(world)] or [str(tmp / "f64w0/one.log")]
     alone = {a: one_device(dict(case, arch=a), inits[a]) for a in archs}
     finish(procs, logs)
     ref = []
@@ -332,7 +405,16 @@ def run_all(tmp, entries: dict, case: dict, extra=()) -> dict:
     got = {}
     for world in worlds:
         got.update(rank_results(tmp / f"w{world}", world)[0])
-    return {"ref": dict(zip(entries, ref)), "got": got, "one_device": alone}
+    res = {"ref": dict(zip(entries, ref)), "got": got, "one_device": alone}
+    if f64:
+        res["got64"] = {}
+        for world in worlds64:
+            if world:
+                res["got64"].update(rank_results(tmp / f"f64w{world}",
+                                                 world)[0])
+        with open(tmp / "f64w0" / "one.pkl", "rb") as f:
+            res["one64"] = pickle.load(f)
+    return res
 
 
 def close(got, want, rtol, what):
@@ -363,6 +445,24 @@ def _leaves(tree, *others, path=""):
         yield (path, tree, *others)
 
 
+def check_grads(got, want, rtol=PARITY_RTOL) -> list:
+    """Every leaf's gradient within ``rtol`` of the largest |gradient| of
+    the leaf in ``want`` (the rounding of a sum's order stays below it;
+    a missing or doubled sum over an axis does not). Returns the
+    elements whose two gradients differ in sign: [(path, index, got,
+    want, the leaf's largest |want|)]."""
+    flips = []
+    for path, g, w in _leaves(got, want):
+        g = np.asarray(g)
+        top = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        assert err <= rtol * top, (path, err)
+        for i in zip(*np.nonzero(np.sign(g) != np.sign(w))):
+            flips.append((path, tuple(int(x) for x in i), float(g[i]),
+                          float(w[i]), top))
+    return flips
+
+
 def check_params(got, want, alone=None):
     """Every leaf within 1e-4 (atol and rtol) of the reference's, or no
     farther from it than the port's one-device parameters (``alone``)
@@ -374,7 +474,10 @@ def check_params(got, want, alone=None):
         bound = np.maximum(PARITY_RTOL + PARITY_RTOL * np.abs(w),
                            np.abs(np.asarray(a) - w) + 1e-5)
         err = np.abs(np.asarray(g) - w)
-        assert (err <= bound).all(), (path, float(err.max()))
+        i = np.unravel_index(int(np.argmax(err - bound)), err.shape)
+        assert (err <= bound).all(), (path, float(err.max()), i,
+                                      float(np.asarray(g)[i]), float(w[i]),
+                                      float(np.asarray(a)[i]))
 
 
 def check_collectives(stats: dict, case: dict) -> dict:
@@ -389,3 +492,118 @@ def check_collectives(stats: dict, case: dict) -> dict:
     assert wire["bytes_by_kind"] == pytest.approx(want["bytes_by_kind"],
                                                   rel=1e-12)
     return {(k, a): c for k, a, _, _, c in stats["scalar"]}
+
+
+#: the f64 gates: the mesh against the port's one-device step, both in
+#: float64 (``run_all(f64=True)``): loss and grad norm (relative) and the
+#: first step's gradients (relative to the leaf's largest) within
+#: F64_RTOL, the parameters after the last step within F64_ATOL. Set
+#: from the readings of mamba2-780m, zamba2-1.2b and seamless-m4t-medium
+#: (reduced) at (1, 2) and (2, 2), the worst of the six: steps 1.40e-14,
+#: gradients 9.29e-15, parameters 4.77e-13 (zamba2). In f32 the same
+#: runs read steps 1.02e-5, gradients 7.55e-6, parameters 3.65e-4
+#: (zamba2 at (1, 2): one element's first gradient, -4.63e-7 in f64
+#: against a leaf's largest of 1.2, rounds to +2.06e-7 on the mesh and
+#: -8.97e-7 on one device, and Adam's first step, lr times the sign,
+#: carries the difference into the parameters)
+F64_RTOL = 1e-10
+F64_ATOL = 1e-9
+
+
+def check_close(got, want, atol):
+    """Every leaf of ``got`` within ``atol`` of ``want``'s."""
+    for path, g, w in _leaves(got, want):
+        err = float(np.abs(np.asarray(g) - np.asarray(w)).max())
+        assert err <= atol, (path, err)
+
+
+def gate_tests(entries: dict, case: dict, f64: bool = False) -> dict:
+    """The mesh parity tests of one file, for its module's namespace: a
+    module fixture ``runs`` (:func:`run_all` of ``entries`` with
+    ``case``'s keys) and, parametrized over ``entries``,
+
+      test_steps_equal_the_references_sharded_step   (rtol 1e-4)
+      test_steps_equal_the_ports_one_device_step
+      test_parameters_after_three_steps
+      test_collectives_equal_the_dry_runs
+
+    Without ``f64`` the one-device step is held in f32 at 1e-5 and the
+    parameters to the reference's by :func:`check_params`. With ``f64``
+    (``case`` has a "grads_step") the one-device gates run in float64
+    at F64_RTOL / F64_ATOL and
+    test_first_step_gradients_equal_the_ports_one_device joins them (in
+    f32 too, within 1e-4); the parameters are then held to the
+    one-device port's in float64 alone: in f32 a near-zero first
+    gradient's sign is rounding, which Adam's first update (lr times
+    the sign) carries into the parameters, so that neither the f32 nor
+    the f64 mesh's parameters stay within check_params' bound of the f32
+    reference's at every element (F64_RTOL's readings)."""
+    import pytest
+
+    @pytest.fixture(scope="module")
+    def runs(tmp_path_factory):
+        return run_all(tmp_path_factory.mktemp("train_mesh"), entries, case,
+                       f64=f64)
+
+    each = pytest.mark.parametrize("name", entries)
+
+    @each
+    def test_steps_equal_the_references_sharded_step(runs, name):
+        check_steps(runs["got"][name]["steps"], runs["ref"][name]["steps"])
+
+    @each
+    def test_steps_equal_the_ports_one_device_step(runs, name):
+        arch = entries[name][0]
+        if f64:
+            check_steps(runs["got64"][name]["steps"],
+                        runs["one64"][arch]["steps"], F64_RTOL)
+        else:
+            check_steps(runs["got"][name]["steps"],
+                        runs["one_device"][arch]["steps"], 1e-5)
+
+    @each
+    def test_first_step_gradients_equal_the_ports_one_device(runs, name):
+        """The first step's gradients, gathered from the ranks, leaf by
+        leaf: in f32 within 1e-4 of the leaf's largest one-device
+        gradient, in f64 within F64_RTOL of it."""
+        arch = entries[name][0]
+        flips = check_grads(runs["got"][name]["grads"],
+                            runs["one_device"][arch]["grads"])
+        check_grads(runs["got64"][name]["grads"],
+                    runs["one64"][arch]["grads"], F64_RTOL)
+        # for the record (pytest -s): where the f32 signs differ
+        for path, i, got, want, top in flips:
+            print(name, path, i, f"f32 mesh {got:.3e} one device "
+                  f"{want:.3e} (leaf's largest {top:.3e})")
+
+    @each
+    def test_parameters_after_three_steps(runs, name):
+        arch = entries[name][0]
+        if f64:
+            check_close(runs["got64"][name]["final"],
+                        runs["one64"][arch]["final"], F64_ATOL)
+        else:
+            check_params(runs["got"][name]["final"],
+                         runs["ref"][name]["final"],
+                         runs["one_device"][arch]["final"])
+
+    @each
+    def test_collectives_equal_the_dry_runs(runs, name):
+        arch, mesh = entries[name]
+        scalars = check_collectives(
+            runs["got"][name]["stats"], dict(case, arch=arch,
+                                             mesh=list(mesh)))
+        want = {("all-reduce", "world"): 2}
+        if mesh[0] > 1:
+            want[("all-reduce", "fsdp")] = 1
+        assert scalars == want
+
+    tests = dict(locals())
+    if not f64:
+        del tests["test_first_step_gradients_equal_the_ports_one_device"]
+    return {k: v for k, v in tests.items()
+            if k == "runs" or k.startswith("test_")}
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))
