@@ -39,7 +39,14 @@ its seconds:
                two sides, duplicates, invalid and all-invalid rows,
                out_w below the width, ragged row counts, -0.0 / NaN /
                inf, widths up to 2048, and spec 4's proposals
-               (W * (R + spec) = 20).
+               (W * (R + spec) = 20);
+               the sort and merge with several payload lanes (the lanes
+               launch: positions through the network, an epilogue that
+               permutes every lane): the sort at B 2048, M 32 and M 256
+               with 3 lanes (i32, f32, i32), the merge pass at M 64 with
+               2, one launch each, bit for bit against the plain
+               versions and the other body (NaN payloads, signed zeros,
+               (dist, id) ties whose lanes differ).
   4. attn_kernels — the flash-attention kernel against its plain
                version: gemma3-1b's geometry with its 512 window and
                full, a gemma2-like softcap, bf16, a non-aligned S through
@@ -277,7 +284,14 @@ its seconds:
                deterministic algorithms on): reduced gemma3-1b, 12
                steps, a failure injected at step 7, checkpoints every 5
                steps; the resumed run's parameters and optimizer state
-               equal an uninterrupted run's bit for bit.
+               equal an uninterrupted run's bit for bit. (e) Part dots:
+               the same cell under --remat dots (the outputs of the
+               products with no batch dimension kept, the rest
+               recomputed), 6 steps in this process: every step's loss
+               and grad norm bit for bit the full run's same step, 52
+               flash forwards and 26 backwards per step; ms per step
+               (median of steps 3-6), tokens/s and peak GiB beside the
+               full run's.
   8c'. train_mesh — the sharded step (launch/train.py --mesh 1,1, a
                one-rank NCCL group on a loopback rendezvous): (a) phase
                train's cell, 5 steps, each step's loss and grad norm
@@ -295,7 +309,9 @@ its seconds:
                width, batch 2 x 1024, 3 steps unsharded and through
                --mesh 1,1: finite, bit-equal; ms per step, peak GiB,
                flash forward and backward launches per step (none for
-               mamba2, some for zamba2 and seamless).
+               mamba2, some for zamba2 and seamless); (d) phase train's
+               cell through --mesh 1,1 --remat dots, 3 steps, bit for
+               bit phase train's dots run.
   8d. analysis — the trace-discipline suite on the card (under 60 s):
                (a) the op audit (repro_torch.analysis.op_audit) with
                device "cuda" over every chunk program: no sync op, no
@@ -323,7 +339,10 @@ its seconds:
                roofline bound against phase train's ms per step; (c)
                one factored AdamW step of gemma3-1b at full width: a
                finite loss, finite moments, and state_tree's v in the
-               reference's r/c structure. Then the phase's seconds.
+               reference's r/c structure; (d) phase train's dots cell
+               planned the same way as (b), beside the cost model's
+               count of one real dots step on the card and that step's
+               peak. Then the phase's seconds.
   9. timing  — each kernel at its path's shapes: its time, its bound,
                the plain version's time and one library call's (the
                distance kernel's bf16 instantiations on the same tiles,
@@ -336,6 +355,11 @@ its seconds:
                and at the other families' prefill shapes (mixtral,
                zamba2's shared block, seamless's encoder, decoder self-
                and cross-attention),
+               the backward also at the dh-64 training shapes (B 2:
+               zamba2's shared block, window 4096; seamless's encoder,
+               decoder self-attention and cross-attention), the sort
+               with 3 payload lanes at B 2048, M 32 (the library call:
+               torch.sort and a gather of each lane),
                the fused Gather merge also at spec 4's proposals (LB 20),
                the distance at the router's shape and at the tiered
                sessions' (a frame buffer of 24 pages per shard), the
@@ -714,6 +738,73 @@ def two_launch_merge(cd, ci, ce, nd, ni, nv, out_w):
     return d[:, :out_w], i[:, :out_w], e[:, :out_w] != 0
 
 
+def lane_words(B, M, dev, seed: int, dtypes):
+    """Payload lanes of random 32-bit words, one per dtype; the f32 ones
+    carry two NaN payloads, -0.0 and 0.0 (moved as raw words)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for dt in dtypes:
+        w = torch.randint(-2**31, 2**31 - 1, (B, M), generator=g,
+                          device=dev, dtype=torch.int32)
+        if dt == torch.float32:
+            w[:, 0], w[:, 1] = -2**31, 0
+            w[:, 2 % M], w[:, 3 % M] = 0x7fc00000, 0x7fc00123
+        out.append(w.view(dt))
+    return out
+
+
+# phase kernels' payload-lane cases: the sort at B 2048 with M 32 and
+# M 256 (register and shared bodies) and 3 lanes (i32, f32, i32), the
+# merge pass at M 64 with 2 lanes; phase timing's 3-lane sort row
+LANE_SORTS = ((2048, 32), (2048, 256))
+LANE_MERGE = (2048, 64)
+
+
+def check_lanes(dev) -> None:
+    """The bitonic kernels with several payload lanes (positions through
+    the network, an epilogue permuting every lane) bit for bit against
+    their plain versions and their other body, with (dist, id) ties
+    whose lanes differ, -0.0 / NaN / inf keys."""
+    import torch
+    from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
+                                          bitonic_sort, bitonic_sort_ref)
+    from repro_torch.kernels.topk.kernel import MERGE_KERNEL, SORT_KERNEL
+    i32, f32 = torch.int32, torch.float32
+    cases = [(bitonic_sort, bitonic_sort_ref, SORT_KERNEL, B, M,
+              (i32, f32, i32)) for B, M in LANE_SORTS]
+    cases.append((bitonic_merge, bitonic_merge_ref, MERGE_KERNEL,
+                  *LANE_MERGE, (i32, f32)))
+    for kernel, plain, handle, B, M, dtypes in cases:
+        d, i, _ = sort_rows(B, M, dev, seed=M + 1)
+        i = i % (M // 4)                          # ties, lanes differ
+        d[:, 0], d[:, 1], i[:, 1] = -0.0, 0.0, i[:, 0]
+        d[:, 2], d[:, 3] = float("nan"), float("inf")
+        lanes = lane_words(B, M, dev, seed=M, dtypes=dtypes)
+        if kernel is bitonic_merge:
+            d, i, *lanes = bitonic_sort_ref(d, i, *lanes)
+            h = M // 2
+            d, i, *lanes = (torch.cat([x[:, :h], x[:, h:].flip(1)], 1)
+                            for x in (d, i, *lanes))
+        before = handle.launches
+        got = kernel(d, i, *lanes)
+        launched = handle.launches - before
+        checks = {"plain": plain(d, i, *lanes),
+                  "shared_body": kernel(d, i, *lanes, shared=True)}
+        for what, want in checks.items():
+            if not bits_equal(got, want):
+                raise AssertionError(f"{handle.name} B={B} M={M} lanes "
+                                     f"{dtypes}: differs from {what}")
+        emit({"phase": "kernels", "kernel": handle.name, "B": B, "M": M,
+              "payload_lanes": [str(t).split(".")[-1] for t in dtypes],
+              "launches": launched, "held_against": sorted(checks),
+              "special_values": True, "max_abs_err": 0.0,
+              "tolerance": "exact (bits)"})
+        if launched != 1:
+            raise AssertionError(f"{handle.name}: {launched} launches for "
+                                 f"{len(dtypes)} lanes")
+
+
 def check_topk(dev) -> float:
     import torch
     from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
@@ -771,6 +862,7 @@ def check_topk(dev) -> float:
                   "R": R, "LA": la, "LB": lb, "special_values": special,
                   "held_against": sorted(checks), "max_abs_err": 0.0,
                   "tolerance": "exact (bits)"})
+    check_lanes(dev)
     return 0.0
 
 
@@ -3766,6 +3858,10 @@ TRAIN_GNORM_RTOL = 1e-4
 DRILL = dict(steps=12, fail_at=7, ckpt_every=5, batch=4, seq=128)
 # the backward's CUDA kernels, as the profiler names them
 BWD_KERNEL_NAMES = ("bwd_dq_kernel", "bwd_dkdv_kernel")
+# part dots: phase train's cell under --remat dots, in the same process;
+# every step's loss and grad norm against the full run's same step (the
+# schedule of steps 0-5 does not depend on the run's length)
+TRAIN_DOTS = dict(steps=6, mesh_steps=3)
 
 
 def train_args(**over):
@@ -3775,7 +3871,8 @@ def train_args(**over):
     argv = ["--arch", t["arch"], "--steps", str(t["steps"]),
             "--batch", str(t["batch"]), "--seq", str(t["seq"]),
             "--lr", str(t["lr"]), "--warmup", str(t["warmup"]),
-            "--remat", "full", "--loss-chunk", str(t["loss_chunk"]),
+            "--remat", t.get("remat", "full"),
+            "--loss-chunk", str(t["loss_chunk"]),
             "--log-every", "1", "--seed", "0"]
     if t.get("reduced"):
         argv.append("--reduced")
@@ -3957,6 +4054,68 @@ def train_run(dev) -> dict:
     return total, line
 
 
+def train_dots(dev, full_line: dict) -> dict:
+    """(e) Phase train's cell under ``--remat dots`` (the products with
+    no batch dimension kept, the rest recomputed), TRAIN_DOTS["steps"]
+    steps through train() in this process: every step's loss and grad
+    norm bit for bit the full run's same step, and the full run's flash
+    launches per step (attention is recomputed under both); ms per step
+    (median of steps 3-6), tokens/s and peak GiB beside the full run's."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train
+    n, layers = TRAIN_DOTS["steps"], 26
+    per_step, times = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        per_step.append({k: v for k, v in launch_counts().items() if v})
+        reset_launch_counts()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times.append(time.perf_counter())
+    run = train(train_args(steps=n, remat="dots"), on_step=on_step)
+    hist = run["history"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_s = [b - a for a, b in zip(times, times[1:])]
+    median_s = statistics.median(step_s[2:])          # steps 3..6
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    want_l, want_g = full_line["losses"][:n], full_line["grad_norms"][:n]
+    full_ms = full_line["ms_per_step_median_3_10"]
+    line = {"phase": "train", "part": "dots", "arch": full_line["arch"],
+            "batch": TRAIN["batch"], "seq": TRAIN["seq"], "steps": n,
+            "remat": "dots", "losses": losses, "grad_norms": gnorms,
+            "full_losses": want_l, "full_grad_norms": want_g,
+            "bit_equal": losses == want_l and gnorms == want_g,
+            "step_s": step_s, "ms_per_step_median_3_6": median_s * 1e3,
+            "full_ms_per_step_median_3_10": full_ms,
+            "ms_over_full": median_s * 1e3 / full_ms,
+            "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / median_s,
+            "full_tokens_per_s": full_line["tokens_per_s"],
+            "peak_mem_gib": peak, "full_peak_mem_gib":
+                full_line["peak_mem_gib"],
+            "launches_per_step": per_step,
+            "full_launches_per_step": full_line["launches_per_step"]}
+    emit(line)
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    if not line["bit_equal"] or any(x != want for x in per_step) or \
+            any(h["skipped"] for h in hist):
+        raise AssertionError(f"train: the dots run differs from the full "
+                             f"run: {line}")
+    return line
+
+
 def restart_drill() -> dict:
     """(d), in a fresh process (``chip_smoke.py --restart-drill``, with
     CUBLAS_WORKSPACE_CONFIG set and deterministic algorithms on): reduced
@@ -4026,13 +4185,15 @@ def drill_in_child() -> dict:
 
 def train_phase(dev) -> dict:
     """Phase 8c: (a) the kernel step against plain attention, (b)-(c) the
-    10-step run and a profiled step, (d) the restart drill in a child.
-    Returns the run's launch counts."""
+    10-step run and a profiled step, (e) the dots run, (d) the restart
+    drill in a child. Returns the run's launch counts and its line (the
+    dots run's line under "dots")."""
     import torch
     timed_part("train", "kernel vs plain", train_step_vs_plain, dev)
     gc.collect()
     torch.cuda.empty_cache()
     total, line = timed_part("train", "run", train_run, dev)
+    line["dots"] = timed_part("train", "dots", train_dots, dev, line)
     timed_part("train", "restart drill", drill_in_child)
     return total, line
 
@@ -4202,6 +4363,35 @@ def train_mesh_gemma(dev, train_line: dict) -> dict:
     return line
 
 
+def train_mesh_dots(dev, train_line: dict) -> dict:
+    """(d) Phase train's cell through ``--mesh 1,1 --remat dots``,
+    TRAIN_DOTS["mesh_steps"] steps: each step's loss and grad norm bit
+    for bit phase train's dots run's same step, its flash launches."""
+    n, layers = TRAIN_DOTS["mesh_steps"], 26
+    dots = train_line["dots"]
+    run, out = mesh_train_run(train_args(
+        steps=n, remat="dots", mesh="1,1",
+        init_method=f"tcp://127.0.0.1:{free_port()}"))
+    del run
+    want_l, want_g = dots["losses"][:n], dots["grad_norms"][:n]
+    line = {"phase": "train_mesh", "part": "gemma3-1b dots world 1",
+            "mesh": "1,1 (data, model) over nccl", "remat": "dots",
+            "steps": n, "losses": out["losses"],
+            "grad_norms": out["grad_norms"], "one_device_losses": want_l,
+            "one_device_grad_norms": want_g,
+            "bit_equal": out["losses"] == want_l
+            and out["grad_norms"] == want_g,
+            "step_ms": out["step_ms"], "peak_gib": out["peak_gib"],
+            "launches_per_step": out["launches"]}
+    emit(line)
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers}
+    if not line["bit_equal"] or any(x != want for x in out["launches"]) \
+            or any(out["skipped"]):
+        raise AssertionError(f"train_mesh: the world-1 dots step differs "
+                             f"from phase train's dots run: {line}")
+    return line
+
+
 def train_mesh_mixtral(dev) -> dict:
     """(b) mixtral-8x7b at full width cut to 1 layer, 3 steps unsharded
     and 3 steps through ``--mesh 1,1``: finite losses, equal within
@@ -4301,6 +4491,8 @@ def train_mesh_phase(dev, train_line: dict) -> dict:
     launches of its gemma3-1b run (every step's)."""
     gemma = timed_part("train_mesh", "gemma3-1b", train_mesh_gemma, dev,
                        train_line)
+    timed_part("train_mesh", "gemma3-1b dots", train_mesh_dots, dev,
+               train_line)
     timed_part("train_mesh", "mixtral-8x7b", train_mesh_mixtral, dev)
     timed_part("train_mesh", "families", train_mesh_families, dev)
     total = {}
@@ -4394,16 +4586,18 @@ def analysis_main_cost(main_run, dev) -> dict:
     return line
 
 
-def analysis_train_flops(dev) -> dict:
+def analysis_train_flops(dev, remat: str = "full") -> dict:
     """(c) One gemma3-1b train step at phase train's shape (fresh
     parameters from the seed, step 0's batch) counted by the cost model,
     beside model_flops: the counted step also runs remat's second
-    forward (and the optimizer's elementwise updates)."""
+    forward (and the optimizer's elementwise updates); under ``remat``
+    "dots" (phase plan's dots cell) the second forward less the kept
+    products."""
     import torch
     from repro_torch.launch.opanalysis import analyze
     from repro_torch.launch.train import build
     from repro_torch.train.trainer import init_train_state
-    cfg, oc, step_fn, pipe, _ = build(train_args())
+    cfg, oc, step_fn, pipe, _ = build(train_args(remat=remat))
     params, opt = init_train_state(
         cfg, oc, torch.Generator(device=dev).manual_seed(0))
     batch = {k: torch.as_tensor(v, device=dev)
@@ -4415,6 +4609,7 @@ def analysis_train_flops(dev) -> dict:
              if n.split(".")[0] in ("aten::mm", "aten::addmm", "aten::bmm",
                                     "aten::baddbmm"))
     line = {"phase": "analysis", "part": "cost model, train step",
+            "remat": remat,
             "arch": cfg.name, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
             "params": nparams, "counted_flops": rep["flops"],
             "model_flops": mf, "counted_over_model": rep["flops"] / mf,
@@ -4498,15 +4693,17 @@ def plan_cells(pending) -> list:
     return recs
 
 
-def plan_train_cell(dev, counted: dict, run_line: dict) -> dict:
+def plan_train_cell(dev, counted: dict, measured_ms: float,
+                    remat: str = "full") -> dict:
     """(b) Phase train's own cell planned at mesh data 1 x model 1
-    (gemma3-1b, f32, batch 4 x 1024, remat full, loss chunk 512) beside
+    (gemma3-1b, f32, batch 4 x 1024, ``remat``, loss chunk 512) beside
     this run's readings: the predicted operations against the cost
-    model's count of the same step (phase analysis; within 1%), the
-    argument bytes of the parameters and optimizer state against the
-    live train state's bytes (equal), the predicted peak against
-    torch.cuda.max_memory_allocated over one step, and the roofline
-    bound against phase train's ms per step."""
+    model's count of the same step (phase analysis, or for dots its own;
+    within 1%), the argument bytes of the parameters and optimizer state
+    against the live train state's bytes (equal), the predicted peak
+    against torch.cuda.max_memory_allocated over one step, and the
+    roofline bound against phase train's ms per step
+    (``measured_ms``)."""
     import torch
     from repro_torch.launch.dryrun import analyze_plan
     from repro_torch.launch.mesh import make_mesh_for
@@ -4515,12 +4712,13 @@ def plan_train_cell(dev, counted: dict, run_line: dict) -> dict:
     from repro_torch.models.transformer import ModelOpts
     from repro_torch.train.trainer import init_train_state
     from repro_torch.utils import tree_leaves
-    cfg, oc, step_fn, pipe, _ = build(train_args())
+    cfg, oc, step_fn, pipe, _ = build(train_args(remat=remat))
     mesh = make_mesh_for(1, (1, 1), ("data", "model"))
     plan = plan_train(cfg, mesh, batch=TRAIN["batch"], seq=TRAIN["seq"],
                       policy=ArchPolicy(loss_chunk=TRAIN["loss_chunk"],
                                         param_dtype=torch.float32),
-                      opts=ModelOpts(loss_chunk=TRAIN["loss_chunk"]))
+                      opts=ModelOpts(remat=remat,
+                                     loss_chunk=TRAIN["loss_chunk"]))
     t0 = time.perf_counter()
     rec = analyze_plan(plan)
     plan_s = time.perf_counter() - t0
@@ -4545,6 +4743,7 @@ def plan_train_cell(dev, counted: dict, run_line: dict) -> dict:
     measured_peak = state + inputs + step_peak
     bound_ms = rec["roofline"]["step_s_lower_bound"] * 1e3
     line = {"phase": "plan", "part": "train cell, data 1 x model 1",
+            "remat": remat,
             "arch": cfg.name, "batch": TRAIN["batch"], "seq": TRAIN["seq"],
             "plan_s": plan_s,
             "predicted_flops": pd["flops"],
@@ -4564,9 +4763,8 @@ def plan_train_cell(dev, counted: dict, run_line: dict) -> dict:
                 mem["peak_bytes_per_device"] / measured_peak,
             "roofline": rec["roofline"],
             "bound_ms": bound_ms,
-            "measured_ms_per_step": run_line["ms_per_step_median_3_10"],
-            "bound_over_measured":
-                bound_ms / run_line["ms_per_step_median_3_10"],
+            "measured_ms_per_step": measured_ms,
+            "bound_over_measured": bound_ms / measured_ms,
             "collective_bytes": pd["collective_bytes"]}
     emit(line)
     del params, opt, batch
@@ -4649,11 +4847,17 @@ def plan_factored_step(dev) -> dict:
 
 
 def plan_phase(dev, counted: dict, run_line: dict, pending) -> None:
-    """Phase 8e: (a)-(c), each a timed part, then the phase's seconds."""
+    """Phase 8e: (a)-(d), each a timed part, then the phase's seconds."""
     t0 = time.perf_counter()
     timed_part("plan", "dry run cells", plan_cells, pending)
-    timed_part("plan", "train cell", plan_train_cell, dev, counted, run_line)
+    timed_part("plan", "train cell", plan_train_cell, dev, counted,
+               run_line["ms_per_step_median_3_10"])
     timed_part("plan", "factored step", plan_factored_step, dev)
+    # (d) the same cell under remat dots, beside its own count on the card
+    counted = timed_part("plan", "dots step cost", analysis_train_flops,
+                         dev, "dots")
+    timed_part("plan", "train cell dots", plan_train_cell, dev, counted,
+               run_line["dots"]["ms_per_step_median_3_6"], "dots")
     emit({"phase": "plan", "seconds": round(time.perf_counter() - t0, 2)})
 
 
@@ -4669,6 +4873,7 @@ def routed_bitonic_rows(dev) -> list:
     import torch
     from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
                                           bitonic_sort, bitonic_sort_ref)
+    from repro_torch.kernels.topk.kernel import bitonic_cost
     from repro_torch.utils import BIG_DIST, ID_SENTINEL
     rows = []
     tiny = sort_rows(1, 2, dev, seed=2)[:2]
@@ -4677,8 +4882,8 @@ def routed_bitonic_rows(dev) -> list:
     sd = torch.rand((B, M), generator=g, device=dev) * 1e4
     si = torch.arange(M, dtype=torch.int32, device=dev).expand(B, M)
     si = si.contiguous()
-    s = int(math.log2(M))
-    b, by = bound_ms(2 * B * M * 8, B * (M // 2) * s * (s + 1) // 2)
+    ops, nbytes = bitonic_cost(B, M, 0, merge_only=False)
+    b, by = bound_ms(nbytes, ops)
     rows.append(("bitonic_sort", (sd, si), bitonic_sort, bitonic_sort_ref,
                  lambda: torch.sort(sd, dim=-1, stable=True), b, by,
                  dict(B=B, M=M, payload_lanes=0,
@@ -4692,7 +4897,8 @@ def routed_bitonic_rows(dev) -> list:
     md = torch.cat([ad, ad.new_full((B, fill), BIG_DIST), bd.flip(1)], 1)
     mi = torch.cat([ai, ai.new_full((B, fill), ID_SENTINEL), bi.flip(1)], 1)
     cat_d = torch.cat([ad, bd], 1)
-    b, by = bound_ms(2 * B * M * 8, B * (M // 2) * int(math.log2(M)))
+    ops, nbytes = bitonic_cost(B, M, 0, merge_only=True)
+    b, by = bound_ms(nbytes, ops)
     rows.append(("bitonic_merge", (md, mi), bitonic_merge,
                  bitonic_merge_ref,
                  lambda: torch.sort(cat_d, dim=-1, stable=True), b, by,
@@ -4776,14 +4982,15 @@ def bitonic_rows(dev) -> list:
     import torch
     from repro_torch.kernels.topk import (bitonic_merge, bitonic_merge_ref,
                                           bitonic_sort, bitonic_sort_ref)
+    from repro_torch.kernels.topk.kernel import bitonic_cost
     from repro_torch.utils import BIG_DIST, ID_SENTINEL
     R, la, lb = GATHER["R"], GATHER["LA"], GATHER["LB"]
     M = 64
     rows = []
     dd, ii, pp = sort_rows(R, lb, dev, seed=lb)
     tiny = sort_rows(1, 2, dev, seed=2)
-    s = int(math.log2(lb))
-    b, by = bound_ms(2 * R * lb * 12, R * (lb // 2) * s * (s + 1) // 2)
+    ops, nbytes = bitonic_cost(R, lb, 1, merge_only=False)
+    b, by = bound_ms(nbytes, ops)
     rows.append(("bitonic_sort", (dd, ii, pp), bitonic_sort, bitonic_sort_ref,
                  lambda dd=dd: torch.sort(dd, dim=-1, stable=True), b, by,
                  dict(B=R, M=lb, payload_lanes=1, floor_args=tiny)))
@@ -4793,7 +5000,8 @@ def bitonic_rows(dev) -> list:
     md = torch.cat([ad, ad.new_full((R, fill), BIG_DIST), bd.flip(1)], 1)
     mi = torch.cat([ai, ai.new_full((R, fill), ID_SENTINEL), bi.flip(1)], 1)
     mp = torch.cat([ap, ap.new_zeros((R, fill + lb))], 1)
-    b, by = bound_ms(2 * R * M * 12, R * (M // 2) * int(math.log2(M)))
+    ops, nbytes = bitonic_cost(R, M, 1, merge_only=True)
+    b, by = bound_ms(nbytes, ops)
     rows.append(("bitonic_merge", (md, mi, mp), bitonic_merge,
                  bitonic_merge_ref,
                  lambda md=md: torch.sort(md, dim=-1, stable=True), b, by,
@@ -4803,6 +5011,30 @@ def bitonic_rows(dev) -> list:
     floor = tuple(x[:1] for x in gather_case(2, 1, 1, dev, seed=1)) + (2,)
     rows.append(gather_row(R, la, lb, dev, floor_args=floor))
     return rows
+
+
+def lanes_row(dev):
+    """The timing row of the sort with 3 payload lanes (i32, f32, i32) at
+    B 2048, M 32 (positions through the network, an epilogue permuting
+    every lane); its bound moves dist, id and every lane once each way;
+    the library call is torch.sort of the keys and a gather of each lane
+    by its indices."""
+    import torch
+    from repro_torch.kernels.topk import bitonic_sort, bitonic_sort_ref
+    from repro_torch.kernels.topk.kernel import bitonic_cost
+    B, M = LANE_SORTS[0]
+    d, i, _ = sort_rows(B, M, dev, seed=M + 2)
+    lanes = lane_words(B, M, dev, seed=M + 3,
+                       dtypes=(torch.int32, torch.float32, torch.int32))
+    ops, nbytes = bitonic_cost(B, M, len(lanes), False)
+    b, by = bound_ms(nbytes, ops)
+
+    def lib():
+        idx = torch.sort(d, dim=-1, stable=True).indices
+        return [x.gather(-1, idx) for x in (d, i, *lanes)]
+    return ("bitonic_sort", (d, i, *lanes), bitonic_sort, bitonic_sort_ref,
+            lib, b, by, dict(B=B, M=M, payload_lanes=3,
+                             lanes="i32, f32, i32"))
 
 
 def gather_row(R, la, lb, dev, **shape):
@@ -4860,17 +5092,19 @@ def flash_row(shape: dict, kw: dict, dev):
                         unmasked_pairs=pairs))
 
 
-def flash_bwd_row(shape: dict, kw: dict, dev, earlier_ms: float):
+def flash_bwd_row(shape: dict, kw: dict, dev, earlier_ms=None):
     """A timing row of the flash backward at ``shape`` (f32) from the
     forward's out and lse: the kernels (both, per call), their plain
     version, and the library call, torch.autograd's backward of SDPA on
-    repeated kv (explicit boolean mask; the forward taken once, outside
-    the timing, its graph kept). The bound counts the backward's five
-    products (s, dP, dq, dk, dv), 2 dh operations each, per unmasked
-    (row, col) pair and head; its bytes read q, k, v, out, dout and lse
-    once and write dq, dk, dv once. ``earlier_ms``: the first design's
-    time at this shape (three kernels, s and dP computed twice, on an
-    H100 80GB HBM3 at 700 W), printed beside the row."""
+    repeated kv (explicit boolean mask where causal; the forward taken
+    once, outside the timing, its graph kept). ``kw``: window, causal
+    and kv_valid (``s_orig``) as flash_row takes them. The bound counts
+    the backward's five products (s, dP, dq, dk, dv), 2 dh operations
+    each, per unmasked (row, col) pair and head; its bytes read q, k, v,
+    out, dout and lse once and write dq, dk, dv once. ``earlier_ms``:
+    the first design's time at this shape (three kernels, s and dP
+    computed twice, on an H100 80GB HBM3 at 700 W), printed beside the
+    row where there is one."""
     import torch
     from repro_torch.kernels.flash_attention.kernel import cost as flash_cost
     from repro_torch.kernels.flash_attention.kernel import (
@@ -4880,28 +5114,34 @@ def flash_bwd_row(shape: dict, kw: dict, dev, earlier_ms: float):
     g = torch.Generator(device=dev).manual_seed(6)
     fdo = torch.randn(fq.shape, generator=g, device=dev)
     S, window = shape["S"], kw.get("window", 0)
-    kw = dict(scale=shape["dh"] ** -0.5, causal=True, window=window)
+    causal = kw.get("causal", True)
+    kw = dict(scale=shape["dh"] ** -0.5, causal=causal, window=window,
+              s_orig=kw.get("kv_valid", 0))
     out, lse = flash_attention(fq, fk, fv, return_lse=True, **kw)
     group = shape["H"] // shape["Hkv"]
     lq, lk, lv = (x.clone().requires_grad_() for x in (fq, fk, fv))
     lkr, lvr = (x.repeat_interleave(group, dim=1) for x in (lk, lv))
     ar = torch.arange(S, device=dev)
-    mask = ar[None, :] <= ar[:, None]
-    if window:
-        mask = mask & (ar[:, None] - ar[None, :] < window)
+    mask = None
+    if causal:
+        mask = ar[None, :] <= ar[:, None]
+        if window:
+            mask = mask & (ar[:, None] - ar[None, :] < window)
     sdpa = torch.nn.functional.scaled_dot_product_attention(
         lq, lkr, lvr, attn_mask=mask, scale=kw["scale"])
-    pairs = attn_pairs(S, True, window) * shape["B"] * shape["H"]
-    ops, nbytes = flash_cost(fq.shape, fk.numel(), 4, S, causal=True,
+    pairs = attn_pairs(S, causal, window) * shape["B"] * shape["H"]
+    ops, nbytes = flash_cost(fq.shape, fk.numel(), 4, S, causal=causal,
                              window=window, backward=True)
     b, by = bound_ms(nbytes, ops)
+    info = dict(shape, causal=causal, window=window, unmasked_pairs=pairs)
+    if earlier_ms is not None:
+        info["earlier_ms"] = earlier_ms
     return ("flash_attention_bwd", (fq, fk, fv, out, lse, fdo),
             lambda *a: flash_attention_bwd(*a, **kw),
             lambda *a: attention_bwd_ref(*a, **kw),
             lambda: torch.autograd.grad(sdpa, (lq, lk, lv), fdo,
                                         retain_graph=True),
-            b, by, dict(shape, causal=True, window=window,
-                        unmasked_pairs=pairs, earlier_ms=earlier_ms))
+            b, by, info)
 
 
 def flash_lse_row(shape: dict, kw: dict, dev):
@@ -5023,6 +5263,26 @@ def time_kernels(dev) -> list:
                    layers_per_prefill=12)),
              (gather_row(GATHER["R"], GATHER["LA"], GATHER["LB_SPEC"], dev),
               dict(case="spec 4 proposals (W * (R + spec) = 20)")),
+             # the backward at the dh-64 training shapes (phase
+             # train_mesh's part families: B 2)
+             (flash_bwd_row(dict(ZAMBA2_ATTN, B=2), dict(window=4096), dev),
+              dict(case="backward, zamba2-1.2b shared block (B 2, window "
+                        "4096)", launches_per_train_step=1)),
+             (flash_bwd_row(dict(SEAMLESS_ATTN, B=2), dict(causal=False),
+                            dev),
+              dict(case="backward, seamless-m4t-medium encoder (B 2, "
+                        "non-causal)", launches_per_train_step=2)),
+             (flash_bwd_row(dict(SEAMLESS_ATTN, B=2), dict(window=0), dev),
+              dict(case="backward, seamless-m4t-medium decoder "
+                        "self-attention (B 2)", launches_per_train_step=2)),
+             (flash_bwd_row(dict(SEAMLESS_ATTN, B=2),
+                            dict(causal=False, kv_valid=1024), dev),
+              dict(case="backward, seamless-m4t-medium cross-attention "
+                        "(B 2, kv_valid = Se = 1024)",
+                   launches_per_train_step=2)),
+             (lanes_row(dev),
+              dict(case="3 payload lanes (i32, f32, i32): positions "
+                        "through the network, an epilogue")),
              (router_distance_row(dev), dict(case=ROUTER_CASE)),
              (tiered_distance_row(dev), dict(case=TIERED_CASE)),
              (search_bitonic[0], dict(case=OLD_BITONIC_CASE)),

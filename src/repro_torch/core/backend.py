@@ -30,10 +30,11 @@ through a :class:`KernelBackend`, which owns
         serves up to that many same-page assignments (the Allocator's
         two-level scheduling).
       - lexicographic bitonic sort + merge (kernels/topk) — (dist, id)
-        networks with a payload lane. The candidate-list merge is one
-        fused op (``merge_unsorted``) that carries the ``expanded`` flags
-        as bytes; the general ``sort_pairs``/``merge_pairs`` pack bool
-        payloads to i32.
+        networks with any number of payload lanes. The engine's
+        candidate-list merge is one fused op (``merge_gather``) that
+        carries the ``expanded`` flags as bytes; the general
+        ``sort_pairs``/``merge_pairs``/``merge_unsorted`` (the
+        reference's call forms) pack bool payloads to i32.
 """
 from __future__ import annotations
 
@@ -125,10 +126,24 @@ class KernelBackend:
         return (out[0], out[1]) + tuple(
             o.to(p.dtype) for o, p in zip(out[2:], pay_a))
 
-    def merge_unsorted(self, d_a, i_a, e_a, d_b, i_b, valid_b, out_w: int):
-        """Merge sorted rows A with **unsorted** rows B into sorted rows —
-        the candidate-list update's real shape — and keep the first
-        ``out_w`` of each.
+    def merge_unsorted(self, d_a, i_a, d_b, i_b, pay_a: tuple = (),
+                       pay_b: tuple = ()):
+        """Merge sorted rows A with **unsorted** rows B into sorted rows
+        of width LA + LB, payload lanes carried (the reference's call
+        form): kernel modes sort B (:meth:`sort_pairs`) and run one merge
+        pass (:meth:`merge_pairs`); inline mode sorts the concatenation
+        once."""
+        if self.inline:
+            return lexsort_pairs(*_concat_rows((d_a, i_a) + tuple(pay_a),
+                                               (d_b, i_b) + tuple(pay_b)))
+        sb = self.sort_pairs(d_b, i_b, *pay_b)
+        return self.merge_pairs(d_a, i_a, sb[0], sb[1], pay_a=pay_a,
+                                pay_b=tuple(sb[2:]))
+
+    def merge_gather(self, d_a, i_a, e_a, d_b, i_b, valid_b, out_w: int):
+        """The engine's Gather merge: sorted rows A with **unsorted**
+        rows B into sorted rows — the candidate-list update's real shape
+        — and keep the first ``out_w`` of each.
 
         d_a/i_a/e_a : (R, LA) sorted candidates and their expanded flags
         d_b/i_b     : (R, LB) unsorted proposals; where ``valid_b`` is

@@ -20,7 +20,8 @@ The shard axis leads every array; the exchange between shards is a swap
 of the (source, destination) bucket axes. Every stage works on all
 shards at once — the reference's ``vmap`` over shards is written out as
 that leading axis — so phase B is one distance launch per round over all
-shards, and the Gather merge one fused ``merge_unsorted`` launch.
+shards, and the Gather merge one fused ``merge_unsorted`` launch
+(``KernelBackend.merge_gather``).
 
 Hot paths dispatch through ``EngineParams.kernel_mode`` (a
 :class:`repro_torch.core.backend.KernelBackend`): phase-B distances

@@ -97,7 +97,7 @@ def merge_candidates(cand_d, cand_i, cand_e, new_d, new_i, new_valid, L: int,
     backend = backend or _TORCH
     lead = cand_d.shape[:-1]
     lc, m = cand_d.shape[-1], new_d.shape[-1]
-    d, i, e = backend.merge_unsorted(
+    d, i, e = backend.merge_gather(
         cand_d.reshape(-1, lc), cand_i.reshape(-1, lc),
         cand_e.reshape(-1, lc), new_d.reshape(-1, m), new_i.reshape(-1, m),
         new_valid.reshape(-1, m), L)

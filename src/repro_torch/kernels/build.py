@@ -42,7 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "paged_distance_launch": (_P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "bitonic_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bitonic_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P),
     "merge_unsorted_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P),
     "flash_attention_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

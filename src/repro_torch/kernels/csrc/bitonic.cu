@@ -7,8 +7,15 @@
 //   * `bitonic_merge` (:130, body `_merge_body` -> `merge_network`): only
 //     the last log2 M stages, k = log2 M, which sort a row that is
 //     already bitonic (the caller builds it as A ++ filler ++ reversed(B)).
-// Each row of (B, M) sorts ascending by (dist, id) lexicographically; an
-// optional i32 payload lane is permuted alongside. A third entry,
+// Each row of (B, M) sorts ascending by (dist, id) lexicographically,
+// with 0 to kMaxLanes payload lanes a launch (i32 or f32, moved as raw
+// 32-bit words): one lane rides through the network itself; with more,
+// each entry's input position rides and an epilogue in the same launch
+// writes every output lane as out[r, j] = in[r, pos[r, j]], so the
+// network's registers hold one payload word whatever the lanes. Four
+// lanes a launch keep the launch's parameters small: at 32 a launch
+// (520 bytes of pointers) one-lane rows took about 0.04 us more on an
+// H100 (PERF.md). A second entry,
 // `merge_unsorted_launch`, is the engine's Gather merge in one launch:
 // mask the unsorted proposals, sort them, build the bitonic row with the
 // sorted candidate list and merge it (see merge_unsorted_reg_kernel).
@@ -32,8 +39,9 @@
 //   store only: every lane reaches every shuffle with the full mask.
 // - Shared-memory body, wider rows up to the wrapper's MAX_M (2048):
 //   M / 2 threads per row, one compare-exchange pair per thread per
-//   stage, keys and payload in shared memory, a block barrier after
-//   every stage; small rows pack several to a block of up to 256 threads.
+//   stage, keys, payload and positions in shared memory, a block
+//   barrier after every stage; small rows pack several to a block of up
+//   to 256 threads.
 // Both apply `_cmp_exchange`'s rule per element as the reference writes
 // it: partner = idx ^ (1 << j), ascending iff bit k of idx is unset, and
 // an element takes its partner's entry iff (ascending == is_lower) ?
@@ -61,6 +69,15 @@ constexpr int kIdSentinel = 0x7fffffff;    // repro_torch.utils.ID_SENTINEL
 constexpr int kRegMaxLog2 = 7;             // register body up to M = 128
 constexpr int kRegWarps = 2;               // warps per register-body block
 constexpr int kSmemThreads = 256;          // threads per shared-body block
+constexpr int kMaxLanes = 4;               // payload lanes per launch
+
+// The payload lanes of a launch, as 32-bit words: an i32 or f32 lane
+// moves bit for bit (NaN payloads, signed zeros).
+struct Lanes {
+  const unsigned* in[kMaxLanes];
+  unsigned* out[kMaxLanes];
+  int n;
+};
 
 __device__ __forceinline__ bool partner_less(float dp, int ip, float d,
                                              int i) {
@@ -197,12 +214,32 @@ __device__ __forceinline__ void reg_merge(float (&d)[E], int (&id)[E],
         d, id, p, p, g, 1 << LOG2M, LOG2M);
 }
 
+// The epilogue for n > 1 lanes and the `N` positions a thread holds:
+// out[l][row, q[s]] = in[l][row, pos[s]] for every lane l. The row's
+// words sit in L1 after the first lane's reads of them.
+template <int N>
+__device__ __forceinline__ void write_lanes(const Lanes& lanes, long base,
+                                            const int (&q)[N],
+                                            const int (&pos)[N]) {
+  for (int l = 0; l < lanes.n; ++l) {
+    const unsigned* src = lanes.in[l] + base;
+    unsigned* dst = lanes.out[l] + base;
+#pragma unroll
+    for (int s = 0; s < N; ++s) dst[q[s]] = src[pos[s]];
+  }
+}
+
+// Sort (merge_only = 0) or merge pass (merge_only = 1) of rows of M =
+// 2^LOG2M in registers. The network carries one payload word an entry
+// (`p`) whatever the lanes: the lane's own word when there is one lane,
+// else the entry's input position (a sort's tie-break positions `o`
+// ride besides).
 template <int LOG2M>
 __global__ void __launch_bounds__(kRegWarps * 32)
     bitonic_reg_kernel(const float* __restrict__ din,
-                       const int* __restrict__ iin,
-                       const int* __restrict__ pin, float* __restrict__ dout,
-                       int* __restrict__ iout, int* __restrict__ pout, int B,
+                       const int* __restrict__ iin, float* __restrict__ dout,
+                       int* __restrict__ iout,
+                       const __grid_constant__ Lanes lanes, int B,
                        int merge_only) {
   using R = RegRow<LOG2M>;
   const int lane = threadIdx.x & 31;
@@ -211,16 +248,16 @@ __global__ void __launch_bounds__(kRegWarps * 32)
       (static_cast<long>(blockIdx.x) * kRegWarps + (threadIdx.x >> 5)) *
           R::RPW + lane / R::G;
   const bool active = row < B;
-  const bool has_pay = pin != nullptr;
+  const bool one = lanes.n == 1;
   float d[R::E];
-  int id[R::E], p[R::E], o[R::E];
+  int id[R::E], p[R::E], o[R::E], q[R::E];
 #pragma unroll
   for (int s = 0; s < R::E; ++s) {
     const long e = row * R::M + s * R::G + g;
     d[s] = active ? din[e] : 0.f;
     id[s] = active ? iin[e] : 0;
-    p[s] = active && has_pay ? pin[e] : 0;
-    o[s] = s * R::G + g;
+    o[s] = q[s] = s * R::G + g;
+    p[s] = one && active ? static_cast<int>(lanes.in[0][e]) : o[s];
   }
   if (merge_only)
     reg_merge<LOG2M, true>(d, id, p, g);
@@ -232,8 +269,9 @@ __global__ void __launch_bounds__(kRegWarps * 32)
       const long e = row * R::M + s * R::G + g;
       dout[e] = d[s];
       iout[e] = id[s];
-      if (has_pay) pout[e] = p[s];
+      if (one) lanes.out[0][e] = static_cast<unsigned>(p[s]);
     }
+    if (lanes.n > 1) write_lanes(lanes, row * R::M, q, p);
   }
 }
 
@@ -355,43 +393,52 @@ __device__ void smem_stages(float* sd, int* si, int* sp, int* so, int lane,
   }
 }
 
+// bitonic_reg_kernel's work for rows of any width in shared memory:
+// dist, id, the payload word (with lanes) and a sort's position, four
+// words an entry whatever the lanes.
 __global__ void bitonic_smem_kernel(const float* __restrict__ din,
                                     const int* __restrict__ iin,
-                                    const int* __restrict__ pin,
                                     float* __restrict__ dout,
                                     int* __restrict__ iout,
-                                    int* __restrict__ pout, int B, int M,
-                                    int log2m, int rows_per_block,
-                                    int merge_only) {
+                                    const __grid_constant__ Lanes lanes,
+                                    int B, int M, int log2m,
+                                    int rows_per_block, int merge_only) {
   extern __shared__ float smem[];
   const int half = M > 1 ? M / 2 : 1;
   const int local_row = threadIdx.x / half;
   const int lane = threadIdx.x - local_row * half;
   const long row = static_cast<long>(blockIdx.x) * rows_per_block + local_row;
   const bool active = row < B;
-  const bool has_pay = pin != nullptr;
+  const bool one = lanes.n == 1;
+  const bool pay = lanes.n > 0;
 
+  const int rm = rows_per_block * M;
   float* sd = smem + local_row * M;
-  int* si = reinterpret_cast<int*>(smem + rows_per_block * M) + local_row * M;
-  int* sp = reinterpret_cast<int*>(smem + 2 * rows_per_block * M) + local_row * M;
-  int* so = reinterpret_cast<int*>(smem + 3 * rows_per_block * M) + local_row * M;
+  int* si = reinterpret_cast<int*>(smem + rm) + local_row * M;
+  int* sp = reinterpret_cast<int*>(smem + 2 * rm) + local_row * M;
+  int* so = reinterpret_cast<int*>(smem + 3 * rm) + local_row * M;
 
   if (active) {
     for (int e = lane; e < M; e += half) {
       sd[e] = din[row * M + e];
       si[e] = iin[row * M + e];
-      if (has_pay) sp[e] = pin[row * M + e];
+      if (pay) sp[e] = one ? static_cast<int>(lanes.in[0][row * M + e]) : e;
       so[e] = e;
     }
   }
   __syncthreads();
-  smem_stages(sd, si, has_pay ? sp : nullptr, merge_only ? nullptr : so,
-              lane, M / 2, merge_only ? log2m : 1, log2m, active);
+  smem_stages(sd, si, pay ? sp : nullptr, merge_only ? nullptr : so, lane,
+              M / 2, merge_only ? log2m : 1, log2m, active);
   if (active) {
     for (int e = lane; e < M; e += half) {
       dout[row * M + e] = sd[e];
       iout[row * M + e] = si[e];
-      if (has_pay) pout[row * M + e] = sp[e];
+      if (one) lanes.out[0][row * M + e] = static_cast<unsigned>(sp[e]);
+    }
+    for (int l = 0; lanes.n > 1 && l < lanes.n; ++l) {
+      const unsigned* src = lanes.in[l] + row * M;
+      unsigned* dst = lanes.out[l] + row * M;
+      for (int e = lane; e < M; e += half) dst[e] = src[sp[e]];
     }
   }
 }
@@ -490,18 +537,29 @@ int log2_ceil(int n) {
 // register body.
 
 // Sort (merge_only = 0) or merge pass (merge_only = 1) over the rows of
-// (B, M), M = 2^log2m; `pin`/`pout` are null without a payload lane.
-extern "C" int bitonic_launch(const float* din, const int* iin, const int* pin,
-                              float* dout, int* iout, int* pout, int B, int M,
+// (B, M), M = 2^log2m, with 0..kMaxLanes payload lanes, each (B, M) of
+// 32-bit words: lin[l] in, lout[l] out (host arrays of device pointers,
+// null without lanes).
+extern "C" int bitonic_launch(const float* din, const int* iin, float* dout,
+                              int* iout, const void* const* lin,
+                              void* const* lout, int nl, int B, int M,
                               int log2m, int merge_only, int shared,
                               void* stream) {
+  if (nl < 0 || nl > kMaxLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Lanes lanes{};
+  for (int l = 0; l < nl; ++l) {
+    lanes.in[l] = static_cast<const unsigned*>(lin[l]);
+    lanes.out[l] = static_cast<unsigned*>(lout[l]);
+  }
+  lanes.n = nl;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!shared && log2m <= kRegMaxLog2) {
     return with_log2m(log2m, [&](auto l) {
       constexpr int kLog2 = decltype(l)::value;
       constexpr int rows = kRegWarps * RegRow<kLog2>::RPW;
       bitonic_reg_kernel<kLog2><<<(B + rows - 1) / rows, kRegWarps * 32, 0,
-                                  st>>>(din, iin, pin, dout, iout, pout, B,
+                                  st>>>(din, iin, dout, iout, lanes, B,
                                         merge_only);
       return static_cast<int>(cudaGetLastError());
     });
@@ -511,7 +569,7 @@ extern "C" int bitonic_launch(const float* din, const int* iin, const int* pin,
   const int rows = B < per_block ? B : per_block;
   const size_t smem = static_cast<size_t>(4) * rows * M * sizeof(float);
   bitonic_smem_kernel<<<(B + rows - 1) / rows, rows * half, smem, st>>>(
-      din, iin, pin, dout, iout, pout, B, M, log2m, rows, merge_only);
+      din, iin, dout, iout, lanes, B, M, log2m, rows, merge_only);
   return static_cast<int>(cudaGetLastError());
 }
 

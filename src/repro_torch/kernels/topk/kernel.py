@@ -6,13 +6,18 @@ SmartSSD FPGA. Here ``csrc/bitonic.cu`` runs the network over each row
 of (B, M), in one warp's registers up to M = 128 and in shared memory
 beyond: the full network for :func:`bitonic_sort`, only the final merge
 pass for :func:`bitonic_merge`. Rows sort ascending by (dist, id)
-lexicographically; at most one i32 payload lane rides along.
+lexicographically; any number of (B, M) payload lanes, each i32 or
+f32, ride along: one lane through the network itself; more as each
+entry's input position through it and an epilogue in the same launch
+that permutes every lane by the positions (up to :data:`MAX_LANES`
+lanes a launch, one C entry for every count).
 :func:`merge_unsorted` is the engine's Gather merge in one launch: it
 masks and sorts the proposals and merges them into the sorted candidate
 list, its ``expanded`` flags riding along as bytes.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -34,6 +39,21 @@ MERGE_UNSORTED_KERNEL = Kernel(
     replaces="src/repro/kernels/topk/kernel.py:118,130")
 
 MAX_M = 2048
+#: payload lanes one launch carries (csrc/bitonic.cu kMaxLanes); more
+#: take one more launch per MAX_LANES, each over the same keys
+MAX_LANES = 4
+LANE_DTYPES = (torch.int32, torch.float32)
+
+
+def bitonic_cost(B: int, M: int, lanes: int, merge_only: bool) -> tuple:
+    """(compare-exchanges, bytes) of one sort or merge launch over (B, M)
+    rows with ``lanes`` payload lanes: the full network's M/2 log2 M
+    (log2 M + 1) / 2 pairs a row, or the merge pass's M/2 log2 M; dist,
+    id and every lane read once and written once (4 bytes an entry
+    each)."""
+    s = int(math.log2(M))
+    pairs = (M // 2) * (s if merge_only else s * (s + 1) // 2)
+    return float(B * pairs), float(2 * B * M * 4 * (2 + lanes))
 
 
 def _launch_rows(kernel: Kernel, dists, ids, payload, merge_only: bool,
@@ -42,25 +62,39 @@ def _launch_rows(kernel: Kernel, dists, ids, payload, merge_only: bool,
     if M < 1 or M > MAX_M or M & (M - 1):
         raise ValueError(f"{kernel.name}: row width M={M} must be a power "
                          f"of two in [1, {MAX_M}]")
-    if len(payload) > 1:
-        raise ValueError(f"{kernel.name}: at most one payload lane, got "
-                         f"{len(payload)}")
+    for k, p in enumerate(payload):
+        if p.dtype not in LANE_DTYPES:
+            raise TypeError(f"{kernel.name}: payload lane {k} is {p.dtype}; "
+                            f"payload lanes are (B, M) i32/f32, permuted "
+                            f"alongside the keys")
     specs = {"dists": (dists, torch.float32, (B, M)),
              "ids": (ids, torch.int32, (B, M))}
-    if payload:
-        specs["payload"] = (payload[0], torch.int32, (B, M))
+    specs.update({f"payload[{k}]": (p, p.dtype, (B, M))
+                  for k, p in enumerate(payload)})
+
+    # one launch per MAX_LANES lanes (one without lanes), each moving the
+    # keys and its own lanes
+    chunks = [(lo, min(MAX_LANES, len(payload) - lo))
+              for lo in range(0, len(payload), MAX_LANES)] or [(0, 0)]
     if dists.is_meta:
-        kernel.shape_only()
+        for _, n in chunks:
+            kernel.shape_only(cost=lambda n=n: bitonic_cost(B, M, n,
+                                                            merge_only))
         return tuple(torch.empty_like(x) for x in (dists, ids) + payload)
     check_cuda_operands(kernel.name, specs)
     outs = [torch.empty_like(x) for x in (dists, ids) + payload]
     if B == 0:
         return tuple(outs)
-    pin, pout = ((payload[0].data_ptr(), outs[2].data_ptr()) if payload
-                 else (None, None))
-    kernel.launch(dists.data_ptr(), ids.data_ptr(), pin, outs[0].data_ptr(),
-                  outs[1].data_ptr(), pout, B, M, int(math.log2(M)),
-                  int(merge_only), int(shared))
+    tail = (B, M, int(math.log2(M)), int(merge_only), int(shared))
+    for lo, n in chunks:
+        lin = (ctypes.c_void_p * n)(*(p.data_ptr()
+                                      for p in payload[lo:lo + n]))
+        lout = (ctypes.c_void_p * n)(*(o.data_ptr()
+                                       for o in outs[2 + lo:2 + lo + n]))
+        kernel.launch(dists.data_ptr(), ids.data_ptr(), outs[0].data_ptr(),
+                      outs[1].data_ptr(), ctypes.addressof(lin),
+                      ctypes.addressof(lout), n, *tail,
+                      cost=lambda n=n: bitonic_cost(B, M, n, merge_only))
     return tuple(outs)
 
 
@@ -68,8 +102,9 @@ def bitonic_sort(dists: torch.Tensor, ids: torch.Tensor,
                  *payload: torch.Tensor, shared: bool = False):
     """Ascending lexicographic (dist, id) sort of each row.
 
-    dists (B, M) f32, ids (B, M) i32, M a power of two <= 2048, at most
-    one (B, M) i32 payload lane permuted alongside the keys. CPU tensors
+    dists (B, M) f32, ids (B, M) i32, M a power of two <= 2048, any
+    number of (B, M) i32 or f32 payload lanes permuted alongside the keys
+    bit for bit (another dtype raises on the card). CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise;
     "meta" tensors (a plan) get meta outputs and report the launch.
     ``shared`` runs the shared-memory body at any width (the register

@@ -32,7 +32,8 @@ def sort_op(dists: torch.Tensor, ids: torch.Tensor, *payload: torch.Tensor,
     """Lexicographic sort of the rows of (dists, ids); pads M to a power
     of two.
 
-    Payload lanes (same (B, M) shape) ride along; they pad with zeros —
+    Payload lanes (same (B, M) shape, i32/f32, any number, in either
+    mode) ride along; they pad with zeros —
     padded entries sort after all real ones because the key filler is
     (BIG_DIST, ID_SENTINEL), so the padding never mixes into the
     returned M-prefix.
@@ -65,7 +66,8 @@ def merge_sorted_op(d_a: torch.Tensor, i_a: torch.Tensor,
 
     d_a/i_a : (B, LA) sorted rows (e.g. the candidate list)
     d_b/i_b : (B, LB) sorted rows (e.g. this round's sorted proposals)
-    pay_a/pay_b : matching payload-lane tuples ((B, LA) / (B, LB) each)
+    pay_a/pay_b : matching payload-lane tuples ((B, LA) / (B, LB) each,
+                  i32/f32, any number)
     returns : (d, i, *pay) of width LA + LB, fully sorted.
 
     Construction: concat(A, filler, reversed(B)) padded to the next power

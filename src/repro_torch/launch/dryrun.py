@@ -47,6 +47,9 @@ output all-reduce; a group's recompute (scan_groups > 1) runs its
 blocks but the last, whose input is all it needs; the hybrid's group
 recompute runs all of its SSD layers and the shared block up to its
 MLP's output all-reduce (the shared block saves tensors of its own).
+Remat "dots" runs the same recomputes, stopped at the same ops (its
+kept products leave the tensors the backward saves as they are), so it
+counts as full; its operations and kept outputs come from the op stream.
 
   all-gather      FSDP: |P| (f_P - 1) / f_P per run of the leaf's block
                   function (full and stopped runs); a non-block leaf
@@ -357,7 +360,7 @@ def _stack_runs(n: int, remat: str, groups: int) -> list:
     """(full runs, stopped runs) of each block function of an ``n``-block
     stack run by ``models/transformer.py`` ``scan_layers`` in training
     (module doc)."""
-    if remat != "full":
+    if remat == "none":
         return [(1, 0)] * n
     g = T.pick_groups(n, groups) if n else 1
     if g == 1:
@@ -373,7 +376,7 @@ def _block_runs(plan) -> dict:
     out = {}
     if cfg.family == "hybrid":
         G, e, tail = T.hybrid_layout(cfg)
-        grouped = [(2, 1) if opts.remat == "full" else (1, 0)] * (G * e)
+        grouped = [(2, 1) if opts.remat != "none" else (1, 0)] * (G * e)
         out["blocks"] = grouped + _stack_runs(tail, opts.remat, 1)
     else:
         out["blocks"] = _stack_runs(cfg.num_layers, opts.remat,
@@ -436,7 +439,7 @@ def _model_collectives(plan, cfg_d, wire: _Wire, rows_q: int, B_mb: int,
             # it whole, its recompute stops before the MLP's output
             # all-reduce (nothing after it is saved), then its backward
             Gh = T.hybrid_layout(cfg)[0]
-            attn = Gh * (3 if plan.opts.remat == "full" else 2)
+            attn = Gh * (3 if plan.opts.remat != "none" else 2)
             ffn_n = 2 * Gh
         if fam in ("ssm", "hybrid"):
             wire.ring_reduce("model", m, N, G * int(inner) * sum(
@@ -757,19 +760,23 @@ def _link_note(sizes: dict) -> str:
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str,
-             attn_stub: bool = False) -> dict:
+             attn_stub: bool = False, remat: str | None = None) -> dict:
+    """One cell's record; ``remat`` replaces a train cell's remat policy
+    (``plan_cell``)."""
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
     sizes = axis_sizes(mesh)
     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
            "mesh_shape": list(sizes.values()), "status": "ok"}
     t0 = time.time()
     try:
-        plan = plan_cell(arch, shape, mesh)
+        plan = plan_cell(arch, shape, mesh, remat=remat)
     except Skip as e:
         rec.update(status="skip", reason=str(e))
         return rec
     rec["kind"] = plan.kind
     rec["note"] = plan.note
+    if remat is not None:
+        rec["remat"] = plan.opts.remat
     try:
         rec.update(analyze_plan(plan))
         rec["links"] = _links(sizes)
@@ -891,6 +898,8 @@ def run_engine_cell(batch_per_shard: int = 8, dim: int = 128,
 
 def record_name(rec: dict) -> str:
     suffix = "_kernelized" if rec.get("variant") else ""
+    if "remat" in rec:
+        suffix += f"_remat-{rec['remat']}"
     return f"{rec['arch']}_{rec['shape']}_{rec['mesh']}{suffix}.json"
 
 
@@ -904,6 +913,11 @@ def main(argv=None):
     ap.add_argument("--engine", action="store_true")
     ap.add_argument("--attn-stub", action="store_true",
                     help="kernelized-attention roofline variant")
+    ap.add_argument("--remat", choices=T.REMAT,
+                    help="a train cell's remat policy (default: the "
+                         "plan's, full); dots keeps the batch-free "
+                         "products, as the reference's "
+                         "dots_with_no_batch_dims_saveable")
     ap.add_argument("--out", default="results/dryrun")
     args = ap.parse_args(argv)
 
@@ -935,13 +949,14 @@ def main(argv=None):
     elif args.all:
         for arch, shape in all_cells():
             for m in meshes:
-                ok &= emit(run_cell(arch, shape, m))["status"] != "error"
+                ok &= emit(run_cell(arch, shape, m, remat=args.remat)
+                           )["status"] != "error"
     else:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all/--engine")
         for m in meshes:
             rec = emit(run_cell(args.arch, args.shape, m,
-                                attn_stub=args.attn_stub))
+                                attn_stub=args.attn_stub, remat=args.remat))
             ok &= rec["status"] != "error"
     return 0 if ok else 1
 

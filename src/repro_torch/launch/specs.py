@@ -289,7 +289,10 @@ def step_for(kind: str, cfg: ArchConfig, opts: T.ModelOpts,
     return step
 
 
-def plan_cell(arch: str, shape_name: str, mesh) -> CellPlan:
+def plan_cell(arch: str, shape_name: str, mesh,
+              remat: str | None = None) -> CellPlan:
+    """The cell's plan; ``remat`` replaces a train cell's remat policy
+    ("full" by default, as the reference plans it)."""
     cfg = get_config(arch)
     shp = SHAPES[shape_name]
     pol = policy_for(arch)
@@ -299,6 +302,8 @@ def plan_cell(arch: str, shape_name: str, mesh) -> CellPlan:
                    "assignment (DESIGN.md §6)")
 
     opts = model_opts(shape_name, pol)
+    if remat is not None and shp.kind == "train":
+        opts = dataclasses.replace(opts, remat=remat)
     if shp.kind == "train":
         return plan_train(cfg, mesh, batch=shp.global_batch,
                           seq=shp.seq_len, policy=pol, opts=opts,

@@ -65,7 +65,13 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--remat", default="full")
+    ap.add_argument("--remat", default="full",
+                    choices=T.REMAT,
+                    help="per-block checkpoint under grad: none, full "
+                         "(keep each block's input, recompute the rest) "
+                         "or dots (keep also the outputs of the products "
+                         "with no batch dimension, as the reference's "
+                         "dots_with_no_batch_dims_saveable)")
     ap.add_argument("--loss-chunk", type=int, default=512)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import attention_op
+from repro_torch.models.layers import dot
 from repro_torch.models.params import spec
 from repro_torch.utils import round_up
 
@@ -256,9 +257,9 @@ def flash_attention(q, k, v, *, scale, causal=True, window=0, softcap=0.0,
 # Full attention layer (projections + rope + attention + out)
 # ---------------------------------------------------------------------------
 def project_qkv(p, x, positions, theta):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = dot(x, p["wq"], "bsd,dhk->bshk")
+    k = dot(x, p["wk"], "bsd,dhk->bshk")
+    v = dot(x, p["wv"], "bsd,dhk->bshk")
     return rope(q, positions, theta), rope(k, positions, theta), v
 
 
@@ -279,7 +280,7 @@ def attention(p, x, cfg, *, window: int, positions, causal=True,
     q, k, v = project_qkv(p, x, positions, cfg.rope_theta)
     y = _flash(q, k, v, scale=scale, causal=causal, window=int(window),
                softcap=cfg.softcap_attn, mode=mode)
-    out = torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    out = dot(y, p["wo"], "bshk,hkd->bsd")
     if return_kv:
         return out, (k, v)
     return out
@@ -292,7 +293,7 @@ def cross_attention(p, x, enc_kv, cfg, *, enc_valid=None, decode=False,
     count (None -> all). Prefill goes through the flash op; ``decode``
     (one query row) takes the plain path, as self-attention's decode."""
     scale = cfg.head_dim ** -0.5
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = dot(x, p["wq"], "bsd,dhk->bshk")
     k, v = enc_kv
     if decode:
         y = attn_direct(q, k, v, scale=scale, causal=False,
@@ -301,12 +302,12 @@ def cross_attention(p, x, enc_kv, cfg, *, enc_valid=None, decode=False,
     else:
         y = _flash(q, k, v, scale=scale, causal=False, kv_valid=enc_valid,
                    mode=mode)
-    return torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    return dot(y, p["wo"], "bshk,hkd->bsd")
 
 
 def encode_cross_kv(p, enc_out):
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    k = dot(enc_out, p["wk"], "bsd,dhk->bshk")
+    v = dot(enc_out, p["wv"], "bsd,dhk->bshk")
     return k, v
 
 
@@ -322,4 +323,4 @@ def decode_attend(p, q, cache_k, cache_v, cfg, *, window: int, pos: int):
     scale = cfg.head_dim ** -0.5
     y = attn_direct(q, cache_k, cache_v, scale=scale, window=int(window),
                     softcap=cfg.softcap_attn, q_offset=pos, kv_valid=pos + 1)
-    return torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    return dot(y, p["wo"], "bshk,hkd->bsd")

@@ -2,13 +2,43 @@
 ``models/layers.py`` in torch). The reference's sharding constraints
 have no twin: on a training mesh the model code adds the collectives
 itself (``train/parallel.py``), and :func:`embed_shard` is one vocab
-shard's part of the lookup."""
+shard's part of the lookup.
+
+:func:`dot` is how the model makes a product with no batch dimension
+(a projection by a weight) whose output the backward reads: remat
+"dots" (``models/transformer.py``) keeps the outputs of these products
+and recomputes the rest, as the reference's
+``dots_with_no_batch_dims_saveable`` keeps its batch-free
+``dot_general``s. A block's last product (the MLP's w2, the SSD's wo)
+feeds only the residual sum, whose backward reads neither operand: the
+reference's backward keeps no such output, and it is made unmarked."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import spec
+
+# >0 while a dot() runs (read by remat "dots"' policy)
+_IN_DOT = 0
+
+
+def dot(x, w, eq: str | None = None):
+    """``x @ w`` (or ``torch.einsum(eq, x, w)``) for a product with no
+    batch dimension: the weight is shared by every row of x. Marked so
+    that remat "dots" can tell it from the batched products (attention,
+    the experts), which lower to the same aten ops."""
+    global _IN_DOT
+    _IN_DOT += 1
+    try:
+        return x @ w if eq is None else torch.einsum(eq, x, w)
+    finally:
+        _IN_DOT -= 1
+
+
+def in_dot() -> bool:
+    """Whether the op being dispatched belongs to a :func:`dot`."""
+    return _IN_DOT > 0
 
 
 def rmsnorm_spec(d: int):
@@ -38,11 +68,11 @@ def mlp_spec(d: int, f: int):
 
 
 def mlp(p, x, act: str = "silu"):
-    h1 = x @ p["w1"]
-    h3 = x @ p["w3"]
+    h1 = dot(x, p["w1"])
+    h3 = dot(x, p["w3"])
     # jax.nn.gelu defaults to the tanh approximation
     a = F.silu(h1) if act == "silu" else F.gelu(h1, approximate="tanh")
-    return (a * h3) @ p["w2"]
+    return (a * h3) @ p["w2"]          # the block's last product: unmarked
 
 
 def embed_spec(vocab: int, d: int, tie: bool):

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.core.dispatch import (bucket_mask, compute_ranks,
                                        gather_from_buckets,
                                        scatter_to_buckets)
+from repro_torch.models.layers import dot
 from repro_torch.models.params import spec
 from repro_torch.utils import round_up
 
@@ -58,7 +59,7 @@ def gate(p, xt, cfg):
     """The router on xt (T,d) -> (probs (T,E), top_p (T,k) renormed gate
     weights, top_e (T,k) expert ids)."""
     k = cfg.num_experts_per_tok
-    probs = torch.softmax(xt.float() @ p["wg"].float(), dim=-1)   # (T, E)
+    probs = torch.softmax(dot(xt.float(), p["wg"].float()), dim=-1)   # (T, E)
     # lax.top_k's order: descending, ties to the lower expert id
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_e = top_p[:, :k], top_e[:, :k]

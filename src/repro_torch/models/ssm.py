@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import dot, rmsnorm
 from repro_torch.models.params import spec
 from repro_torch.utils import resolve_device
 
@@ -81,11 +81,11 @@ def _conv_step(conv_state: torch.Tensor, u_t: torch.Tensor,
 
 def _inputs(p, x):
     """Shared projections for both paths. x (B,S,d)."""
-    z = x @ p["wz"]
-    px = x @ p["wx"]
-    pB = x @ p["wB"]
-    pC = x @ p["wC"]
-    dt = F.softplus((x @ p["wdt"]).float() + p["dt_bias"].float())
+    z = dot(x, p["wz"])
+    px = dot(x, p["wx"])
+    pB = dot(x, p["wB"])
+    pC = dot(x, p["wC"])
+    dt = F.softplus(dot(x, p["wdt"]).float() + p["dt_bias"].float())
     return z, px, pB, pC, dt
 
 
@@ -97,7 +97,7 @@ def _out(p, y, z, x, cfg, par=None):
     cut = par is not None and par.inner_split
     y = rmsnorm({"scale": p["norm"]}, y, cfg.norm_eps,
                 sum_sq=par.norm_sum if cut else None, width=cfg.d_inner)
-    return y.to(x.dtype) @ p["wo"]
+    return y.to(x.dtype) @ p["wo"]     # the block's last product: unmarked
 
 
 def ssm_chunked(p, x, cfg, *, chunk: int = 128, initial_state=None,

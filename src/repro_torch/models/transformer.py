@@ -37,6 +37,48 @@ inputs and recomputes one group's block inputs at a time. The hybrid's
 groups (``hybrid_layout``: e SSD layers and the shared block) are such
 groups whatever ``scan_groups``, as the reference scans them.
 
+``remat="dots"`` is the reference's ``jax.checkpoint(policy=
+dots_with_no_batch_dims_saveable)`` at the same two levels: the same
+non-reentrant checkpoints, made selective (torch's
+``create_selective_checkpoint_contexts``, :func:`_dots_policy`). The
+outputs of the products with no batch dimension are kept for the
+backward (``MUST_SAVE``): the q/k/v/o projections (self- and
+cross-attention, the encoder's), the MLP's w1 and w3, the MoE router's
+logits, the SSD block's wz, wx, wB, wC and wdt. A block's last product
+(the MLP's w2, the SSD's wo) is not kept: its output feeds only the
+residual sum, so the reference's backward keeps it no more than full
+does (``layers.dot``). Everything
+else is recomputed (attention, the expert products, the SSD's chunked
+einsums, norms, elementwise ops, collectives). The loss's chunks keep
+their plain checkpoint. How the port answers what could go wrong:
+
+  * Telling a batch-free product apart: not by the aten op or its shapes
+    (``x @ w`` on a 3-D x lowers to ``mm``, ``torch.einsum`` of a
+    projection to ``bmm`` with a batch of 1, an expert product to
+    ``bmm`` with a batch of E, which can be 1 on a rank). Each such
+    product is made through ``layers.dot``, which marks the ops it
+    dispatches; the policy keeps the ``mm``/``addmm``/``bmm`` outputs
+    made inside a mark (tests/test_torch_remat_dots.py holds what is
+    kept to the reference's ``saved_residuals``).
+  * Raw-pointer kernel launches: the flash forward and backward inside
+    ``FlashAttentionFn`` are invisible to the policy's dispatch mode;
+    their ``torch.empty`` outputs are recomputed like any op, so the
+    recompute launches the forward again into fresh buffers, as under
+    full (52 forward launches per gemma3-1b step either way).
+  * Collectives: the counted collectives of ``train/parallel.py`` are
+    recomputed (never kept: no mark), so a block's FSDP gathers run
+    again in its recompute, and its in-place c10d ops are not cached.
+  * Early stop: torch's checkpoint ends a recompute once the backward's
+    saved tensors are all recomputed. The autograd nodes save the same
+    tensors under dots (a kept product's output is returned from the
+    cache where the recompute reaches it), so the stop falls at the same
+    op and the collectives per step are those of full (the dry run
+    counts them alike).
+  * The dry run's meta tensors: the policy's dispatch modes stack above
+    ``OpStream(track_memory=True)``, which sees the cache's tensors live
+    (the plan's peak counts them) and no op of a cached product in the
+    recompute (the plan's operations drop it).
+
 On a training mesh (``par``: ``train/parallel.py`` ``MeshShard``; None
 on one device) the training entry points (``loss_fn``,
 ``forward_hidden``, ``encode``) run one rank's share, in every family:
@@ -62,14 +104,15 @@ import functools
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
-from repro_torch.models.layers import (embed, embed_shard, embed_spec, mlp,
-                                       mlp_spec, rmsnorm, rmsnorm_spec,
-                                       unembed)
+from repro_torch.models.layers import (embed, embed_shard, embed_spec,
+                                       in_dot, mlp, mlp_spec, rmsnorm,
+                                       rmsnorm_spec, unembed)
 from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.models.params import materialize
 from repro_torch.utils import resolve_device
@@ -83,15 +126,14 @@ def check_family(cfg: ArchConfig) -> None:
                          f"{cfg.family!r}; known: {FAMILIES}")
 
 
-REMAT = ("none", "full")
+REMAT = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelOpts:
-    """Static per-run model options. The reference's remat "dots" policy
-    has no counterpart: it raises."""
+    """Static per-run model options."""
 
-    remat: str = "full"          # none | full: per-block checkpoint (grad)
+    remat: str = "full"          # none | full | dots: per-block checkpoint
     scan_groups: int = 1         # >1: two-level checkpoint (module doc)
     loss_chunk: int = 2048       # vocab-chunked xent sequence chunk
     act_dtype: torch.dtype = torch.float32  # residual-stream compute dtype
@@ -100,8 +142,7 @@ class ModelOpts:
 
     def __post_init__(self):
         if self.remat not in REMAT:
-            raise ValueError(f"remat {self.remat!r} not in {REMAT} (the "
-                             f"reference's 'dots' policy is not ported)")
+            raise ValueError(f"remat {self.remat!r} not in {REMAT}")
         if self.scan_groups < 1:
             raise ValueError(f"scan_groups={self.scan_groups} must be >= 1")
 
@@ -216,12 +257,33 @@ def _mlp(p, x, cfg, par=None):
     return x + par.ffn_out(mlp(p["mlp"], par.ffn_in(h), act=cfg.act))
 
 
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat "dots"' policy (the reference's
+    ``dots_with_no_batch_dims_saveable``): keep the output of every
+    product made by ``layers.dot``, recompute everything else."""
+    if op in _PRODUCTS and in_dot():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(opts):
     """``run(fn, *xs)``: fn(*xs), under a non-reentrant checkpoint when
-    grad is on and ``opts.remat`` is "full"."""
-    if opts.remat == "full" and torch.is_grad_enabled():
-        return lambda fn, *xs: checkpoint(fn, *xs, use_reentrant=False)
-    return lambda fn, *xs: fn(*xs)
+    grad is on and ``opts.remat`` is "full" or "dots" (the latter
+    selective: :func:`_dots_policy`)."""
+    if opts.remat == "none" or not torch.is_grad_enabled():
+        return lambda fn, *xs: fn(*xs)
+    if opts.remat == "dots":
+        return lambda fn, *xs: checkpoint(fn, *xs, use_reentrant=False,
+                                          context_fn=_dots_contexts)
+    return lambda fn, *xs: checkpoint(fn, *xs, use_reentrant=False)
 
 
 def _group(run, steps, tail=None):

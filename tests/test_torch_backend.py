@@ -142,10 +142,11 @@ def test_merge_pairs_matches_jnp(mode, la, lb):
 @pytest.mark.parametrize("lb", [16, 20])
 def test_merge_unsorted_matches_jnp(mode, lb):
     """The Gather stage's real shape: sorted candidate list (with
-    sentinel padding) + unsorted proposals (with masked entries), cut to
-    the candidate width and to the full merged width. The port masks the
-    invalid proposals itself; the reference gets them pre-masked with an
-    all-False payload lane, as its engine hands them over."""
+    sentinel padding) + unsorted proposals (with masked entries). The
+    reference's call form (pre-masked proposals, an all-False payload
+    lane on B) on both sides; then the port's fused ``merge_gather``,
+    which masks the invalid proposals itself, cut to the candidate width
+    and to the full merged width."""
     B, la = 6, 32
     da, ia = _sorted_rows(B, la, 3)
     da[:, 20:], ia[:, 20:] = np.float32(BIG_DIST), ID_SENTINEL
@@ -162,8 +163,13 @@ def test_merge_unsorted_matches_jnp(mode, lb):
     want = JNP.merge_unsorted(*(jnp.asarray(x) for x in (da, ia, db_m, ib_m)),
                               pay_a=(jnp.asarray(ea),),
                               pay_b=(jnp.asarray(eb),))
+    ta, tia, tdb, tib, tea, teb = _t(da, ia, db_m, ib_m, ea, eb)
+    got = KernelBackend(mode=mode).merge_unsorted(
+        ta, tia, tdb, tib, pay_a=(tea,), pay_b=(teb,))
+    assert got[2].dtype == torch.bool
+    _eq(got, want)
     for out_w in (la, la + lb):
-        got = KernelBackend(mode=mode).merge_unsorted(
+        got = KernelBackend(mode=mode).merge_gather(
             *_t(da, ia, ea, db, ib, vb), out_w)
         assert got[2].dtype == torch.bool
         _eq(got, tuple(w[:, :out_w] for w in want))

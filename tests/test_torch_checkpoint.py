@@ -36,6 +36,17 @@ from repro_torch.optim import OptConfig
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
 from repro_torch.train.trainer import load_state, state_like, state_tree
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-4
 
 

@@ -313,8 +313,74 @@ def test_sort_rejects_bad_widths(dev):
         bitonic_sort(d, i, p)
     with pytest.raises(ValueError):
         bitonic_sort(d[:, :24], i[:, :24])
-    with pytest.raises(ValueError):
-        sort_op(d[:, :16], i[:, :16], p[:, :16], p[:, :16], mode="cuda")
+    with pytest.raises(TypeError, match="i32/f32"):
+        sort_op(d[:, :16], i[:, :16], p[:, :16].long(), mode="cuda")
+
+
+def _lanes(B, M, dev, seed, dtypes):
+    """Payload lanes of the given dtypes; f32 lanes hold NaN payloads
+    (two bit patterns), -0.0 and 0.0, to be moved bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for dt in dtypes:
+        x = torch.randint(-2**31, 2**31 - 1, (B, M), generator=g,
+                          device=dev, dtype=torch.int32)
+        if dt == torch.float32 and M >= 4:
+            x = x.view(torch.float32)
+            x[:, 0], x[:, 1] = -0.0, 0.0
+            x[:, 2] = float("nan")
+            x[:, 3] = torch.tensor(0x7fc00123, dtype=torch.int32).view(
+                torch.float32)
+        out.append(x.view(dt))
+    return out
+
+
+@pytest.mark.parametrize("B,M,nl", [(2048, 32, 3), (2048, 256, 3),
+                                    (5, 2, 2), (33, 128, 4), (3, 2048, 2),
+                                    (64, 64, 40)])
+def test_bitonic_payload_lanes_match_plain(dev, B, M, nl):
+    """Any number of i32 and f32 payload lanes (40: ten launches)
+    in both bodies, the sort and the merge pass, bit for bit against the
+    plain versions; ties with differing payloads included, and one f32
+    lane alone."""
+    from repro_torch.kernels.topk.kernel import MAX_LANES, SORT_KERNEL
+    d, i, _ = _rows(B, M, dev, seed=M + nl)
+    i = i % max(1, M // 4)
+    lanes = _lanes(B, M, dev, nl, [(torch.int32, torch.float32)[k % 2]
+                                   for k in range(nl)])
+    before = SORT_KERNEL.launches
+    got = bitonic_sort(d, i, *lanes)
+    assert SORT_KERNEL.launches == before + -(-nl // MAX_LANES)
+    _bits_equal(got, bitonic_sort_ref(d, i, *lanes))
+    _bits_equal(got, bitonic_sort(d, i, *lanes, shared=True))
+    _bits_equal(bitonic_sort(d, i, lanes[1]),
+                bitonic_sort_ref(d, i, lanes[1]))
+    bd, bi, *bl = bitonic_sort_ref(d, i, *lanes)
+    h = M // 2
+    row = [torch.cat([x[:, :h], x[:, h:].flip(1)], 1) for x in [bd, bi, *bl]]
+    got = bitonic_merge(*row)
+    _bits_equal(got, bitonic_merge_ref(*row))
+    _bits_equal(got, bitonic_merge(*row, shared=True))
+
+
+def test_merge_sorted_op_two_lanes_on_card(dev):
+    """merge_sorted_op at M 64 with an i32 and an f32 lane, and the
+    backend's reference call forms (sort_pairs, merge_pairs,
+    merge_unsorted) with mixed lanes: the card's bits are ref mode's."""
+    from repro_torch.core.backend import KernelBackend
+    B = 2048
+    da, ia, _ = bitonic_sort_ref(*_rows(B, 32, dev, 1))
+    db, ib, _ = bitonic_sort_ref(*_rows(B, 32, dev, 2))
+    pa = _lanes(B, 32, dev, 3, (torch.int32, torch.float32))
+    pb = _lanes(B, 32, dev, 4, (torch.int32, torch.float32))
+    _bits_equal(merge_sorted_op(da, ia, db, ib, pa, pb, mode="cuda"),
+                merge_sorted_op(da, ia, db, ib, pa, pb, mode="ref"))
+    cuda, ref = KernelBackend(mode="cuda"), KernelBackend(mode="ref")
+    e = (pa[0] > 0)
+    _bits_equal(cuda.sort_pairs(db, ib, pb[1], e),
+                ref.sort_pairs(db, ib, pb[1], e))
+    _bits_equal(cuda.merge_unsorted(da, ia, db.flip(1), ib, pa, pb),
+                ref.merge_unsorted(da, ia, db.flip(1), ib, pa, pb))
 
 
 def _search_index(dev):
@@ -1208,6 +1274,43 @@ def test_train_step_on_card_matches_cpu(dev):
             "flash_attention": 8, "flash_attention_bwd": 4}
     for a, b in zip(_np_leaves(card_p), _np_leaves(cpu_p)):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_dots_train_step_on_card_equals_full(dev):
+    """Two steps of reduced gemma3-1b on the card under remat "dots" and
+    remat full: the same losses, grad norms and parameters bit for bit
+    (the kept products are the values the recompute makes), the same
+    flash launches (attention is recomputed under both)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import params_from_jax, params_to_numpy
+    from repro_torch.models.transformer import ModelOpts
+    from repro_torch.optim import OptConfig, init_opt
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.trainer import init_train_state
+    cfg = reduced(get_config("gemma3-1b"))
+    oc = OptConfig(lr_max=1e-3, warmup=2, decay_steps=10)
+    init = params_to_numpy(init_train_state(
+        cfg, oc, torch.Generator().manual_seed(0))[0])
+    pipe = TokenPipeline(cfg.vocab_size, 4, 64, seed=0)
+    out = {}
+    for remat in ("full", "dots"):
+        step = make_train_step(cfg, oc, TrainConfig(),
+                               opts=ModelOpts(remat=remat))
+        params = params_from_jax(cfg, init, device=dev)
+        opt = init_opt(params, oc)
+        rows = []
+        for s in range(2):
+            reset_launch_counts()
+            params, opt, m = step(params, opt, {
+                k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.batch_at(s).items()})
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         launch_counts()))
+        out[remat] = (rows, params_to_numpy(params))
+    assert out["dots"][0] == out["full"][0]
+    for a, b in zip(_np_leaves(out["dots"][1]), _np_leaves(out["full"][1])):
+        np.testing.assert_array_equal(a, b)
 
 
 def _np_leaves(tree):

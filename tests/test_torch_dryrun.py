@@ -30,6 +30,16 @@ from repro_torch.launch.specs import ArchPolicy, plan_train
 from repro_torch.models.transformer import ModelOpts
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ref_dryrun():
     """The reference's dry-run module. Importing it sets XLA_FLAGS for

@@ -27,6 +27,17 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 from repro_torch.models.attention import (attn_chunked, attn_direct,
                                           flash_attention)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = [
     # B, Sq, Sk, H, K, hd, causal, window, softcap, kv_valid
     (2, 256, 256, 4, 2, 16, True, 0, 0.0, None),

@@ -1,12 +1,14 @@
 """The port's host build and CLI vs the reference package's: identical
 arrays from one seed, recall on real-valued data, and the same JSON from
-the default (non-stream) ANNS driver."""
+the default (non-stream) ANNS driver; the training CLI. The ``--stream``
+JSON cases are tests/test_torch_launch_{stream,routed,live}.py's."""
 import dataclasses
 import json
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core.engine import EngineParams as JParams
 from repro.core.engine import pack_for_engine as j_pack
@@ -27,6 +29,17 @@ from repro_torch.launch.search import build_index, main, run_search
 
 PACKED_ARRAYS = ("db", "vnorm", "adj", "adj_owner", "pref", "pref_owner",
                  "blk_perm")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores; at a fixed thread count torch's CPU results are
+    deterministic."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -128,35 +141,14 @@ STREAM_CLOCKS = {"kernel_mode", "wall_latency_ms", "sustained_qps", "wall_s",
                  "compile_s"}
 
 
-@pytest.mark.parametrize("flags", [
-    ["--arrival-rate", "2", "--slots", "3", "--round-chunk", "4"],
-    ["--spec", "2", "--spec-dynamic", "--spec-page-w", "0.5",
-     "--arrival-rate", "0.5", "--deadline-rounds", "9",
-     "--injit-admit", "off"],
-    ["--arrival-rate", "2", "--kill-shard", "1:3", "--delay-shard",
-     "0:2:4", "--deadline-rounds", "10"],
-    ["--corrupt-pages", "0.1", "--corrupt-mode", "neg", "--nan-guard",
-     "--seed", "2"],
-    # routed serving on the spatially partitioned index
-    ["--topr", "2", "--arrival-rate", "2"],
-    ["--topr", "2", "--leg-L", "8", "--down-shards", "1"],
-    # the tiered page store: full residency at this size, then half the
-    # pages resident on an index of 16 pages per shard
-    ["--device-pages", "4"], ["--device-pages", "4", "--no-prefetch"],
-    ["--device-pages", "2", "--prefetch-page-w", "0.5"],
-    ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
-     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"],
-    # the live index: swaps at a full delta, and every 6 mutations
-    # routed at topr = S
-    ["--arrival-rate", "2", "--insert-rate", "0.35", "--delete-rate",
-     "0.1", "--delta-cap", "8"],
-    ["--arrival-rate", "1", "--insert-rate", "0.4", "--delete-rate",
-     "0.2", "--delta-cap", "8", "--refresh-every", "6", "--topr", "8"]])
-def test_cli_stream_json_matches_reference(tmp_path, capsys, flags):
+def check_stream_json(tmp_path, capsys, flags):
     """``--stream`` serves the queries through the streaming scheduler:
     the JSON equals the reference's ``--stream --kernel-mode jnp`` JSON
     but the clocks; the port adds device, host_syncs (one read per
-    chunk: the reference's host blocks) and warmup_rounds."""
+    chunk: the reference's host blocks) and warmup_rounds. The cases
+    are test_cli_stream_json_matches_reference in
+    tests/test_torch_launch_{stream,routed,live}.py (one file each, so
+    that the suite's workers share them)."""
     argv = ["--dataset", "tiny", "--n", "512", "--queries", "32",
             "--stream"] + flags
     assert main(argv + ["--device", "cpu",

@@ -36,6 +36,17 @@ from repro_torch.models import (ModelOpts, audio_stub, decode_step, encode,
                                 logits_fn, params_from_jax, params_to_numpy,
                                 prefill, vision_stub)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["gemma3-1b", "gemma2-27b", "yi-34b", "llama3-405b",
          "llava-next-mistral-7b", "mixtral-8x7b", "dbrx-132b", "mamba2-780m",
          "zamba2-1.2b", "seamless-m4t-medium"]

@@ -24,6 +24,17 @@ from repro_torch.models import moe_ffn
 from repro_torch.models.moe import capacity, moe_spec, route
 from repro_torch.models.params import materialize
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-5
 CFG = reduced(get_config("mixtral-8x7b"))
 

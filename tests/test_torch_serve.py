@@ -32,6 +32,17 @@ from repro_torch.launch.serve import (greedy_generate, main,
                                       soft_prompt_from_retrieval)
 from repro_torch.models import ModelOpts, params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D, B, K = 32, 4, 4
 PACKED_ARRAYS = ("db", "vnorm", "adj", "adj_owner", "pref", "pref_owner",
                  "blk_perm")

@@ -4,7 +4,9 @@ flags (the tiered page store's and the live index's among them), the
 live index's refusals the reference's, streaming soft-prompt
 retrieval returning the reference's ids and greedy tokens with carried
 weights, and the entry points refusing to run without a card unless the
-caller asks for the CPU."""
+caller asks for the CPU. The routed, ring and tiered JSON cases are
+tests/test_torch_serve_stream_routed.py's, the live index's
+tests/test_torch_serve_stream_live.py's."""
 import dataclasses
 import json
 
@@ -82,31 +84,17 @@ def index():
     ["--delay-shard", "0:2:5", "--delay-shard", "2:4:3"],
     ["--kill-shard", "1:4", "--deadline-rounds", "12", "--seed", "1"],
     ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--nan-guard"],
-    ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--spec", "2"],
-    # routing (a spatially partitioned index, legs fused through the
-    # bitonic merge), degraded fusion, and the admission ring
-    ["--topr", "2"], ["--topr", "2", "--leg-L", "8"],
-    ["--topr", "4", "--leg-L", "8", "--injit-admit", "off"],
-    ["--topr", "2", "--down-shards", "1"], ["--ring", "8"],
-    ["--ring", "4", "--overload", "shed", "--arrival-rate", "0"],
-    # the tiered page store: full residency at this size, then half the
-    # pages resident on an index of 16 pages per shard
-    ["--device-pages", "4"], ["--device-pages", "4", "--no-prefetch"],
-    ["--device-pages", "2", "--prefetch-page-w", "0.5"],
-    ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
-     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5"],
-    # the live index: Poisson inserts and deletes with swaps at a full
-    # delta and every 8 mutations, at rest, routed at topr = S, tiered
-    ["--insert-rate", "0.35", "--delete-rate", "0.1", "--delta-cap", "8"],
-    ["--insert-rate", "0.5", "--delete-rate", "0.2", "--delta-cap", "16",
-     "--refresh-every", "8", "--injit-admit", "off"],
-    ["--delta-cap", "8"],
-    ["--insert-rate", "0.35", "--delete-rate", "0.1", "--delta-cap", "8",
-     "--topr", "4"],
-    ["--n", "1024", "--page-size", "8", "--device-pages", "16", "--slots",
-     "2", "--round-chunk", "2", "--degree", "8", "--L", "8", "--k", "5",
-     "--insert-rate", "0.35", "--delete-rate", "0.1", "--delta-cap", "8"]])
+    ["--corrupt-pages", "0.08", "--corrupt-mode", "neg", "--spec", "2"]])
 def test_cli_json_matches_reference(tmp_path, capsys, flags):
+    check_cli_json(tmp_path, capsys, flags)
+
+
+def check_cli_json(tmp_path, capsys, flags):
+    """The JSON of ``serve_stream`` equals the reference's on the same
+    flags but the clocks and the names of the backend and device; the
+    routed, ring and tiered cases are
+    tests/test_torch_serve_stream_routed.py's, the live index's
+    tests/test_torch_serve_stream_live.py's."""
     argv = ["--dataset", "tiny", "--n", "512", "--queries", "32"] + flags
     assert main(argv + ["--device", "cpu",
                         "--out", str(tmp_path / "port.json")]) == 0

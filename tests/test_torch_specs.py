@@ -40,6 +40,17 @@ from repro_torch.train import TrainConfig, make_train_step
 from repro_torch.train.trainer import compute_grads
 from repro_torch.utils import tree_leaves
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-4
 
 

@@ -22,6 +22,17 @@ from repro_torch.models import (init_ssm_state, ssm_chunked, ssm_spec,
                                 ssm_step)
 from repro_torch.models.params import materialize
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 

@@ -34,6 +34,17 @@ from repro_torch.train import TrainConfig, init_train_state, make_train_step
 from repro_torch.train.trainer import state_tree
 from repro_torch.utils import as_tree, tree_leaves
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread, so parallel test workers do not oversubscribe
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = reduced(get_config("gemma3-1b"))
 OPTS = ModelOpts(remat="full", loss_chunk=32)
 PARITY_RTOL = 1e-4
@@ -129,21 +140,24 @@ def test_pipeline_deterministic_sharded_and_the_references():
 
 
 def test_remat_none_equals_full():
-    """remat changes what is kept for the backward, not the numbers; the
-    reference's "dots" policy is refused, and so is a group count below
-    one (scan_groups > 1 is ported: tests/test_torch_specs.py)."""
+    """remat changes what is kept for the backward, not the numbers
+    (none, full and the reference's "dots" policy:
+    tests/test_torch_remat_dots.py holds dots to full bit for bit); an
+    unknown policy is refused, and so is a group count below one
+    (scan_groups > 1 is ported: tests/test_torch_specs.py)."""
     b = _batch(_pipe(batch=4, seq=32), 0)
     init = params_to_numpy(_init(2))
     out = {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         params = params_from_jax(CFG, init, device="cpu")
         step = make_train_step(CFG, OptConfig(), TrainConfig(),
                                opts=ModelOpts(remat=remat, loss_chunk=16))
         _, _, m = step(params, init_opt(params, OptConfig()), b)
         out[remat] = (float(m["loss"]), float(m["grad_norm"]))
     assert out["none"] == pytest.approx(out["full"], rel=1e-6)
+    assert out["dots"] == out["full"]
     with pytest.raises(ValueError, match="dots"):
-        ModelOpts(remat="dots")
+        ModelOpts(remat="selective")
     with pytest.raises(ValueError, match="scan_groups"):
         ModelOpts(scan_groups=0)
 

@@ -5,7 +5,7 @@ differentiable and gives the reference's loss and global grad norm
 within 1e-4 relative (f32 on both sides, sums in other orders)."""
 import pytest
 
-from test_torch_train import _check_rows, _parity
+from test_torch_train import _check_rows, _one_torch_thread, _parity  # noqa: F401
 
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "mixtral-8x7b",

@@ -18,6 +18,7 @@ import pytest
 import torch_train_mesh_ranks as ranks
 from torch_train_mesh_ranks import check_params, check_steps, close
 
+_one_torch_thread = ranks.one_torch_thread()
 ARCH = "gemma3-1b"
 ONE_DEVICE_RTOL = 1e-5
 MESHES = {"g22": (2, 2), "g41": (4, 1), "g14": (1, 4), "g21": (2, 1)}
@@ -29,7 +30,9 @@ def runs(tmp_path_factory):
     return ranks.run_all(
         tmp_path_factory.mktemp("train_mesh"),
         {n: (ARCH, m) for n, m in MESHES.items()}, CASE,
-        extra=(dict(name="g21_ga2", arch=ARCH, mesh=[2, 1], grad_accum=2),))
+        extra=(dict(name="g21_ga2", arch=ARCH, mesh=[2, 1], grad_accum=2),
+               dict(name="g22_dots", arch=ARCH, mesh=[2, 2],
+                    remat="dots")))
 
 
 @pytest.mark.parametrize("name", MESHES)
@@ -74,3 +77,13 @@ def test_grad_accum_two_on_a_mesh(runs):
         close(g["grad_norm"], r["grad_norm"], 2e-3, "grad_norm")
     ranks.check_collectives(runs["got"]["g21_ga2"]["stats"],
                             dict(CASE, mesh=[2, 1], grad_accum=2))
+
+
+def test_dots_equals_full_on_a_mesh(runs):
+    """remat "dots" at (2, 2): the same losses, grad norms and parameters
+    as remat full bit for bit (the kept products are the values the
+    recompute would make), and the collectives of the dry run's dots
+    cell (the FSDP gathers inside each block run again in its
+    recompute, as under full)."""
+    ranks.check_dots(runs, "g22_dots", "g22",
+                     dict(CASE, mesh=[2, 2], remat="dots"))

@@ -42,6 +42,7 @@ from repro_torch.train.trainer import (load_state, state_like, state_tree,
                                        trainable)
 from torch_train_mesh_ranks import _leaves, check_params, check_steps
 
+_one_torch_thread = ranks.one_torch_thread()
 ARCH = "gemma3-1b"
 CASE = dict(arch=ARCH, steps=3, batch=4, seq=32, stats_step=1)
 #: the hybrid checkpoint: written at (2, 2) after 2 of 4 steps

@@ -14,6 +14,7 @@ import pytest
 import torch_train_mesh_ranks as ranks
 from torch_train_mesh_ranks import check_params, check_steps
 
+_one_torch_thread = ranks.one_torch_thread()
 ARCH = "mixtral-8x7b"
 MESHES = {"m22": (2, 2), "m41": (4, 1), "m14": (1, 4), "m21": (2, 1)}
 CASE = dict(arch=ARCH, steps=3, batch=4, seq=32, stats_step=1)

@@ -6,7 +6,8 @@ training mesh on the CPU, running the cases its parent wrote.
 ``DIR/cases.pkl`` holds a list of cases, each a dict: "name", "arch"
 (reduced), "mesh" (a shape over ("data", "model")), "steps", "batch",
 "seq", "factored", "init" (the reference's parameter tree as numpy),
-and optionally "scan_groups", "grad_accum", "save_at" (write a
+and optionally "remat" ("full" by default), "scan_groups",
+"grad_accum", "save_at" (write a
 checkpoint to ``DIR/<name>_ckpt`` after that many steps), "restore" (a
 checkpoint directory to start from), "stats_step" (the step whose
 collectives are kept) and "grads_step" (the step whose gradients,
@@ -91,7 +92,7 @@ def batch_at(cfg, batch: int, seq: int, step: int) -> dict:
 def setup(case):
     cfg = reduced(get_config(case["arch"]))
     oc = OptConfig(**OPT, factored_v=bool(case.get("factored")))
-    opts = ModelOpts(remat="full", loss_chunk=LOSS_CHUNK,
+    opts = ModelOpts(remat=case.get("remat", "full"), loss_chunk=LOSS_CHUNK,
                      scan_groups=case.get("scan_groups", 1))
     return cfg, oc, opts
 
@@ -286,7 +287,7 @@ def wire_of(rows: list, sizes: dict) -> dict:
 def dry_run_wire(case: dict) -> dict:
     """``launch/dryrun.py``'s collectives for the case's cell: the reduced
     arch on a planning mesh of the case's shape, f32 parameters and
-    activations, its batch, remat full, the loss chunk."""
+    activations, its batch, its remat, the loss chunk."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh_for
     from repro_torch.launch.specs import ArchPolicy, plan_train
@@ -517,16 +518,46 @@ def check_close(got, want, atol):
         assert err <= atol, (path, err)
 
 
-def gate_tests(entries: dict, case: dict, f64: bool = False) -> dict:
+def check_dots(runs, name: str, full: str, case: dict) -> None:
+    """Rank-only case ``name`` (remat "dots") against case ``full`` (the
+    same mesh, remat full): every step's metrics and the parameters
+    after the last step equal bit for bit, and its collectives equal
+    the dry run's for the dots cell."""
+    got, want = runs["got"][name], runs["got"][full]
+    assert got["steps"] == want["steps"]
+    for path, g, w in _leaves(got["final"], want["final"]):
+        assert np.array_equal(g, w), path
+    check_collectives(got["stats"], case)
+
+
+def one_torch_thread():
+    """A module fixture (autouse) for a test file of the mesh: one
+    intra-op thread in the parent, whose one-device steps run beside the
+    rank processes, so that the suite's workers do not oversubscribe
+    the cores."""
+    import pytest
+
+    @pytest.fixture(scope="module", autouse=True)
+    def _one_torch_thread():
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(n)
+    return _one_torch_thread
+
+
+def gate_tests(entries: dict, case: dict, f64: bool = False,
+               extra=()) -> dict:
     """The mesh parity tests of one file, for its module's namespace: a
     module fixture ``runs`` (:func:`run_all` of ``entries`` with
-    ``case``'s keys) and, parametrized over ``entries``,
+    ``case``'s keys, and the rank-only cases ``extra``) and, parametrized over ``entries``,
 
       test_steps_equal_the_references_sharded_step   (rtol 1e-4)
       test_steps_equal_the_ports_one_device_step
       test_parameters_after_three_steps
       test_collectives_equal_the_dry_runs
 
+    (and one torch thread in the parent: :func:`one_torch_thread`).
     Without ``f64`` the one-device step is held in f32 at 1e-5 and the
     parameters to the reference's by :func:`check_params`. With ``f64``
     (``case`` has a "grads_step") the one-device gates run in float64
@@ -543,7 +574,7 @@ def gate_tests(entries: dict, case: dict, f64: bool = False) -> dict:
     @pytest.fixture(scope="module")
     def runs(tmp_path_factory):
         return run_all(tmp_path_factory.mktemp("train_mesh"), entries, case,
-                       f64=f64)
+                       extra=extra, f64=f64)
 
     each = pytest.mark.parametrize("name", entries)
 
@@ -598,11 +629,11 @@ def gate_tests(entries: dict, case: dict, f64: bool = False) -> dict:
             want[("all-reduce", "fsdp")] = 1
         assert scalars == want
 
-    tests = dict(locals())
+    tests = dict(locals(), _one_torch_thread=one_torch_thread())
     if not f64:
         del tests["test_first_step_gradients_equal_the_ports_one_device"]
     return {k: v for k, v in tests.items()
-            if k == "runs" or k.startswith("test_")}
+            if k in ("runs", "_one_torch_thread") or k.startswith("test_")}
 
 
 if __name__ == "__main__":
