@@ -259,11 +259,19 @@ its seconds:
                prefill + 3 decode steps equal logits_fn over the longer
                sequence within 5e-3 (tests/test_models_decode.py's
                tolerance; mixtral at capacity factor E) and within
-               LOGIT_RTOL x max |logit|. One line each: tok/s, prefill
-               ms, decode ms per token, peak GiB, idle shares, the
-               prefill's top device ops, one decode step's host ops
-               (mixtral also drop_frac and lb_loss at the serving
-               capacity factor).
+               LOGIT_RTOL x max |logit|. Decode runs as the reference's
+               jitted decode: the session (make_step_fns) captures
+               decode_step once as a CUDA graph (one capture per case,
+               counted by CaptureGuard over the warm-up, the timed
+               generation and the profiled replays) and replays it per
+               token; an eager twin (capture=False) runs the same
+               generation, with equal tokens, and the logits' largest
+               difference is printed. One line each: tok/s, prefill
+               ms, decode ms per token and decode idle share both ways,
+               graph and kernel launches per token both ways, peak GiB,
+               idle shares, the prefill's top device ops, one eager
+               decode step's host ops (mixtral also drop_frac and
+               lb_loss at the serving capacity factor).
   8c. train — gemma3-1b at full width (f32 weights from the seed, TF32
                off) trained through launch/train.py at batch 4 x
                sequence 1024, remat full, loss chunk 512, AdamW lr 3e-4,
@@ -3656,6 +3664,7 @@ def serve_case(dev, case, index, index_s: float) -> dict:
 
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.capture_guard import CaptureGuard
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import (greedy_generate, make_step_fns,
@@ -3692,21 +3701,43 @@ def serve_case(dev, case, index, index_s: float) -> dict:
                      **retrieval_vs_cpu(cfg, rag_out, fe.shape[1], index)}
     enc_len = Sp if cfg.frontend == "audio" else 0
     opts = T.ModelOpts()
+    # the session: decode_step captured on the warm-up's first token,
+    # replayed by every later one
     step_fns = make_step_fns(cfg, opts)
-    greedy_generate(params, cfg, tokens, gen=2, opts=opts,
-                    frontend_embeds=fe, enc_len=enc_len, step_fns=step_fns,
-                    cache_len=Sp + gen)                         # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    stats = {}
-    t0 = time.perf_counter()
-    out = greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
-                          frontend_embeds=fe, enc_len=enc_len,
-                          step_fns=step_fns, stats=stats)
-    wall_s = time.perf_counter() - t0
+    with CaptureGuard() as cg_session:
+        greedy_generate(params, cfg, tokens, gen=2, opts=opts,
+                        frontend_embeds=fe, enc_len=enc_len,
+                        step_fns=step_fns, cache_len=Sp + gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        out = greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
+                              frontend_embeds=fe, enc_len=enc_len,
+                              step_fns=step_fns, stats=stats,
+                              keep_logits=True)
+        wall_s = time.perf_counter() - t0
     generate = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the eager twin: the same generation, decode_step run op by op
+    eager_fns = make_step_fns(cfg, opts, capture=False)
+    greedy_generate(params, cfg, tokens, gen=2, opts=opts,
+                    frontend_embeds=fe, enc_len=enc_len, step_fns=eager_fns,
+                    cache_len=Sp + gen)          # its cache, the allocator
+    torch.cuda.synchronize()
+    eager_stats = {}
+    t0 = time.perf_counter()
+    eager_out = greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
+                                frontend_embeds=fe, enc_len=enc_len,
+                                step_fns=eager_fns, stats=eager_stats,
+                                keep_logits=True)
+    eager_wall_s = time.perf_counter() - t0
+    if not torch.equal(out, eager_out):
+        raise AssertionError(f"{arch}: the captured decode's tokens differ "
+                             f"from the eager decode's")
+    eager_logit_diff = float((stats.pop("logits")
+                              - eager_stats.pop("logits")).abs().max())
     # one prefill launches `flash` kernels; the gen - 1 decode steps none
     if generate["flash_attention"] != flash or \
             any(generate[k] for k in SEARCH_KERNELS):
@@ -3746,7 +3777,10 @@ def serve_case(dev, case, index, index_s: float) -> dict:
                                   frontend_embeds=fe)
         aux = {k: float(v) for k, v in aux.items()}
 
-    # the card's busy time: one prefill, then one whole generation
+    # the card's busy time: one prefill, then one whole generation each
+    # way, then one decode step each way with host activity (the
+    # session's, a replay: one graph launch; the eager twin's: what
+    # Python issues per token), on the sessions' caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         cache = T.init_cache(cfg, B, Sp + gen, enc_len=max(enc_len, 1),
@@ -3755,23 +3789,50 @@ def serve_case(dev, case, index, index_s: float) -> dict:
                              frontend_embeds=fe)
         torch.cuda.synchronize()
     pre = device_kernel_us(prof)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
-                        frontend_embeds=fe, enc_len=enc_len,
-                        step_fns=step_fns)
-        torch.cuda.synchronize()
-    whole = device_kernel_us(prof)
-    # one decode step with host activity: what Python issues per token
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        T.decode_step(params, cfg, cache, out[:, -1:], opts=opts)
-        torch.cuda.synchronize()
-    step = prof.key_averages()
-    host_top = sorted(step, key=lambda e: -e.self_cpu_time_total)[:5]
+    whole, steps = {}, {}
+    with CaptureGuard() as cg_replays:
+        for way, fns in (("captured", step_fns), ("eager", eager_fns)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                greedy_generate(params, cfg, tokens, gen=gen, opts=opts,
+                                frontend_embeds=fe, enc_len=enc_len,
+                                step_fns=fns)
+                torch.cuda.synchronize()
+            whole[way] = device_kernel_us(prof)
+            c = fns.cache(B, Sp + gen, max(enc_len, 1), dev)
+            _, c = fns.prefill(params, tokens, c, fe)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fns.decode(params, c, out[:, -1:])
+                torch.cuda.synchronize()
+            steps[way] = prof.key_averages()
+            del c
+    captures = cg_session.count("decode_step") + \
+        cg_replays.count("decode_step")
+    if cg_session.count("decode_step") != 1 or cg_replays.total:
+        raise AssertionError(f"{arch}: decode_step captures {cg_session.names}"
+                             f" in the session's generations and "
+                             f"{cg_replays.names} in its replays, expected "
+                             f"one and none")
+    step_fns.close()
+    eager_fns.close()
+
+    def api_calls(step, names):
+        return sum(e.count for e in step if e.key in names)
+    graph_launches = {w: api_calls(st, ("cudaGraphLaunch",))
+                      for w, st in steps.items()}
+    kernel_launches = {w: api_calls(st, ("cudaLaunchKernel",
+                                         "cuLaunchKernel",
+                                         "cudaLaunchKernelExC"))
+                       for w, st in steps.items()}
+    host_top = sorted(steps["eager"],
+                      key=lambda e: -e.self_cpu_time_total)[:5]
     drop_traces()
     pre_ms = sum(us for us, _ in pre.values()) / 1e3
-    whole_ms = sum(us for us, _ in whole.values()) / 1e3
+    whole_ms = {w: sum(us for us, _ in v.values()) / 1e3
+                for w, v in whole.items()}
     prefill_ms, decode_ms = stats["prefill_s"] * 1e3, stats["decode_s"] * 1e3
+    eager_decode_ms = eager_stats["decode_s"] * 1e3
     top = sorted(pre.items(), key=lambda kv: -kv[1][0])[:6]
     emit({"phase": phase, "arch": cfg.name, "family": cfg.family,
           "layers": cfg.num_layers, "reduced": reduced,
@@ -3784,6 +3845,14 @@ def serve_case(dev, case, index, index_s: float) -> dict:
           "tok_s": B * gen / wall_s, "wall_s": wall_s,
           "prefill_ms": prefill_ms,
           "decode_ms_per_token": decode_ms / (gen - 1),
+          "decode_ms_per_token_eager": eager_decode_ms / (gen - 1),
+          "prefill_ms_eager_run": eager_stats["prefill_s"] * 1e3,
+          "wall_s_eager": eager_wall_s,
+          "decode_step_captures": captures,
+          "tokens_equal_eager": True,
+          "logits_max_diff_vs_eager": eager_logit_diff,
+          "graph_launches_per_token": graph_launches,
+          "kernel_launches_per_token": kernel_launches,
           "peak_mem_gib": peak_gib,
           "launches": {"inputs": inputs, "generate": generate},
           "flash_launches_per_prefill": generate["flash_attention"],
@@ -3797,12 +3866,14 @@ def serve_case(dev, case, index, index_s: float) -> dict:
           "prefill_idle_share": 1.0 - pre_ms / prefill_ms,
           "prefill_flash_ms": sum(us for n, (us, _) in pre.items()
                                   if "flash_attention" in n) / 1e3,
-          "generate_device_busy_ms": whole_ms,
-          "generate_idle_share": 1.0 - whole_ms / (wall_s * 1e3),
-          "decode_idle_share": 1.0 - (whole_ms - pre_ms) / decode_ms,
-          "decode_step_kernel_launches": sum(
-              e.count for e in step
-              if e.key in ("cudaLaunchKernel", "cuLaunchKernel")),
+          "generate_device_busy_ms": whole_ms["captured"],
+          "generate_device_busy_ms_eager": whole_ms["eager"],
+          "generate_idle_share": 1.0 - whole_ms["captured"] / (wall_s * 1e3),
+          "decode_idle_share": 1.0 - (whole_ms["captured"] - pre_ms)
+          / decode_ms,
+          "decode_idle_share_eager": 1.0 - (whole_ms["eager"] - pre_ms)
+          / eager_decode_ms,
+          "decode_step_kernel_launches": kernel_launches["eager"],
           "decode_step_host_top": [
               {"name": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
                "count": e.count} for e in host_top],
@@ -3810,7 +3881,7 @@ def serve_case(dev, case, index, index_s: float) -> dict:
                           for n, (us, c) in top],
           "sample": out[0, :16].tolist(), **aux,   # moe: drop_frac, lb_loss
           "seconds": round(time.perf_counter() - t_start, 2)})
-    del params, tokens, fe, cache, out, ref_out
+    del params, tokens, fe, cache, out, ref_out, eager_out
     gc.collect()
     torch.cuda.empty_cache()
     return generate

@@ -14,7 +14,8 @@ capture:
           it takes one branch at capture time and every replay runs
           that branch. Device control flow goes through
           ``torch.where`` and predicated rounds (core/engine.py).
-- NDS003  implicit device sync inside a hot-path module: ``.item()`` /
+- NDS003  implicit device sync inside a hot-path module or a
+          capture-reachable function: ``.item()`` /
           ``.tolist()`` / ``.cpu()`` / ``.numpy()`` on a tensor,
           ``int()``/``float()``/``bool()`` of a tensor,
           ``np.asarray``/``np.array`` of a tensor, or a host branch on
@@ -33,8 +34,9 @@ capture:
 
 Capture roots are the functions passed as ``fn`` to ``CaptureCache.run``
 (core/capture.py) and any ``def`` marked ``# nds: captured``;
-reachability runs through calls to functions of the same module (and
-names imported from scanned modules), and nested defs trace with their
+reachability runs through calls to functions of the same module, names
+imported from scanned modules and attributes of scanned modules
+imported by name (``T.decode_step``), and nested defs trace with their
 parent.
 
 Scope is decided per module by path (``HOT_PATH_KEYS`` /
@@ -62,7 +64,7 @@ from typing import Optional
 RULES = {
     "NDS001": "host value mixed with a device tensor in arithmetic",
     "NDS002": "Python control flow on a tensor in capture-reachable code",
-    "NDS003": "implicit device sync in a hot-path module",
+    "NDS003": "implicit device sync in a hot-path module or captured code",
     "NDS004": "device math in a host-only module/function",
     "NDS005": "capture static-key hazard (mutable default / mutable key)",
 }
@@ -401,6 +403,17 @@ class Workspace:
         # "repro_torch.core.utils" -> "repro_torch/core/utils.py"
         return dotted_module.replace(".", "/") + ".py"
 
+    def _module_of_name(self, mod, name: str) -> Optional[str]:
+        """The key of the scanned module that ``name`` binds in ``mod``
+        (``from pkg import mod as name`` or ``import pkg.mod as
+        name``), else None."""
+        imp = mod.from_imports.get(name)
+        dotted = f"{imp[0]}.{imp[1]}" if imp else mod.aliases.get(name)
+        if dotted is None:
+            return None
+        key = self._module_key_of(dotted)
+        return key if key in self.modules else None
+
     def _resolve_imported_consts(self):
         for _ in range(2):  # two passes: one hop of re-export is enough
             for mod in self.modules.values():
@@ -441,6 +454,12 @@ class Workspace:
                     if imp:
                         tgt = self._module_key_of(imp[0])
                         out.extend(idx.get((tgt, imp[1]), []))
+                elif isinstance(node, ast.Attribute) and \
+                        isinstance(node.value, ast.Name):
+                    # ``T.decode_step`` with T a scanned module
+                    tgt = self._module_of_name(mod, node.value.id)
+                    if tgt is not None:
+                        out.extend(idx.get((tgt, node.attr), []))
             # nested defs trace with their parent
             out.extend(sub for sub in mod.funcs.values()
                        if sub.parent == fi.qualname)
@@ -623,7 +642,7 @@ class _FuncAnalyzer:
             return self._tensor_result(node, arg_tags)
         if _is_numpy_dotted(d):
             if last in ("asarray", "array", "copy") and any_device and \
-                    self.mod.hot_path:
+                    (self.mod.hot_path or self.fi.reachable):
                 self.flag("NDS003", node)
             return HOST
         if d and d.split(".")[0] in ("math", "time", "os", "random",
@@ -633,7 +652,7 @@ class _FuncAnalyzer:
 
         if isinstance(fn, ast.Name):
             if fn.id in CAST_BUILTINS:
-                if any_device and self.mod.hot_path:
+                if any_device and (self.mod.hot_path or self.fi.reachable):
                     self.flag("NDS003", node)
                 return STATIC
             if fn.id in ("len", "range", "isinstance", "getattr", "hasattr",
@@ -656,12 +675,12 @@ class _FuncAnalyzer:
             if fn.attr in HOST_METHODS and base_tag in (DEVICE, UNKNOWN):
                 # only tensors have .cpu() / .numpy(): unless the value is
                 # known to live on the host, this copies from the device
-                if self.mod.hot_path:
+                if self.mod.hot_path or self.fi.reachable:
                     self.flag("NDS003", node)
                 return HOST
             if base_tag == DEVICE:
                 if fn.attr in SYNC_METHODS:
-                    if self.mod.hot_path:
+                    if self.mod.hot_path or self.fi.reachable:
                         self.flag("NDS003", node)
                     return STATIC
                 if fn.attr in STATIC_METHODS:
@@ -685,7 +704,11 @@ class _FuncAnalyzer:
         literal "cpu" is the host), else where its operands are; a
         factory with no device and no tensor operand makes a host
         tensor, as does a conversion of host data (``as_tensor``,
-        ``tensor``). Unknown operands count as device ones."""
+        ``tensor``). In capture-reachable code a conversion of an
+        unknown value is unknown: a copy from host memory cannot be
+        captured, so the value is a device tensor passed through or a
+        Python number. Elsewhere unknown operands count as device
+        ones."""
         for kw in call.keywords:
             if kw.arg == "device":
                 v = kw.value
@@ -694,7 +717,8 @@ class _FuncAnalyzer:
         d = _dotted(call.func, self.mod.aliases) or ""
         if _torch_attr(d) in ("as_tensor", "tensor") and \
                 DEVICE not in arg_tags:
-            return HOST
+            return UNKNOWN if self.fi.reachable and \
+                UNKNOWN in arg_tags[:1] else HOST
         if DEVICE in arg_tags or UNKNOWN in arg_tags:
             return DEVICE
         return HOST

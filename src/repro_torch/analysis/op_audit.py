@@ -32,6 +32,12 @@ round program). With ``device="cpu"`` they run in ``ref`` kernel mode
 (the kernels' plain versions, whose ops are recorded) and the
 histograms are compared.
 
+The serving decode step joins them (``decode_step_<family>``): one
+token of a reduced model of each family (dense, moe, ssm, hybrid,
+encdec) against a prefilled cache, through ``launch/serve.py``'s
+session uncaptured. The card captures it once per session, so the same
+invariants hold for it, and on a card it launches no kernel.
+
 Run via ``python -m repro_torch.analysis audit --device cpu|cuda``
 (``--update``, on the CPU, refreshes the snapshot).
 """
@@ -55,6 +61,12 @@ TINY = dict(n=256, d=16, S=2, page=8, slots=2, k=4, L=8, W=1,
             spec_width=2, max_degree=6, K=4, pend=4)
 # the kernels every round of a round program launches once (on a card)
 ROUND_KERNELS = ("paged_distance", "bitonic_merge_unsorted")
+# the serving decode step, per family: (arch, its reduced config's
+# prompt length)
+DECODE_ARCHS = {"dense": "gemma3-1b", "moe": "mixtral-8x7b",
+                "ssm": "mamba2-780m", "hybrid": "zamba2-1.2b",
+                "encdec": "seamless-m4t-medium"}
+DECODE_PROMPT = 8
 ROUND_PROGRAMS = ("search_sim", "engine_run_chunk", "engine_run_chunk_admit",
                   "engine_run_chunk_admit_routed",
                   "engine_run_chunk_admit_live",
@@ -189,6 +201,36 @@ def chunk_programs(prob):
     return out, ps
 
 
+def decode_programs(device) -> dict:
+    """``decode_step_<family>`` -> a no-argument call of one decode step
+    (uncaptured) of the family's reduced model, against a cache its
+    prefill filled beforehand (outside the recorded call)."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.launch.serve import make_step_fns
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontend import frontend_shape
+
+    dev = resolve_device(device)
+    out = {}
+    for fam, arch in DECODE_ARCHS.items():
+        cfg = reduced(get_config(arch))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = T.init_params(cfg, gen)
+        B, Sp = 2, DECODE_PROMPT
+        toks = torch.randint(0, cfg.vocab_size, (B, Sp + 1), generator=gen,
+                             device=dev)
+        shape = frontend_shape(cfg, B, Sp)
+        fe = None if shape is None else torch.randn(shape, generator=gen,
+                                                    device=dev)
+        fns = make_step_fns(cfg, T.ModelOpts(), capture=False)
+        cache = fns.cache(B, Sp + 1, Sp, dev)
+        _, cache = fns.prefill(params, toks[:, :Sp], cache, fe)
+        out[f"decode_step_{fam}"] = (
+            lambda fns=fns, params=params, cache=cache, tok=toks[:, Sp:]:
+            fns.decode(params, cache, tok))
+    return out
+
+
 def audit_program(records) -> dict:
     """Histogram + invariant scan of one program's op stream."""
     ops = Counter(r.name for r in records
@@ -206,6 +248,7 @@ def collect_report(device="cuda", prob=None) -> dict:
     """Full audit report over every chunk program."""
     prob = prob or build_tiny_problem(device)
     programs, ps = chunk_programs(prob)
+    programs.update(decode_programs(prob["device"]))
     report = {}
     install = {}
     for name, call in programs.items():
@@ -263,6 +306,12 @@ def check_report(report, out) -> bool:
                 ok = False
                 print(f"FAIL {name}: launches {got}, expected {want} "
                       f"({TINY['K']} rounds)", file=out)
+        for fam in DECODE_ARCHS:
+            got = report["programs"][f"decode_step_{fam}"]["launches"]
+            if got:
+                ok = False
+                print(f"FAIL decode_step_{fam}: launches {got}, expected "
+                      f"none (decode attends on the plain path)", file=out)
     return ok
 
 

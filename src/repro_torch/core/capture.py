@@ -27,7 +27,7 @@ see the buffer semantics the card has.
 Capture: the operands are cloned into the static inputs, the program
 runs once eagerly on a side stream (it builds the kernels, queries the
 card for their launch grids and fills the caching allocator), then once
-under capture. What the kernels' wrappers decide from their operands is
+under capture (the caching allocator keeps its blocks: see ``_build``). What the kernels' wrappers decide from their operands is
 decided then and baked in: ``paged_distances`` picks 16-byte copies from
 its operands' alignment, and every operand it gets inside a round is a
 fresh allocation from the graph's pool or a const, both 16-byte
@@ -36,6 +36,17 @@ legal under capture. A capture that fails raises; there is no eager
 fallback on a CUDA tensor. ``capture=False`` runs the program eagerly
 on the card, outside any cache: the proof path that captured and
 uncaptured runs agree.
+
+State written in place: a chunk program returns its state, but the
+serving decode step (launch/serve.py) writes the KV cache, the SSM and
+conv states and the position where they lie. Such a program names those
+tensors as ``state``: they are cloned before the warm-up and copied
+back after it, so the warm-up leaves no trace in them and the first
+replay steps them once, not twice. On the CPU such an entry runs the
+warm-up too, so the CPU tests see that it leaves the state as it found
+it. A serving session drops its entries when it ends (:meth:`drop`)
+rather than leaving them, and the memory pools of their graphs, to the
+least-recently-used order.
 
 Collectives: a mesh chunk (core/engine.py on an engine mesh) holds
 ``torch.distributed`` all-to-alls, all-reduces and all-gathers, which
@@ -136,13 +147,23 @@ class CaptureCache:
         """Entries of the program ``name`` the cache holds."""
         return sum(1 for key in self.entries if key[0] == name)
 
+    def drop(self, name: str, static_key: tuple) -> int:
+        """Drop the entries of program ``name`` built under
+        ``static_key`` (any operand shapes); returns how many."""
+        keys = [k for k in self.entries if k[:2] == (name, static_key)]
+        for k in keys:
+            del self.entries[k]
+        return len(keys)
+
     def run(self, name: str, fn: Callable, static_key: tuple, args: tuple,
-            rounds: int, capture: bool = True):
+            rounds: int, capture: bool = True, state: tuple = ()):
         """``fn(*args)`` (a tree of tensors), through the entry of
         ``(name, static_key, the args' shapes and dtypes)``: built on the
         first call, replayed after. ``rounds`` is the number of rounds
-        one call runs on the device. ``capture=False`` calls ``fn``
-        eagerly outside the cache."""
+        one call runs on the device; ``state`` the tensors ``fn`` writes
+        in place, which the build's warm-up leaves as it found them
+        (module doc). ``capture=False`` calls ``fn`` eagerly outside the
+        cache."""
         if not capture:
             return fn(*args)
         dev = args[0].device
@@ -150,7 +171,7 @@ class CaptureCache:
                tuple((tuple(a.shape), a.dtype) for a in args))
         entry = self.entries.get(key)
         if entry is None:
-            entry = self._build(name, fn, args, rounds)
+            entry = self._build(name, fn, args, rounds, state)
             self.entries[key] = entry
             while len(self.entries) > self.max_entries:
                 self.entries.popitem(last=False)
@@ -165,25 +186,47 @@ class CaptureCache:
         self._replay(entry, fn)
         return entry.outputs
 
-    def _build(self, name, fn, args, rounds) -> Entry:
+    def _warm(self, fn, inputs, rounds, state) -> None:
+        """One eager run of ``fn`` before capture (on a side stream on a
+        card), with ``state`` put back as it was."""
+        saved = [t.clone() for t in state]
+        if inputs[0].device.type == "cuda":
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                fn(*(a.clone() for a in inputs))
+            cur.wait_stream(side)
+        else:
+            fn(*(a.clone() for a in inputs))
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        self.stats.rounds += rounds
+        self.stats.warm_rounds += rounds
+
+    def _build(self, name, fn, args, rounds, state=()) -> Entry:
         inputs = tuple(a.clone(memory_format=torch.contiguous_format)
                        for a in args)
         if inputs[0].device.type != "cuda":
+            if state:
+                self._warm(fn, inputs, rounds, state)
             return Entry(inputs, None, None, rounds, {})
         from repro_torch.kernels import KERNELS
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn(*(a.clone() for a in inputs))          # eager warm-up
-        cur.wait_stream(side)
-        self.stats.rounds += rounds
-        self.stats.warm_rounds += rounds
+        self._warm(fn, inputs, rounds, state)
         before = {k.name: k.recorded for k in KERNELS}
         graph = torch.cuda.CUDAGraph()
+        # captured on a side stream as ``torch.cuda.graph`` does, without
+        # its ``empty_cache()``: that hands every cached block back to the
+        # driver, and the next eager step (a serving session's prefill)
+        # then waits on cudaMalloc for each buffer again
+        torch.cuda.synchronize()
         try:
-            with torch.cuda.graph(graph):
-                outputs = fn(*inputs)
+            with torch.cuda.stream(torch.cuda.Stream()):
+                graph.capture_begin()
+                try:
+                    outputs = fn(*inputs)
+                finally:
+                    graph.capture_end()
         except RuntimeError as e:
             raise RuntimeError(f"capture of the {name} chunk failed: "
                                f"{e}") from e

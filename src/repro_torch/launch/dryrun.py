@@ -533,13 +533,14 @@ def _largest_unit(plan, cfg_d) -> int:
     return best
 
 
-def _cache_meta(cfg_d, B, rows, enc_len, pos):
+def _cache_meta(cfg_d, B, rows, enc_len):
+    """The decode cache on meta tensors: bf16 k/v, f32 states, and
+    ``pos`` and ``enc_len`` 0-d int32, as ``T.init_cache`` makes them (a
+    meta scalar holds no value, and no step reads one on the host)."""
     cache = {}
     for name, shape in T.cache_spec(cfg_d, B, rows, enc_len=enc_len).items():
-        if name == "pos":
-            cache[name] = pos
-        elif name == "enc_len":
-            cache[name] = enc_len
+        if name in ("pos", "enc_len"):
+            cache[name] = _meta((), torch.int32)
         elif name in ("ssm", "conv"):
             cache[name] = _meta(shape, torch.float32)
         else:
@@ -721,8 +722,7 @@ def _serve_records(plan, cfg_d, params_c, B_loc, S):
     rows = S // seq
     enc = (S if plan.kind == "prefill" else ENCDEC_DECODE_ENC_LEN) \
         if cfg.family == "encdec" else 0
-    cache = _cache_meta(cfg_d, B_loc, rows, enc,
-                        0 if plan.kind == "prefill" else rows - 1)
+    cache = _cache_meta(cfg_d, B_loc, rows, enc)
     args = [params_c, cache,
             _meta((B_loc, S if plan.kind == "prefill" else 1), torch.int32)]
     if len(plan.args) > 3:         # prefill's frontend input

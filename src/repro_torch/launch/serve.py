@@ -24,13 +24,15 @@ Weights, prompts, frontend inputs and the soft-prompt projection are
 random, drawn from ``--seed`` with a ``torch.Generator`` on the target
 device. Prefill attention runs the flash-attention kernel, the retrieval
 stage the paged SiN distance and bitonic kernels (on a card; their plain
-versions on the CPU). Prints the reference CLI's lines plus one JSON
-line with tok/s, prefill ms, decode ms per token and the kernels' launch
-counts.
+versions on the CPU). Decode is one captured program per token, as the
+reference's jitted step (:class:`StepFns`). Prints the reference CLI's
+lines plus one JSON line with tok/s, prefill ms, decode ms per token
+and the kernels' launch counts.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import time
 
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, reduced
+from repro_torch.core.capture import CACHE, tensor_ptrs, tree_leaves
 from repro_torch.core.engine import EngineParams, pack_for_engine, search_sim
 from repro_torch.core.graph import build_vamana
 from repro_torch.core.luncsr import LUNCSR, Geometry, pack_index
@@ -52,15 +55,98 @@ from repro_torch.utils import resolve_device
 RAG_N = 2048                  # vectors in the retrieval stage's index
 
 
-def make_step_fns(cfg, opts):
-    """The prefill/decode callables ``greedy_generate`` steps through:
-    plain functions (PyTorch runs eagerly; there is nothing to compile)."""
-    def prefill(p, t, c, fe):
-        return T.prefill(p, cfg, t, c, opts=opts, frontend_embeds=fe)
+class StepFns:
+    """The prefill and decode of one serving session: the reference's
+    jitted pair (``make_step_fns``), where each generated token is one
+    compiled program.
 
-    def decode(p, c, t):
-        return T.decode_step(p, cfg, c, t, opts=opts)
-    return prefill, decode
+    ``decode`` runs ``T.decode_step`` through ``core.capture.CACHE`` as
+    the program ``decode_step`` (one round per call): on a card it is
+    captured as a CUDA graph on its first call and every later token is
+    one replay, one launch from the host. The entry's key holds the
+    session, the cfg, the opts, the batch, the cache's and the encoder's
+    lengths and the ``data_ptr`` of every parameter and cache tensor the
+    step reads or writes in place; its operand is the (B, 1) token
+    tensor, its output the (B, V) logits, a static buffer that the next
+    call overwrites (a caller that keeps logits copies them). The cache
+    is the step's in-place state, so the capture's warm-up leaves it as
+    it found it. ``capture=False`` runs the step eagerly on the card:
+    the proof path that both agree. On the CPU the entry runs the step
+    eagerly into the same static buffers. A capture that fails raises.
+    ``prefill`` stays eager.
+
+    The session owns one cache per (batch, cache length, encoder
+    length), which :meth:`cache` zeroes in place at the start of each
+    generation, so the addresses in the key hold and a warm-up
+    generation's capture serves every later generation of those shapes.
+    :meth:`close` (or leaving a ``with`` block) drops the session's
+    entries and caches; the session's number in the key keeps a later
+    session, whose tensors may reuse these addresses, from ever
+    replaying them."""
+
+    _sessions = itertools.count()
+
+    def __init__(self, cfg, opts, capture: bool = True):
+        self.cfg, self.opts, self.capture = cfg, opts, capture
+        self.session = next(self._sessions)
+        self.caches = {}
+        self.keys = set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def close(self) -> None:
+        for key in self.keys:
+            CACHE.drop("decode_step", key)
+        self.keys.clear()
+        self.caches.clear()
+
+    def cache(self, batch: int, cache_len: int, enc_len: int, device):
+        """The session's cache of these shapes on ``device``, zeroed."""
+        dev = resolve_device(device)
+        key = (batch, cache_len, enc_len, str(dev))
+        cache = self.caches.get(key)
+        if cache is None:
+            cache = self.caches[key] = T.init_cache(
+                self.cfg, batch, cache_len, enc_len=enc_len,
+                dtype=torch.float32, device=dev)
+        else:
+            for t in tree_leaves(cache):
+                t.zero_()
+        return cache
+
+    def prefill(self, p, t, c, fe):
+        return T.prefill(p, self.cfg, t, c, opts=self.opts,
+                         frontend_embeds=fe)
+
+    def decode(self, p, c, t):
+        """One token (B, 1) against the cache c -> (logits (B, V), c)."""
+        cfg, opts = self.cfg, self.opts
+
+        def step(tokens):
+            return T.decode_step(p, cfg, c, tokens, opts=opts)[0]
+        if not self.capture:
+            return step(t), c
+        leaves = tree_leaves(c)
+        key = (self.session, cfg, opts, t.shape[0],
+               c["k"][0].shape[1] if "k" in c else 0,
+               c["xk"][0].shape[1] if "xk" in c else 0,
+               tensor_ptrs(*p.parameters(), *leaves))
+        self.keys.add(key)
+        logits = CACHE.run("decode_step", step, key, (t,), rounds=1,
+                           state=tuple(leaves))
+        return logits, c
+
+
+def make_step_fns(cfg, opts, *, capture: bool = True) -> StepFns:
+    """The session's prefill/decode (:class:`StepFns`): the decode step
+    captured once and replayed per token, or (``capture=False``) run
+    eagerly."""
+    return StepFns(cfg, opts, capture=capture)
 
 
 def _sync(dev: torch.device) -> None:
@@ -70,39 +156,51 @@ def _sync(dev: torch.device) -> None:
 
 def greedy_generate(params, cfg, tokens, *, gen: int, opts,
                     frontend_embeds=None, enc_len: int = 0, step_fns=None,
-                    cache_len: int = 0, stats: dict | None = None):
+                    cache_len: int = 0, stats: dict | None = None,
+                    keep_logits: bool = False):
     """Greedy prefill + ``gen - 1`` decode steps -> (B, gen) int32 tokens.
 
+    ``step_fns`` is the session (:func:`make_step_fns`) whose cache of
+    these shapes the generation resets and fills, and whose captured
+    decode it replays; without one the call is a session of its own.
     ``cache_len`` pins the KV-cache length (default Sp + gen);
     ``enc_len`` the encoder cache's (encdec; at least 1, as the
     reference sizes it). With
     ``stats`` (a dict) the device is synchronised after prefill and at
     the end, and ``prefill_s``, ``decode_s``, ``logits_finite`` (every
     step's logits finite) and ``top2_gap`` ((B, gen) numpy: each greedy
-    pick's logit margin over the runner-up) are filled in."""
+    pick's logit margin over the runner-up) are filled in, and with
+    ``keep_logits`` ``logits`` (gen, B, V): every step's, copied."""
+    if step_fns is None:
+        with make_step_fns(cfg, opts) as fns:
+            return greedy_generate(
+                params, cfg, tokens, gen=gen, opts=opts,
+                frontend_embeds=frontend_embeds, enc_len=enc_len,
+                step_fns=fns, cache_len=cache_len, stats=stats,
+                keep_logits=keep_logits)
     B, Sp = tokens.shape
     dev = tokens.device
-    cache = T.init_cache(cfg, B, cache_len or (Sp + gen),
-                         enc_len=max(enc_len, 1), dtype=torch.float32,
-                         device=dev)
-    prefill, decode = step_fns or make_step_fns(cfg, opts)
-    out, gaps = [], []
+    cache = step_fns.cache(B, cache_len or (Sp + gen), max(enc_len, 1), dev)
+    out, gaps, kept = [], [], []
 
     def pick(logits):
+        # before the next step overwrites the captured step's logits
         out.append(logits.argmax(-1).to(torch.int32)[:, None])
         if stats is not None:
             top2 = logits.topk(2, dim=-1).values
             gaps.append(top2[:, 0] - top2[:, 1])
+            if keep_logits:
+                kept.append(logits.clone())
         return torch.isfinite(logits).all()
 
     t0 = time.perf_counter()
-    logits, cache = prefill(params, tokens, cache, frontend_embeds)
+    logits, cache = step_fns.prefill(params, tokens, cache, frontend_embeds)
     finite = pick(logits)
     if stats is not None:
         _sync(dev)
         t1 = time.perf_counter()
     for _ in range(gen - 1):
-        logits, cache = decode(params, cache, out[-1])
+        logits, cache = step_fns.decode(params, cache, out[-1])
         finite = finite & pick(logits)
     out = torch.cat(out, dim=1)
     if stats is not None:
@@ -110,6 +208,8 @@ def greedy_generate(params, cfg, tokens, *, gen: int, opts,
         stats.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
                      logits_finite=bool(finite),
                      top2_gap=torch.stack(gaps, 1).cpu().numpy())
+        if keep_logits:
+            stats["logits"] = torch.stack(kept)
     return out
 
 
@@ -246,22 +346,23 @@ def main(argv=None):
     if retrieval is not None:
         print("retrieved neighbor ids:", retrieval["ids"][:, :4].tolist())
 
-    # warm up (kernel build, allocator) with the full run's cache shapes,
-    # then time steady state
-    step_fns = make_step_fns(cfg, opts)
-    t0 = time.perf_counter()
-    greedy_generate(params, cfg, tokens, gen=min(2, args.gen), opts=opts,
-                    frontend_embeds=fe, enc_len=enc_len, step_fns=step_fns,
-                    cache_len=args.prompt_len + args.gen)
-    _sync(dev)
-    warm_s = time.perf_counter() - t0
-    reset_launch_counts()
-    stats = {}
-    t0 = time.perf_counter()
-    out = greedy_generate(params, cfg, tokens, gen=args.gen, opts=opts,
-                          frontend_embeds=fe, enc_len=enc_len,
-                          step_fns=step_fns, stats=stats)
-    dt = time.perf_counter() - t0
+    # warm up (kernel build, allocator, the decode step's capture) with
+    # the full run's cache shapes, then time steady state
+    with make_step_fns(cfg, opts) as step_fns:
+        t0 = time.perf_counter()
+        greedy_generate(params, cfg, tokens, gen=min(2, args.gen), opts=opts,
+                        frontend_embeds=fe, enc_len=enc_len,
+                        step_fns=step_fns,
+                        cache_len=args.prompt_len + args.gen)
+        _sync(dev)
+        warm_s = time.perf_counter() - t0
+        reset_launch_counts()
+        stats = {}
+        t0 = time.perf_counter()
+        out = greedy_generate(params, cfg, tokens, gen=args.gen, opts=opts,
+                              frontend_embeds=fe, enc_len=enc_len,
+                              step_fns=step_fns, stats=stats)
+        dt = time.perf_counter() - t0
     out = out.cpu().numpy()
     print(f"generated {out.shape} tokens in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s, excl. "

@@ -69,7 +69,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # ---------------------------------------------------------------------------
 def _scores_mask(s, rows, cols, *, causal: bool, window: int, softcap,
                  kv_valid):
-    """window: python int, 0 = full attention."""
+    """window: python int, 0 = full attention; rows (from ``q_offset``)
+    and ``kv_valid`` Python ints or device tensors (decode)."""
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     mask = cols < kv_valid
@@ -311,15 +312,17 @@ def encode_cross_kv(p, enc_out):
     return k, v
 
 
-def decode_qkv(p, x, pos: int, cfg):
-    """Project the new token: x (B,1,d) -> q,k,v (B,1,·,hd) at position pos."""
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
+def decode_qkv(p, x, pos, cfg):
+    """Project the new token: x (B,1,d) -> q,k,v (B,1,·,hd) at position
+    pos (the cache's 0-d int32 tensor)."""
+    positions = pos.view(1, 1).expand(x.shape[0], 1)
     return project_qkv(p, x, positions, cfg.rope_theta)
 
 
-def decode_attend(p, q, cache_k, cache_v, cfg, *, window: int, pos: int):
-    """Attend the projected new-token q over an (already updated) cache."""
+def decode_attend(p, q, cache_k, cache_v, cfg, *, window: int, pos):
+    """Attend the projected new-token q over an (already updated) cache;
+    ``pos`` is the cache's 0-d position tensor, ``window`` the layer's
+    Python int."""
     scale = cfg.head_dim ** -0.5
     y = attn_direct(q, cache_k, cache_v, scale=scale, window=int(window),
                     softcap=cfg.softcap_attn, q_offset=pos, kv_valid=pos + 1)

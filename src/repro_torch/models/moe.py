@@ -66,6 +66,14 @@ def gate(p, xt, cfg):
     return probs, top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9), top_e
 
 
+def top1_onehot(top_e, E: int):
+    """(T, E) f32: each token's first expert as a one-hot row. A
+    comparison, not ``F.one_hot``, which checks its indices' range with
+    a read of the device on the host (a captured decode step has none)."""
+    experts = torch.arange(E, dtype=top_e.dtype, device=top_e.device)
+    return (top_e[:, :1] == experts).float()
+
+
 def route(p, xt, cfg, capacity_factor: float):
     """Router and dispatch ranks for xt (T,d) -> (top_p (T,k) renormed
     gate weights, top_e (T,k) expert ids, rank (T*k,) each item's place
@@ -76,7 +84,7 @@ def route(p, xt, cfg, capacity_factor: float):
 
     # switch-style load-balance loss
     me = probs.mean(0)                                        # (E,)
-    ce = F.one_hot(top_e[:, 0], E).float().mean(0)
+    ce = top1_onehot(top_e, E).mean(0)
     lb_loss = E * (me * ce).sum()
 
     # capacity-bounded dispatch (Allocator discipline)
@@ -165,8 +173,7 @@ def moe_ffn_global(p, x, cfg, *, par, capacity_factor: float = 1.25,
     n = par.mesh.size("fsdp")
     xt = x.reshape(T, d)
     probs, top_p, top_e = gate(p, xt, cfg)
-    stats = torch.cat([probs.sum(0), F.one_hot(top_e[:, 0], E).float()
-                       .sum(0)])
+    stats = torch.cat([probs.sum(0), top1_onehot(top_e, E).sum(0)])
     stats = par.reduce_data(stats) / (T * n)
     lb_loss = E * (stats[:E] * stats[E:]).sum()
 

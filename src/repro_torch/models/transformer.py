@@ -435,7 +435,7 @@ def _full_sequence(params, cfg, tokens, opts, frontend_embeds, cache=None,
 
     x, aux = _layers(params, cfg, x, opts, self_attn, cross, ssm, par)
     if cache is not None and enc is not None:
-        cache["enc_len"] = enc.shape[1]
+        cache["enc_len"].fill_(enc.shape[1])
     return x, aux
 
 
@@ -634,13 +634,16 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
     place (the reference keeps a list of per-layer leaves for the same
     reason: one buffer per layer is written where it lies, never
     copied). The SSM and conv states are f32 whatever ``dtype``, as the
-    reference's; ``pos`` and ``enc_len`` are Python ints."""
+    reference's; ``pos`` and ``enc_len`` are 0-d int32 tensors on
+    ``device``, as the reference's device scalars: prefill and
+    decode_step write them in place, so a captured decode step reads
+    the position where it lies and never on the host."""
     device = resolve_device(device)
     out = {}
     for name, shape in cache_spec(cfg, batch, cache_len,
                                   enc_len=enc_len).items():
         if name in ("pos", "enc_len"):
-            out[name] = 0
+            out[name] = torch.zeros((), dtype=torch.int32, device=device)
         elif name in ("ssm", "conv"):
             out[name] = torch.zeros(shape, dtype=torch.float32, device=device)
         else:
@@ -663,7 +666,7 @@ def prefill(params, cfg: ArchConfig, tokens, cache, *,
     cache = dict(cache)
     x, _ = _full_sequence(params, cfg, tokens, opts, frontend_embeds,
                           cache=cache)
-    cache["pos"] = tokens.shape[1]
+    cache["pos"].fill_(tokens.shape[1])
     h = rmsnorm(params["fln"], x[:, -1:], cfg.norm_eps)
     logits = unembed(params["tok"], h, cfg.tie_embeddings, cfg.softcap_final)
     return logits[:, 0, :cfg.vocab_size], cache
@@ -675,22 +678,29 @@ def prefill(params, cfg: ArchConfig, tokens, cache, *,
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, cache, tokens, *,
                 opts: ModelOpts = ModelOpts()):
-    """tokens (B,1) -> (logits (B,V), cache). pos = cache['pos']; each
-    attention layer writes only its new (B,1,K,hd) slot, in place, and
-    attends over the same tensor; each SSD layer steps its state in
-    place; cross-attention reads the encoder cache's first enc_len rows.
-    Every attention here is the plain one-row path."""
+    """tokens (B,1) -> (logits (B,V), cache). pos = cache['pos'], a 0-d
+    device tensor that the step advances in place; each attention layer
+    writes only its new (B,1,K,hd) slot, in place, and attends over the
+    same tensor; each SSD layer steps its state in place;
+    cross-attention reads the encoder cache's first enc_len rows. Every
+    attention here is the plain one-row path. Nothing reads a device
+    value on the host, so the step can be captured once and replayed
+    (launch/serve.py ``make_step_fns``)."""
     check_family(cfg)
     pos, eps = cache["pos"], cfg.norm_eps
     x = embed(params["tok"], tokens).to(opts.act_dtype)
     cache = dict(cache)
+    # the new K/V row, as the reference's dynamic_update_slice places it:
+    # the index clamped so the one-row update fits
+    row = (pos.clamp(0, cache["k"][0].shape[1] - 1).long().view(1)
+           if "k" in cache else None)
 
     def self_attn(p, x, j, win):
         q, k, v = A.decode_qkv(p["attn"], rmsnorm(p["ln1"], x, eps), pos,
                                cfg)
         ck, cv = cache["k"][j], cache["v"][j]
-        ck[:, pos:pos + 1] = k.to(ck.dtype)
-        cv[:, pos:pos + 1] = v.to(cv.dtype)
+        ck.index_copy_(1, row, k.to(ck.dtype))
+        cv.index_copy_(1, row, v.to(cv.dtype))
         return x + A.decode_attend(p["attn"], q, ck, cv, cfg, window=win,
                                    pos=pos)
 
@@ -707,7 +717,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
         return x + h
 
     x, _ = _layers(params, cfg, x, opts, self_attn, cross, ssm)
-    cache["pos"] = pos + 1
+    pos.add_(1)
     h = rmsnorm(params["fln"], x, cfg.norm_eps)
     logits = unembed(params["tok"], h, cfg.tie_embeddings, cfg.softcap_final)
     return logits[:, 0, :cfg.vocab_size], cache

@@ -1144,6 +1144,50 @@ def test_family_prefill_on_card_matches_cpu_ref(dev, arch, flash):
     assert launch_counts()["flash_attention"] == 0
 
 
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mamba2-780m"])
+def test_captured_decode_equals_eager_on_card(dev, arch):
+    """Reduced gemma3-1b (6 layers: windowed and global) and mamba2-780m
+    on the card: the session captures ``decode_step`` as a CUDA graph
+    once over a warm-up and a timed generation and replays it once per
+    later token, launching no kernel; its greedy tokens and logits equal
+    the eager step's (``capture=False``) bit for bit, and the session's
+    end drops its entry."""
+    from repro_torch.analysis.capture_guard import CaptureGuard
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.serve import greedy_generate, make_step_fns
+    from repro_torch.models import ModelOpts, init_params
+    cfg = reduced(get_config(arch))
+    if arch == "gemma3-1b":
+        cfg = dataclasses.replace(cfg, num_layers=6)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                         device=dev)
+    opts, n = ModelOpts(), 8
+    before = CACHE.count("decode_step")
+    runs = {}
+    for capture in (True, False):
+        with make_step_fns(cfg, opts, capture=capture) as fns, \
+                CaptureGuard() as cg:
+            greedy_generate(params, cfg, toks, gen=2, opts=opts,
+                            step_fns=fns, cache_len=24 + n)
+            replays = CACHE.stats.replays
+            reset_launch_counts()
+            stats = {}
+            out = greedy_generate(params, cfg, toks, gen=n, opts=opts,
+                                  step_fns=fns, stats=stats,
+                                  keep_logits=True)
+            replays = CACHE.stats.replays - replays
+            assert launch_counts()["flash_attention"] == \
+                (cfg.num_layers if arch == "gemma3-1b" else 0)
+        assert cg.count("decode_step") == (1 if capture else 0)
+        assert replays == (n - 1 if capture else 0)
+        runs[capture] = out, stats["logits"]
+    assert torch.equal(runs[True][0], runs[False][0])
+    assert torch.equal(runs[True][1], runs[False][1])
+    assert CACHE.count("decode_step") == before
+
+
 def test_serve_cli_on_card(dev, capsys):
     """The serve CLI end to end on the card (reduced gemma3-1b, RAG):
     the retrieval stage launches the search kernels, the prefill one
