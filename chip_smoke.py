@@ -21,9 +21,9 @@ its seconds:
                1M-vector (512 MiB) paged store, exact on integer-valued
                inputs and within RTOL_REAL on real ones; its bf16
                instantiations (bf16 queries, a bf16 store, both) at the
-               main path's tiles and on the 1M-vector store, the same
-               way and bit for bit against the f32 kernel on the upcast
-               operands;
+               main path's tiles, on the 1M-vector store and at the
+               router's and tiered shapes, the same way and bit for bit
+               against the f32 kernel on the upcast operands;
                the distance at the router's shape (T 8 shards, QB 2048
                queries, P 8 centroids, d 128) and at phase tiered's
                (a frame buffer of 24 pages per shard);
@@ -376,13 +376,23 @@ its seconds:
                line of its own; the standalone sort and merge at the
                routed path's shapes (their launches: the sift topr-2
                routed session's); each bitonic kernel also at one row of
-               two entries (the card's one-launch floor). Measured in a
+               two entries and each distance row at one tile of one
+               query row (the card's one-launch floor; the router and
+               tiered rows with baddbmm as the library call, as the
+               search rows). Measured in a
                fresh process (chip_smoke.py --timing) and printed with
                each kernel's launches on its path.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Exits nonzero when no CUDA device is
 present, and when the repository's package is missing.
+
+``chip_smoke.py --distance-rows [SRC]`` runs no phase: it times the
+distance kernel's rows of phase 9 (its four instantiations at the search
+tiles, the router's and tiered shapes; 3 traces of 200 calls each, the
+least) with the repro_torch package under SRC (default: this checkout's
+src) and prints them as one JSON line, so that another checkout's kernel
+is timed on the same rows: alternate the two SRCs in one session.
 """
 from __future__ import annotations
 
@@ -399,6 +409,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+if sys.argv[1:2] == ["--distance-rows"] and len(sys.argv) > 2:
+    sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 
 # recall@k of `python -m repro.launch.search --kernel-mode jnp` (the
 # reference package, CLI defaults: sift-1b stand-in, n=16384) on the CPU
@@ -4979,6 +4991,15 @@ def routed_bitonic_rows(dev) -> list:
     return rows
 
 
+def distance_floor(P, d, dev, qt=None, dt=None):
+    """The distance kernel's one-launch floor: its operands at one tile of
+    one query row (T 1, QB 1) against a page of the row's P and d, in the
+    row's types."""
+    import torch
+    args = distance_case(1, 1, P, d, 2, dev, False, seed=1)
+    return as_dtypes(args, qt or torch.float32, dt or torch.float32)
+
+
 def router_distance_row(dev):
     """The timing row of the distance kernel at the router's shape: one
     tile per shard, the stream's 2048 sift-1b queries (S contiguous
@@ -5007,7 +5028,8 @@ def router_distance_row(dev):
             paged_distances_ref,
             lambda: torch.baddbmm(base, qt, cent.transpose(1, 2),
                                   alpha=-2.0),
-            b, by, dict(T=T, QB=qb, P=P, d=d, NP=NP))
+            b, by, dict(T=T, QB=qb, P=P, d=d, NP=NP,
+                        floor_args=distance_floor(P, d, dev)))
 
 
 def tiered_distance_row(dev):
@@ -5040,7 +5062,8 @@ def tiered_distance_row(dev):
             paged_distances_ref,
             lambda: torch.baddbmm(base, q, pages.transpose(1, 2),
                                   alpha=-2.0),
-            b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages))
+            b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages,
+                        floor_args=distance_floor(P, d, dev)))
 
 
 def bitonic_rows(dev) -> list:
@@ -5235,11 +5258,13 @@ def flash_lse_row(shape: dict, kw: dict, dev):
             lambda *a: attention_fwd_ref(*a, **kw), lib, b, by, info)
 
 
-def time_kernels(dev) -> list:
-    """Time every kernel row; returns [(kernel entry without its launch
-    count and error, the timing line's other fields)]."""
+def search_distance_rows(dev) -> list:
+    """The distance kernel's timing rows at the main path's tiles (sorted
+    page ids over the sift-1b stand-in's vectors, real vectors as
+    queries): the f32 kernel, then its bf16 instantiations on the same
+    tiles, each (name, args, kernel, plain, library call, bound ms,
+    bound_by, shape)."""
     import torch
-    from repro_torch.kernels import KERNELS
     from repro_torch.kernels.distance import (paged_distances,
                                               paged_distances_ref)
     from repro_torch.kernels.distance.kernel import cost as distance_cost
@@ -5269,7 +5294,8 @@ def time_kernels(dev) -> list:
                  paged_distances_ref,
                  lambda: torch.baddbmm(base, q, pages.transpose(1, 2),
                                        alpha=-2.0),
-                 b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages)))
+                 b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages,
+                             floor_args=distance_floor(P, d, dev))))
     # the bf16 instantiations on the same tiles: bf16 operands move half
     # the bytes; the library call is baddbmm on the upcast, pre-gathered
     # operands
@@ -5292,7 +5318,18 @@ def time_kernels(dev) -> list:
                          base_b, qf, pf.transpose(1, 2), alpha=-2.0),
                      b, by, dict(T=T, QB=qb, P=P, d=d, NP=npages,
                                  queries=dtype_name(qt),
-                                 store=dtype_name(dt))))
+                                 store=dtype_name(dt),
+                                 floor_args=distance_floor(P, d, dev, qt,
+                                                           dt))))
+    return rows
+
+
+def time_kernels(dev) -> list:
+    """Time every kernel row; returns [(kernel entry without its launch
+    count and error, the timing line's other fields)]."""
+    from repro_torch.kernels import KERNELS
+
+    rows = search_distance_rows(dev)
     search_bitonic = bitonic_rows(dev)
     rows += routed_bitonic_rows(dev) + search_bitonic[2:]
     # flash attention at gemma3-1b's prefill shape (a local layer, and on a
@@ -5388,6 +5425,23 @@ def time_kernels(dev) -> list:
     return out
 
 
+def distance_rows(dev) -> dict:
+    """``--distance-rows``: the distance kernel's rows of phase 9, each
+    timed in 3 traces of 200 calls (the least, ms) beside its largest
+    difference from the plain version on the same inputs."""
+    rows = [row[:4] for row in search_distance_rows(dev)]
+    rows += [(name, *row[1:4]) for name, row in
+             (("router", router_distance_row(dev)),
+              ("tiered", tiered_distance_row(dev)))]
+    out = {}
+    for name, args, kern, plain in rows:
+        err = float((kern(*args) - plain(*args)).abs().max())
+        ms = [device_ms(lambda: kern(*args), iters=200)[0]
+              for _ in range(3)]
+        out[name] = {"ms": min(ms), "traces_ms": ms, "max_abs_err": err}
+    return out
+
+
 def timing_in_child() -> list:
     """Phase 9 in a fresh process (``chip_smoke.py --timing``, on the
     kernels this process built). Late in a long process torch.profiler
@@ -5450,6 +5504,12 @@ def main() -> int:
         build_all()
         print(json.dumps({"timed": time_kernels(dev)}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--distance-rows"]:
+        import repro_torch
+        build_all()
+        print(json.dumps({"package": str(Path(repro_torch.__file__).parent),
+                          **distance_rows(dev)}), flush=True)
+        return 0
     if sys.argv[1:] == ["--restart-drill"]:   # phase 8c (d), drill_in_child
         torch.use_deterministic_algorithms(True)
         build_all()
@@ -5511,7 +5571,9 @@ def run_phases(dev, name: str, main_build, routed_build, churn_build,
         "tiered frame buffer": (*tiered_tiles(), True)}, dev)}
     errs.update(check_distance_bf16({
         "main path tiles": (T, qb, P, d, pages, True),
-        "1M-vector store": (T, qb, P, d, 2**20 // P, True)}, dev))
+        "1M-vector store": (T, qb, P, d, 2**20 // P, True),
+        "router": ROUTER_TILES,
+        "tiered frame buffer": (*tiered_tiles(), True)}, dev))
     errs["bitonic_sort"] = errs["bitonic_merge"] = \
         errs["bitonic_merge_unsorted"] = check_topk(dev)
     torch.cuda.empty_cache()

@@ -40,8 +40,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "paged_distance_launch": (_P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "paged_distance_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _P),
     "bitonic_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P),
     "merge_unsorted_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -84,6 +84,15 @@ def _dist_case(T, QB, P, d, NP, dev, integer, seed=0, order="random"):
     (12, 8, 256, 784, 3, "runs"),           # d in chunks, 4 task passes
     (40, 8, 64, 784, 3, "sorted"),
     (10, 3, 17, 30, 4, "runs"),             # odd P, d % 4 != 0
+    (8, 2048, 8, 128, 8, "sorted"),         # the router's shape
+    (456, 8, 64, 128, 192, "sorted"),       # the tiered sessions' shape
+    (8, 1000, 8, 128, 8, "random"),         # QB not a multiple of a step
+    (12, 512, 17, 128, 5, "runs"),          # P 17 at QB 512
+    (4, 512, 64, 784, 3, "sorted"),         # d in chunks at QB 512
+    (4320, 8, 64, 128, 256, "sorted"),      # the search's shape: 4 x 4
+    (2200, 8, 64, 128, 300, "random"),      # 4 x 4, a page most steps
+    (600, 32, 128, 64, 20, "runs"),         # 4 x 4 at P 128
+    (2200, 8, 33, 30, 40, "runs"),          # 4 x 4, odd P, d % 4 != 0
 ])
 @pytest.mark.parametrize("integer", [True, False])
 def test_paged_distance_matches_plain(dev, T, QB, P, d, NP, order, integer):
@@ -119,6 +128,14 @@ def test_paged_distance_rejects_bf16_and_cpu_mix(dev):
     (10, 3, 17, 30, 4, "runs"),             # d % 4 != 0: one per load
     (9, 4, 32, 36, 5, "random"),            # d % 8 != 0: one per load
     (33, 16, 128, 64, 5, "sorted"),
+    (8, 2048, 8, 128, 8, "sorted"),         # the router's shape
+    (456, 8, 64, 128, 192, "sorted"),       # the tiered sessions' shape
+    (8, 1000, 8, 128, 8, "random"),         # QB not a multiple of a step
+    (12, 512, 17, 128, 5, "runs"),          # P 17 at QB 512
+    (4, 512, 64, 784, 3, "sorted"),         # d in chunks at QB 512
+    (4320, 8, 64, 128, 256, "sorted"),      # the search's shape: 4 x 4
+    (2200, 8, 64, 128, 300, "random"),      # 4 x 4, a page most steps
+    (2200, 8, 33, 36, 40, "runs"),          # 4 x 4, d % 8 != 0
 ])
 @pytest.mark.parametrize("qt,dt", [("bf16", "f32"), ("f32", "bf16"),
                                    ("bf16", "bf16")])
@@ -154,12 +171,59 @@ def test_paged_distance_refused_launch_raises(dev):
     pid, q, qq, db, vn = _dist_case(2, 8, 64, 32, 2, dev, True)
     out = torch.empty((2, 8, 64), device=dev)
     before = DIST.launches
-    for T, dc in ((0, 32), (2, 4096)):  # an empty grid; shared memory > max
+    # an empty grid; shared memory > max; thread tiles with no kernel;
+    # a d-chunk of bf16 not whole 16-byte runs
+    for blocks, dc, npg, qt, pt in ((0, 32, 32, 4, 2), (2, 4096, 32, 4, 2),
+                                    (2, 32, 24, 4, 2), (2, 32, 32, 8, 2),
+                                    (2, 32, 16, 4, 3), (2, 12, 32, 4, 2)):
         with pytest.raises(RuntimeError, match="cudaError"):
             DIST.launch(pid.data_ptr(), q.data_ptr(), qq.data_ptr(),
-                        db.data_ptr(), vn.data_ptr(), out.data_ptr(), T, 8,
-                        64, 32, 2, dc, 8, 1)
+                        db.data_ptr(), vn.data_ptr(), out.data_ptr(), 2, 8,
+                        64, 32, 2, dc, blocks, npg, qt, pt, 1)
     assert DIST.launches == before
+    out = paged_distances(pid, q, qq, db, vn)     # no error left behind
+    torch.testing.assert_close(out, paged_distances_ref(pid, q, qq, db, vn),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,QB,P,d,NP", [
+    (456, 8, 64, 128, 192),                 # the tiered sessions' shape
+    (8, 2048, 8, 128, 8),                   # the router's shape
+    (4, 512, 64, 784, 3),                   # d in chunks
+    (4320, 8, 64, 128, 256),                # the search's shape: 4 x 4
+])
+def test_paged_distance_graph_replay_equals_eager(dev, T, QB, P, d, NP):
+    """A launch recorded in a CUDA graph replays to the eager launch's
+    bits, also after its page ids and queries change in place (the grid
+    comes from the shapes; the kernel reads the ids on the card); each
+    call is one launch, counted where it runs."""
+    args = _dist_case(T, QB, P, d, NP, dev, False, order="sorted")
+    reset_launch_counts()
+    eager = paged_distances(*args)
+    assert DIST.launches == 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up off the capture
+        paged_distances(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    recorded = DIST.recorded
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_distances(*args)
+    assert DIST.recorded == recorded + 1 and DIST.launches == 2
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), eager.view(torch.int32))
+    new = _dist_case(T, QB, P, d, NP, dev, False, seed=1, order="runs")
+    for a, b in zip(args, new):
+        a.copy_(b)
+    graph.replay()
+    want = paged_distances(*new)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    torch.testing.assert_close(out, paged_distances_ref(*new), rtol=1e-5,
+                               atol=1e-4)
+    assert DIST.launches == 3
 
 
 def _rows(B, M, dev, seed):
